@@ -6,34 +6,43 @@ and against the JAX package):
 - ``numpy`` : the CPU-baseline oracle (the paper's pandas path); host only.
 - ``torch`` : eager plain PyTorch ops, stage by stage (the analogue of the
   JAX package's ``jnp`` backend).
-- ``cuda``  : the streaming-dataflow analogue of the paper's FPGA pipeline:
-  every ``DataflowGroup`` lowers to ONE launch of the hand-written group
-  kernel, every legal ungrouped output to one launch of the output kernel,
-  and every legal vocabulary fit chunk to one launch of the fit kernel
-  (``kernels/dataflow.py``).  On ``device="cpu"`` the same encoded programs
-  run through the kernels' plain versions (the analogue of Pallas
-  ``interpret=True``).
+- ``cuda``  : the streaming-dataflow analogue of the paper's FPGA pipeline,
+  with the JAX package's ``pallas`` fallback ladder grouped -> fused ->
+  staged, chosen per output:
+
+  - grouped / fused: every ``DataflowGroup`` lowers to ONE launch of the
+    hand-written group kernel, every legal ungrouped output to one launch
+    of the output kernel, and every legal vocabulary fit chunk to one launch
+    of the fit kernel (``kernels/dataflow.py``);
+  - staged (an HBM-placed table, an over-budget slice, ``fuse="off"`` or a
+    per-output ``fuse`` spec): each fused stage is one ``fused_stage``
+    launch, each vocabulary lookup one ``vocab_lookup`` launch and each
+    non-squeezed output one ``packer`` launch, with the buffers in device
+    memory between them; a staged fit chunk runs its stages, then one
+    ``vocab_build_chunk`` launch per vocabulary.  Cross and one-hot stages
+    and the squeezed outputs run as plain torch ops on the device, as the
+    JAX package runs them as plain jnp outside Pallas.
+
+  On ``device="cpu"`` the same encoded programs run through the kernels'
+  plain versions (the analogue of Pallas ``interpret=True``).
 
 Plans are rewritten by ``core/optimizer.optimize_plan`` first
 (``optimize="auto"``) for every backend, exactly as in the JAX package.
-
-The staged kernels of the reference (``make_fused_stage``, ``make_packer``,
-``vocab_lookup``, ``vocab_build_chunk``) are not ported yet: on ``cuda`` an
-output or vocabulary that the plan sends down the staged path (``fuse=
-"off"``, an HBM-placed table, an over-budget slice) raises
-``NotImplementedError`` at compile time instead of quietly using plain ops.
 
 Vocabulary *fit* is streamed: per chunk, first-occurrence positions and
 counts; merged into an int32 (chunk, position, count) state; finalized into
 rank tables.  Tables are host numpy arrays in ``PipelineState`` (a state
 fitted by the JAX package loads as it is), versioned, and uploaded once per
-version in their OOV-resolved form (``table'[v] = rank or n_unique``), so
-the in-kernel lookup is a pure gather.
+version: in their OOV-resolved form (``table'[v] = rank or n_unique``) for
+the dataflow kernels, whose in-kernel lookup is then a pure gather, and raw
+with ``n_unique`` for the staged lookups.  The state is bit-identical
+whichever lowering fitted it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -140,8 +149,6 @@ class CompiledPipeline:
             self._grouped_outputs = {o: gi
                                      for gi, g in enumerate(self._active_groups)
                                      for o in g.outputs}
-        if backend == "cuda":
-            self._require_fused()
         self.state = PipelineState(
             tables={vf.vocab_id: np.full(vf.capacity, -1, np.int32)
                     for vf in plan.vocab_fits},
@@ -149,37 +156,16 @@ class CompiledPipeline:
             version=0)
         self._source_nodes = {n.id: n for n in graph.nodes
                               if n.kind == NodeType.SOURCE}
-        self._table_cache: tuple = (-1, {})
+        self._table_cache: tuple = (-1, ({}, {}))
+        self._staged_vocab_ids: list[str] = []
         self._fit_bufs = plan.fit_source_buffers()
-        # dataflow kernel calls per phase, either route (CUDA launch or
-        # plain version): the counterpart of traced_pallas_call_count
+        # kernel calls per phase on the cuda backend, either route (CUDA
+        # launch or plain version): the counterpart of
+        # traced_pallas_call_count
         self.dataflow_calls = {"apply": 0, "fit": 0}
         if backend != "numpy":
             self._apply_fn = self._build_apply()
             self._fit_chunk_fn = self._build_fit_chunk()
-
-    def _require_fused(self) -> None:
-        """On cuda every output and vocabulary must lower to a ported
-        dataflow kernel; the staged kernels are not ported yet."""
-        rep = self.lowering_report()
-        staged = {k: v for k, v in rep.items() if v["path"] == "staged"}
-        if staged:
-            why = "; ".join(f"{k}: {v['reason_kind'] or 'fuse off'}"
-                            + (f" ({v['reason']})" if v["reason"] else "")
-                            for k, v in staged.items())
-            raise NotImplementedError(
-                f"outputs {sorted(staged)} lower to the staged path ({why}); "
-                "its kernels (make_fused_stage, vocab_lookup, make_packer) "
-                "are not ported to CUDA yet")
-        frep = self.fit_lowering_report()
-        staged_v = {k: v for k, v in frep.items() if v["path"] == "staged"}
-        if staged_v:
-            why = "; ".join(f"{k}: {v['reason_kind'] or 'fuse off'}"
-                            for k, v in staged_v.items())
-            raise NotImplementedError(
-                f"vocabularies {sorted(staged_v)} fit on the staged path "
-                f"({why}); its kernels (make_fused_stage, vocab_build_chunk) "
-                "are not ported to CUDA yet")
 
     # ------------------------------------------------------------------
     # knob recompilation
@@ -275,24 +261,71 @@ class CompiledPipeline:
                 raise NotImplementedError(type(s))
         return bufs
 
-    def _run_stages_torch(self, bufs: dict, stage_ids, tables=None) -> dict:
+    def _stage_fns(self, needed_ids: set) -> dict:
+        """Per-stage callables keyed by stage id, for the stages the staged
+        path runs: on cuda the ``fused_stage`` and ``vocab_lookup`` kernels,
+        on torch plain ops.  Cross and one-hot stages are plain torch ops on
+        both, as the JAX package runs them as plain jnp outside Pallas."""
+        cuda = self.backend == "cuda"
+        fns = {}
+        for s in self.plan.stages:
+            if s.stage_id not in needed_ids:
+                continue
+            if isinstance(s, FusedStage):
+                fns[s.stage_id] = (
+                    kops.fused_stage(s.ops, in_dtype=s.in_dtype,
+                                     out_dtype=s.out_dtype,
+                                     hex_width=s.in_hex_width)
+                    if cuda else functools.partial(_chain_torch, s))
+            elif isinstance(s, CrossStage):
+                fns[s.stage_id] = s.op.torch_expr2
+            elif isinstance(s, OneHotStage):
+                fns[s.stage_id] = s.op.torch_expr
+            elif isinstance(s, VocabLookupStage):
+                fns[s.stage_id] = (kops.vocab_lookup if cuda
+                                   else kref.vocab_lookup)
+            else:
+                raise NotImplementedError(type(s))
+        return fns
+
+    def _caller(self, phase: str, trace: Optional[list]) -> Callable:
+        """``call(kernel, what, runner, args)`` runs one kernel call of a
+        phase.  On cuda it counts the call in ``dataflow_calls`` or, when
+        ``trace`` is a list, records ``(kernel, what, runner, args)`` there
+        instead; plain torch ops are neither counted nor recorded."""
+        cuda = self.backend == "cuda"
+
+        def call(kname: str, what, fn, args: list):
+            if cuda and trace is not None:
+                trace.append((kname, what, fn, args))
+            elif cuda:
+                self.dataflow_calls[phase] += 1
+            return fn(*args)
+
+        return call
+
+    def _run_staged(self, bufs: dict, stage_ids: set, fns: dict, tables,
+                    call: Callable) -> None:
+        """Run the staged stages in plan order, each buffer materialized
+        whole before the next stage reads it.  ``tables``: vocab id ->
+        (raw table, n_unique) on the device, None in the fit phase."""
         for s in self.plan.stages:
             if s.stage_id not in stage_ids:
                 continue
+            fn = fns[s.stage_id]
             if isinstance(s, FusedStage):
-                bufs[s.out_buf] = _chain_torch(s, bufs[s.in_buf])
+                bufs[s.out_buf] = call("fused_stage", s.out_buf, fn,
+                                       [bufs[s.in_buf]])
             elif isinstance(s, CrossStage):
-                bufs[s.out_buf] = s.op.torch_expr2(bufs[s.in_a], bufs[s.in_b])
+                bufs[s.out_buf] = fn(bufs[s.in_a], bufs[s.in_b])
             elif isinstance(s, OneHotStage):
-                bufs[s.out_buf] = s.op.torch_expr(bufs[s.in_buf])
-            elif isinstance(s, VocabLookupStage):
+                bufs[s.out_buf] = fn(bufs[s.in_buf])
+            else:  # VocabLookupStage
                 if tables is None:
                     raise AssertionError("lookup cannot precede fit")
                 tbl, n = tables[s.vocab_id]
-                bufs[s.out_buf] = kref.vocab_lookup(bufs[s.in_buf], tbl, n)
-            else:
-                raise NotImplementedError(type(s))
-        return bufs
+                bufs[s.out_buf] = call("vocab_lookup", s.out_buf, fn,
+                                       [bufs[s.in_buf], tbl, n])
 
     # ------------------------------------------------------------------
     # lowering to the dataflow kernels (cuda backend)
@@ -356,117 +389,121 @@ class CompiledPipeline:
                                  steps, fp.in_buf, fp.capacity)
 
     def _build_apply(self) -> Callable:
+        """``apply(tables, cols, trace=None) -> packed``: the staged stages
+        in plan order, then one kernel per group, then per output its solo
+        kernel, its packer or (squeezed outputs, torch) a plain pack."""
         plan = self.plan
-        if self.backend == "torch":
-            all_ids = {s.stage_id for s in plan.stages}
-
-            def apply_torch(tables, cols):
-                bufs = self._run_stages_torch(self._assemble_sources(cols),
-                                              all_ids, tables)
-                out = {}
-                for po in plan.pack:
-                    packed = kref.pack_blocks([bufs[b] for b in po.buffers],
-                                              transfer.torch_dtype(po.dtype),
-                                              po.pad_cols_to)
-                    out[po.name] = packed[:, 0] if po.squeeze else packed
-                return out
-
-            return apply_torch
-
+        fused = self._fused_programs
+        staged_pos = [po for po in plan.pack if po.name not in fused]
+        staged_ids: set = ({sid for po in staged_pos
+                            for sid in plan.output_slice(po)} if fused
+                           else {s.stage_id for s in plan.stages})
+        # raw tables reach the device only for staged lookups
+        self._staged_vocab_ids = sorted(
+            s.vocab_id for s in plan.stages
+            if isinstance(s, VocabLookupStage) and s.stage_id in staged_ids)
+        fns = self._stage_fns(staged_ids)
+        pos = {po.name: po for po in plan.pack}
         self._group_fns = [self._build_group_fn(g)
                            for g in self._active_groups]
-        self._solo_fns = {name: self._build_dataflow_fn(
-                              next(po for po in plan.pack if po.name == name),
-                              dp)
-                          for name, dp in self._fused_programs.items()
+        self._solo_fns = {name: self._build_dataflow_fn(pos[name], dp)
+                          for name, dp in fused.items()
                           if name not in self._grouped_outputs}
+        packers = {}
+        if self.backend == "cuda":
+            packers = {po.name: kops.packer(
+                           [plan.buffers[b].width for b in po.buffers],
+                           [plan.buffers[b].dtype for b in po.buffers],
+                           po.dtype, pad_cols_to=po.pad_cols_to)
+                       for po in staged_pos if not po.squeeze}
 
-        def apply_cuda(resolved, cols):
+        def apply_fn(tables, cols, trace=None):
+            resolved, raw = tables
+            call = self._caller("apply", trace)
+            bufs = self._assemble_sources(cols)
+            self._run_staged(bufs, staged_ids, fns, raw, call)
             got = {}
-            for kname, names, fn, args in self._apply_launches(
-                    self._assemble_sources(cols), resolved):
-                packed = fn(*args)
-                got.update(zip(names, packed if kname == "group_dataflow"
-                               else (packed,)))
-                self.dataflow_calls["apply"] += 1
+            for g, gfn in zip(self._active_groups, self._group_fns):
+                got.update(zip(g.outputs, call(
+                    "group_dataflow", tuple(g.outputs), gfn,
+                    [bufs[b] for b in g.source_buffers]
+                    + [resolved[vid] for vid in g.vocab_ids])))
+            for po in plan.pack:
+                if po.name in self._solo_fns:
+                    dp = fused[po.name]
+                    got[po.name] = call(
+                        "output_dataflow", (po.name,), self._solo_fns[po.name],
+                        [bufs[b] for b in dp.source_buffers]
+                        + [resolved[vid] for vid in dp.vocab_ids])
+                elif po.name in packers:
+                    got[po.name] = call("packer", (po.name,), packers[po.name],
+                                        [bufs[b] for b in po.buffers])
+                elif po.name not in got:
+                    got[po.name] = kref.pack_blocks(
+                        [bufs[b] for b in po.buffers],
+                        transfer.torch_dtype(po.dtype), po.pad_cols_to)
             return {po.name: got[po.name][:, 0] if po.squeeze
                     else got[po.name] for po in plan.pack}
 
-        return apply_cuda
-
-    def _apply_launches(self, bufs: dict, resolved: dict) -> list:
-        """``(kernel, output names, runner, args)`` for every dataflow
-        kernel one apply issues: one per group, one per solo fused output."""
-        calls = []
-        for g, gfn in zip(self._active_groups, self._group_fns):
-            calls.append(("group_dataflow", tuple(g.outputs), gfn,
-                          [bufs[b] for b in g.source_buffers]
-                          + [resolved[vid] for vid in g.vocab_ids]))
-        dfmap = {dp.output: dp for dp in self.plan.dataflows}
-        for name, fn in self._solo_fns.items():
-            dp = dfmap[name]
-            calls.append(("output_dataflow", (name,), fn,
-                          [bufs[b] for b in dp.source_buffers]
-                          + [resolved[vid] for vid in dp.vocab_ids]))
-        return calls
-
-    def _fit_launches(self, bufs: dict) -> list:
-        """``(kernel, vocab id, runner, args)`` for every fit kernel one
-        chunk issues: one per vocabulary."""
-        return [("fit_dataflow", vid, self._fit_fns[vid],
-                 [bufs[b] for b in fp.source_buffers])
-                for vid, fp in self._fused_fit_programs.items()]
-
-    def dataflow_launches(self, raw_batch: dict, phase: str = "apply") -> list:
-        """The kernel calls a phase issues for ``raw_batch``, unrun:
-        ``(kernel name, outputs or vocab id, runner, args)`` with the
-        arguments already on the device.  ``runner.program`` is the encoded
-        program, so a caller can hold ``runner(*args)`` against the plain
-        version (``kernels.dataflow.*_plain``) on the same inputs."""
-        if self.backend != "cuda":
-            raise ValueError("only the cuda backend launches dataflow kernels")
-        if phase == "fit":
-            cols = self._device_columns(raw_batch, self._fit_bufs)
-            return self._fit_launches(self._assemble_sources(cols,
-                                                             self._fit_bufs))
-        if phase != "apply":
-            raise ValueError(f"unknown phase {phase!r}")
-        return self._apply_launches(
-            self._assemble_sources(self._device_columns(raw_batch)),
-            self._device_tables(self.state))
+        return apply_fn
 
     def _build_fit_chunk(self) -> Callable:
-        """One streamed fit chunk -> {vocab_id: (first_pos, counts)}."""
+        """``fit_chunk(cols, trace=None) -> {vocab_id: (first_pos,
+        counts)}``: one fit kernel per legally fused vocabulary; the rest
+        run their staged stages, then the build kernel (counts are
+        ``torch.bincount``, as the JAX package's are ``jnp.bincount``)."""
         plan = self.plan
-        fit_bufs = self._fit_bufs
-        if self.backend == "torch":
-            fit_ids = set(plan.fit_stage_ids)
-
-            def fit_torch(cols):
-                bufs = self._run_stages_torch(
-                    self._assemble_sources(cols, fit_bufs), fit_ids)
-                out = {}
-                for vf in plan.vocab_fits:
-                    vals = bufs[vf.in_buf].reshape(-1)
-                    out[vf.vocab_id] = (
-                        kref.vocab_build_chunk(vals, vf.capacity),
-                        kref.vocab_counts_chunk(vals, vf.capacity))
-                return out
-
-            return fit_torch
-
+        fused_fit = self._fused_fit_programs
+        staged_ids: set = ({sid for vf in plan.vocab_fits
+                            if vf.vocab_id not in fused_fit
+                            for sid in plan.fit_slice(vf)} if fused_fit
+                           else set(plan.fit_stage_ids))
+        fns = self._stage_fns(staged_ids)
         self._fit_fns = {vid: self._build_fit_dataflow_fn(fp)
-                         for vid, fp in self._fused_fit_programs.items()}
+                         for vid, fp in fused_fit.items()}
+        build = (kops.vocab_build_chunk if self.backend == "cuda"
+                 else kref.vocab_build_chunk)
+        fit_bufs = self._fit_bufs
 
-        def fit_cuda(cols):
+        def fit_chunk(cols, trace=None):
+            call = self._caller("fit", trace)
+            bufs = self._assemble_sources(cols, fit_bufs)
+            self._run_staged(bufs, staged_ids, fns, None, call)
             out = {}
-            for _, vid, fn, args in self._fit_launches(
-                    self._assemble_sources(cols, fit_bufs)):
-                out[vid] = fn(*args)
-                self.dataflow_calls["fit"] += 1
+            for vf in plan.vocab_fits:
+                vid = vf.vocab_id
+                if vid in fused_fit:
+                    out[vid] = call(
+                        "fit_dataflow", vid, self._fit_fns[vid],
+                        [bufs[b] for b in fused_fit[vid].source_buffers])
+                    continue
+                vals = bufs[vf.in_buf].reshape(-1)
+                out[vid] = (call("vocab_build_chunk", vid, build,
+                                 [vals, vf.capacity]),
+                            kref.vocab_counts_chunk(vals, vf.capacity))
             return out
 
-        return fit_cuda
+        return fit_chunk
+
+    def dataflow_launches(self, raw_batch: dict, phase: str = "apply") -> list:
+        """The kernel calls a phase issues for ``raw_batch``, in order:
+        ``(kernel name, what, runner, args)`` with the arguments on the
+        device, so a caller can hold ``runner(*args)`` against
+        ``runner.plain(*args)``.  The phase is run once to produce them (a
+        staged call reads what the calls before it wrote); the calls are not
+        counted in ``dataflow_calls``."""
+        if self.backend != "cuda":
+            raise ValueError("only the cuda backend launches dataflow kernels")
+        trace: list = []
+        if phase == "fit":
+            self._fit_chunk_fn(self._device_columns(raw_batch, self._fit_bufs),
+                               trace)
+        elif phase == "apply":
+            self._apply_fn(self._device_tables(self.state),
+                           self._device_columns(raw_batch), trace)
+        else:
+            raise ValueError(f"unknown phase {phase!r}")
+        return trace
 
     # ------------------------------------------------------------------
     # public API
@@ -519,24 +556,30 @@ class CompiledPipeline:
                     for vid, t in tables.items()}
         return tables, n_unique
 
-    def _device_tables(self, state: PipelineState) -> dict:
-        """Tables on this device, uploaded once per state version: the
-        OOV-resolved int32[capacity] form for the kernels (cuda), the raw
-        table + n_unique for the eager lookups (torch)."""
+    def _device_tables(self, state: PipelineState) -> tuple:
+        """``(resolved, raw)`` on this device, uploaded once per state
+        version: the OOV-resolved int32[capacity] table of every vocabulary
+        a dataflow kernel gathers from, and the raw table + n_unique of
+        every vocabulary a staged lookup reads.  A plan that looks one
+        vocabulary up both ways ships both forms."""
         ver, cached = self._table_cache
         if ver == state.version:
             return cached
-        out = {}
-        for vid, t in state.tables.items():
-            t = np.asarray(t, np.int32)
+        fused_vids = {vid for dp in self._fused_programs.values()
+                      for vid in dp.vocab_ids}
+        resolved, raw = {}, {}
+        for vid in sorted(fused_vids):
+            t = np.asarray(state.tables[vid], np.int32)
             n = int(state.n_unique[vid])
-            if self.backend == "cuda":
-                out[vid] = torch.as_tensor(
-                    np.where(t >= 0, t, n).astype(np.int32), device=self.device)
-            else:
-                out[vid] = (torch.as_tensor(t, device=self.device), n)
-        self._table_cache = (state.version, out)
-        return out
+            resolved[vid] = torch.as_tensor(
+                np.where(t >= 0, t, n).astype(np.int32), device=self.device)
+        for vid in self._staged_vocab_ids:
+            raw[vid] = (torch.as_tensor(np.asarray(state.tables[vid],
+                                                   np.int32),
+                                        device=self.device),
+                        int(state.n_unique[vid]))
+        self._table_cache = (state.version, (resolved, raw))
+        return resolved, raw
 
     def apply_versioned(self, raw_batch: dict) -> tuple:
         """Apply one batch against a single state snapshot and return
@@ -610,3 +653,37 @@ class CompiledPipeline:
                 "placement": vf.placement,
             }
         return rep
+
+    def stage_execution_counts(self, phase: str = "apply") -> dict:
+        """Static per-batch execution count of every plan stage, from the
+        lowering decisions: a staged stage runs once per batch whatever its
+        consumers; a stage in k solo fused kernels runs k times; a stage in
+        a DataflowGroup runs once for the whole group."""
+        if phase not in ("apply", "fit"):
+            raise ValueError(f"unknown phase {phase!r}")
+        plan = self.plan
+        if phase == "fit":
+            counts = {sid: 0 for sid in plan.fit_stage_ids}
+            staged_ids = {sid for vf in plan.vocab_fits
+                          if vf.vocab_id not in self._fused_fit_programs
+                          for sid in plan.fit_slice(vf)}
+            for sid in staged_ids:
+                counts[sid] += 1
+            for fp in self._fused_fit_programs.values():
+                for sid in fp.stage_ids:
+                    counts[sid] += 1
+            return counts
+        counts = {s.stage_id: 0 for s in plan.stages}
+        staged_ids = {sid for po in plan.pack
+                      if po.name not in self._fused_programs
+                      for sid in plan.output_slice(po)}
+        for sid in staged_ids:
+            counts[sid] += 1
+        for g in self._active_groups:
+            for sid in g.stage_ids:
+                counts[sid] += 1
+        for name, dp in self._fused_programs.items():
+            if name not in self._grouped_outputs:
+                for sid in dp.stage_ids:
+                    counts[sid] += 1
+        return counts

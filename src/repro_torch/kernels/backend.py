@@ -1,18 +1,22 @@
-"""Device resolution and the build of the CUDA kernel library.
+"""Device resolution, the build of the CUDA kernel library, launch counts.
 
-Two jobs, both explicit:
+Three jobs, all explicit:
 
 - ``resolve_device``: every entry point of the package (``Pipeline.compile``,
   ``CompiledPipeline``, ``EtlJob``, ``DLRM``, ``train_loop``) runs on
   ``cuda`` unless its caller passes ``device="cpu"``.  A caller that asks
   for nothing on a host without a CUDA device gets a ``RuntimeError`` — the
   package never carries on silently on the CPU.
-- ``load_library``: on first use, compile ``csrc/*.cu`` with ``nvcc`` for
-  ``sm_90a`` into a shared library with a plain C interface under
-  ``build/repro_torch/`` at the checkout root (the file name carries a hash
-  of the sources and flags, so an edit rebuilds), and load it with
-  ``ctypes``.  No torch headers and no ``ninja`` are needed, so a build takes
-  seconds.  Nothing is built or loaded at import time.
+- ``load_library``: on first use, compile each ``csrc/*.cu`` with its own
+  ``nvcc`` for ``sm_90a`` (all started together), link the objects into one
+  shared library with a plain C interface under ``build/repro_torch/`` at
+  the checkout root (the file name carries a hash of the sources and flags,
+  so an edit rebuilds), and load it with ``ctypes``.  No torch headers and
+  no ``ninja`` are needed, so a build takes seconds.  Nothing is built or
+  loaded at import time.
+- ``LAUNCHES``: one count per kernel, which its wrapper raises by one where
+  it launches the CUDA kernel and nowhere else; ``reset_launch_counts``
+  zeroes them.
 """
 
 from __future__ import annotations
@@ -34,7 +38,16 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # no --use_fast_math: it flushes denormals and swaps log1pf for a cheaper
 # approximation, and the kernels hold bit/rtol parity with the plain versions
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-Xcompiler", "-fPIC", "-shared")
+              "-Xcompiler", "-fPIC")
+
+LAUNCHES = {name: 0 for name in (
+    "group_dataflow", "output_dataflow", "fit_dataflow", "fused_stage",
+    "packer", "vocab_build_chunk", "vocab_lookup")}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def resolve_device(device: Union[None, str, torch.device] = None
@@ -77,28 +90,46 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdataflow_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _wait(procs: list, verbose: bool) -> None:
+    """Wait for every process; raise with the first failure's output."""
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{err}")
+        elif verbose and err:
+            print(err, flush=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build_library(verbose: bool = False) -> Path:
-    """Compile the kernel sources unless a library for them exists."""
+    """Compile the kernel sources unless a library for them exists: one
+    ``nvcc`` per source, all at once, then one link."""
     out = library_path()
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(dir=out.parent, suffix=".so")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *sources]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        if verbose and proc.stderr:
-            print(proc.stderr, flush=True)
-        os.replace(tmp, out)  # atomic publish: concurrent builders agree
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = str(Path(tmp, src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, _run(cmd)))
+        _wait(procs, verbose)
+        lib = str(Path(tmp, "lib.so"))
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _wait([(cmd, _run(cmd))], verbose)
+        os.replace(lib, out)  # atomic publish: concurrent builders agree
     return out
 
 
@@ -106,15 +137,48 @@ def build_library(verbose: bool = False) -> Path:
 def load_library() -> ctypes.CDLL:
     """Build (first use) and load the kernel library; one per process."""
     lib = ctypes.CDLL(str(build_library()))
-    for fn in ("launch_dataflow_apply", "launch_dataflow_fit"):
-        f = getattr(lib, fn)
-        f.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    signatures = {
+        "launch_dataflow_apply": [ptr, ptr],
+        "launch_dataflow_fit": [ptr, ptr],
+        "launch_fused_stage": [ptr, ptr],
+        "launch_packer": [ptr, ptr],
+        "launch_vocab_build": [ptr, ptr, i32, i32, ptr],
+        "launch_vocab_lookup": [ptr, ptr, ptr, i64, i32, i32, ptr],
+        "dataflow_program_size": [],
+        "stage_args_size": [],
+        "pack_args_size": [],
+    }
+    for name, args in signatures.items():
+        f = getattr(lib, name)
+        f.argtypes = args
         f.restype = ctypes.c_int
     lib.dataflow_error_string.argtypes = [ctypes.c_int]
     lib.dataflow_error_string.restype = ctypes.c_char_p
-    lib.dataflow_program_size.argtypes = []
-    lib.dataflow_program_size.restype = ctypes.c_int
     return lib
+
+
+def on_cpu(x: torch.Tensor) -> bool:
+    """A wrapper's route: True for a CPU tensor (the plain version), False
+    for a CUDA tensor (the kernel); any other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the kernels take CPU or CUDA tensors, not "
+                         f"{x.device}")
+    return x.device.type == "cpu"
+
+
+def require(x: torch.Tensor, dtype: torch.dtype, what: str) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor (the kernels
+    take raw pointers)."""
+    if x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{what}: want a contiguous {dtype} tensor, got "
+                         f"{x.dtype}{list(x.shape)} "
+                         f"(contiguous={x.is_contiguous()})")
+
+
+def stream_of(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check_launch(lib: ctypes.CDLL, code: int, what: str,

@@ -21,35 +21,18 @@
 // contend on hot ids; both combiners (min, add) are order-independent, so the
 // result is bit-exact whatever the order.
 //
-// Semantics follow the JAX package bit for bit: Clamp is written with
-// comparisons so NaN propagates (fmaxf would drop it), Modulus is a
-// positive mod, Hex2Int decodes non-hex bytes as c-87 / c-55 / c-48 OR'd in
-// as uint32, and no fast-math flag is used.
+// The per-element rule of every opcode lives in ops.cuh, shared with the
+// staged chain kernel (stage.cu).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <limits.h>
+#include "ops.cuh"
 
 #define MAX_SRC 8
 #define MAX_SLOT 24
-#define MAX_INSTR 32
 #define MAX_TABLE 4
 #define MAX_OUT 4
 #define MAX_TERM 16
-#define MAX_PARAM 64
-#define THREADS 256
-
-enum Kind { K_F32 = 0, K_I32 = 1, K_HEX = 2 };
-
-// mirrored by the OP_* constants in repro_torch/core/operators.py
-enum Op {
-  OP_FILL_F32 = 1, OP_FILL_I32 = 2, OP_CLAMP = 3, OP_LOG1P = 4,
-  OP_BUCKET_F32 = 5, OP_BUCKET_I32 = 6, OP_ONEHOT = 7, OP_HEX2INT = 8,
-  OP_MOD = 9, OP_SIGRID = 10, OP_CROSS = 11, OP_LOOKUP = 12
-};
 
 struct Slot { int kind, width, hex_width, offset; };
-struct Instr { int op, dst, a, b, i0, i1; float f0, f1; };
 struct Term { int out, slot, col, width; };
 
 // mirrored by _CProgram in repro_torch/kernels/dataflow.py
@@ -70,15 +53,6 @@ struct Program {
   Term term[MAX_TERM];
   int param[MAX_PARAM];
 };
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
 
 // Copy this tile's rows of every source into its shared-memory slot.
 // Hex sources are digit-major: plane d of the tile holds rows*width bytes.
@@ -114,49 +88,8 @@ __device__ void run_program(const Program& p, unsigned char* sm, int rows) {
     const int n = rows * D.width;
     float* df = reinterpret_cast<float*>(sm + D.offset);
     int* di = reinterpret_cast<int*>(sm + D.offset);
-    const float* af = reinterpret_cast<const float*>(sm + A.offset);
     const int* ai = reinterpret_cast<const int*>(sm + A.offset);
     switch (in.op) {
-      case OP_FILL_F32:
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-          const float x = af[i];
-          df[i] = isnan(x) ? in.f0 : x;
-        }
-        break;
-      case OP_FILL_I32:
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-          const int x = ai[i];
-          di[i] = (x == INT_MIN) ? in.i0 : x;
-        }
-        break;
-      case OP_CLAMP:
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-          float x = af[i];
-          x = (x < in.f0) ? in.f0 : x;
-          if (in.i0) x = (x > in.f1) ? in.f1 : x;
-          df[i] = x;
-        }
-        break;
-      case OP_LOG1P:
-        for (int i = threadIdx.x; i < n; i += blockDim.x) df[i] = log1pf(af[i]);
-        break;
-      case OP_BUCKET_F32:
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-          const float x = af[i];
-          int c = 0;
-          for (int j = 0; j < in.i1; ++j)
-            c += (x >= __int_as_float(p.param[in.i0 + j])) ? 1 : 0;
-          di[i] = c;
-        }
-        break;
-      case OP_BUCKET_I32:
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-          const int x = ai[i];
-          int c = 0;
-          for (int j = 0; j < in.i1; ++j) c += (x >= p.param[in.i0 + j]) ? 1 : 0;
-          di[i] = c;
-        }
-        break;
       case OP_ONEHOT:
         for (int i = threadIdx.x; i < n; i += blockDim.x) {
           const int r = i / D.width;
@@ -169,38 +102,14 @@ __device__ void run_program(const Program& p, unsigned char* sm, int rows) {
       case OP_HEX2INT: {
         const uint8_t* ab = sm + A.offset;
         const int plane = rows * A.width;
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-          bool missing = true;
-          uint32_t v = 0;
-          for (int d = 0; d < A.hex_width; ++d) {
-            int c = ab[d * plane + i];
-            if (c != 0) missing = false; else c = 48;
-            const int dig = (c >= 97) ? c - 87 : ((c >= 65) ? c - 55 : c - 48);
-            v = (v << 4) | static_cast<uint32_t>(dig);
-          }
-          di[i] = missing ? INT_MIN : static_cast<int>(v);
-        }
+        for (int i = threadIdx.x; i < n; i += blockDim.x)
+          di[i] = hex2int(ab + i, plane, A.hex_width);
         break;
       }
-      case OP_MOD:
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-          int r = ai[i] % in.i0;
-          di[i] = (r < 0) ? r + in.i0 : r;
-        }
-        break;
-      case OP_SIGRID:
-        for (int i = threadIdx.x; i < n; i += blockDim.x)
-          di[i] = static_cast<int>(mix32(static_cast<uint32_t>(ai[i])) %
-                                   static_cast<uint32_t>(in.i0));
-        break;
       case OP_CROSS: {
         const int* bi = reinterpret_cast<const int*>(sm + p.slot[in.b].offset);
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-          const uint32_t ha = mix32(static_cast<uint32_t>(ai[i]));
-          const uint32_t hb = mix32(static_cast<uint32_t>(bi[i]));
-          const uint32_t h = mix32(ha ^ (hb * 0x9E3779B1u));
-          di[i] = static_cast<int>(h % static_cast<uint32_t>(in.i0));
-        }
+        for (int i = threadIdx.x; i < n; i += blockDim.x)
+          di[i] = cross32(ai[i], bi[i], in.i0);
         break;
       }
       case OP_LOOKUP: {
@@ -213,7 +122,9 @@ __device__ void run_program(const Program& p, unsigned char* sm, int rows) {
         }
         break;
       }
-      default:
+      default:  // the shape-preserving unary opcodes (ops.cuh)
+        for (int i = threadIdx.x; i < n; i += blockDim.x)
+          di[i] = unary_op(in, ai[i], p.param);
         break;
     }
     __syncthreads();

@@ -32,6 +32,14 @@ Kernels and the TPU kernels they replace (``src/repro/kernels/dataflow.py``):
   first-occurrence/count build.  The TPU kernel's ``partitions`` split of
   the accumulators is a VMEM artefact and is dropped.
 
+The staged lowering's two elementwise kernels (``csrc/stage.cu``) take the
+same opcode encoding, one thread per output element and no shared memory:
+
+- ``fused_stage`` <- ``make_fused_stage`` (l.93): one stage's elementwise
+  chain (a ``StageProgram``) over a whole buffer, cast to the output dtype.
+- ``packer``      <- ``make_packer`` (l.149): concatenate column blocks,
+  cast, zero-pad the width.
+
 What bounds them on an H100: bytes.  Per row they read the raw sources once
 and write the packed outputs once, with a few integer operations per byte,
 far below the card's operations-per-byte balance.  The design keeps every
@@ -40,8 +48,11 @@ TPU); the vocabulary table (2 MiB at capacity 524288) is gathered from global
 memory through L2 rather than staged per tile.  The fit's atomics contend on
 the hottest ids (synthetic ids are Zipf(1.3)).
 
-Launch counts: each wrapper adds one to ``LAUNCHES[name]`` where it launches
-its CUDA kernel and nowhere else; ``reset_launch_counts`` zeroes them.
+Every runner a factory returns carries ``runner.plain``, its plain version
+as a function of the same arguments, so a caller can hold ``runner(*args)``
+against ``runner.plain(*args)`` on the card.  Launch counts: each wrapper
+adds one to ``LAUNCHES[name]`` (``kernels/backend.py``) where it launches
+its CUDA kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import torch
 from repro_torch.core import operators as ops_lib
 from repro_torch.kernels import backend
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.backend import LAUNCHES, reset_launch_counts  # noqa: F401
 
 ABSENT32 = kref.ABSENT32
 
@@ -68,18 +80,11 @@ _NP_KIND = {np.dtype(np.float32): KIND_F32, np.dtype(np.int32): KIND_I32}
 # the struct stays under the 4 KiB kernel-parameter limit
 MAX_SRC, MAX_SLOT, MAX_INSTR, MAX_TABLE = 8, 24, 32, 4
 MAX_OUT, MAX_TERM, MAX_PARAM = 4, 16, 64
+MAX_BLOCK = 32  # column blocks of one packer (mirrored in stage.cu)
 THREADS = 256
 # shared memory one block asks for: ~64 KiB lets three blocks share an SM
 SMEM_TARGET = 64 * 1024
 SMEM_MAX = 227 * 1024
-
-LAUNCHES = {"group_dataflow": 0, "output_dataflow": 0, "fit_dataflow": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -215,6 +220,17 @@ class TileProgram:
                    for s in self.slots)
 
 
+def _instr(enc: ops_lib.Encoded, params: list, dst: int, a: int,
+           b: int = -1) -> Instr:
+    """One instruction; bucket boundaries go to the program's parameter
+    pool as (offset, count)."""
+    i0 = enc.i0
+    if enc.params:
+        i0 = len(params)
+        params.extend(enc.params)
+    return Instr(enc.op, dst, a, b, i0, enc.i1, enc.f0, enc.f1)
+
+
 def encode_program(inputs: Sequence[StreamInput],
                    tables: Sequence[TableInput],
                    steps: Sequence[TileStep], *,
@@ -239,11 +255,7 @@ def encode_program(inputs: Sequence[StreamInput],
     params: list = []
 
     def emit(enc: ops_lib.Encoded, dst: int, a: int, b: int = -1) -> None:
-        i0, i1 = enc.i0, enc.i1
-        if enc.params:  # bucket boundaries: (offset, count) into the pool
-            i0 = len(params)
-            params.extend(enc.params)
-        instrs.append(Instr(enc.op, dst, a, b, i0, i1, enc.f0, enc.f1))
+        instrs.append(_instr(enc, params, dst, a, b))
 
     for st in steps:
         if st.kind == "map":
@@ -497,9 +509,12 @@ def _c_program(prog: TileProgram, srcs, tables, rows: int) -> _CProgram:
 
 def _library():
     lib = backend.load_library()
-    if lib.dataflow_program_size() != ctypes.sizeof(_CProgram):
-        raise RuntimeError("csrc/dataflow.cu Program struct does not match "
-                           "the ctypes mirror")
+    for name, mirror in (("dataflow_program_size", _CProgram),
+                         ("stage_args_size", _CStage),
+                         ("pack_args_size", _CPack)):
+        if getattr(lib, name)() != ctypes.sizeof(mirror):
+            raise RuntimeError(f"{name}: a struct in csrc/ does not match its "
+                               f"ctypes mirror {mirror.__name__}")
     return lib
 
 
@@ -512,9 +527,8 @@ def _launch_apply(prog: TileProgram, srcs, tables, name: str) -> tuple:
     for i, o in enumerate(outs):
         c.out[i] = o.data_ptr()
     lib = _library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    backend.check_launch(lib, lib.launch_dataflow_apply(ctypes.byref(c), stream),
-                         name, device)
+    backend.check_launch(lib, lib.launch_dataflow_apply(
+        ctypes.byref(c), backend.stream_of(device)), name, device)
     LAUNCHES[name] += 1
     return outs
 
@@ -528,9 +542,8 @@ def _launch_fit(prog: TileProgram, srcs) -> tuple:
     c = _c_program(prog, srcs, (), rows)
     c.first_pos, c.counts = first_pos.data_ptr(), counts.data_ptr()
     lib = _library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    backend.check_launch(lib, lib.launch_dataflow_fit(ctypes.byref(c), stream),
-                         "fit_dataflow", device)
+    backend.check_launch(lib, lib.launch_dataflow_fit(
+        ctypes.byref(c), backend.stream_of(device)), "fit_dataflow", device)
     LAUNCHES["fit_dataflow"] += 1
     return first_pos, counts
 
@@ -538,10 +551,6 @@ def _launch_fit(prog: TileProgram, srcs) -> tuple:
 # ---------------------------------------------------------------------------
 # factories (the counterparts of the JAX package's make_*_dataflow)
 # ---------------------------------------------------------------------------
-
-def _on_cpu(x: torch.Tensor) -> bool:
-    return x.device.type == "cpu"
-
 
 def make_group_dataflow(inputs: Sequence[StreamInput],
                         tables: Sequence[TableInput],
@@ -552,13 +561,16 @@ def make_group_dataflow(inputs: Sequence[StreamInput],
     prog = encode_program(inputs, tables, steps, outputs=outputs)
     n_src = len(inputs)
 
-    def run(*arrays):
-        srcs, tbls = arrays[:n_src], arrays[n_src:]
-        if _on_cpu(srcs[0]):
-            return apply_dataflow_plain(prog, srcs, tbls)
-        return _launch_apply(prog, srcs, tbls, "group_dataflow")
+    def plain(*arrays):
+        return apply_dataflow_plain(prog, arrays[:n_src], arrays[n_src:])
 
-    run.program = prog
+    def run(*arrays):
+        if backend.on_cpu(arrays[0]):
+            return plain(*arrays)
+        return _launch_apply(prog, arrays[:n_src], arrays[n_src:],
+                             "group_dataflow")
+
+    run.program, run.plain = prog, plain
     return run
 
 
@@ -574,13 +586,16 @@ def make_output_dataflow(inputs: Sequence[StreamInput],
     prog = encode_program(inputs, tables, steps, outputs=[out])
     n_src = len(inputs)
 
-    def run(*arrays):
-        srcs, tbls = arrays[:n_src], arrays[n_src:]
-        if _on_cpu(srcs[0]):
-            return apply_dataflow_plain(prog, srcs, tbls)[0]
-        return _launch_apply(prog, srcs, tbls, "output_dataflow")[0]
+    def plain(*arrays):
+        return apply_dataflow_plain(prog, arrays[:n_src], arrays[n_src:])[0]
 
-    run.program = prog
+    def run(*arrays):
+        if backend.on_cpu(arrays[0]):
+            return plain(*arrays)
+        return _launch_apply(prog, arrays[:n_src], arrays[n_src:],
+                             "output_dataflow")[0]
+
+    run.program, run.plain = prog, plain
     return run
 
 
@@ -595,10 +610,218 @@ def make_fit_dataflow(inputs: Sequence[StreamInput],
     prog = encode_program(inputs, (), steps, value_buf=value_buf,
                           capacity=capacity)
 
+    def plain(*srcs):
+        return fit_dataflow_plain(prog, srcs)
+
     def run(*srcs):
-        if _on_cpu(srcs[0]):
-            return fit_dataflow_plain(prog, srcs)
+        if backend.on_cpu(srcs[0]):
+            return plain(*srcs)
         return _launch_fit(prog, srcs)
 
-    run.program = prog
+    run.program, run.plain = prog, plain
+    return run
+
+
+# ---------------------------------------------------------------------------
+# the staged lowering: one elementwise chain per kernel, and the packer
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StageProgram:
+    """What the stage kernel runs on every element: the chain's unary
+    instructions (a hex input's first one is Hex2Int, whose ``i0`` is the
+    digit count), then one cast from ``val_kind`` to ``out_kind``."""
+
+    in_kind: int
+    hex_width: int
+    instrs: tuple
+    params: tuple
+    val_kind: int
+    out_kind: int
+
+
+def encode_stage(ops: Sequence, in_dtype, out_dtype,
+                 hex_width: int = 0) -> StageProgram:
+    """Lower one ``FusedStage`` chain to the stage kernel's encoding (the
+    same opcodes as the tile program)."""
+    ops = list(ops)
+    if hex_width:
+        if not ops or not isinstance(ops[0], ops_lib.Hex2Int):
+            raise TypeError("hex source must be consumed by Hex2Int first")
+        kind, dtype = KIND_HEX, np.dtype(np.uint8)
+    else:
+        kind = _kind_of(in_dtype)
+        dtype = np.dtype(in_dtype)
+    instrs: list = []
+    params: list = []
+    for k, op in enumerate(ops):
+        if not op.fusable or op.width_factor() != 1:
+            raise NotImplementedError(
+                f"{op.name} is not an elementwise chain operator")
+        instrs.append(_instr(op.encode(dtype), params, 1, 0 if k == 0 else 1))
+        dtype = op.out_dtype(dtype)
+    if len(instrs) > MAX_INSTR or len(params) > MAX_PARAM:
+        raise NotImplementedError(
+            f"chain exceeds the kernel's fixed maxima: {len(instrs)} "
+            f"instructions, {len(params)} parameters")
+    return StageProgram(kind, int(hex_width), tuple(instrs), tuple(params),
+                        _kind_of(dtype), _kind_of(out_dtype))
+
+
+def fused_stage_plain(prog: StageProgram, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the stage kernel: the same instructions, whole
+    tensor at a time (env slot 0 is the input, slot 1 the chain's value)."""
+    env = [x, x]
+    for ins in prog.instrs:
+        env[1] = _run_instr(ins, env, prog, ())
+    return env[1].to(_KIND_DTYPE[prog.out_kind])
+
+
+class _CStage(ctypes.Structure):
+    """Mirror of ``struct StageArgs`` in csrc/stage.cu (checked by size)."""
+
+    _fields_ = [("src", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_longlong),
+                ("in_kind", ctypes.c_int), ("hex_width", ctypes.c_int),
+                ("val_kind", ctypes.c_int), ("out_kind", ctypes.c_int),
+                ("n_instr", ctypes.c_int), ("n_param", ctypes.c_int),
+                ("instr", _CInstr * MAX_INSTR),
+                ("param", ctypes.c_int * MAX_PARAM)]
+
+
+def _launch_stage(prog: StageProgram, x: torch.Tensor) -> torch.Tensor:
+    backend.require(x, _KIND_DTYPE[prog.in_kind], "fused_stage input")
+    if prog.in_kind == KIND_HEX and (x.dim() < 1
+                                     or x.shape[0] != prog.hex_width):
+        raise ValueError(f"fused_stage: want digit-major uint8"
+                         f"[{prog.hex_width}, ...], got {list(x.shape)}")
+    shape = x.shape[1:] if prog.in_kind == KIND_HEX else x.shape
+    out = torch.empty(shape, dtype=_KIND_DTYPE[prog.out_kind],
+                      device=x.device)
+    c = _CStage(src=x.data_ptr(), out=out.data_ptr(), n=out.numel(),
+                in_kind=prog.in_kind, hex_width=prog.hex_width,
+                val_kind=prog.val_kind, out_kind=prog.out_kind,
+                n_instr=len(prog.instrs), n_param=len(prog.params))
+    for i, ins in enumerate(prog.instrs):
+        c.instr[i] = _CInstr(ins.op, ins.dst, ins.a, ins.b, ins.i0, ins.i1,
+                             ins.f0, ins.f1)
+    for i, p in enumerate(prog.params):
+        c.param[i] = p
+    lib = _library()
+    backend.check_launch(lib, lib.launch_fused_stage(
+        ctypes.byref(c), backend.stream_of(x.device)), "fused_stage", x.device)
+    LAUNCHES["fused_stage"] += 1
+    return out
+
+
+def make_fused_stage(ops: Sequence, *, in_dtype, out_dtype,
+                     hex_width: int = 0):
+    """fn(x) -> chain(x) cast to ``out_dtype``, from ONE kernel launch.
+
+    ``x`` is float32/int32 ``[rows, cols]`` or, with ``hex_width``,
+    digit-major uint8 ``[hex_width, rows, cols]``.  The JAX factory takes a
+    traced ``chain_fn``; this one takes the chain's operators, which it
+    encodes once."""
+    prog = encode_stage(ops, in_dtype, out_dtype, hex_width)
+
+    def plain(x):
+        return fused_stage_plain(prog, x)
+
+    def run(x):
+        if backend.on_cpu(x):
+            return plain(x)
+        return _launch_stage(prog, x)
+
+    run.program, run.plain = prog, plain
+    return run
+
+
+@dataclasses.dataclass(frozen=True)
+class PackLayout:
+    """The packer's program: block kinds and widths in pack order, the
+    output kind and the padded output width."""
+
+    kinds: tuple
+    widths: tuple
+    out_kind: int
+    out_cols: int
+
+
+class _CPack(ctypes.Structure):
+    """Mirror of ``struct PackArgs`` in csrc/stage.cu (checked by size)."""
+
+    _fields_ = [("src", ctypes.c_void_p * MAX_BLOCK), ("out", ctypes.c_void_p),
+                ("rows", ctypes.c_longlong),
+                ("out_cols", ctypes.c_int), ("n_block", ctypes.c_int),
+                ("out_kind", ctypes.c_int),
+                ("kind", ctypes.c_int * MAX_BLOCK),
+                ("width", ctypes.c_int * MAX_BLOCK),
+                ("col", ctypes.c_int * MAX_BLOCK)]
+
+
+def _check_blocks(lay: PackLayout, blocks) -> int:
+    if len(blocks) != len(lay.widths):
+        raise ValueError(f"packer: expected {len(lay.widths)} blocks, got "
+                         f"{len(blocks)}")
+    rows = int(blocks[0].shape[0])
+    for k, (b, kind, w) in enumerate(zip(blocks, lay.kinds, lay.widths)):
+        if b.dim() != 2 or tuple(b.shape) != (rows, w):
+            raise ValueError(f"packer block {k}: want [{rows}, {w}], got "
+                             f"{list(b.shape)}")
+        if b.device != blocks[0].device:
+            raise ValueError(f"packer block {k} is on {b.device}, block 0 "
+                             f"on {blocks[0].device}")
+        backend.require(b, _KIND_DTYPE[kind], f"packer block {k}")
+    return rows
+
+
+def packer_plain(lay: PackLayout, blocks) -> torch.Tensor:
+    """Plain version of the packer kernel."""
+    _check_blocks(lay, blocks)
+    packed = kref.pack_blocks(blocks, _KIND_DTYPE[lay.out_kind])
+    return torch.nn.functional.pad(packed, (0, lay.out_cols - packed.shape[1]))
+
+
+def _launch_packer(lay: PackLayout, blocks) -> torch.Tensor:
+    rows = _check_blocks(lay, blocks)
+    device = blocks[0].device
+    out = torch.empty(rows, lay.out_cols, dtype=_KIND_DTYPE[lay.out_kind],
+                      device=device)
+    c = _CPack(out=out.data_ptr(), rows=rows, out_cols=lay.out_cols,
+               n_block=len(blocks), out_kind=lay.out_kind)
+    col = 0
+    for k, (b, kind, w) in enumerate(zip(blocks, lay.kinds, lay.widths)):
+        c.src[k], c.kind[k], c.width[k], c.col[k] = b.data_ptr(), kind, w, col
+        col += w
+    lib = _library()
+    backend.check_launch(lib, lib.launch_packer(
+        ctypes.byref(c), backend.stream_of(device)), "packer", device)
+    LAUNCHES["packer"] += 1
+    return out
+
+
+def make_packer(col_widths: Sequence[int], in_dtypes: Sequence, out_dtype, *,
+                pad_cols_to: int = 128):
+    """fn(*blocks) -> packed ``[rows, padded(sum(col_widths))]`` from ONE
+    kernel launch: float32/int32 ``[rows, w_k]`` blocks concatenated, cast
+    to ``out_dtype`` (float -> int truncates toward zero), zero-padded to a
+    multiple of ``pad_cols_to``."""
+    widths = tuple(int(w) for w in col_widths)
+    if len(widths) != len(in_dtypes) or not 0 < len(widths) <= MAX_BLOCK:
+        raise ValueError(f"packer takes 1..{MAX_BLOCK} blocks with one dtype "
+                         f"each, got {len(widths)} widths and "
+                         f"{len(in_dtypes)} dtypes")
+    lay = PackLayout(tuple(_kind_of(d) for d in in_dtypes), widths,
+                     _kind_of(out_dtype),
+                     _round_up(sum(widths), max(int(pad_cols_to), 1)))
+
+    def plain(*blocks):
+        return packer_plain(lay, blocks)
+
+    def run(*blocks):
+        if backend.on_cpu(blocks[0]):
+            return plain(*blocks)
+        return _launch_packer(lay, blocks)
+
+    run.program, run.plain = lay, plain
     return run

@@ -127,6 +127,16 @@ def vocab_lookup(x: torch.Tensor, table: torch.Tensor,
     return torch.where(hit >= 0, hit, n_unique).to(torch.int32)
 
 
+def vocab_lookup_masked(x: torch.Tensor, table: torch.Tensor,
+                        n_unique: int) -> torch.Tensor:
+    """The staged lookup kernel's rule (the masked ``_lookup_kernel`` of the
+    JAX package): ids outside ``[0, capacity)`` map to ``n_unique`` like
+    absent entries, where ``vocab_lookup`` would wrap a negative id."""
+    ok = (x >= 0) & (x < table.shape[0])
+    hit = table[torch.where(ok, x, 0).long()]
+    return torch.where(ok & (hit >= 0), hit, n_unique).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # format-aware packer
 # ---------------------------------------------------------------------------

@@ -16,8 +16,11 @@ The paper's training-aware ETL abstraction ends at the trainer, not at
 
 - **compile**: a ``Pipeline`` template is compiled on first use with the
   job's ``backend`` / ``device`` / ``fuse`` / ``optimize`` (an already
-  compiled pipeline is accepted as is).  The device defaults to CUDA and a
-  missing one raises (``kernels.backend.resolve_device``).
+  compiled pipeline is accepted as is).  Any plan compiles on ``cuda``,
+  staged outputs and HBM-placed vocabularies included (e.g.
+  ``paper_pipeline("III", large_vocab=4194304)`` or ``fuse="off"``).  The
+  device defaults to CUDA and a missing one raises
+  (``kernels.backend.resolve_device``).
 - **projection pushdown**: the source is projected to the plan's referenced
   columns; the fit read to the (smaller) vocab-fit closure.
 - **overlapped fit ingest**: ``fit()`` reads through ``SourcePrefetcher``.

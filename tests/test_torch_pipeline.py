@@ -15,6 +15,7 @@ from repro.etl_runtime import metrics as ref_metrics  # noqa: E402
 from repro.etl_runtime import runtime as ref_runtime  # noqa: E402
 from repro_torch.core.compiler import PipelineState  # noqa: E402
 from repro_torch.core.pipeline import paper_pipeline  # noqa: E402
+from repro_torch.core.planner import FusedStage  # noqa: E402
 from repro_torch.data.source import Source  # noqa: E402
 from repro_torch.etl_runtime import metrics as port_metrics  # noqa: E402
 from repro_torch.etl_runtime import runtime as port_runtime  # noqa: E402
@@ -163,13 +164,25 @@ def test_launches_per_batch_through_etljob():
 
 
 def test_staged_path_raises_on_cuda():
-    """No staged kernel is ported: cuda refuses instead of using plain ops."""
-    with pytest.raises(NotImplementedError, match="make_fused_stage"):
-        paper_pipeline("II", **tp.SMALL).compile("cuda", device="cpu",
-                                                 fuse="off")
-    with pytest.raises(NotImplementedError, match="hbm-table"):
-        paper_pipeline("III", large_vocab=2 ** 21).compile("cuda",
-                                                           device="cpu")
+    """The two compiles that met the staged wall before its kernels were
+    ported now compile on cuda and report the reference's lowering; what
+    still raises is a staged kernel handed a tensor that is on neither the
+    CPU nor a CUDA device (no silent plain route)."""
+    cases = [(tp.paper("II"), {"fuse": "off"}),
+             (tp.paper("III", large_vocab=2 ** 21), {})]
+    for builder, kw in cases:
+        ref_t, port_t = tp.build_pair(builder)
+        ref = ref_t.compile("pallas", interpret=True, **kw)
+        port = port_t.compile("cuda", device="cpu", **kw)
+        assert port.lowering_report() == ref.lowering_report()
+        assert port.fit_lowering_report() == ref.fit_lowering_report()
+        assert "staged" in {v["path"] for v in port.lowering_report().values()}
+    fn = port._stage_fns({s.stage_id for s in port.plan.stages})
+    stage = next(s for s in port.plan.stages
+                 if s.stage_id in fn and isinstance(s, FusedStage))
+    with pytest.raises(ValueError, match="meta"):
+        fn[stage.stage_id](torch.empty(8, 1000, 26, dtype=torch.uint8,
+                                       device="meta"))
 
 
 def test_with_knobs_shares_state_and_is_identical():
