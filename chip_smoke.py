@@ -12,29 +12,50 @@ Phases, one JSON line each; any failure exits non-zero:
 3. parity      — every kernel against its plain PyTorch version on the card
                  (integers bit-equal, floats rtol 1e-5), with its time (CUDA
                  events, L2 flushed before each launch) beside the plain
-                 version's, one PyTorch library call's where one computes
-                 the same function, and the bytes/operations bound.  Inputs:
+                 version's, the fastest single PyTorch library call that
+                 computes the same function where there is one (for the
+                 bags both F.embedding_bag forms: 0/1 per-sample weights
+                 over clamped ids, and the valid ids flat with offsets),
+                 and the bytes/operations bound.  Inputs:
                  one 65536-row synthetic Criteo batch through Pipeline III at
                  vocab 524288 (grouped, optimize="off" and fuse="off" plans)
                  and at vocab 4194304 (its 16 MiB table is HBM-placed, so
                  the sparse output and the fit take the staged kernels).
                  The tables are fitted on the CPU through the plain versions,
-                 so no kernel runs before it meets its plain version.
+                 so no kernel runs before it meets its plain version.  The
+                 embedding bags at vocab 524289, dim 128: embedding_bag on
+                 65536 x 8 Zipf(1.1) ids with 10 % -1 (the reference
+                 bench_embed_cache.py's law and nnz), the two-level
+                 embedding_bag_cached on one feature of a real lookahead
+                 plan (the port's planner on the batch above, the
+                 lookahead_main config), and the cache-only variant on the
+                 first instance's ids with every distinct row staged, which
+                 must equal the first instance's output bit for bit.
 4. main        — EtlJob(Pipeline III, Source.synth("I"), backend="cuda") ->
                  fit (one fit launch per chunk) -> 16 DLRM training steps at
                  DLRMConfig(vocab_size=524289) (1.75 B parameters; one group
                  launch per batch).  The first batch is checked against the
                  numpy oracle.
-5. ungrouped   — the same pipeline with optimize="off" on two batches:
+5. lookahead_main — the same job and model with
+                 embed_cache=EmbedCacheConfig(rows=4096, window=4,
+                 stage_max=2048, tables=range(26), refresh=True) and
+                 train_loop(embed_cache=EmbedCache(...)): every step resolves
+                 each of the 26 features through one embedding_bag_cached
+                 launch.  Its 16 losses must be within rtol 1e-6 of main's;
+                 cache hits, staged rows and table fall-through all > 0; two
+                 backward passes of the cached lookup on the first planned
+                 batch give bit-equal table gradients, equal to the uncached
+                 gather's.
+6. ungrouped   — the same pipeline with optimize="off" on two batches:
                  three output launches per batch.
-6. staged_main — the large-vocabulary path: Pipeline III at vocab 4194304
+7. staged_main — the large-vocabulary path: Pipeline III at vocab 4194304
                  -> fit over 4 chunks (fused_stage + vocab_build_chunk per
                  chunk) -> 16 DLRM steps at facebookresearch/dlrm's Criteo
                  Kaggle width (d_emb 16, bottom MLP 13-512-256-64-16, top MLP
                  512-256-1; 1.75 B parameters), each batch one group launch
                  (dense + label) and fused_stage -> vocab_lookup -> packer
                  for sparse.  First batch against the numpy oracle.
-7. staged_off  — vocab 524288 with fuse="off" (the stage-at-a-time
+8. staged_off  — vocab 524288 with fuse="off" (the stage-at-a-time
                  baseline) on two batches: staged fit bit-equal to the fused
                  fit, outputs against the numpy oracle, and one batch's apply
                  time grouped vs staged.
@@ -55,20 +76,26 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 B = 65536                     # rows per batch (paper_pipeline default)
 LARGE_VOCAB = 4194304         # 16 MiB table: over the 4 MiB VMEM budget
+DLRM_VOCAB = 524289          # DLRMConfig default d_emb 128 tables
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM, outside the tensor cores
 REPEATS = 20
 SOURCES = {"group_dataflow": "dataflow.cu", "output_dataflow": "dataflow.cu",
            "fit_dataflow": "dataflow.cu", "fused_stage": "stage.cu",
            "packer": "stage.cu", "vocab_build_chunk": "vocab.cu",
-           "vocab_lookup": "vocab.cu"}
+           "vocab_lookup": "vocab.cu", "embedding_bag": "embedding_bag.cu",
+           "embedding_bag_cached": "embedding_bag.cu"}
 REPLACES = {"group_dataflow": "src/repro/kernels/dataflow.py:367",
             "output_dataflow": "src/repro/kernels/dataflow.py:299",
             "fit_dataflow": "src/repro/kernels/dataflow.py:440",
             "fused_stage": "src/repro/kernels/dataflow.py:93",
             "packer": "src/repro/kernels/dataflow.py:149",
             "vocab_build_chunk": "src/repro/kernels/vocab.py:86",
-            "vocab_lookup": "src/repro/kernels/vocab.py:137"}
+            "vocab_lookup": "src/repro/kernels/vocab.py:137",
+            "embedding_bag": "src/repro/kernels/embedding_bag.py:113",
+            "embedding_bag_cached": "src/repro/kernels/embedding_bag.py:187"}
+# the instance the kernels line reports where the main path fixes one
+PATH_INSTANCE = {"embedding_bag_cached": "two_level_plan"}
 
 
 def emit(obj: dict) -> None:
@@ -85,6 +112,7 @@ def nvidia_smi() -> str:
 def main() -> int:
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -93,8 +121,10 @@ def main() -> int:
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.pipeline import paper_pipeline
     from repro_torch.data.source import Source
+    from repro_torch.etl_runtime import lookahead as la
     from repro_torch.kernels import backend
     from repro_torch.kernels import dataflow as df
+    from repro_torch.kernels import ops as kops
     from repro_torch.models import dlrm
     from repro_torch.session import EtlJob
     from repro_torch.training.train_loop import (LoopConfig, TrainState,
@@ -124,6 +154,8 @@ def main() -> int:
         host = t.compile("cuda", device="cpu")  # the plain versions
         host.fit(iter(fit_chunks))
         states[key] = host.state
+        if key == "III":
+            host_sparse = host(raw)["sparse"]  # packed on the CPU (plain)
     grouped = tmpl.compile("cuda")
     solo = tmpl.compile("cuda", optimize="off")
     off = tmpl.compile("cuda", fuse="off")
@@ -157,8 +189,31 @@ def main() -> int:
         return sum(x.numel() * x.element_size() for x in xs
                    if isinstance(x, torch.Tensor))
 
+    def bag_work(args, got) -> tuple:
+        """Bytes and adds of an embedding bag: ids in, output out, 4 * dim
+        per distinct row read (a gather reads only the rows it needs)."""
+        dim = got[0].shape[1]
+        if len(args) == 2:  # embedding_bag(table, ids)
+            (table, ids), cold = args, None
+            hit = (ids >= 0) & (ids < table.shape[0])
+        else:               # embedding_bag_cached(table, cache, slot, [cold])
+            table, ids, cold = args[0], args[2], (list(args) + [None])[3]
+            hit = (ids >= 0) & (ids < args[1].shape[0])
+        n_rows = int(torch.unique(ids[hit]).numel())
+        n_entries = int(hit.sum())
+        id_bytes = 4 * ids.numel()
+        if cold is not None:
+            fall = (ids < 0) & (cold >= 0) & (cold < table.shape[0])
+            n_rows += int(torch.unique(cold[fall]).numel())
+            n_entries += int(fall.sum())
+            id_bytes += 4 * cold.numel()
+        return (id_bytes + tensor_bytes(got) + 4 * dim * n_rows,
+                n_entries * dim)
+
     def work(kname, fn, args, got) -> tuple:
         """(bytes, operations) the function needs for these inputs."""
+        if kname.startswith("embedding_bag"):
+            return bag_work(args, got)
         if kname == "vocab_lookup":  # a gather reads the rows it needs
             ids, table = args[0], args[1]
             hit = ids[(ids >= 0) & (ids < table.numel())]
@@ -180,24 +235,79 @@ def main() -> int:
             ops += 2 * B * prog.slots[prog.value_slot].width
         return nbytes, ops
 
-    def library_call(kname, args):
-        """One PyTorch call that computes the same function, or None."""
+    def library_calls(kname, args) -> dict:
+        """PyTorch calls that each compute the same function in one call,
+        by form; the kernels line reports the fastest.  Empty if none."""
         if kname == "vocab_build_chunk":
             vals, cap = args
             if bool(((vals < 0) | (vals >= cap)).any()):
-                return None
+                return {}
             idx = vals.long()
             pos = torch.arange(vals.numel(), dtype=torch.int32, device="cuda")
             out = torch.full((cap,), df.ABSENT32, dtype=torch.int32,
                              device="cuda")
             # amin is idempotent: repeating the call recomputes the same table
-            return lambda: out.scatter_reduce_(0, idx, pos, "amin")
+            return {"scatter_reduce_amin":
+                    lambda: out.scatter_reduce_(0, idx, pos, "amin")}
         if kname == "vocab_lookup":
             ids, table, n = args
             resolved = torch.where(table >= 0, table, n)
             idx = ids.long()
-            return lambda: torch.take(resolved, idx)
-        return None
+            return {"take": lambda: torch.take(resolved, idx)}
+        if kname == "embedding_bag" or (kname == "embedding_bag_cached"
+                                        and len(args) == 3):
+            weight, ids = (args[0], args[1]) if len(args) == 2 else args[1:]
+            inp, w = ids.clamp(min=0).long(), (ids >= 0).float()
+            # the valid ids flat, each bag starting at its offset: the same
+            # function with no weights (the ids here are -1 or in range)
+            ok = ids >= 0
+            flat, per_bag = ids[ok].long(), ok.sum(1)
+            offsets = torch.cumsum(per_bag, 0) - per_bag
+            # the weighted form is the same function while no row holds an
+            # inf or a NaN
+            return {"embedding_bag_weighted":
+                    lambda: F.embedding_bag(inp, weight, mode="sum",
+                                            per_sample_weights=w),
+                    "embedding_bag_offsets":
+                    lambda: F.embedding_bag(flat, weight, offsets,
+                                            mode="sum")}
+        return {}
+
+    # ---- the embedding-bag instances ------------------------------------
+    rng = np.random.default_rng(1)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dim = 128
+    prob = (np.arange(DLRM_VOCAB, dtype=np.float64) + 1.0) ** -1.1
+    ids = np.random.default_rng(1234).permutation(DLRM_VOCAB)[rng.choice(
+        DLRM_VOCAB, size=(B, 8), p=prob / prob.sum())].astype(np.int32)
+    ids[rng.random(ids.shape) < 0.1] = -1
+    table = torch.randn(DLRM_VOCAB, dim, generator=gen, device="cuda")
+    uniq = np.unique(ids[ids >= 0])
+    slot_of = np.full(DLRM_VOCAB, -1, np.int64)
+    slot_of[uniq] = np.arange(len(uniq))
+    staged_slot = torch.tensor(np.where(ids >= 0, slot_of[ids.clip(min=0)],
+                                        -1).astype(np.int32), device="cuda")
+    staged_cache = table[torch.tensor(uniq, device="cuda")].contiguous()
+    ids = torch.tensor(ids, device="cuda")
+    la_cfg = la.EmbedCacheConfig(rows=4096, window=4, stage_max=2048,
+                                 tables=tuple(range(26)), refresh=True,
+                                 row_bytes=4 * dim)
+    planner = la.LookaheadPlanner(la_cfg, 26)
+    planner.push(host_sparse[:, :26].numpy().astype(np.int64))
+    _, plan = planner.pop_plan()
+    all_tables = torch.randn(26, DLRM_VOCAB, dim, generator=gen, device="cuda")
+    planned = la.EmbedCache(la_cfg, 26, dim).advance(all_tables,
+                                                     plan.as_payload())
+    # the feature with the most table fall-through: every branch runs
+    feat = int(np.argmax(((plan.slot < 0) & (plan.cold >= 0)).sum(axis=0)))
+    bag_plan = {"feature": feat,
+                "hot": int((plan.slot[:, feat] >= 0).sum()
+                           - (plan.slot[:, feat] >= la_cfg.rows).sum()),
+                "staged": int((plan.slot[:, feat] >= la_cfg.rows).sum()),
+                "fall_through": int(((plan.slot[:, feat] < 0)
+                                     & (plan.cold[:, feat] >= 0)).sum())}
+    if min(bag_plan["hot"], bag_plan["staged"], bag_plan["fall_through"]) <= 0:
+        raise AssertionError(f"plan misses a branch: {bag_plan}")
 
     kernels: dict = {}
     launches = []
@@ -205,6 +315,14 @@ def main() -> int:
         launches += p.dataflow_launches(raw, "apply")
     for p in (grouped, large, off):
         launches += p.dataflow_launches(raw, "fit")
+    launches += [
+        ("embedding_bag", "zipf1.1_nnz8", kops.embedding_bag, (table, ids)),
+        ("embedding_bag_cached", "two_level_plan", kops.embedding_bag_cached,
+         (all_tables[feat], planned["emb_cache"][feat],
+          planned["emb_slot"][:, feat:feat + 1],
+          planned["emb_cold"][:, feat:feat + 1])),
+        ("embedding_bag_cached", "cache_only_staged",
+         kops.embedding_bag_cached, (table, staged_cache, staged_slot))]
     for kname, what, fn, args in launches:
         got = as_tuple(fn(*args))
         want = as_tuple(fn.plain(*args))
@@ -229,20 +347,43 @@ def main() -> int:
         t_ops = ops / FP32_OPS_PER_S * 1e3
         ms = time_ms(lambda: fn(*args))
         plain_ms = time_ms(lambda: fn.plain(*args))
-        lib = library_call(kname, args)
+        lib_ms, lib_err = {}, {}
+        for form, call in library_calls(kname, args).items():
+            lib_ms[form] = time_ms(call)
+            if kname.startswith("embedding_bag"):
+                lib_err[form] = float((call() - got[0]).abs().max())
         rec = {"name": kname, "what": list(what) if isinstance(what, tuple)
                else what, "dtype": str(got[0].dtype).replace("torch.", ""),
                "shape": list(got[0].shape), "bytes": nbytes, "ops": ops,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": time_ms(lib) if lib else None,
+               "library_ms": min(lib_ms.values()) if lib_ms else None,
+               "library_ms_by_form": lib_ms,
+               "library_max_abs_diff": lib_err,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "gbytes_per_s": nbytes / (ms * 1e-3) / 1e9}
         emit({"phase": "parity", **rec})
-        # one entry per kernel: its largest instance on these plans
-        if kname not in kernels or rec["bytes"] > kernels[kname]["bytes"]:
+        # one entry per kernel: the main path's instance where it fixes
+        # one, else the largest instance on these plans
+        path = PATH_INSTANCE.get(kname)
+        if (kname not in kernels or what == path
+                or (kernels[kname]["what"] != path
+                    and rec["bytes"] > kernels[kname]["bytes"])):
             kernels[kname] = rec
     del flush
+    # cached == uncached on the card: the cache-only bag over every
+    # distinct row staged against the plain bag on the same ids
+    cached_out = kops.embedding_bag_cached(table, staged_cache, staged_slot)
+    uncached_out = kops.embedding_bag(table, ids)
+    torch.cuda.synchronize()
+    if not torch.equal(cached_out, uncached_out):
+        raise AssertionError("cached bag != uncached bag on the card")
+    emit({"phase": "bag_equal", "bit_equal": True, "plan": bag_plan,
+          "distinct_rows": len(uniq)})
+    parity_launches = dict(df.LAUNCHES)
+    del (table, staged_cache, staged_slot, ids, all_tables, planned,
+         cached_out, uncached_out)
+    torch.cuda.empty_cache()
     for k in df.LAUNCHES:
         if k not in kernels:
             raise AssertionError(f"kernel {k} was never held against its "
@@ -260,14 +401,41 @@ def main() -> int:
                 np.testing.assert_allclose(g, w, rtol=1e-5,
                                            err_msg=f"{what}/{k}")
 
-    def train_phase(t, cfg, n_batches: int, n_fit: int) -> dict:
-        """EtlJob -> fit -> n_batches DLRM steps; launch counts of the fit
-        and of the training run, each zeroed just before it."""
+    def backward_check(model, batch: dict) -> dict:
+        """Two backward passes of the cached lookup on one planned batch:
+        bit-equal table gradients, equal to the uncached gather's."""
+        n = model.cfg.n_sparse
+        orig = batch["sparse"][:, :n].long()
+        g = torch.randn(orig.shape[0], n, model.cfg.d_emb, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(2))
+
+        def grad(cached: bool):
+            out = (la.cached_embedding_lookup(
+                model.tables, batch["emb_cache"][:n], batch["emb_slot"][:, :n],
+                batch["emb_cold"][:, :n], orig) if cached
+                else model.tables[model._feat, orig])
+            return torch.autograd.grad(out, model.tables, g)[0]
+
+        first = grad(True)
+        repeat = torch.equal(first, grad(True))
+        uncached = torch.equal(first, grad(False))
+        torch.cuda.synchronize()
+        if not (repeat and uncached):
+            raise AssertionError(f"cached backward: repeat equal {repeat}, "
+                                 f"uncached equal {uncached}")
+        return {"bit_equal_repeat": repeat, "bit_equal_uncached": uncached}
+
+    def train_phase(t, cfg, n_batches: int, n_fit: int,
+                    cache_cfg=None) -> dict:
+        """EtlJob -> fit -> n_batches DLRM steps (through the lookahead
+        embedding cache when ``cache_cfg`` is given); launch counts of the
+        fit and of the training run, each zeroed just before it."""
         job = EtlJob(t, Source.synth("I", rows=n_batches * B, batch_size=B,
                                      seed=11),
                      backend="cuda",
                      fit_source=Source.synth("I", rows=n_fit * B,
-                                             batch_size=B))
+                                             batch_size=B),
+                     embed_cache=cache_cfg)
         df.reset_launch_counts()
         t0 = time.perf_counter()
         job.fit()
@@ -279,6 +447,8 @@ def main() -> int:
         tcfg = TrainConfig(lr=1e-3)
         state = TrainState.create(model, tcfg)
         step = make_train_step(dlrm.loss_fn, tcfg)
+        cache = (la.EmbedCache(cache_cfg, cfg.n_sparse, cfg.d_emb)
+                 if cache_cfg else None)
         first: dict = {}
         losses: list = []
 
@@ -293,10 +463,12 @@ def main() -> int:
         with job.batches() as ex:
             state = train_loop(state, tapped_step, ex,
                                LoopConfig(total_steps=n_batches, log_every=1),
-                               on_metrics=lambda m: losses.append(m["loss"]))
+                               on_metrics=lambda m: losses.append(m["loss"]),
+                               embed_cache=cache)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         apply_launches = dict(df.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         stats = job.stats()
         if not (stats.consumed == n_batches == state.step):
             raise AssertionError(f"delivered {stats.consumed}, steps "
@@ -312,11 +484,17 @@ def main() -> int:
                "rows_per_s": n_batches * B / wall,
                "trainer_utilization": stats.trainer_utilization(train_s),
                "consumer_wait_s": stats.consumer_wait_s,
-               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "peak_mem_gb": peak_gb,
                "loss_first": losses[0], "loss_last": losses[-1],
+               "losses": losses,
                "fit_launches": fit_launches, "launches": apply_launches,
                "stages": stats.stage_breakdown()}
-        del state, model, job, first
+        if cache_cfg is not None:
+            out["cache"] = stats.cache.as_dict()
+            out["lookahead_share_of_wall"] = (
+                stats.stages["lookahead"].busy_s / wall)
+            out["backward"] = backward_check(model, first)
+        del state, model, job, first, cache
         torch.cuda.empty_cache()
         return out
 
@@ -327,11 +505,30 @@ def main() -> int:
 
     # ---- main path: EtlJob -> fit -> DLRM training -----------------------
     n_batches, n_fit = 16, 4
-    main = train_phase(tmpl, dlrm.DLRMConfig(vocab_size=524289), n_batches,
+    main = train_phase(tmpl, dlrm.DLRMConfig(vocab_size=DLRM_VOCAB), n_batches,
                        n_fit)
     expect(main["fit_launches"], {"fit_dataflow": n_fit}, "main fit")
     expect(main["launches"], {"group_dataflow": n_batches}, "main apply")
     emit({"phase": "main", **main})
+
+    # ---- lookahead path: EmbedCache + two-level cached bag ---------------
+    look = train_phase(tmpl, dlrm.DLRMConfig(vocab_size=DLRM_VOCAB),
+                       n_batches, n_fit, cache_cfg=la_cfg)
+    expect(look["fit_launches"], {"fit_dataflow": n_fit},
+           "lookahead_main fit")
+    expect(look["launches"], {"group_dataflow": n_batches,
+                              "embedding_bag_cached": 26 * n_batches},
+           "lookahead_main train")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(look["losses"],
+                                                   main["losses"]))
+    look["loss_max_rel_diff_vs_main"] = rel
+    emit({"phase": "lookahead_main", **look})
+    if rel > 1e-6:
+        raise AssertionError(f"lookahead_main losses differ from main's by "
+                             f"{rel} (relative)")
+    c = look["cache"]
+    if min(c["hits"], c["staged"], c["overflow_cold"]) <= 0:
+        raise AssertionError(f"a cache branch never ran: {c}")
 
     # ---- ungrouped path: one output kernel per output --------------------
     job2 = EtlJob(tmpl, Source.synth("I", rows=2 * B, batch_size=B, seed=12),
@@ -409,6 +606,11 @@ def main() -> int:
                      "output_dataflow": solo_launches["output_dataflow"]}
     for k in ("fused_stage", "vocab_build_chunk", "vocab_lookup", "packer"):
         path_launches[k] = staged["fit_launches"][k] + staged["launches"][k]
+    path_launches["embedding_bag_cached"] = \
+        look["launches"]["embedding_bag_cached"]
+    # no driven path runs embedding_bag (in the JAX package only tests and
+    # a benchmark do): its count is the parity phase's
+    path_launches["embedding_bag"] = parity_launches["embedding_bag"]
     out = []
     for name in REPLACES:
         r = kernels[name]
@@ -419,6 +621,8 @@ def main() -> int:
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if name == "embedding_bag":
+            out[-1]["launches_from"] = "parity phase"
     emit({"kernels": out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

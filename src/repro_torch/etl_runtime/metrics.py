@@ -89,6 +89,29 @@ def stats_to_prometheus(stats: RuntimeStats, *, prefix: str = "repro_etl",
         lines.append(f"# TYPE {metric} gauge")
         lines.append(f"{metric}{_fmt_labels(base)} {stats.ingest_rate():.9g}")
 
+    # lookahead embedding-cache accounting, present when the executor ran
+    # with a lookahead config (etl_runtime.lookahead.CacheStats)
+    cache = getattr(stats, "cache", None)
+    if cache is not None:
+        cache_counters = {
+            "embed_cache_lookups_total": cache.lookups,
+            "embed_cache_hits_total": cache.hits,
+            "embed_cache_misses_total": cache.misses,
+            "embed_cache_admitted_rows_total": cache.admitted,
+            "embed_cache_evicted_rows_total": cache.evicted,
+            "embed_cache_staged_rows_total": cache.staged,
+            "embed_cache_overflow_cold_total": cache.overflow_cold,
+            "embed_cache_gather_bytes_saved_total":
+                cache.gather_bytes_saved()}
+        for name in sorted(cache_counters):
+            metric = f"{prefix}_{name}"
+            lines.append(f"# TYPE {metric} counter")
+            lines.append(f"{metric}{_fmt_labels(base)} "
+                         f"{cache_counters[name]:.9g}")
+        metric = f"{prefix}_embed_cache_hit_rate"
+        lines.append(f"# TYPE {metric} gauge")
+        lines.append(f"{metric}{_fmt_labels(base)} {cache.hit_rate():.9g}")
+
     # live knob values (the staging credits; the controller that tunes
     # them in the JAX package is not ported yet)
     knobs = getattr(stats, "knobs", None)

@@ -6,6 +6,8 @@ stop-aware queues (the paper's GPU staging buffers):
   read ──raw──▶ transform ──packed──▶ [order] ──▶ place ──ready──▶ deliver
        credits              credits               credits         (trainer)
 
+(with a lookahead stage: place ──placed──▶ lookahead ──ready──▶ deliver)
+
 Stage names, ``StageStats`` and ``RuntimeStats`` are those of the JAX
 package, so the Prometheus export (``etl_runtime/metrics.py``) is too.
 
@@ -21,6 +23,9 @@ package, so the Prometheus export (``etl_runtime/metrics.py``) is too.
   ``reorder_window`` packed batches and emits them by ascending length key.
 - **place** applies an optional placement hook (identity by default: the
   batch is already on the trainer's device).
+- **lookahead** (``lookahead=EmbedCacheConfig(...)`` only) windows W placed
+  batches, plans the embedding cache's admits and staging on the host, and
+  annotates each delivered batch with its plan (``etl_runtime/lookahead.py``).
 - **deliver** is the consumer side (``__iter__`` / ``get_batch``): the
   consumer's stream waits on the batch's event and records its tensors
   (``transfer.receive``), and trainer starvation time is recorded.
@@ -30,9 +35,8 @@ Backpressure: each queue holds at most ``credits`` items.  Freshness: with
 stage error stops the pipeline and re-raises at the consumer.  Timing goes
 through an injected ``Clock``.
 
-Not ported yet (they raise ``NotImplementedError``): the lookahead
-embedding-cache stage, the knob controller (``autotune`` /
-``adaptive_credits``) and mesh / sharding placement.
+Not ported yet (they raise ``NotImplementedError``): the knob controller
+(``autotune`` / ``adaptive_credits``) and mesh / sharding placement.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from repro_torch.core.semantics import PipelineSemantics
 from repro_torch.data.source import Source
 from repro_torch.etl_runtime import transfer as transfer_lib
 from repro_torch.etl_runtime.clock import SYSTEM_CLOCK, Clock
+from repro_torch.etl_runtime.lookahead import CacheStats, LookaheadStage
 
 
 class _EOS:
@@ -234,6 +239,9 @@ class RuntimeStats:
     # live knob values ({name: value}); exported as gauges by
     # etl_runtime.metrics
     knobs: dict = field(default_factory=dict)
+    # lookahead embedding-cache accounting (etl_runtime.lookahead.CacheStats)
+    # when the executor runs with a lookahead config; None otherwise
+    cache: Optional[CacheStats] = None
 
     def note_delivered(self, arrival: float,
                        now: Optional[float] = None) -> None:
@@ -573,6 +581,14 @@ class StreamingExecutor:
     place : optional placement hook ``packed -> ready``.
     read_timeout_s : straggler bound on the raw queue.
     length_key : fallback batch -> sortable length for bucket_by_length.
+    lookahead : optional ``etl_runtime.lookahead.EmbedCacheConfig``; adds the
+        lookahead stage after **place**: a window of W in-flight envelopes
+        drives per-table hot-set planning and each delivered batch carries
+        its embedding-cache plan (``lookahead.PLAN_KEYS``, host numpy).
+        Cache accounting lands in ``stats.cache``.  With freshness shedding
+        the shed point moves to the placed queue (before planning), so a
+        planned cache update is never dropped — the consumer must apply
+        every delivered plan, in order.
     clock : timing source; defaults to the system clock.
     """
 
@@ -588,9 +604,7 @@ class StreamingExecutor:
         for flag, what in ((mesh is not None or sharding is not None,
                             "mesh/sharding placement"),
                            (bool(adaptive_credits or autotune),
-                            "the knob controller (autotune/adaptive_credits)"),
-                           (lookahead is not None,
-                            "the lookahead embedding-cache stage")):
+                            "the knob controller (autotune/adaptive_credits)")):
             if flag:
                 raise NotImplementedError(f"{what} is not ported yet")
         self.pipeline = pipeline
@@ -614,6 +628,8 @@ class StreamingExecutor:
         names = ["read", "transform", "place", "deliver"]
         if reorder:
             names.insert(2, "order")
+        if lookahead is not None:
+            names.insert(names.index("deliver"), "lookahead")
         for name in names:
             self.stats.stages[name] = StageStats(name)
 
@@ -624,12 +640,20 @@ class StreamingExecutor:
                                      clock=ck)
         self._ready_q = CreditQueue(self.credits, self._stop, "ready",
                                     clock=ck)
+        self._placed_q = (CreditQueue(self.credits, self._stop, "placed",
+                                      clock=ck)
+                          if lookahead is not None else None)
 
         def _on_straggler():
             self.stats.skipped_straggler += 1
 
         def _on_delivered(dropped: int):
             self.stats.produced += 1
+            self.stats.dropped_stale += dropped
+
+        def _on_shed(dropped: int):
+            # place -> placed under lookahead: shedding happens here (before
+            # planning), production is counted at the final ready-queue put
             self.stats.dropped_stale += dropped
 
         def _on_error(exc: BaseException):
@@ -671,10 +695,18 @@ class StreamingExecutor:
                    in_timeout_s=self.read_timeout_s,
                    on_in_timeout=_on_straggler, on_error=_on_error, clock=ck),
             *order_stages,
-            _Stage(self.stats.stages["place"], place_fn,
-                   place_in_q, self._ready_q, drop_oldest=fresh,
-                   on_put=_on_delivered, on_error=_on_error, clock=ck),
+            _Stage(self.stats.stages["place"], place_fn, place_in_q,
+                   self._placed_q if lookahead is not None else self._ready_q,
+                   drop_oldest=fresh,
+                   on_put=_on_shed if lookahead is not None else _on_delivered,
+                   on_error=_on_error, clock=ck),
         ]
+        if lookahead is not None:
+            self.stats.cache = CacheStats(row_bytes=lookahead.row_bytes)
+            self._stages.append(LookaheadStage(
+                self.stats.stages["lookahead"], self._placed_q, self._ready_q,
+                lookahead, cache_stats=self.stats.cache,
+                on_put=_on_delivered, on_error=_on_error, clock=ck))
         self._on_error = _on_error
         self._reader = threading.Thread(target=self._read_loop,
                                         name="etl-read", daemon=True)
@@ -751,7 +783,8 @@ class StreamingExecutor:
         self._stop.set()
         if isinstance(self._source, Source):
             self._source.close()
-        for q in (self._raw_q, self._packed_q, self._sorted_q, self._ready_q):
+        for q in (self._raw_q, self._packed_q, self._sorted_q, self._placed_q,
+                  self._ready_q):
             if q is not None:
                 q.wake()
 

@@ -42,7 +42,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 
 LAUNCHES = {name: 0 for name in (
     "group_dataflow", "output_dataflow", "fit_dataflow", "fused_stage",
-    "packer", "vocab_build_chunk", "vocab_lookup")}
+    "packer", "vocab_build_chunk", "vocab_lookup", "embedding_bag",
+    "embedding_bag_cached")}
 
 
 def reset_launch_counts() -> None:
@@ -145,6 +146,10 @@ def load_library() -> ctypes.CDLL:
         "launch_packer": [ptr, ptr],
         "launch_vocab_build": [ptr, ptr, i32, i32, ptr],
         "launch_vocab_lookup": [ptr, ptr, ptr, i64, i32, i32, ptr],
+        "launch_embedding_bag": [ptr, ptr, i64, ptr, i32, i32, i32, i32, i32,
+                                 ptr],
+        "launch_embedding_bag_cached": [ptr, ptr, ptr, i64, ptr, i64, ptr,
+                                        i32, i32, i32, i32, i32, i32, ptr],
         "dataflow_program_size": [],
         "stage_args_size": [],
         "pack_args_size": [],

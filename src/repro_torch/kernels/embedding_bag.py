@@ -1,0 +1,165 @@
+"""The embedding-bag kernels: sum-pooled embedding lookup, plain and cached.
+
+Counterparts of ``src/repro/kernels/embedding_bag.py``; the CUDA kernels are
+in ``csrc/embedding_bag.cu``.  The TPU kernels cut the table into VMEM-sized
+partitions walked by a sequential grid (``partitions=``) and the batch into
+blocks (``block_batch=``); here the rows are read from device memory where
+they lie, so both arguments are dropped.
+
+- ``embedding_bag`` <- ``embedding_bag`` / ``_gather_kernel`` (l.113 /
+  l.94): ``out[b] = sum_k table[indices[b, k]]``; an index outside
+  ``[0, vocab)`` (the ``-1`` sentinel among them) contributes zero.
+- ``embedding_bag_cached`` <- ``embedding_bag_cached`` (l.187), with
+  ``_cache_gather_kernel`` (l.143) and ``_two_level_kernel`` (l.154): an
+  entry reads ``cache[slot]`` where ``0 <= slot < cache_rows``, else
+  ``table[cold]`` where ``slot < 0`` and ``0 <= cold < vocab``, else zero;
+  ``cold_idx=None`` never reads the table.
+
+Both kernels pool through one routine, summing over ``nnz`` in order, as
+the plain versions (``kernels/ref.py``) do: cached and uncached bags are
+bit-identical when the cache rows mirror the table rows.  Tables are f32
+only (both packages' DLRM keep f32 tables); any other dtype raises.  The
+index arrays are int32 ``[batch, nnz]`` whose rows may be strided (a column
+slice of a wider plan matrix), but each row must be contiguous.
+
+Each function runs its plain version (also reachable as ``fn.plain``) for
+CPU tensors, launches its kernel for CUDA tensors, and raises for anything
+else; ``LAUNCHES[name]`` counts the launches.
+
+``cached_embedding_lookup`` is the differentiable per-feature lookup DLRM
+runs over a lookahead plan (``etl_runtime/lookahead.py``): its forward is
+``embedding_bag_cached``, its backward plain PyTorch, as the JAX package's
+is ``jnp`` outside any kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import backend
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.backend import LAUNCHES
+
+embedding_bag_plain = kref.embedding_bag
+embedding_bag_cached_plain = kref.embedding_bag_cached
+
+
+def _table(x: torch.Tensor, what: str) -> None:
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"{what}: want a float32 [rows, dim] tensor, got "
+                         f"{x.dtype}{list(x.shape)}")
+
+
+def _ids(x: torch.Tensor, device: torch.device, what: str) -> int:
+    """Check an int32 [batch, nnz] index array on ``device`` whose rows are
+    contiguous; return its row stride."""
+    if x.dim() != 2 or x.dtype != torch.int32 or x.device != device:
+        raise ValueError(f"{what}: want int32 [batch, nnz] on {device}, got "
+                         f"{x.dtype}{list(x.shape)} on {x.device}")
+    if x.shape[1] > 1 and x.stride(1) != 1:
+        raise ValueError(f"{what}: each row must be contiguous, strides "
+                         f"{x.stride()}")
+    return x.stride(0)
+
+
+def _aligned(*xs: torch.Tensor) -> int:
+    """1 when the float4 path applies: dim % 4 == 0, 16-byte row bases."""
+    return int(all(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+                   for x in xs))
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """table: f32[vocab, dim], indices: int32[batch, nnz] -> f32[batch, dim]."""
+    _table(table, "embedding_bag table")
+    if backend.on_cpu(indices):
+        return embedding_bag_plain(table, indices)
+    backend.require(table, torch.float32, "embedding_bag table")
+    stride = _ids(indices, table.device, "embedding_bag indices")
+    (batch, nnz), (vocab, dim) = indices.shape, table.shape
+    out = torch.empty(batch, dim, dtype=torch.float32, device=table.device)
+    lib = backend.load_library()
+    backend.check_launch(lib, lib.launch_embedding_bag(
+        table.data_ptr(), indices.data_ptr(), stride, out.data_ptr(), batch,
+        nnz, vocab, dim, _aligned(table), backend.stream_of(table.device)),
+        "embedding_bag", table.device)
+    LAUNCHES["embedding_bag"] += 1
+    return out
+
+
+def embedding_bag_cached(table: torch.Tensor, cache: torch.Tensor,
+                         slot_idx: torch.Tensor,
+                         cold_idx: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """table: f32[vocab, dim], cache: f32[cache_rows, dim], slot_idx and
+    cold_idx: int32[batch, nnz] -> f32[batch, dim]."""
+    _table(table, "embedding_bag_cached table")
+    _table(cache, "embedding_bag_cached cache")
+    if backend.on_cpu(slot_idx):
+        return embedding_bag_cached_plain(table, cache, slot_idx, cold_idx)
+    backend.require(cache, torch.float32, "embedding_bag_cached cache")
+    dev = cache.device
+    slot_stride = _ids(slot_idx, dev, "embedding_bag_cached slot_idx")
+    batch, nnz = slot_idx.shape
+    dim = cache.shape[1]
+    cold_ptr, cold_stride, vec = None, 0, _aligned(cache)
+    if cold_idx is not None:
+        backend.require(table, torch.float32, "embedding_bag_cached table")
+        if cold_idx.shape != slot_idx.shape or table.shape[1] != dim \
+                or table.device != dev:
+            raise ValueError(
+                f"embedding_bag_cached: cold_idx {list(cold_idx.shape)} and "
+                f"table {list(table.shape)} on {table.device} do not match "
+                f"slot_idx {list(slot_idx.shape)} and cache "
+                f"{list(cache.shape)} on {dev}")
+        cold_stride = _ids(cold_idx, dev, "embedding_bag_cached cold_idx")
+        cold_ptr = cold_idx.data_ptr()
+        vec = _aligned(cache, table)
+    out = torch.empty(batch, dim, dtype=torch.float32, device=dev)
+    lib = backend.load_library()
+    backend.check_launch(lib, lib.launch_embedding_bag_cached(
+        cache.data_ptr(), table.data_ptr(), slot_idx.data_ptr(), slot_stride,
+        cold_ptr, cold_stride, out.data_ptr(), batch, nnz, cache.shape[0],
+        table.shape[0], dim, vec, backend.stream_of(dev)),
+        "embedding_bag_cached", dev)
+    LAUNCHES["embedding_bag_cached"] += 1
+    return out
+
+
+embedding_bag.plain = embedding_bag_plain
+embedding_bag_cached.plain = embedding_bag_cached_plain
+
+
+class _CachedLookup(torch.autograd.Function):
+    """Forward: one ``embedding_bag_cached`` call per feature.  Backward:
+    the table gradient through ``kref.scatter_add_rows`` at the original
+    ids — the computation the uncached gather's autograd runs, so the two
+    gradients are bit-equal, and deterministic on CUDA — and none for the
+    cache, whose rows mirror table rows."""
+
+    @staticmethod
+    def forward(ctx, tables, cache, slot, cold, orig):
+        ctx.save_for_backward(orig)
+        ctx.tables_shape = tables.shape
+        outs = [embedding_bag_cached(tables[t], cache[t], slot[:, t:t + 1],
+                                     cold[:, t:t + 1])
+                for t in range(tables.shape[0])]
+        return torch.stack(outs, dim=1)  # (B, T, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        (orig,) = ctx.saved_tensors
+        feat = torch.arange(ctx.tables_shape[0], device=g.device)
+        d_tables = kref.scatter_add_rows(ctx.tables_shape, orig, g, (feat,))
+        return d_tables, None, None, None, None
+
+
+def cached_embedding_lookup(tables: torch.Tensor, cache: torch.Tensor,
+                            slot: torch.Tensor, cold: torch.Tensor,
+                            orig: torch.Tensor) -> torch.Tensor:
+    """Differentiable per-feature cached lookup: ``(B, T)`` single-hot
+    indices against stacked ``tables [T, V, d]`` and ``cache [T, C, d]``,
+    returning ``(B, T, d)``.  ``slot`` / ``cold`` are the lookahead plan's
+    int32 remap, ``orig`` the original row ids (their gradient target)."""
+    return _CachedLookup.apply(tables, cache, slot, cold, orig)

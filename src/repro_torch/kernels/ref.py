@@ -138,6 +138,84 @@ def vocab_lookup_masked(x: torch.Tensor, table: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# embedding bag (DLRM trainer-side hot spot)
+# ---------------------------------------------------------------------------
+#
+# The masking is the Pallas kernels' (``kernels/embedding_bag.py``), where it
+# differs from the JAX ``ref``: an index outside ``[0, vocab)`` and a slot
+# outside ``[0, cache_rows)`` contribute zero (the JAX ``ref`` would
+# clamp-gather them), and a slot ``>= cache_rows`` never falls through to
+# the table.  Rows are pooled over ``nnz`` in order, as the CUDA kernels do.
+
+def _pool(rows: torch.Tensor) -> torch.Tensor:
+    """[batch, nnz, dim] -> [batch, dim], summed over nnz in order (the
+    shared epilogue that makes cached and uncached bags bit-identical)."""
+    out = torch.zeros(rows.shape[0], rows.shape[2], dtype=rows.dtype,
+                      device=rows.device)
+    for k in range(rows.shape[1]):
+        out = out + rows[:, k]
+    return out
+
+
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor,
+                 ok: torch.Tensor) -> torch.Tensor:
+    """table[idx] where ``ok``, zero elsewhere: [batch, nnz, dim]."""
+    rows = table[torch.where(ok, idx, 0).long()]
+    return torch.where(ok[..., None], rows, 0)
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  weights: torch.Tensor = None) -> torch.Tensor:
+    """out[b] = sum_k w[b,k] * table[idx[b,k]]; indices outside
+    ``[0, vocab)`` (the ``-1`` sentinel among them) contribute zero."""
+    ok = (indices >= 0) & (indices < table.shape[0])
+    rows = _gather_rows(table, indices, ok)
+    if weights is not None:
+        rows = rows * weights[..., None].to(rows.dtype)
+    return _pool(rows)
+
+
+def embedding_bag_cached(table: torch.Tensor, cache: torch.Tensor,
+                         slot_idx: torch.Tensor,
+                         cold_idx: torch.Tensor = None) -> torch.Tensor:
+    """Two-level bag: ``cache[slot]`` where ``0 <= slot < cache_rows``, else
+    ``table[cold]`` where ``slot < 0`` and ``0 <= cold < vocab``, else zero.
+    ``cold_idx=None`` never reads the table."""
+    hot = (slot_idx >= 0) & (slot_idx < cache.shape[0])
+    rows = _gather_rows(cache, slot_idx, hot)
+    if cold_idx is not None:
+        cold = (slot_idx < 0) & (cold_idx >= 0) & (cold_idx < table.shape[0])
+        rows = torch.where(cold[..., None],
+                           _gather_rows(table, cold_idx, cold), rows)
+    return _pool(rows)
+
+
+def scatter_add_rows(shape, indices: torch.Tensor, grad: torch.Tensor,
+                     lead: tuple = ()) -> torch.Tensor:
+    """``zeros(shape)`` with each row of ``grad`` added at its row index
+    (dim -2, after the ``lead`` index tensors); indices outside
+    ``[0, shape[-2])`` add nothing.  One ``index_put_(accumulate=True)``:
+    the scatter the gather's autograd runs, deterministic on CUDA (sorted,
+    no float atomics)."""
+    ok = (indices >= 0) & (indices < shape[-2])
+    out = torch.zeros(shape, dtype=grad.dtype, device=grad.device)
+    return out.index_put_((*lead, torch.where(ok, indices, 0).long()),
+                          torch.where(ok[..., None], grad, 0),
+                          accumulate=True)
+
+
+def embedding_bag_grad_table(table_shape, indices: torch.Tensor,
+                             grad_out: torch.Tensor,
+                             weights: torch.Tensor = None) -> torch.Tensor:
+    """Gradient of ``embedding_bag`` with respect to the table
+    (``scatter_add_rows``).  Indices outside ``[0, vocab)`` add nothing."""
+    g = grad_out[:, None, :].expand(-1, indices.shape[1], -1)
+    if weights is not None:
+        g = g * weights[..., None].to(g.dtype)
+    return scatter_add_rows(tuple(table_shape), indices, g)
+
+
+# ---------------------------------------------------------------------------
 # format-aware packer
 # ---------------------------------------------------------------------------
 

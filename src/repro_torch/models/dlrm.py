@@ -9,8 +9,12 @@ Feature interaction = pairwise dots between the bottom-MLP output and every
 embedding vector (upper triangle, in ``torch.triu_indices`` order, which is
 ``jnp.triu_indices`` order), concatenated with the dense vector into the top
 MLP.  Embedding tables are stacked ``(n_sparse, vocab, d_emb)`` as in the JAX
-package; the lookup is its plain per-feature gather (the multi-hot
-``embedding_bag`` kernels are a later slice).
+package.  The lookup is its plain per-feature gather, unless the batch
+carries a lookahead plan (``emb_cache``, from ``EmbedCache.advance``): then
+each feature resolves through the two-level ``embedding_bag_cached`` kernel,
+hot rows from the cache and cold rows from the table, and the backward
+scatter-adds into the tables at the original ids, so the gradient is the
+uncached one bit for bit.
 
 ``params_from_jax`` maps the JAX package's parameter pytree (as numpy
 arrays) to this module's ``state_dict``: JAX's ``x @ w`` stores ``w`` as
@@ -28,6 +32,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.embedding_bag import cached_embedding_lookup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +113,14 @@ class DLRM(nn.Module):
         dense = batch["dense"].to(getattr(torch, cfg.compute_dtype))
         sparse = batch["sparse"][:, :cfg.n_sparse].long()  # drop pad lanes
         bot = self._mlp(self.bot_mlp, dense, final_linear=False)  # (B, d)
-        emb = self.tables[self._feat, sparse].to(bot.dtype)  # (B, F, d)
+        n = cfg.n_sparse
+        if "emb_cache" in batch:
+            emb = cached_embedding_lookup(
+                self.tables, batch["emb_cache"][:n], batch["emb_slot"][:, :n],
+                batch["emb_cold"][:, :n], sparse)
+        else:
+            emb = self.tables[self._feat, sparse]
+        emb = emb.to(bot.dtype)  # (B, F, d)
         z = torch.cat([bot[:, None, :], emb], dim=1)  # (B, F+1, d)
         inter = torch.bmm(z, z.transpose(1, 2))
         pairs = inter[:, self._iu, self._ju]

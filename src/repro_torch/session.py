@@ -25,11 +25,14 @@ The paper's training-aware ETL abstraction ends at the trainer, not at
   columns; the fit read to the (smaller) vocab-fit closure.
 - **overlapped fit ingest**: ``fit()`` reads through ``SourcePrefetcher``.
 - **semantics overrides**: ``freshness=`` / ``ordering=``.
+- **lookahead embedding cache**: ``embed_cache=EmbedCacheConfig(...)`` adds
+  the executor's lookahead stage; pair it with
+  ``train_loop(..., embed_cache=EmbedCache(...))``.
 - **executor lifecycle**: ``batches()`` starts the staged executor and tears
   it down on exit; ``stats()`` exposes its ``RuntimeStats``;
   ``metrics_file`` exports them as Prometheus text on close.
 
-Not ported yet (``NotImplementedError``): ``autotune=``, ``embed_cache=``,
+Not ported yet (``NotImplementedError``): ``autotune=``,
 ``adaptive_credits=True``, ``mesh=`` / ``sharding=``.
 """
 
@@ -66,6 +69,10 @@ class EtlJob:
     freshness, ordering : per-job overrides of the pipeline's semantics.
     credits, read_timeout_s, place, length_key, clock : forwarded to the
         executor (see ``StreamingExecutor``).
+    embed_cache : optional ``etl_runtime.lookahead.EmbedCacheConfig``; adds
+        the lookahead prefetch stage to the executor (rows, window,
+        staging slots, per-table on/off); cache accounting lands in
+        ``stats().cache``.
     rebatch : rebatch the source to the batching policy's ``batch_size``.
     pushdown : when False, skip the automatic column projection.
     metrics_file, metrics_labels : Prometheus-text export on close.
@@ -87,9 +94,6 @@ class EtlJob:
         if autotune or adaptive_credits:
             raise NotImplementedError("the knob controller (autotune / "
                                       "adaptive_credits) is not ported yet")
-        if embed_cache is not None:
-            raise NotImplementedError("the lookahead embedding cache is not "
-                                      "ported yet")
         self._template: Optional[Pipeline] = None
         self._compiled: Optional[CompiledPipeline] = None
         if isinstance(pipeline, Pipeline):
@@ -113,7 +117,7 @@ class EtlJob:
         self._executor_kw = dict(
             credits=credits, read_timeout_s=read_timeout_s, mesh=mesh,
             sharding=sharding, place=place, length_key=length_key,
-            clock=clock)
+            lookahead=embed_cache, clock=clock)
         self._rebatch = rebatch
         self._pushdown = pushdown
         self.metrics_file = metrics_file

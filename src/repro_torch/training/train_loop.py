@@ -58,10 +58,17 @@ class LoopConfig:
 
 
 def train_loop(state: TrainState, step_fn, batches, loop_cfg: LoopConfig,
-               *, device=None, on_metrics=None) -> TrainState:
+               *, device=None, on_metrics=None,
+               embed_cache=None) -> TrainState:
     """Run to ``total_steps`` over ``batches`` (an iterable or a staged
     ``StreamingExecutor``, which is stopped on exit).  ``device`` (default
-    CUDA) must be where the model lives."""
+    CUDA) must be where the model lives.
+
+    ``embed_cache`` threads a ``lookahead.EmbedCache`` alongside the train
+    state: before each step the batch's lookahead plan is applied against
+    the CURRENT embedding tables (``state.model.tables``) so the cached
+    forward reads fresh rows.  Plans must be applied in delivery order —
+    the loop is that order."""
     if loop_cfg.ckpt_dir:
         raise NotImplementedError("checkpointing is not ported yet")
     dev = resolve_device(device)
@@ -76,6 +83,8 @@ def train_loop(state: TrainState, step_fn, batches, loop_cfg: LoopConfig,
         for batch in batches:
             if state.step >= loop_cfg.total_steps:
                 break
+            if embed_cache is not None:
+                batch = embed_cache.advance(state.model.tables, batch)
             ts = time.perf_counter()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])  # waits for the step to finish
@@ -88,6 +97,9 @@ def train_loop(state: TrainState, step_fn, batches, loop_cfg: LoopConfig,
                 if etl_stats is not None:
                     m["etl_starved_s"] = etl_stats.consumer_wait_s
                     m["etl_overlapped_s"] = etl_stats.overlapped_etl_s
+                    cache = getattr(etl_stats, "cache", None)
+                    if cache is not None:
+                        m["emb_cache_hit_rate"] = cache.hit_rate()
                 if on_metrics:
                     on_metrics(m)
                 else:

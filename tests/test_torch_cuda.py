@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card (the dataflow
-kernels and the staged lowering's four), and the stream handoff of the
-executor.  Needs an NVIDIA GPU with nvcc: marked
+kernels, the staged lowering's four and the two embedding bags), cached ==
+uncached bags bit for bit, the cached lookup's deterministic backward, and
+the stream handoff of the executor.  Needs an NVIDIA GPU with nvcc: marked
 ``cuda`` and skipped elsewhere (a CUDA kernel has no interpret mode).
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -14,6 +15,7 @@ torch = pytest.importorskip("torch")
 import torch_parity as tp  # noqa: E402
 from repro_torch.core.pipeline import paper_pipeline  # noqa: E402
 from repro_torch.data.source import Source  # noqa: E402
+from repro_torch.etl_runtime import lookahead as la  # noqa: E402
 from repro_torch.core import operators as ops  # noqa: E402
 from repro_torch.kernels import dataflow as df  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
@@ -67,7 +69,9 @@ def test_kernels_match_plain_versions(card, name, optimize, fuse):
 def _staged_edge_cases(card):
     """(kernel, runner, args) on edge inputs: NaN and negatives through
     Clamp | Log, non-hex and all-zero hex, out-of-range build values and
-    lookup ids, float -> int packing."""
+    lookup ids, float -> int packing; embedding bags with -1 and >= vocab
+    ids, slots >= cache_rows, the float4 (dim 128) and scalar (dim 13)
+    paths, the cache-only variant and row-strided plan columns."""
     rng = np.random.default_rng(3)
     x = (rng.normal(size=(777, 13)) * 10).astype(np.float32)
     x[rng.random(x.shape) < 0.1] = np.nan
@@ -90,16 +94,31 @@ def _staged_edge_cases(card):
                               in_dtype=np.float32, out_dtype=np.float32)
     pack_i = kops.packer([13, 3], [np.float32] * 2, np.int32, pad_cols_to=32)
     pack_f = kops.packer([13, 3], [np.float32] * 2, np.float32, pad_cols_to=8)
+    tbl = rng.normal(size=(5000, 128)).astype(np.float32)
+    tbl13 = np.ascontiguousarray(tbl[:, :13])
+    cache = rng.normal(size=(300, 128)).astype(np.float32)
+    bag_ids = rng.integers(-1, 5003, size=(777, 8)).astype(np.int32)
+    slots = rng.integers(-150, 303, size=(777, 8)).astype(np.int32)
+    plan_slot = t(rng.integers(-100, 300, size=(777, 26)).astype(np.int32))
+    plan_cold = t(rng.integers(-1, 5000, size=(777, 26)).astype(np.int32))
     return [("fused_stage", dense, [t(x)]),
             ("fused_stage", sparse, [t(hexes)]),
             ("fused_stage", bucket, [t(np.nan_to_num(x))]),
             ("vocab_build_chunk", kops.vocab_build_chunk, [t(vals), 65536]),
             ("vocab_lookup", kops.vocab_lookup, [t(ids), t(table), 4321]),
             ("packer", pack_i, [t(b) for b in blocks]),
-            ("packer", pack_f, [t(b) for b in blocks])]
+            ("packer", pack_f, [t(b) for b in blocks]),
+            ("embedding_bag", kops.embedding_bag, [t(tbl), t(bag_ids)]),
+            ("embedding_bag", kops.embedding_bag, [t(tbl13), t(bag_ids)]),
+            ("embedding_bag_cached", kops.embedding_bag_cached,
+             [t(tbl), t(cache), t(slots), t(bag_ids)]),
+            ("embedding_bag_cached", kops.embedding_bag_cached,
+             [t(tbl), t(cache), t(slots)]),
+            ("embedding_bag_cached", kops.embedding_bag_cached,
+             [t(tbl), t(cache), plan_slot[:, 3:4], plan_cold[:, 3:4]])]
 
 
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", range(12))
 def test_staged_kernels_on_edge_inputs(card, case):
     kname, fn, args = _staged_edge_cases(card)[case]
     before = df.LAUNCHES[kname]
@@ -108,6 +127,89 @@ def test_staged_kernels_on_edge_inputs(card, case):
     want = fn.plain(*args)
     torch.cuda.synchronize()
     _check(got, want, f"{kname}/{case}")
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_cached_bag_bit_equal_to_uncached(card, staged):
+    """Cache rows that mirror the table rows the remap assigned give the
+    uncached bag's output bit for bit (one pooling routine)."""
+    rng = np.random.default_rng(5)
+    tbl = torch.tensor(rng.normal(size=(20000, 128)).astype(np.float32),
+                       device=card)
+    idx = rng.integers(0, 20000, size=(4096, 8)).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.1] = -1
+    rows = (np.unique(idx[idx >= 0]) if staged
+            else rng.choice(20000, size=512, replace=False))
+    slot_of = np.full(20000, -1, np.int64)
+    slot_of[rows] = np.arange(len(rows))
+    slot = np.where(idx >= 0, slot_of[idx.clip(min=0)], -1).astype(np.int32)
+    cold = None if staged else torch.tensor(
+        np.where(slot < 0, idx, -1).astype(np.int32), device=card)
+    cache = tbl[torch.tensor(rows, device=card)].contiguous()
+    got = kops.embedding_bag_cached(tbl, cache, torch.tensor(slot, device=card),
+                                    cold)
+    want = kops.embedding_bag(tbl, torch.tensor(idx, device=card))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_cached_lookup_backward_is_deterministic(card):
+    """Two backward passes of the cached lookup give bit-equal table
+    gradients, equal to the uncached gather's."""
+    rng = np.random.default_rng(6)
+    n_t, vocab, dim, batch = 4, 30000, 128, 8192
+    cfg = la.EmbedCacheConfig(rows=256, window=1, stage_max=512)
+    orig = (rng.zipf(1.2, size=(batch, n_t)) % vocab).astype(np.int32)
+    planner = la.LookaheadPlanner(cfg, n_t)
+    planner.push(orig)
+    _, plan = planner.pop_plan()
+    tables = torch.tensor(rng.normal(size=(n_t, vocab, dim)).astype(
+        np.float32), device=card, requires_grad=True)
+    b = la.EmbedCache(cfg, n_t, dim, device=card).advance(tables,
+                                                          plan.as_payload())
+    o = torch.tensor(orig, device=card)
+    g = torch.tensor(rng.normal(size=(batch, n_t, dim)).astype(np.float32),
+                     device=card)
+    grads = []
+    for _ in range(2):
+        out = la.cached_embedding_lookup(tables, b["emb_cache"], b["emb_slot"],
+                                         b["emb_cold"], o)
+        grads.append(torch.autograd.grad(out, tables, g)[0])
+    plain = torch.autograd.grad(
+        tables[torch.arange(n_t, device=card), o.long()], tables, g)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(out, tables.detach()[torch.arange(n_t, device=card),
+                                            o.long()])
+    assert torch.equal(grads[0], grads[1])
+    assert torch.equal(grads[0], plain)
+
+
+def test_lookahead_stage_reads_cuda_payloads(card):
+    """The stage waits on each batch's transform event before it copies the
+    planned columns (not a contiguous range here) to the host: its plans
+    equal a planner fed with the directly applied batches."""
+    tmpl = paper_pipeline("III", batch_size=512, **tp.SMALL)
+    cfg = la.EmbedCacheConfig(rows=64, window=2, stage_max=32,
+                              tables=(0, 3, 7, 25))
+    job = EtlJob(tmpl, Source.synth("I", rows=6 * 512, batch_size=512,
+                                    seed=4),
+                 backend="cuda", device=card, embed_cache=cfg,
+                 fit_source=Source.synth("I", rows=2000, batch_size=1000))
+    job.fit()
+    with job.batches() as ex:
+        got = [b["emb_slot"] for b in ex]
+    planner = la.LookaheadPlanner(cfg, 4)
+    want = []
+    for raw in Source.synth("I", rows=6 * 512, batch_size=512, seed=4):
+        planner.push(job.apply(raw)["sparse"][:, [0, 3, 7, 25]].cpu().numpy()
+                     .astype(np.int64))
+        if planner.window_depth() >= cfg.window:
+            want.append(planner.pop_plan()[1].slot)
+    while planner.window_depth():
+        want.append(planner.pop_plan()[1].slot)
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_executor_stream_handoff_matches_direct_apply(card):

@@ -1,0 +1,162 @@
+"""The embedding-bag kernels of ``repro_torch`` against the JAX package.
+
+Each plain version (``embedding_bag``, ``embedding_bag_cached``, the table
+gradient) against the JAX Pallas kernel in interpret mode (or the JAX
+``ref`` for the gradient, which has no kernel), on seeded numpy inputs at
+the shapes of ``tests/test_kernels.py``: ragged batches, ``-1`` sentinels,
+``partitions`` 1 and 4 on the JAX side, the two-level and the cache-only
+variant, and the masking edges (an index ``>= vocab``, a slot
+``>= cache_rows``).  Floats by the reference's policy (rtol 1e-5: the two
+packages may sum over ``nnz`` in another order); inside the port, cached and
+uncached bags are bit-equal.  The CUDA kernels are held against these plain
+versions on the card (tests/test_torch_cuda.py and chip_smoke.py)."""
+
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch_parity as tp  # noqa: E402
+from repro.kernels import embedding_bag as rbag  # noqa: E402
+from repro.kernels import ops as rkops  # noqa: E402
+from repro.kernels import ref as rref  # noqa: E402
+from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+
+
+def _rng(*key) -> np.random.Generator:
+    return np.random.default_rng([13, zlib.crc32(repr(key).encode())])
+
+
+def _bag(rng, vocab, dim, batch, nnz, sentinels=0.0):
+    tbl = rng.normal(size=(vocab, dim)).astype(np.float32)
+    idx = rng.integers(0, vocab, size=(batch, nnz)).astype(np.int32)
+    idx[rng.random(idx.shape) < sentinels] = -1
+    return tbl, idx
+
+
+def _t(*xs):
+    return [None if x is None else torch.tensor(x) for x in xs]
+
+
+@pytest.mark.parametrize("vocab,dim,batch,nnz,parts", [
+    (64, 16, 33, 5, 4), (128, 32, 8, 1, 1), (256, 8, 100, 7, 8),
+    (67, 12, 50, 4, 4), (100, 12, 50, 4, 8), (33, 12, 50, 4, 1)])
+def test_embedding_bag_matches_pallas(vocab, dim, batch, nnz, parts):
+    tbl, idx = _bag(_rng(vocab, dim, batch), vocab, dim, batch, nnz)
+    want = rkops.embedding_bag(jnp.asarray(tbl), jnp.asarray(idx),
+                               partitions=parts, interpret=True)
+    tp.assert_match(want, kops.embedding_bag(*_t(tbl, idx)), "embedding_bag")
+
+
+@pytest.mark.parametrize("batch,nnz,block_batch", [
+    (33, 5, 8), (7, 1, 128), (129, 3, 128)])
+def test_embedding_bag_sentinels_and_ragged_batch(batch, nnz, block_batch):
+    tbl, idx = _bag(_rng(batch, nnz), 90, 16, batch, nnz, sentinels=0.3)
+    idx[0, :] = -1  # an entirely empty bag pools to the zero vector
+    want = rbag.embedding_bag(jnp.asarray(tbl), jnp.asarray(idx),
+                              partitions=3, block_batch=block_batch,
+                              interpret=True)
+    got = kops.embedding_bag(*_t(tbl, idx))
+    assert got.shape == (batch, 16)
+    tp.assert_match(want, got, "embedding_bag")
+    assert torch.equal(got[0], torch.zeros(16))
+
+
+def _plan(rng, tbl, idx, staged: bool, cache_rows: int = 32):
+    """(cache, slot, cold) whose cache rows mirror the table rows the remap
+    assigned: every distinct row staged (cold None), or a random hot set."""
+    vocab = tbl.shape[0]
+    rows = (np.unique(idx[idx >= 0]) if staged
+            else rng.choice(vocab, size=cache_rows, replace=False))
+    slot_of = np.full(vocab, -1, np.int64)
+    slot_of[rows] = np.arange(len(rows))
+    slot = np.where(idx >= 0, slot_of[idx.clip(min=0)], -1).astype(np.int32)
+    cold = None if staged else np.where(slot < 0, idx, -1).astype(np.int32)
+    return tbl[rows], slot, cold
+
+
+@pytest.mark.parametrize("parts", [1, 4])
+@pytest.mark.parametrize("staged", [False, True])
+def test_cached_matches_pallas_and_equals_uncached(parts, staged):
+    rng = _rng(parts, staged)
+    tbl, idx = _bag(rng, 150, 8, 40, 6, sentinels=0.1)
+    cache, slot, cold = _plan(rng, tbl, idx, staged)
+    want = rkops.embedding_bag_cached(
+        jnp.asarray(tbl), jnp.asarray(cache), jnp.asarray(slot),
+        None if cold is None else jnp.asarray(cold), partitions=parts,
+        interpret=True)
+    got = kops.embedding_bag_cached(*_t(tbl, cache, slot, cold))
+    tp.assert_match(want, got, "embedding_bag_cached")
+    # inside the port: bit-identical to the uncached bag
+    assert torch.equal(got, kops.embedding_bag(*_t(tbl, idx)))
+
+
+def test_masking_edges_match_pallas():
+    """An index >= vocab contributes zero; a slot >= cache_rows contributes
+    zero and never falls through to the table (the Pallas kernels' rule)."""
+    rng = _rng("edges")
+    vocab, dim, cache_rows = 40, 8, 6
+    tbl, idx = _bag(rng, vocab, dim, 30, 3)
+    idx[::3, 0] = vocab + 7
+    idx[1::3, 1] = -1
+    want = rkops.embedding_bag(jnp.asarray(tbl), jnp.asarray(idx),
+                               partitions=2, interpret=True)
+    tp.assert_match(want, kops.embedding_bag(*_t(tbl, idx)), "bag edges")
+    cache = rng.normal(size=(cache_rows, dim)).astype(np.float32)
+    slot = rng.integers(-1, cache_rows + 4, size=idx.shape).astype(np.int32)
+    cold = idx.copy()
+    for c in (cold, None):
+        want = rkops.embedding_bag_cached(
+            jnp.asarray(tbl), jnp.asarray(cache), jnp.asarray(slot),
+            None if c is None else jnp.asarray(c), partitions=2,
+            interpret=True)
+        got = kops.embedding_bag_cached(*_t(tbl, cache, slot, c))
+        tp.assert_match(want, got, f"cached edges, cold={c is not None}")
+    # a slot past the cache with a valid cold id still contributes zero
+    one = kops.embedding_bag_cached(*_t(tbl, cache, np.full((1, 1), 99, np.int32),
+                                        np.zeros((1, 1), np.int32)))
+    assert torch.equal(one, torch.zeros(1, dim))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_weighted_bag_and_table_gradient_match_jax_ref(weighted):
+    rng = _rng("grad", weighted)
+    tbl, idx = _bag(rng, 70, 12, 25, 4)
+    g = rng.normal(size=(25, 12)).astype(np.float32)
+    w = rng.random(size=idx.shape).astype(np.float32) if weighted else None
+    jw = None if w is None else jnp.asarray(w)
+    tw = None if w is None else torch.tensor(w)
+    tp.assert_match(rref.embedding_bag(jnp.asarray(tbl), jnp.asarray(idx), jw),
+                    kref.embedding_bag(*_t(tbl, idx), tw), "weighted bag")
+    want = rref.embedding_bag_grad_table(tbl.shape, jnp.asarray(idx),
+                                         jnp.asarray(g), jw)
+    got = kref.embedding_bag_grad_table(tbl.shape, *_t(idx, g), tw)
+    tp.assert_match(want, got, "grad table")
+    # the gradient is autograd's through the plain bag
+    t = torch.tensor(tbl, requires_grad=True)
+    (auto,) = torch.autograd.grad(kref.embedding_bag(t, torch.tensor(idx), tw),
+                                  t, torch.tensor(g))
+    torch.testing.assert_close(got, auto, rtol=1e-6, atol=1e-6)
+
+
+def test_wrappers_route_by_device_and_refuse_other_dtypes():
+    tbl, idx = _bag(_rng("route"), 20, 8, 5, 2)
+    before = dict(backend.LAUNCHES)
+    kops.embedding_bag(*_t(tbl, idx))
+    kops.embedding_bag_cached(*_t(tbl, tbl, idx, idx))
+    assert backend.LAUNCHES == before  # CPU tensors: plain versions only
+    with pytest.raises(ValueError, match="float32"):
+        kops.embedding_bag(torch.tensor(tbl).bfloat16(), torch.tensor(idx))
+    with pytest.raises(ValueError, match="float32"):
+        kops.embedding_bag_cached(torch.tensor(tbl), torch.tensor(tbl).half(),
+                                  torch.tensor(idx))
+    meta = torch.empty(5, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        kops.embedding_bag(torch.tensor(tbl), meta)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        kops.embedding_bag_cached(torch.tensor(tbl), torch.tensor(tbl), meta)

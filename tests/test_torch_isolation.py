@@ -99,8 +99,7 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
 def test_unported_options_raise():
     tmpl = paper_pipeline("II", small_vocab=2048)
     src = Source.synth("I", rows=10, batch_size=10)
-    for kw in ({"autotune": True}, {"adaptive_credits": True},
-               {"embed_cache": object()}):
+    for kw in ({"autotune": True}, {"adaptive_credits": True}):
         with pytest.raises(NotImplementedError):
             EtlJob(tmpl, src, backend="cuda", device="cpu", **kw)
     job = EtlJob(tmpl, src, backend="cuda", device="cpu", mesh=object())
