@@ -10,13 +10,24 @@ Phases, one JSON line each; any failure exits non-zero:
                  for sm_90a, one nvcc per source, all at once (into
                  ``build/repro_torch/``), and load the library.
 3. parity      — every kernel against its plain PyTorch version on the card
-                 (integers bit-equal, floats rtol 1e-5), with its time (CUDA
-                 events, L2 flushed before each launch) beside the plain
-                 version's, the fastest single PyTorch library call that
-                 computes the same function where there is one (for the
-                 bags both F.embedding_bag forms: 0/1 per-sample weights
-                 over clamped ids, and the valid ids flat with offsets),
-                 and the bytes/operations bound.  Inputs:
+                 (integers bit-equal, floats rtol 1e-5, the bags bit-equal),
+                 with three readings of each call (DeviceTimer): ``ms``, the
+                 device time with the L2 flushed before each launch (a
+                 calibrated spin keeps the device busy while the host
+                 enqueues the flush and the call, so the CUDA events
+                 bracket device work only), ``ms_enqueued`` (flush, event,
+                 call, event: the reading of earlier versions of this
+                 script, which holds the host's enqueue whenever it outlasts
+                 the flush) and ``host_us`` (the median host time of one
+                 call), and ``ahead_share``, the share of device readings
+                 the host stayed ahead for: a kernel below 0.5 fails the
+                 phase (its ``ms`` would hold host time).  Beside the
+                 kernel: the plain version's and the fastest single
+                 PyTorch library call's device time where there is one,
+                 each with its ``ahead_share`` (a plain version that
+                 synchronises inside has 0, and its time holds host work) (for the bags both F.embedding_bag forms: 0/1
+                 per-sample weights over clamped ids, and the valid ids flat
+                 with offsets), and the bytes/operations bound.  Inputs:
                  one 65536-row synthetic Criteo batch through Pipeline III at
                  vocab 524288 (grouped, optimize="off" and fuse="off" plans)
                  and at vocab 4194304 (its 16 MiB table is HBM-placed, so
@@ -25,12 +36,16 @@ Phases, one JSON line each; any failure exits non-zero:
                  so no kernel runs before it meets its plain version.  The
                  embedding bags at vocab 524289, dim 128: embedding_bag on
                  65536 x 8 Zipf(1.1) ids with 10 % -1 (the reference
-                 bench_embed_cache.py's law and nnz), the two-level
-                 embedding_bag_cached on one feature of a real lookahead
-                 plan (the port's planner on the batch above, the
-                 lookahead_main config), and the cache-only variant on the
-                 first instance's ids with every distinct row staged, which
-                 must equal the first instance's output bit for bit.
+                 bench_embed_cache.py's law and nnz); embedding_bag_cached
+                 on a real lookahead plan (the port's planner on the batch
+                 above, the lookahead_main config) stacked over its 26
+                 features in one launch, as the main path runs it, and on
+                 one feature of it (two levels, nnz 1); and the cache-only
+                 variant on the first instance's ids with every distinct row
+                 staged, which must equal the first instance's output bit
+                 for bit.  The stacked launch must also equal the 26
+                 single-feature launches stacked, bit for bit, and both are
+                 timed.
 4. main        — EtlJob(Pipeline III, Source.synth("I"), backend="cuda") ->
                  fit (one fit launch per chunk) -> 16 DLRM training steps at
                  DLRMConfig(vocab_size=524289) (1.75 B parameters; one group
@@ -40,12 +55,12 @@ Phases, one JSON line each; any failure exits non-zero:
                  embed_cache=EmbedCacheConfig(rows=4096, window=4,
                  stage_max=2048, tables=range(26), refresh=True) and
                  train_loop(embed_cache=EmbedCache(...)): every step resolves
-                 each of the 26 features through one embedding_bag_cached
-                 launch.  Its 16 losses must be within rtol 1e-6 of main's;
-                 cache hits, staged rows and table fall-through all > 0; two
-                 backward passes of the cached lookup on the first planned
-                 batch give bit-equal table gradients, equal to the uncached
-                 gather's.
+                 its 26 features through one embedding_bag_cached launch,
+                 which writes the (B, 26, 128) embeddings in place.  Its 16
+                 losses must be within rtol 1e-6 of main's; cache hits,
+                 staged rows and table fall-through all > 0; two backward
+                 passes of the cached lookup on the first planned batch give
+                 bit-equal table gradients, equal to the uncached gather's.
 6. ungrouped   — the same pipeline with optimize="off" on two batches:
                  three output launches per batch.
 7. staged_main — the large-vocabulary path: Pipeline III at vocab 4194304
@@ -62,6 +77,16 @@ Phases, one JSON line each; any failure exits non-zero:
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.
+
+    python3 chip_smoke.py --wrappers DIR
+
+builds the parity phase's instances from the checkout at DIR (its
+``src/repro_torch``, built there) and times each instance's kernel wrapper
+with the same timer, skipping a wrapper the checkout lacks, then the
+forward of ``cached_embedding_lookup`` over the same lookahead plan: no
+plain versions, library calls or paths.  One JSON line each, with the
+launches per call and a checksum of the output, so two checkouts (a parent
+and its change) compare in one process each, on one card.
 """
 
 from __future__ import annotations
@@ -80,6 +105,7 @@ DLRM_VOCAB = 524289          # DLRMConfig default d_emb 128 tables
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM, outside the tensor cores
 REPEATS = 20
+AHEAD_FLOOR = 0.5  # least ahead_share a kernel's device reading may have
 SOURCES = {"group_dataflow": "dataflow.cu", "output_dataflow": "dataflow.cu",
            "fit_dataflow": "dataflow.cu", "fused_stage": "stage.cu",
            "packer": "stage.cu", "vocab_build_chunk": "vocab.cu",
@@ -95,7 +121,7 @@ REPLACES = {"group_dataflow": "src/repro/kernels/dataflow.py:367",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:113",
             "embedding_bag_cached": "src/repro/kernels/embedding_bag.py:187"}
 # the instance the kernels line reports where the main path fixes one
-PATH_INSTANCE = {"embedding_bag_cached": "two_level_plan"}
+PATH_INSTANCE = {"embedding_bag_cached": "stacked_plan"}
 
 
 def emit(obj: dict) -> None:
@@ -109,7 +135,85 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else ""
 
 
-def main() -> int:
+class DeviceTimer:
+    """Three readings of a call ``fn()``, each launch with a cold L2 (a
+    64 MiB buffer zeroed before it), as after an H2D copy:
+
+    - ``ms``: device time.  Before each launch the stream runs a spin
+      (``torch.cuda._sleep``) long enough to cover the host's enqueue of the
+      flush and of ``fn``; an event recorded after the spin must still be
+      pending when the host has enqueued the closing event, else the reading
+      is dropped and the spin doubled.  ``ahead_share`` is the share of
+      readings kept; if none is, ``ms`` is the mean of all of them and
+      holds host time (the parity phase fails a kernel below
+      ``AHEAD_FLOOR`` and records the share of every plain version and
+      library call beside its time).
+    - ``ms_enqueued``: flush, event, ``fn``, event, with no spin, as the
+      earlier versions of this script timed: the host's enqueue of ``fn``
+      falls inside it whenever it outlasts the flush.
+    - ``host_us``: the median host time of one call, synchronised before
+      the call, not after.
+    """
+
+    def __init__(self):
+        import torch
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        self.ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e0, e1 = self.ev[:2]
+        torch.cuda._sleep(1000)
+        e0.record()
+        torch.cuda._sleep(10 ** 7)
+        e1.record()
+        torch.cuda.synchronize()
+        self.cycles_per_ms = 10 ** 7 / e0.elapsed_time(e1)
+
+    def __call__(self, fn) -> dict:
+        torch = self.torch
+        spun, e0, e1 = self.ev
+        for _ in range(3):
+            fn()
+        host = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append(time.perf_counter() - t0)
+        spin_ms = max(0.2, 2e3 * max(host))
+        kept, dropped = [], []
+        for _ in range(2 * REPEATS):
+            torch.cuda._sleep(int(spin_ms * self.cycles_per_ms))
+            spun.record()
+            self.flush.zero_()
+            e0.record()
+            fn()
+            e1.record()
+            ahead = not spun.query()  # the device still spun
+            torch.cuda.synchronize()
+            (kept if ahead else dropped).append(e0.elapsed_time(e1))
+            if len(kept) == REPEATS:
+                break
+            if not ahead:
+                spin_ms = min(2 * spin_ms, 50.0)
+        enqueued = []
+        for _ in range(REPEATS):
+            self.flush.zero_()
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            enqueued.append(e0.elapsed_time(e1))
+        device = kept or dropped
+        host.sort()
+        return {"ms": sum(device) / len(device),
+                "ms_enqueued": sum(enqueued) / REPEATS,
+                "host_us": host[REPEATS // 2] * 1e6,
+                "ahead_share": len(kept) / (len(kept) + len(dropped))}
+
+
+def main(root: str = HERE, time_only: bool = False) -> int:
+    """The phases above; with ``time_only`` (``--wrappers``), only the
+    timing of the parity instances' wrappers of the checkout at ``root``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -117,13 +221,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(HERE, "src"))
+    sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.pipeline import paper_pipeline
     from repro_torch.data.source import Source
     from repro_torch.etl_runtime import lookahead as la
     from repro_torch.kernels import backend
     from repro_torch.kernels import dataflow as df
+    from repro_torch.kernels import embedding_bag as kbag
     from repro_torch.kernels import ops as kops
     from repro_torch.models import dlrm
     from repro_torch.session import EtlJob
@@ -135,13 +240,14 @@ def main() -> int:
     smi = nvidia_smi()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "count": torch.cuda.device_count(),
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "checkout": root})
 
     # ---- build ----------------------------------------------------------
     t0 = time.perf_counter()
     lib_path = backend.build_library(verbose=True)
     backend.load_library()
-    emit({"phase": "build", "library": os.path.relpath(lib_path, HERE),
+    emit({"phase": "build", "library": os.path.relpath(lib_path, root),
           "seconds": time.perf_counter() - t0})
 
     # ---- parity + timing at full size ----------------------------------
@@ -165,22 +271,7 @@ def main() -> int:
     large.state = states["large"]
     if large.lowering_report()["sparse"]["path"] != "staged":
         raise AssertionError(f"vocab {LARGE_VOCAB}: {large.lowering_report()}")
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-
-    def time_ms(fn) -> float:
-        for _ in range(3):
-            fn()
-        total = 0.0
-        for _ in range(REPEATS):
-            flush.zero_()  # launch with a cold 50 MB L2, as after an H2D copy
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            torch.cuda.synchronize()
-            total += e0.elapsed_time(e1)
-        return total / REPEATS
+    timer = DeviceTimer()
 
     def as_tuple(x):
         return x if isinstance(x, tuple) else (x,)
@@ -192,7 +283,19 @@ def main() -> int:
     def bag_work(args, got) -> tuple:
         """Bytes and adds of an embedding bag: ids in, output out, 4 * dim
         per distinct row read (a gather reads only the rows it needs)."""
-        dim = got[0].shape[1]
+        dim = got[0].shape[-1]
+        if args[0].dim() == 3:  # stacked: a row is a (feature, row) pair
+            tables, cache, slot, cold = args
+            feat = torch.arange(slot.shape[1], device=slot.device)
+            feat = feat.expand_as(slot).long()
+            hit = (slot >= 0) & (slot < cache.shape[1])
+            fall = (slot < 0) & (cold >= 0) & (cold < tables.shape[1])
+            n_rows = int(torch.unique(feat[hit] * cache.shape[1]
+                                      + slot[hit]).numel())
+            n_rows += int(torch.unique(feat[fall] * tables.shape[1]
+                                       + cold[fall]).numel())
+            return (4 * (slot.numel() + cold.numel()) + tensor_bytes(got)
+                    + 4 * dim * n_rows, int(hit.sum() + fall.sum()) * dim)
         if len(args) == 2:  # embedding_bag(table, ids)
             (table, ids), cold = args, None
             hit = (ids >= 0) & (ids < table.shape[0])
@@ -309,7 +412,10 @@ def main() -> int:
     if min(bag_plan["hot"], bag_plan["staged"], bag_plan["fall_through"]) <= 0:
         raise AssertionError(f"plan misses a branch: {bag_plan}")
 
+    # None in a checkout from before the stacked launch (--wrappers skips it)
+    stacked = getattr(kbag, "_stacked_cached_bag", None)
     kernels: dict = {}
+    chosen: dict = {}  # the kernels line's instance: (args, output)
     launches = []
     for p in (grouped, solo, large, off):
         launches += p.dataflow_launches(raw, "apply")
@@ -317,12 +423,27 @@ def main() -> int:
         launches += p.dataflow_launches(raw, "fit")
     launches += [
         ("embedding_bag", "zipf1.1_nnz8", kops.embedding_bag, (table, ids)),
+        ("embedding_bag_cached", "stacked_plan", stacked,
+         (all_tables, planned["emb_cache"], planned["emb_slot"],
+          planned["emb_cold"])),
         ("embedding_bag_cached", "two_level_plan", kops.embedding_bag_cached,
          (all_tables[feat], planned["emb_cache"][feat],
           planned["emb_slot"][:, feat:feat + 1],
           planned["emb_cold"][:, feat:feat + 1])),
         ("embedding_bag_cached", "cache_only_staged",
          kops.embedding_bag_cached, (table, staged_cache, staged_slot))]
+    if time_only:
+        look_args = (all_tables, planned["emb_cache"], planned["emb_slot"],
+                     planned["emb_cold"], host_sparse[:, :26].long().to("cuda"))
+
+        def lookup_forward():
+            with torch.no_grad():
+                return la.cached_embedding_lookup(*look_args)
+
+        calls = [(k, w, (lambda f=f, a=a: f(*a))) for k, w, f, a in launches
+                 if f is not None]
+        calls.append(("cached_embedding_lookup", "forward", lookup_forward))
+        return time_wrappers(root, timer, calls, backend.LAUNCHES)
     for kname, what, fn, args in launches:
         got = as_tuple(fn(*args))
         want = as_tuple(fn.plain(*args))
@@ -342,26 +463,38 @@ def main() -> int:
                 bad = int((g != w).sum())
                 raise AssertionError(f"{kname}/{what}: {bad} integer "
                                      "entries differ from the plain version")
+        if kname.startswith("embedding_bag") and not all(
+                torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{kname}/{what}: not bit-equal to the "
+                                 "plain version")
         nbytes, ops = work(kname, fn, args, got)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
-        ms = time_ms(lambda: fn(*args))
-        plain_ms = time_ms(lambda: fn.plain(*args))
-        lib_ms, lib_err = {}, {}
+        kernel_t = timer(lambda: fn(*args))
+        if kernel_t["ahead_share"] < AHEAD_FLOOR:
+            raise AssertionError(f"{kname}/{what}: the host was ahead for "
+                                 f"{kernel_t['ahead_share']} of the device "
+                                 f"readings, below {AHEAD_FLOOR}")
+        plain_t = timer(lambda: fn.plain(*args))
+        lib_t, lib_err = {}, {}
         for form, call in library_calls(kname, args).items():
-            lib_ms[form] = time_ms(call)
+            t = timer(call)
+            lib_t[form] = {"ms": t["ms"], "ahead_share": t["ahead_share"]}
             if kname.startswith("embedding_bag"):
                 lib_err[form] = float((call() - got[0]).abs().max())
+        bound_ms = max(t_bytes, t_ops)
         rec = {"name": kname, "what": list(what) if isinstance(what, tuple)
                else what, "dtype": str(got[0].dtype).replace("torch.", ""),
                "shape": list(got[0].shape), "bytes": nbytes, "ops": ops,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": min(lib_ms.values()) if lib_ms else None,
-               "library_ms_by_form": lib_ms,
-               "library_max_abs_diff": lib_err,
-               "bound_ms": max(t_bytes, t_ops),
+               "max_abs_err": err, **kernel_t, "plain_ms": plain_t["ms"],
+               "plain_ahead_share": plain_t["ahead_share"],
+               "library_ms": min(t["ms"] for t in lib_t.values())
+               if lib_t else None,
+               "library_by_form": lib_t, "library_max_abs_diff": lib_err,
+               "bound_ms": bound_ms,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "gbytes_per_s": nbytes / (ms * 1e-3) / 1e9}
+               "bound_share": bound_ms / kernel_t["ms"],
+               "gbytes_per_s": nbytes / (kernel_t["ms"] * 1e-3) / 1e9}
         emit({"phase": "parity", **rec})
         # one entry per kernel: the main path's instance where it fixes
         # one, else the largest instance on these plans
@@ -370,7 +503,25 @@ def main() -> int:
                 or (kernels[kname]["what"] != path
                     and rec["bytes"] > kernels[kname]["bytes"])):
             kernels[kname] = rec
-    del flush
+            chosen[kname] = (args, got)
+    # the stacked launch against the main path's former forward: one
+    # single-feature launch per feature, then torch.stack
+    st_args, st_got = chosen["embedding_bag_cached"]
+    tabs, cache_, slot_, cold_ = st_args
+
+    def per_feature():
+        return torch.stack([kops.embedding_bag_cached(
+            tabs[t], cache_[t], slot_[:, t:t + 1], cold_[:, t:t + 1])
+            for t in range(tabs.shape[0])], dim=1)
+
+    if not torch.equal(per_feature(), st_got[0]):
+        raise AssertionError("stacked cached bag != 26 single-feature "
+                             "launches stacked")
+    emit({"phase": "stacked_vs_per_feature", "bit_equal": True,
+          "stacked": kernels["embedding_bag_cached"]["ms"],
+          "per_feature_and_stack": timer(per_feature)})
+
+    del timer
     # cached == uncached on the card: the cache-only bag over every
     # distinct row staged against the plain bag on the same ids
     cached_out = kops.embedding_bag_cached(table, staged_cache, staged_slot)
@@ -382,7 +533,8 @@ def main() -> int:
           "distinct_rows": len(uniq)})
     parity_launches = dict(df.LAUNCHES)
     del (table, staged_cache, staged_slot, ids, all_tables, planned,
-         cached_out, uncached_out)
+         cached_out, uncached_out, chosen, st_args, st_got, tabs, cache_,
+         slot_, cold_)
     torch.cuda.empty_cache()
     for k in df.LAUNCHES:
         if k not in kernels:
@@ -517,7 +669,7 @@ def main() -> int:
     expect(look["fit_launches"], {"fit_dataflow": n_fit},
            "lookahead_main fit")
     expect(look["launches"], {"group_dataflow": n_batches,
-                              "embedding_bag_cached": 26 * n_batches},
+                              "embedding_bag_cached": n_batches},
            "lookahead_main train")
     rel = max(abs(a - b) / abs(b) for a, b in zip(look["losses"],
                                                    main["losses"]))
@@ -588,13 +740,13 @@ def main() -> int:
     staged_p = job3.compiled
     fused_fit.state = staged_p.state
     cols = staged_p._device_columns(raw3)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    timer = DeviceTimer()
     apply_ms = {}
     for label, p in (("grouped", fused_fit), ("staged", staged_p),
                      ("staged_again", staged_p), ("grouped_again", fused_fit)):
         tables = p._device_tables(p.state)
-        apply_ms[label] = time_ms(lambda: p._apply_fn(tables, cols))
-    del flush
+        apply_ms[label] = timer(lambda: p._apply_fn(tables, cols))
+    del timer
     emit({"phase": "staged_off", "batches": 2, "fit_launches": off_fit,
           "launches": off_apply,
           "lowering": {k: v["path"]
@@ -619,8 +771,11 @@ def main() -> int:
                     "replaces": REPLACES[name],
                     "launches": path_launches[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "ms_enqueued": r["ms_enqueued"], "host_us": r["host_us"],
+                    "ahead_share": r["ahead_share"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                    "what": r["what"]})
         if name == "embedding_bag":
             out[-1]["launches_from"] = "parity phase"
     emit({"kernels": out})
@@ -631,5 +786,31 @@ def main() -> int:
     return 0
 
 
+def time_wrappers(root: str, timer: DeviceTimer, calls: list,
+                  counts: dict) -> int:
+    """``--wrappers``: one line per call ``(name, what, fn)`` of the
+    checkout at ``root``: its launches, a checksum of its output and its
+    timer readings."""
+    import torch
+
+    for kname, what, fn in calls:
+        before = dict(counts)
+        out = fn()
+        out = out[0] if isinstance(out, tuple) else out
+        torch.cuda.synchronize()
+        emit({"phase": "wrappers", "checkout": root, "name": kname,
+              "what": list(what) if isinstance(what, tuple) else what,
+              "launches_per_call": {k: v - before[k] for k, v in
+                                    counts.items() if v != before[k]},
+              "shape": list(out.shape),
+              "checksum": float(out.double().sum()), **timer(fn)})
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--wrappers"] and len(sys.argv) == 3:
+        sys.exit(main(os.path.abspath(sys.argv[2]), time_only=True))
+    if len(sys.argv) > 1:
+        print(f"usage: {sys.argv[0]} [--wrappers DIR]", file=sys.stderr)
+        sys.exit(2)
     sys.exit(main())

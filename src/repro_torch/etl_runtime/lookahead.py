@@ -25,9 +25,10 @@ Three pieces, split host/device like the rest of the runtime:
   ``[T, rows + stage_max, dim]`` cache tensor (admits + per-batch staging)
   and returns kernel-ready inputs; ``cached_embedding_lookup`` (defined
   beside its kernel in ``kernels/embedding_bag.py``, re-exported here) is
-  the differentiable lookup over ``embedding_bag_cached``, whose backward
-  scatter-adds into the table through the ORIGINAL row ids, so training
-  gradients are exact.
+  the differentiable lookup: its forward is one ``embedding_bag_cached``
+  launch over every feature of the plan (the JAX package makes one call
+  per feature and stacks them), and its backward scatter-adds into the
+  table through the ORIGINAL row ids, so training gradients are exact.
 
 Slot layout: slots ``[0, rows)`` are the resident hot set (persist across
 batches, admit/evict managed by the planner), slots ``[rows, rows +

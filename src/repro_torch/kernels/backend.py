@@ -150,6 +150,9 @@ def load_library() -> ctypes.CDLL:
                                  ptr],
         "launch_embedding_bag_cached": [ptr, ptr, ptr, i64, ptr, i64, ptr,
                                         i32, i32, i32, i32, i32, i32, ptr],
+        "launch_embedding_bag_cached_stacked": [
+            ptr, i64, ptr, i64, ptr, i64, i64, ptr, i64, i64, ptr, i32, i32,
+            i32, i32, i32, i32, ptr],
         "dataflow_program_size": [],
         "stage_args_size": [],
         "pack_args_size": [],
@@ -182,8 +185,9 @@ def require(x: torch.Tensor, dtype: torch.dtype, what: str) -> None:
 
 
 def stream_of(device: torch.device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``device`` (read
+    without building a ``torch.cuda.Stream``: it is on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_launch(lib: ctypes.CDLL, code: int, what: str,

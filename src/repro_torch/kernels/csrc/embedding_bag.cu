@@ -12,7 +12,12 @@
 //                             table[cold] where slot < 0 and
 //                             0 <= cold < vocab, else adds nothing.  A null
 //                             cold pointer is the cache-only variant, which
-//                             never reads the table.
+//                             never reads the table;
+//   cached_row_kernel      <- the same, over every feature of a lookahead
+//                             plan at once (the JAX package calls
+//                             embedding_bag_cached once per feature and
+//                             stacks the results, etl_runtime/lookahead.py
+//                             l.513-517).
 //
 // The TPU kernels turn the irregular gather into dense VMEM passes over
 // table partitions, a sequential grid step per partition.  Hopper has no
@@ -26,6 +31,27 @@
 // bit-identical to the uncached bag: the JAX package's _pool (l.59) exists
 // for the same reason.  The index arrays may be column slices of a wider
 // matrix ([batch, T] -> [:, t:t+1]): each takes its row stride.
+//
+// cached_row_kernel takes a single-hot plan [batch, n_feat] against stacked
+// tables [n_feat, vocab, dim] and caches [n_feat, cache_rows, dim] and
+// writes the (batch, n_feat, dim) result in place, in one launch.  An entry
+// is one row (512 bytes at dim 128), so one entry per warp would leave the
+// warp waiting on three dependent loads (slot, cold, row) for each 512
+// bytes it writes.  Here a warp takes 32 consecutive entries: each lane
+// loads its entry's slot and cold ids (one coalesced load each when the
+// plan's rows are contiguous) and resolves its row pointer; the warp then
+// walks the entries ROW_GROUP at a time with the pointers broadcast by
+// __shfl_sync, issuing all ROW_GROUP row loads (one float4 per lane = one
+// 512-byte row) before the first store, so each warp keeps ROW_GROUP rows
+// in flight.  The output is written once and never read here, so its
+// stores are streaming (__stcs) and leave L2 to the hot cache rows.  The
+// grid is sized to the work: one 32-entry chunk a warp.  It needs the
+// plan's size to fill the card (at 65536 entries, one feature, it runs
+// 256 blocks and the warp-per-bag kernel is faster), so the single-feature
+// call stays on bag_kernel<CachedRows>.  Each output element is 0.0f plus
+// its row, as pool_bag sums, so out[:, t] equals the single-feature bag of
+// feature t bit for bit.  A row is never copied as bytes: 0.0f + -0.0f is
+// +0.0f, as in the plain version.
 //
 // Bound on an H100: bytes (the ids in and the output out once, plus one
 // row per distinct id: repeated hot rows come from the 50 MB L2).
@@ -113,6 +139,92 @@ static inline int bag_blocks(int batch) {
   return (batch + THREADS / WARP - 1) / (THREADS / WARP);
 }
 
+#define ROW_GROUP 8  // rows a lane has in flight
+
+// Entry e = b * n_feat + t of a single-hot plan: its row of feature t.
+struct CachedEntries {
+  const float* cache;  // feature t at t * cache_stride: [cache_rows, dim]
+  const float* table;  // feature t at t * table_stride: [vocab, dim]
+  const int* slot;     // slot[b * slot_b + t * slot_t]
+  const int* cold;     // cold[b * cold_b + t * cold_t]
+  long long cache_stride, table_stride, slot_b, slot_t, cold_b, cold_t;
+  int n_feat, cache_rows, vocab, dim;
+
+  // nullptr where the entry adds nothing
+  __device__ __forceinline__ const float* row(int e) const {
+    const long long b = e / n_feat;
+    const long long t = e - b * n_feat;
+    const int s = __ldg(slot + b * slot_b + t * slot_t);
+    if (s >= 0)  // a slot never falls through, even when out of range
+      return s < cache_rows
+                 ? cache + t * cache_stride + static_cast<long long>(s) * dim
+                 : nullptr;
+    const int c = __ldg(cold + b * cold_b + t * cold_t);
+    return (c >= 0 && c < vocab)
+               ? table + t * table_stride + static_cast<long long>(c) * dim
+               : nullptr;
+  }
+};
+
+static __device__ __forceinline__ void load_row(const float* p, float4& v) {
+  v = __ldg(reinterpret_cast<const float4*>(p));
+}
+static __device__ __forceinline__ void load_row(const float* p, float& v) {
+  v = __ldg(p);
+}
+static __device__ __forceinline__ void store_stream(float* p, float4 v) {
+  __stcs(reinterpret_cast<float4*>(p), v);
+}
+static __device__ __forceinline__ void store_stream(float* p, float v) {
+  __stcs(p, v);
+}
+// 0.0f + v, as pool_bag starts its sum: -0.0f becomes +0.0f
+static __device__ __forceinline__ float4 from_zero(float4 v) {
+  return make_float4(0.f + v.x, 0.f + v.y, 0.f + v.z, 0.f + v.w);
+}
+static __device__ __forceinline__ float from_zero(float v) { return 0.f + v; }
+
+static __device__ __forceinline__ const float* shfl_ptr(const float* p,
+                                                        int src) {
+  return reinterpret_cast<const float*>(__shfl_sync(
+      0xffffffffu, reinterpret_cast<long long>(p), src));
+}
+
+// One 32-entry chunk a warp.  V = float4 (dim % 4 == 0, 16-byte aligned
+// rows and out) or float.  Every loop bound a __shfl_sync sits in is
+// uniform across the warp, and so is the early return.
+template <class V>
+__global__ void __launch_bounds__(THREADS)
+cached_row_kernel(const CachedEntries p, int n_entries,
+                  float* __restrict__ out) {
+  constexpr int W = sizeof(V) / sizeof(float);
+  const int lane = threadIdx.x & (WARP - 1);
+  const int e0 = (blockIdx.x * THREADS + threadIdx.x) / WARP * WARP;
+  if (e0 >= n_entries) return;
+  const int count = n_entries - e0 < WARP ? n_entries - e0 : WARP;
+  // the row of the entry whose ids this lane loads
+  const float* mine = lane < count ? p.row(e0 + lane) : nullptr;
+  for (int g = 0; g < count; g += ROW_GROUP) {
+    for (int c0 = 0; c0 < p.dim; c0 += W * WARP) {
+      const int c = c0 + W * lane;
+      V v[ROW_GROUP];
+#pragma unroll
+      for (int u = 0; u < ROW_GROUP; ++u) {
+        const float* r = shfl_ptr(mine, g + u);
+        v[u] = V{};
+        if (r != nullptr && c < p.dim) load_row(r + c, v[u]);
+      }
+      if (c < p.dim) {
+#pragma unroll
+        for (int u = 0; u < ROW_GROUP; ++u)
+          if (g + u < count)
+            store_stream(out + static_cast<long long>(e0 + g + u) * p.dim + c,
+                         from_zero(v[u]));
+      }
+    }
+  }
+}
+
 extern "C" {
 
 // table: f32[vocab, dim]; idx: int32 rows of nnz at idx_stride; out:
@@ -146,6 +258,37 @@ int launch_embedding_bag_cached(const void* cache, const void* table,
   bag_kernel<CachedRows><<<bag_blocks(batch), THREADS, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       rows, batch, nnz, dim, vec, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stacked caches and tables at their feature strides; slot / cold: int32
+// [batch, n_feat] at (b, t) strides; out: f32[batch, n_feat, dim]; batch *
+// n_feat < 2**31.  vec: dim % 4 == 0 and every row base and out 16-byte
+// aligned.
+int launch_embedding_bag_cached_stacked(
+    const void* cache, long long cache_stride, const void* table,
+    long long table_stride, const void* slot, long long slot_b,
+    long long slot_t, const void* cold, long long cold_b, long long cold_t,
+    void* out, int batch, int n_feat, int cache_rows, int vocab, int dim,
+    int vec, void* stream) {
+  const long long n_entries = static_cast<long long>(batch) * n_feat;
+  if (n_entries == 0 || dim == 0) return 0;
+  if (n_entries > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CachedEntries p{static_cast<const float*>(cache),
+                        static_cast<const float*>(table),
+                        static_cast<const int*>(slot),
+                        static_cast<const int*>(cold),
+                        cache_stride, table_stride, slot_b, slot_t, cold_b,
+                        cold_t, n_feat, cache_rows, vocab, dim};
+  const int n = static_cast<int>(n_entries);
+  const int blocks = static_cast<int>((n_entries + THREADS - 1) / THREADS);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    cached_row_kernel<float4><<<blocks, THREADS, 0, s>>>(p, n, o);
+  else
+    cached_row_kernel<float><<<blocks, THREADS, 0, s>>>(p, n, o);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,8 +15,19 @@ they lie, so both arguments are dropped.
   ``table[cold]`` where ``slot < 0`` and ``0 <= cold < vocab``, else zero;
   ``cold_idx=None`` never reads the table.
 
-Both kernels pool through one routine, summing over ``nnz`` in order, as
-the plain versions (``kernels/ref.py``) do: cached and uncached bags are
+``cached_embedding_lookup`` runs the cached kernel over every feature of a
+lookahead plan at once (``_stacked_cached_bag``: stacked ``tables [T,
+vocab, dim]`` and ``cache [T, cache_rows, dim]``, single-hot ``[batch, T]``
+slot and cold ids), writing the ``(batch, T, dim)`` result in one launch,
+counted as an ``embedding_bag_cached`` launch.  The JAX package runs this
+lookup as one ``embedding_bag_cached`` call per feature and stacks the
+results (``etl_runtime/lookahead.py``, l.513-517); here ``out[:, t]`` is
+``embedding_bag_cached`` of feature ``t`` bit for bit.  Its kernel
+(``cached_row_kernel``) needs the plan's size to fill the card, so the
+single-feature call keeps the warp-per-bag kernel.
+
+Both bag kernels pool through one routine, summing over ``nnz`` in order,
+as the plain versions (``kernels/ref.py``) do: cached and uncached bags are
 bit-identical when the cache rows mirror the table rows.  Tables are f32
 only (both packages' DLRM keep f32 tables); any other dtype raises.  The
 index arrays are int32 ``[batch, nnz]`` whose rows may be strided (a column
@@ -26,10 +37,8 @@ Each function runs its plain version (also reachable as ``fn.plain``) for
 CPU tensors, launches its kernel for CUDA tensors, and raises for anything
 else; ``LAUNCHES[name]`` counts the launches.
 
-``cached_embedding_lookup`` is the differentiable per-feature lookup DLRM
-runs over a lookahead plan (``etl_runtime/lookahead.py``): its forward is
-``embedding_bag_cached``, its backward plain PyTorch, as the JAX package's
-is ``jnp`` outside any kernel.
+``cached_embedding_lookup`` is differentiable: its backward is plain
+PyTorch, as the JAX package's is ``jnp`` outside any kernel.
 """
 
 from __future__ import annotations
@@ -46,9 +55,10 @@ embedding_bag_plain = kref.embedding_bag
 embedding_bag_cached_plain = kref.embedding_bag_cached
 
 
-def _table(x: torch.Tensor, what: str) -> None:
-    if x.dim() != 2 or x.dtype != torch.float32:
-        raise ValueError(f"{what}: want a float32 [rows, dim] tensor, got "
+def _table(x: torch.Tensor, what: str, ndim: int = 2) -> None:
+    if x.dim() != ndim or x.dtype != torch.float32:
+        shape = "[rows, dim]" if ndim == 2 else "[T, rows, dim]"
+        raise ValueError(f"{what}: want a float32 {shape} tensor, got "
                          f"{x.dtype}{list(x.shape)}")
 
 
@@ -66,7 +76,7 @@ def _ids(x: torch.Tensor, device: torch.device, what: str) -> int:
 
 def _aligned(*xs: torch.Tensor) -> int:
     """1 when the float4 path applies: dim % 4 == 0, 16-byte row bases."""
-    return int(all(x.shape[1] % 4 == 0 and x.data_ptr() % 16 == 0
+    return int(all(x.shape[-1] % 4 == 0 and x.data_ptr() % 16 == 0
                    for x in xs))
 
 
@@ -127,25 +137,68 @@ def embedding_bag_cached(table: torch.Tensor, cache: torch.Tensor,
     return out
 
 
+def _stacked_cached_bag(tables: torch.Tensor, cache: torch.Tensor,
+                        slot_idx: torch.Tensor,
+                        cold_idx: torch.Tensor) -> torch.Tensor:
+    """tables: f32[T, vocab, dim], cache: f32[T, cache_rows, dim], slot_idx
+    and cold_idx: int32[batch, T] (any strides) -> f32[batch, T, dim]."""
+    _table(tables, "stacked embedding_bag_cached tables", 3)
+    _table(cache, "stacked embedding_bag_cached cache", 3)
+    if backend.on_cpu(slot_idx):
+        return kref.embedding_bag_cached_stacked(tables, cache, slot_idx,
+                                                 cold_idx)
+    backend.require(tables, torch.float32,
+                    "stacked embedding_bag_cached tables")
+    backend.require(cache, torch.float32,
+                    "stacked embedding_bag_cached cache")
+    dev = cache.device
+    n_feat, _, dim = tables.shape
+    for x, what in ((slot_idx, "slot_idx"), (cold_idx, "cold_idx")):
+        if x.dtype != torch.int32 or x.dim() != 2 or x.device != dev \
+                or x.shape[1] != n_feat:
+            raise ValueError(
+                f"stacked embedding_bag_cached {what}: want int32 "
+                f"[batch, {n_feat}] on {dev}, got {x.dtype}{list(x.shape)} "
+                f"on {x.device}")
+    if cold_idx.shape != slot_idx.shape or tables.device != dev \
+            or cache.shape[0] != n_feat or cache.shape[2] != dim:
+        raise ValueError(
+            f"stacked embedding_bag_cached: tables {list(tables.shape)} on "
+            f"{tables.device}, cache {list(cache.shape)} on {dev}, slot_idx "
+            f"{list(slot_idx.shape)} and cold_idx {list(cold_idx.shape)} do "
+            "not match")
+    batch = slot_idx.shape[0]
+    out = torch.empty(batch, n_feat, dim, dtype=torch.float32, device=dev)
+    lib = backend.load_library()
+    backend.check_launch(lib, lib.launch_embedding_bag_cached_stacked(
+        cache.data_ptr(), cache.stride(0), tables.data_ptr(),
+        tables.stride(0), slot_idx.data_ptr(), slot_idx.stride(0),
+        slot_idx.stride(1), cold_idx.data_ptr(), cold_idx.stride(0),
+        cold_idx.stride(1), out.data_ptr(), batch, n_feat, cache.shape[1],
+        tables.shape[1], dim, _aligned(cache, tables),
+        backend.stream_of(dev)), "embedding_bag_cached", dev)
+    LAUNCHES["embedding_bag_cached"] += 1
+    return out
+
+
 embedding_bag.plain = embedding_bag_plain
 embedding_bag_cached.plain = embedding_bag_cached_plain
+_stacked_cached_bag.plain = kref.embedding_bag_cached_stacked
 
 
 class _CachedLookup(torch.autograd.Function):
-    """Forward: one ``embedding_bag_cached`` call per feature.  Backward:
-    the table gradient through ``kref.scatter_add_rows`` at the original
-    ids — the computation the uncached gather's autograd runs, so the two
-    gradients are bit-equal, and deterministic on CUDA — and none for the
-    cache, whose rows mirror table rows."""
+    """Forward: one ``_stacked_cached_bag`` launch, written in place as
+    ``(B, T, d)``.  Backward: the table gradient through
+    ``kref.scatter_add_rows`` at the original ids — the computation the
+    uncached gather's autograd runs, so the two gradients are bit-equal,
+    and deterministic on CUDA — and none for the cache, whose rows mirror
+    table rows."""
 
     @staticmethod
     def forward(ctx, tables, cache, slot, cold, orig):
         ctx.save_for_backward(orig)
         ctx.tables_shape = tables.shape
-        outs = [embedding_bag_cached(tables[t], cache[t], slot[:, t:t + 1],
-                                     cold[:, t:t + 1])
-                for t in range(tables.shape[0])]
-        return torch.stack(outs, dim=1)  # (B, T, d)
+        return _stacked_cached_bag(tables, cache, slot, cold)
 
     @staticmethod
     def backward(ctx, g):

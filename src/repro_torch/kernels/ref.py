@@ -190,6 +190,25 @@ def embedding_bag_cached(table: torch.Tensor, cache: torch.Tensor,
     return _pool(rows)
 
 
+def embedding_bag_cached_stacked(tables: torch.Tensor, cache: torch.Tensor,
+                                 slot_idx: torch.Tensor,
+                                 cold_idx: torch.Tensor) -> torch.Tensor:
+    """``embedding_bag_cached`` of every feature at once, single-hot:
+    ``tables [T, vocab, dim]``, ``cache [T, cache_rows, dim]``, ``slot_idx``
+    / ``cold_idx [batch, T]`` -> ``[batch, T, dim]``, where ``out[:, t]`` is
+    ``embedding_bag_cached(tables[t], cache[t], slot_idx[:, t:t+1],
+    cold_idx[:, t:t+1])`` bit for bit."""
+    feat = torch.arange(tables.shape[0], device=tables.device)
+    hot = (slot_idx >= 0) & (slot_idx < cache.shape[1])
+    rows = cache[feat, torch.where(hot, slot_idx, 0).long()]
+    rows = torch.where(hot[..., None], rows, 0)
+    cold = (slot_idx < 0) & (cold_idx >= 0) & (cold_idx < tables.shape[1])
+    rows = torch.where(cold[..., None],
+                       tables[feat, torch.where(cold, cold_idx, 0).long()],
+                       rows)
+    return torch.zeros_like(rows) + rows  # _pool's 0.0 + row (-0.0 -> +0.0)
+
+
 def scatter_add_rows(shape, indices: torch.Tensor, grad: torch.Tensor,
                      lead: tuple = ()) -> torch.Tensor:
     """``zeros(shape)`` with each row of ``grad`` added at its row index

@@ -13,7 +13,9 @@ stays whole in device memory, so the split and its argument are dropped.
 - ``vocab_lookup`` <- ``vocab_lookup`` / ``_lookup_kernel`` (l.137 / l.118):
   ``table[x]`` where ``0 <= x < capacity`` and ``table[x] >= 0``, else
   ``n_unique`` (the OOV index).  It takes the raw table and ``n_unique``, as
-  the reference's staged path does.
+  the reference's staged path does.  The kernel reads the ids as 16-byte
+  vectors, 8 ids a thread with every table read in flight at once; an ``x``
+  at any 4-byte offset and of any length is taken.
 
 Each function runs its plain version (``*_plain``, also reachable as
 ``fn.plain``) for CPU tensors, launches its kernel for CUDA tensors, and
@@ -64,12 +66,21 @@ def vocab_lookup(x: torch.Tensor, table: torch.Tensor,
     if table.dim() != 1 or table.device != x.device:
         raise ValueError(f"vocab_lookup: want a flat table on {x.device}, "
                          f"got {list(table.shape)} on {table.device}")
-    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    # the kernel takes x and the output at the same address modulo 16
+    # bytes: for an x off a 16-byte boundary (a view) the output is a view
+    # at that phase into a slightly longer allocation
+    dev = x.device
+    phase = (x.data_ptr() & 15) // 4
+    if phase == 0:
+        out = torch.empty(x.shape, dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty(x.numel() + phase, dtype=torch.int32,
+                          device=dev)[phase:].view(x.shape)
     lib = backend.load_library()
     backend.check_launch(lib, lib.launch_vocab_lookup(
         x.data_ptr(), table.data_ptr(), out.data_ptr(), x.numel(),
-        table.numel(), int(n_unique), backend.stream_of(x.device)),
-        "vocab_lookup", x.device)
+        table.numel(), int(n_unique), backend.stream_of(dev)),
+        "vocab_lookup", dev)
     LAUNCHES["vocab_lookup"] += 1
     return out
 

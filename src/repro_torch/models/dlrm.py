@@ -11,8 +11,9 @@ embedding vector (upper triangle, in ``torch.triu_indices`` order, which is
 MLP.  Embedding tables are stacked ``(n_sparse, vocab, d_emb)`` as in the JAX
 package.  The lookup is its plain per-feature gather, unless the batch
 carries a lookahead plan (``emb_cache``, from ``EmbedCache.advance``): then
-each feature resolves through the two-level ``embedding_bag_cached`` kernel,
-hot rows from the cache and cold rows from the table, and the backward
+all features resolve through one launch of the two-level
+``embedding_bag_cached`` kernel, hot rows from the cache and cold rows from
+the table, written as the ``(B, F, d)`` embeddings, and the backward
 scatter-adds into the tables at the original ids, so the gradient is the
 uncached one bit for bit.
 

@@ -18,6 +18,7 @@ from repro_torch.data.source import Source  # noqa: E402
 from repro_torch.etl_runtime import lookahead as la  # noqa: E402
 from repro_torch.core import operators as ops  # noqa: E402
 from repro_torch.kernels import dataflow as df  # noqa: E402
+from repro_torch.kernels import embedding_bag as kbag  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.session import EtlJob  # noqa: E402
 
@@ -71,7 +72,11 @@ def _staged_edge_cases(card):
     Clamp | Log, non-hex and all-zero hex, out-of-range build values and
     lookup ids, float -> int packing; embedding bags with -1 and >= vocab
     ids, slots >= cache_rows, the float4 (dim 128) and scalar (dim 13)
-    paths, the cache-only variant and row-strided plan columns."""
+    paths (nnz 8 through the cached bag at both), the cache-only variant
+    and row-strided plan columns; the lookup
+    on views off a 16-byte boundary and of lengths n % 4 != 0 (n = 3 lies
+    wholly before the first boundary), and the stacked cached bag on
+    strided plan columns at dims 128 and 13."""
     rng = np.random.default_rng(3)
     x = (rng.normal(size=(777, 13)) * 10).astype(np.float32)
     x[rng.random(x.shape) < 0.1] = np.nan
@@ -99,8 +104,11 @@ def _staged_edge_cases(card):
     cache = rng.normal(size=(300, 128)).astype(np.float32)
     bag_ids = rng.integers(-1, 5003, size=(777, 8)).astype(np.int32)
     slots = rng.integers(-150, 303, size=(777, 8)).astype(np.int32)
-    plan_slot = t(rng.integers(-100, 300, size=(777, 26)).astype(np.int32))
-    plan_cold = t(rng.integers(-1, 5000, size=(777, 26)).astype(np.int32))
+    plan_slot = t(rng.integers(-100, 303, size=(777, 26)).astype(np.int32))
+    plan_cold = t(rng.integers(-1, 5003, size=(777, 26)).astype(np.int32))
+    tables3 = t(rng.normal(size=(3, 5000, 128)).astype(np.float32))
+    cache3 = t(rng.normal(size=(3, 300, 128)).astype(np.float32))
+    flat = t(ids).view(-1)  # views off a 16-byte boundary, n % 4 != 0
     return [("fused_stage", dense, [t(x)]),
             ("fused_stage", sparse, [t(hexes)]),
             ("fused_stage", bucket, [t(np.nan_to_num(x))]),
@@ -115,10 +123,23 @@ def _staged_edge_cases(card):
             ("embedding_bag_cached", kops.embedding_bag_cached,
              [t(tbl), t(cache), t(slots)]),
             ("embedding_bag_cached", kops.embedding_bag_cached,
-             [t(tbl), t(cache), plan_slot[:, 3:4], plan_cold[:, 3:4]])]
+             [t(tbl13), t(np.ascontiguousarray(cache[:, :13])), t(slots),
+              t(bag_ids)]),
+            ("embedding_bag_cached", kops.embedding_bag_cached,
+             [t(tbl), t(cache), plan_slot[:, 3:4], plan_cold[:, 3:4]]),
+            ("vocab_lookup", kops.vocab_lookup, [flat[1:], t(table), 4321]),
+            ("vocab_lookup", kops.vocab_lookup,
+             [flat[2:2 + 4099], t(table), 4321]),
+            ("vocab_lookup", kops.vocab_lookup, [flat[3:6], t(table), 4321]),
+            ("vocab_lookup", kops.vocab_lookup, [flat[:4097], t(table), 4321]),
+            ("embedding_bag_cached", kbag._stacked_cached_bag,
+             [tables3, cache3, plan_slot[:, 5:8], plan_cold[:, 20:23]]),
+            ("embedding_bag_cached", kbag._stacked_cached_bag,
+             [tables3[:, :, :13].contiguous(), cache3[:, :, :13].contiguous(),
+              plan_slot[:, :3], plan_cold[:, :3]])]
 
 
-@pytest.mark.parametrize("case", range(12))
+@pytest.mark.parametrize("case", range(19))
 def test_staged_kernels_on_edge_inputs(card, case):
     kname, fn, args = _staged_edge_cases(card)[case]
     before = df.LAUNCHES[kname]
@@ -127,6 +148,34 @@ def test_staged_kernels_on_edge_inputs(card, case):
     want = fn.plain(*args)
     torch.cuda.synchronize()
     _check(got, want, f"{kname}/{case}")
+
+
+@pytest.mark.parametrize("dim", [128, 13])
+def test_stacked_bag_equals_per_feature_launches(card, dim):
+    """One stacked launch over a 26-feature plan (strided columns, -1
+    entries, slots past the cache, cold ids past the vocabulary) equals the
+    26 single-feature launches stacked, bit for bit, and counts one
+    launch."""
+    rng = np.random.default_rng(8)
+    n_feat, vocab, rows = 26, 3000, 200
+    tables = torch.tensor(rng.normal(size=(n_feat, vocab, dim)).astype(
+        np.float32), device=card)
+    cache = torch.tensor(rng.normal(size=(n_feat, rows, dim)).astype(
+        np.float32), device=card)
+    slot = torch.tensor(rng.integers(-60, rows + 5, size=(999, 32)).astype(
+        np.int32), device=card)[:, 6:]
+    cold = torch.tensor(rng.integers(-1, vocab + 5, size=(999, 32)).astype(
+        np.int32), device=card)[:, :n_feat]
+    before = df.LAUNCHES["embedding_bag_cached"]
+    got = kbag._stacked_cached_bag(tables, cache, slot, cold)
+    assert df.LAUNCHES["embedding_bag_cached"] == before + 1
+    want = torch.stack([kops.embedding_bag_cached(
+        tables[t], cache[t], slot[:, t:t + 1], cold[:, t:t + 1])
+        for t in range(n_feat)], dim=1)
+    plain = kbag._stacked_cached_bag.plain(tables, cache, slot, cold)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, plain)
 
 
 @pytest.mark.parametrize("staged", [False, True])

@@ -24,6 +24,7 @@ from repro.kernels import embedding_bag as rbag  # noqa: E402
 from repro.kernels import ops as rkops  # noqa: E402
 from repro.kernels import ref as rref  # noqa: E402
 from repro_torch.kernels import backend  # noqa: E402
+from repro_torch.kernels import embedding_bag as kbag  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 
@@ -160,3 +161,62 @@ def test_wrappers_route_by_device_and_refuse_other_dtypes():
         kops.embedding_bag(torch.tensor(tbl), meta)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         kops.embedding_bag_cached(torch.tensor(tbl), torch.tensor(tbl), meta)
+
+
+def _stacked_plan(rng, n_feat, width, vocab, cache_rows, dim, batch=37):
+    """Stacked tables and caches with ``[batch, n_feat]`` slot and cold
+    columns cut from wider ``[batch, width]`` plan matrices (row stride
+    ``width``), holding -1 entries, slots past the cache and cold ids past
+    the vocabulary."""
+    tables = rng.normal(size=(n_feat, vocab, dim)).astype(np.float32)
+    cache = rng.normal(size=(n_feat, cache_rows, dim)).astype(np.float32)
+    cache[:, 0] = -0.0  # 0.0 + -0.0 is +0.0 in every form
+    slot = rng.integers(-1, cache_rows + 3, size=(batch, width))
+    cold = rng.integers(-1, vocab + 3, size=(batch, width))
+    slot[rng.random(slot.shape) < 0.3] = -1
+    off = width - n_feat
+    return (tables, cache, torch.tensor(slot.astype(np.int32))[:, off:],
+            torch.tensor(cold.astype(np.int32))[:, :n_feat])
+
+
+@pytest.mark.parametrize("n_feat,width,dim", [
+    (3, 5, 8), (1, 4, 12), (26, 32, 16), (4, 4, 13)])
+def test_stacked_cached_bag_equals_per_feature_bags(n_feat, width, dim):
+    """The stacked bag is the per-feature bag of every feature, stacked, bit
+    for bit (its plain version and the wrapper), and matches the JAX
+    package's per-feature Pallas kernel, stacked as its lookup stacks it."""
+    tables, cache, slot, cold = _stacked_plan(_rng("stacked", n_feat, width),
+                                              n_feat, width, 40, 6, dim)
+    assert slot.stride(0) == width and cold.stride(0) == width
+    tt, tc = torch.tensor(tables), torch.tensor(cache)
+    per_feature = torch.stack([
+        kref.embedding_bag_cached(tt[t], tc[t], slot[:, t:t + 1],
+                                  cold[:, t:t + 1]) for t in range(n_feat)],
+        dim=1)
+    got = kbag._stacked_cached_bag(tt, tc, slot, cold)
+    assert torch.equal(got, per_feature)
+    assert torch.equal(got, kbag._stacked_cached_bag.plain(
+        tt, tc, slot, cold))
+    assert not torch.signbit(got).logical_and(got == 0).any()
+    want = jnp.stack([rkops.embedding_bag_cached(
+        jnp.asarray(tables[t]), jnp.asarray(cache[t]),
+        jnp.asarray(slot[:, t:t + 1].numpy()),
+        jnp.asarray(cold[:, t:t + 1].numpy()), partitions=2, interpret=True)
+        for t in range(n_feat)], axis=1)
+    tp.assert_match(want, got, "stacked cached bag")
+
+
+def test_stacked_cached_bag_routes_and_refuses_bad_shapes():
+    tables, cache, slot, cold = _stacked_plan(_rng("stacked-route"), 3, 3,
+                                              20, 4, 8)
+    tt, tc = torch.tensor(tables), torch.tensor(cache)
+    before = dict(backend.LAUNCHES)
+    kbag._stacked_cached_bag(tt, tc, slot, cold)
+    assert backend.LAUNCHES == before  # CPU tensors: the plain version
+    with pytest.raises(ValueError, match=r"float32 \[T, rows, dim\]"):
+        kbag._stacked_cached_bag(tt[0], tc, slot, cold)
+    with pytest.raises(ValueError, match=r"float32 \[T, rows, dim\]"):
+        kbag._stacked_cached_bag(tt, tc.double(), slot, cold)
+    meta = torch.empty(5, 3, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        kbag._stacked_cached_bag(tt, tc, meta, meta)
