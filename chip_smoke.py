@@ -45,7 +45,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  staged, which must equal the first instance's output bit
                  for bit.  The stacked launch must also equal the 26
                  single-feature launches stacked, bit for bit, and both are
-                 timed.
+                 timed.  The dataflow kernels' edge instances
+                 (``dataflow_edges``, named ``edge:*``, timed like the rest
+                 but never the kernels line's instance): a fit on all-equal
+                 ids (one shared-table entry), all-distinct ids (more per
+                 tile than the shared table holds) and negative, missing
+                 and >= capacity ids; the main path's fit and group at 1,
+                 7, 1000 and 65533 rows (tails off 16 bytes); its group with
+                 the dense source a row view off a 16-byte boundary.
 4. main        — EtlJob(Pipeline III, Source.synth("I"), backend="cuda") ->
                  fit (one fit launch per chunk) -> 16 DLRM training steps at
                  DLRMConfig(vocab_size=524289) (1.75 B parameters; one group
@@ -122,6 +129,68 @@ REPLACES = {"group_dataflow": "src/repro/kernels/dataflow.py:367",
             "embedding_bag_cached": "src/repro/kernels/embedding_bag.py:187"}
 # the instance the kernels line reports where the main path fixes one
 PATH_INSTANCE = {"embedding_bag_cached": "stacked_plan"}
+EDGE_ROWS = (1, 7, 1000, 65533)  # tail tiles that are not 16-byte multiples
+DISTINCT_ROWS = 16384            # 425,984 distinct ids under capacity 524288
+
+
+def hex_planes(vals, missing=None):
+    """uint32 [rows, width] -> digit-major ASCII hex uint8 [8, rows, width];
+    ``missing`` entries become all-zero strings."""
+    import numpy as np
+    digits = np.frombuffer(b"0123456789abcdef", np.uint8)
+    shifts = np.arange(28, -4, -4, dtype=np.uint64)
+    planes = digits[(vals.astype(np.uint64)[None] >> shifts[:, None, None])
+                    & 15]
+    if missing is not None:
+        planes[:, missing] = 0
+    return np.ascontiguousarray(planes)
+
+
+def dataflow_edges(df, core_ops, Source, grouped, raw) -> list:
+    """Edge instances of the dataflow kernels, ``(kernel, "edge:...",
+    runner, args)``: Hex2Int straight into a fit at capacity 524288 on
+    every value equal (one shared-table entry), every value distinct (more
+    per tile than the shared table holds: the probe-overflow path) and
+    negative, missing and >= capacity values; the main path's fit and group
+    at row counts whose tail tiles are not 16-byte multiples; its group
+    with the dense source a contiguous row view off a 16-byte boundary."""
+    import numpy as np
+    import torch
+    width, cap = 26, 524288
+    fit = df.make_fit_dataflow(
+        [df.StreamInput("h", width, np.dtype(np.uint8), 8)],
+        [df.TileStep("map", "v", ("h",), (core_ops.Hex2Int(8),))], "v", cap)
+    rng = np.random.default_rng(5)
+    vals = rng.integers(0, cap, size=(B, width)).astype(np.uint32)
+    pick = rng.random((B, width))
+    neg, big = pick < 0.2, (pick >= 0.2) & (pick < 0.4)
+    vals[neg] = rng.integers(0x80000000, 0xFFFFFFFF, size=int(neg.sum()),
+                             dtype=np.uint32)
+    vals[big] = rng.integers(cap, 1 << 30, size=int(big.sum()),
+                             dtype=np.uint32)
+    hexes = {"all_equal": hex_planes(np.full((B, width), 0x1ABC, np.uint32)),
+             "all_distinct": hex_planes(np.arange(
+                 DISTINCT_ROWS * width, dtype=np.uint32).reshape(-1, width)),
+             "out_of_range": hex_planes(vals, rng.random((B, width)) < 0.1)}
+    out = [("fit_dataflow", "edge:" + k, fit, [torch.tensor(h, device="cuda")])
+           for k, h in hexes.items()]
+    for n in EDGE_ROWS:
+        raw_n = next(iter(Source.synth("I", rows=n, batch_size=n, seed=13)))
+        for phase in ("fit", "apply"):
+            out += [(k, f"edge:rows_{n}", fn, args)
+                    for k, _, fn, args in grouped.dataflow_launches(raw_n,
+                                                                    phase)]
+    ((kname, _, fn, args),) = grouped.dataflow_launches(raw, "apply")
+    (i,) = [i for i, s in enumerate(fn.program.slots[:fn.program.n_src])
+            if s.kind == df.KIND_F32 and s.width == 13]
+    buf = torch.empty(args[i].shape[0] + 1, 13, device="cuda")
+    buf[1:] = args[i]
+    args = list(args)
+    args[i] = buf[1:]  # contiguous, 52 B past a 16-byte boundary
+    if not args[i].is_contiguous() or args[i].data_ptr() % 16 == 0:
+        raise AssertionError("the dense view is not off a 16-byte boundary")
+    out.append((kname, "edge:dense_off_16B", fn, args))
+    return out
 
 
 def emit(obj: dict) -> None:
@@ -223,6 +292,7 @@ def main(root: str = HERE, time_only: bool = False) -> int:
         return 1
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import operators as core_ops
     from repro_torch.core.pipeline import paper_pipeline
     from repro_torch.data.source import Source
     from repro_torch.etl_runtime import lookahead as la
@@ -332,11 +402,13 @@ def main(root: str = HERE, time_only: bool = False) -> int:
             return nbytes, got[0].numel() if kname == "packer" \
                 else args[0].numel()
         prog = fn.program  # the tile program of the dataflow kernels
-        ops = sum(B * prog.slots[i.dst].width for i in prog.instrs)
-        ops += B * sum(prog.out_cols)
+        src = args[0]
+        rows = src.shape[1] if prog.slots[0].hex_width else src.shape[0]
+        n_ops = sum(rows * prog.slots[i.dst].width for i in prog.instrs)
+        n_ops += rows * sum(prog.out_cols)
         if prog.value_slot >= 0:
-            ops += 2 * B * prog.slots[prog.value_slot].width
-        return nbytes, ops
+            n_ops += 2 * rows * prog.slots[prog.value_slot].width
+        return nbytes, n_ops
 
     def library_calls(kname, args) -> dict:
         """PyTorch calls that each compute the same function in one call,
@@ -421,6 +493,7 @@ def main(root: str = HERE, time_only: bool = False) -> int:
         launches += p.dataflow_launches(raw, "apply")
     for p in (grouped, large, off):
         launches += p.dataflow_launches(raw, "fit")
+    launches += dataflow_edges(df, core_ops, Source, grouped, raw)
     launches += [
         ("embedding_bag", "zipf1.1_nnz8", kops.embedding_bag, (table, ids)),
         ("embedding_bag_cached", "stacked_plan", stacked,
@@ -497,8 +570,10 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                "gbytes_per_s": nbytes / (kernel_t["ms"] * 1e-3) / 1e9}
         emit({"phase": "parity", **rec})
         # one entry per kernel: the main path's instance where it fixes
-        # one, else the largest instance on these plans
+        # one, else the largest instance on these plans (no edge instance)
         path = PATH_INSTANCE.get(kname)
+        if str(what).startswith("edge:"):
+            continue
         if (kname not in kernels or what == path
                 or (kernels[kname]["what"] != path
                     and rec["bytes"] > kernels[kname]["bytes"])):

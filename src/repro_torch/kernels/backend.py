@@ -169,10 +169,12 @@ def load_library() -> ctypes.CDLL:
 def on_cpu(x: torch.Tensor) -> bool:
     """A wrapper's route: True for a CPU tensor (the plain version), False
     for a CUDA tensor (the kernel); any other device raises."""
-    if x.device.type not in ("cpu", "cuda"):
+    if x.is_cuda:
+        return False
+    if x.device.type != "cpu":
         raise ValueError(f"the kernels take CPU or CUDA tensors, not "
                          f"{x.device}")
-    return x.device.type == "cpu"
+    return True
 
 
 def require(x: torch.Tensor, dtype: torch.dtype, what: str) -> None:

@@ -11,12 +11,18 @@ program as data:
   every step output), instructions (opcode + slots + parameters, from
   ``Operator.encode``), the packer epilogue's terminals, and for the fit the
   value slot and capacity.
-- The kernel: one thread block per tile of rows loads every source tile into
-  shared memory, runs the instructions over the tile with a barrier between
-  them, then either writes every packed output (apply: zeros in padding
-  columns, cast to the output dtype) or folds the value tile into global
-  ``first_pos``/``counts`` with ``atomicMin``/``atomicAdd`` (fit; both
-  combiners are order-independent, so the result is bit-exact).
+- The kernel: a persistent grid of blocks walks the row tiles.  Each block
+  keeps a two-stage ring of source tiles in shared memory, the next tile's
+  sources in flight as bulk async copies while the current one runs; the
+  instructions run with a barrier only where ``encode_program`` marks one
+  (``TileProgram.sync``).  Then it either writes every packed output from
+  a column map it expands from the terminals once per block
+  (``TileProgram.colmap``: per output column a (slot, column) pair or
+  padding; zeros in padding columns, cast to the output dtype) or folds the tile's values into a shared-memory table of (value,
+  count, first position) and flushes each entry to global
+  ``first_pos``/``counts`` with one ``atomicAdd`` and one ``atomicMin``
+  (fit; both combiners are order-independent, so the result
+  is bit-exact).
 - The plain version of each kernel (``*_plain``) interprets the *same*
   ``TileProgram`` with PyTorch ops on whole tensors, so the tests check the
   encoding too.  A wrapper runs the plain version only for tensors on the
@@ -45,8 +51,11 @@ and write the packed outputs once, with a few integer operations per byte,
 far below the card's operations-per-byte balance.  The design keeps every
 intermediate in shared memory (no HBM tensor between operators, as on the
 TPU); the vocabulary table (2 MiB at capacity 524288) is gathered from global
-memory through L2 rather than staged per tile.  The fit's atomics contend on
-the hottest ids (synthetic ids are Zipf(1.3)).
+memory through L2 rather than staged per tile.  The fit's shared-memory
+table takes the hottest ids (synthetic ids are Zipf(1.3): one id is a
+quarter of a chunk's values) off the global atomics.  The launch struct is
+built once per program; a call copies it and sets its pointers and row
+count.
 
 Every runner a factory returns carries ``runner.plain``, its plain version
 as a function of the same arguments, so a caller can hold ``runner(*args)``
@@ -59,6 +68,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -80,6 +90,8 @@ _NP_KIND = {np.dtype(np.float32): KIND_F32, np.dtype(np.int32): KIND_I32}
 # the struct stays under the 4 KiB kernel-parameter limit
 MAX_SRC, MAX_SLOT, MAX_INSTR, MAX_TABLE = 8, 24, 32, 4
 MAX_OUT, MAX_TERM, MAX_PARAM = 4, 16, 64
+FIT_SLOTS = 1024  # entries of the fit's shared-memory table
+MAX_TERM_WIDTH = 1 << 14  # a terminal's row pitch (4 B a column) fits 16 bits
 MAX_BLOCK = 32  # column blocks of one packer (mirrored in stage.cu)
 THREADS = 256
 # shared memory one block asks for: ~64 KiB lets three blocks share an SM
@@ -180,26 +192,43 @@ class Instr:
 @dataclasses.dataclass
 class TileProgram:
     """What the interpreter kernel runs: slots ``[0, n_src)`` are the stream
-    inputs in order; ``terms`` are ``(output, slot, column, width)``."""
+    inputs in order; ``sync[k]`` says a barrier follows instruction k;
+    ``terms`` are ``(output, slot, column, width)``."""
 
     slots: list
     n_src: int
     instrs: list
     params: list
     capacities: list
+    sync: list = dataclasses.field(default_factory=list)
     out_kinds: list = dataclasses.field(default_factory=list)
     out_cols: list = dataclasses.field(default_factory=list)
     terms: list = dataclasses.field(default_factory=list)
     value_slot: int = -1
     capacity: int = 0
+    # the call-independent launch struct, built on the first launch
+    template: Optional[ctypes.Structure] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def bytes_per_row(self) -> int:
         return sum(s.bytes_per_row for s in self.slots)
 
+    @property
+    def colmap(self) -> list:
+        """Every output's columns in order, each a ``(slot, column)`` pair
+        or ``(-1, 0)`` for padding: what the kernel expands the terminals
+        into, and what the plain version packs from."""
+        cmap: list = []
+        for o, n_cols in enumerate(self.out_cols):
+            cols = [(s, c) for t, s, _, w in self.terms if t == o
+                    for c in range(w)]
+            cmap += cols + [(-1, 0)] * (n_cols - len(cols))
+        return cmap
+
     def tile_rows(self) -> int:
-        """Rows per thread block: the largest power of two up to 256 whose
-        tile of every slot fits ``SMEM_TARGET`` bytes."""
+        """Rows per tile: the largest power of two up to 256 whose shared
+        memory (``layout``) fits ``SMEM_TARGET`` bytes."""
         t = 256
         while t > 1 and self.smem_bytes(t) > SMEM_TARGET:
             t //= 2
@@ -208,16 +237,57 @@ class TileProgram:
                              f"shared memory, over the {SMEM_MAX} a block has")
         return t
 
-    def slot_offsets(self, tile_rows: int) -> list:
+    def layout(self, tile_rows: int) -> tuple:
+        """``(offsets, stage_bytes, aux_off, smem_bytes)`` of one block's
+        shared memory: two ring stages of the source slots (``offsets`` of a
+        source are in stage 0, ``stage_bytes`` before stage 1), one copy of
+        every other slot, then the apply's expanded column map and a zero
+        word (8 B a column + 16) or the fit's table (12 B an entry)."""
         offs, at = [], 0
-        for s in self.slots:
+        for s in self.slots[:self.n_src]:
             offs.append(at)
             at += _round_up(tile_rows * s.bytes_per_row, 16)
-        return offs
+        stage_bytes = at
+        at = 2 * stage_bytes
+        for s in self.slots[self.n_src:]:
+            offs.append(at)
+            at += _round_up(tile_rows * s.bytes_per_row, 16)
+        aux = (12 * FIT_SLOTS if self.value_slot >= 0
+               else _round_up(8 * sum(self.out_cols), 16) + 16)
+        return offs, stage_bytes, at, at + aux
 
     def smem_bytes(self, tile_rows: int) -> int:
-        return sum(_round_up(tile_rows * s.bytes_per_row, 16)
-                   for s in self.slots)
+        return self.layout(tile_rows)[3]
+
+
+_ELEMENTWISE = frozenset(range(1, 13)) - {ops_lib.OP_ONEHOT}
+
+
+def _barriers(slots: list, instrs: list) -> list:
+    """``sync[k]``: a barrier follows instruction k.  A thread writes the
+    elements i, i + THREADS, ... of its instruction's output, so a reader
+    may go on without a barrier only if it is an elementwise opcode over an
+    output of the same width (it reads each element at the index the same
+    thread wrote).  ONEHOT and CROSS always end with one, and so does the
+    last instruction: the epilogue and the fit's fold read any element.
+    (Every step writes a slot of its own, and a chain keeps its width, so
+    no instruction overwrites what another thread still reads.)"""
+    sync = [False] * len(instrs)
+    written: dict = {}  # slot -> width of its writer, since the last barrier
+    for j, ins in enumerate(instrs):
+        width = slots[ins.dst].width
+        srcs = [ins.a] + ([ins.b] if ins.op == ops_lib.OP_CROSS else [])
+        if j and any(s in written and (ins.op not in _ELEMENTWISE
+                                       or written[s] != width) for s in srcs):
+            sync[j - 1] = True
+            written.clear()
+        written[ins.dst] = width
+        if ins.op in (ops_lib.OP_ONEHOT, ops_lib.OP_CROSS):
+            sync[j] = True
+            written.clear()
+    if instrs:
+        sync[-1] = True
+    return sync
 
 
 def _instr(enc: ops_lib.Encoded, params: list, dst: int, a: int,
@@ -294,7 +364,8 @@ def encode_program(inputs: Sequence[StreamInput],
 
     prog = TileProgram(slots=slots, n_src=len(inputs), instrs=instrs,
                        params=params,
-                       capacities=[t.capacity for t in tables])
+                       capacities=[t.capacity for t in tables],
+                       sync=_barriers(slots, instrs))
     for o, g in enumerate(outputs):
         widths = [int(w) for _, w in g.terminals]
         prog.out_kinds.append(_kind_of(g.out_dtype))
@@ -308,6 +379,10 @@ def encode_program(inputs: Sequence[StreamInput],
             if slots[s].width != w:
                 raise ValueError(f"terminal {name}: width {slots[s].width} "
                                  f"!= declared {w}")
+            if w >= MAX_TERM_WIDTH:
+                raise NotImplementedError(
+                    f"terminal {name}: {w} columns, over the kernel's "
+                    f"{MAX_TERM_WIDTH - 1} (its row pitch is 16 bits)")
             prog.terms.append((o, s, col, int(w)))
             col += int(w)
     if value_buf is not None:
@@ -389,14 +464,25 @@ def run_program_plain(prog: TileProgram, srcs, tables) -> list:
 
 
 def apply_dataflow_plain(prog: TileProgram, srcs, tables) -> tuple:
-    """Plain version of the apply kernel (group and output dataflow)."""
+    """Plain version of the apply kernel (group and output dataflow): each
+    output gathers its columns through the program's column map."""
     env = run_program_plain(prog, srcs, tables)
     rows = _rows(prog, srcs)
-    dev = srcs[0].device
-    outs = [torch.zeros(rows, cols, dtype=_KIND_DTYPE[kind], device=dev)
-            for kind, cols in zip(prog.out_kinds, prog.out_cols)]
-    for o, s, col, w in prog.terms:
-        outs[o][:, col:col + w] = env[s].to(outs[o].dtype)
+    outs, at = [], 0
+    for kind, n_cols in zip(prog.out_kinds, prog.out_cols):
+        dtype = _KIND_DTYPE[kind]
+        cmap = prog.colmap[at:at + n_cols]
+        at += n_cols
+        used = sorted({s for s, _ in cmap if s >= 0})
+        first, blocks, width = {}, [], 0
+        for s in used:
+            first[s] = width
+            blocks.append(env[s].to(dtype))
+            width += env[s].shape[1]
+        blocks.append(torch.zeros(rows, 1, dtype=dtype,
+                                  device=srcs[0].device))
+        idx = [first[s] + c if s >= 0 else width for s, c in cmap]
+        outs.append(torch.cat(blocks, dim=1)[:, idx])
     return tuple(outs)
 
 
@@ -437,11 +523,11 @@ class _CProgram(ctypes.Structure):
                 ("first_pos", ctypes.c_void_p),
                 ("counts", ctypes.c_void_p),
                 ("n_rows", ctypes.c_int), ("tile_rows", ctypes.c_int),
-                ("smem_bytes", ctypes.c_int), ("n_src", ctypes.c_int),
-                ("n_slot", ctypes.c_int), ("n_instr", ctypes.c_int),
-                ("n_table", ctypes.c_int), ("n_out", ctypes.c_int),
-                ("n_term", ctypes.c_int), ("n_param", ctypes.c_int),
+                ("smem_bytes", ctypes.c_int), ("stage_bytes", ctypes.c_int),
+                ("n_src", ctypes.c_int), ("n_instr", ctypes.c_int),
+                ("n_out", ctypes.c_int), ("n_term", ctypes.c_int),
                 ("value_slot", ctypes.c_int), ("capacity", ctypes.c_int),
+                ("aux_off", ctypes.c_int), ("sync_mask", ctypes.c_uint),
                 ("table_cap", ctypes.c_int * MAX_TABLE),
                 ("out_kind", ctypes.c_int * MAX_OUT),
                 ("out_cols", ctypes.c_int * MAX_OUT),
@@ -465,48 +551,64 @@ def _check_sources(prog: TileProgram, srcs, tables, device) -> int:
     for s, x in zip(prog.slots, srcs):
         want = ((s.hex_width, rows, s.width) if s.kind == KIND_HEX
                 else (rows, s.width))
-        if (x.device != device or x.dtype != _KIND_DTYPE[s.kind]
-                or tuple(x.shape) != want or not x.is_contiguous()):
+        if (x.dtype != _KIND_DTYPE[s.kind] or x.shape != want
+                or x.device != device or not x.is_contiguous()):
             raise ValueError(
                 f"source {s.name}: want contiguous {_KIND_DTYPE[s.kind]}"
                 f"{list(want)} on {device}, got {x.dtype}{list(x.shape)} "
                 f"on {x.device} (contiguous={x.is_contiguous()})")
     for cap, t in zip(prog.capacities, tables):
-        if (t.device != device or t.dtype != torch.int32
-                or t.numel() != cap or not t.is_contiguous()):
+        if (t.dtype != torch.int32 or t.numel() != cap or t.device != device
+                or not t.is_contiguous()):
             raise ValueError(f"table: want contiguous int32[{cap}] on "
                              f"{device}, got {t.dtype}{list(t.shape)} on "
                              f"{t.device}")
     return rows
 
 
-def _c_program(prog: TileProgram, srcs, tables, rows: int) -> _CProgram:
+def _c_template(prog: TileProgram) -> _CProgram:
+    """The launch struct's call-independent part: layout, instructions,
+    barriers, parameters and terminals (no pointers, no row count)."""
     c = _CProgram()
     t = prog.tile_rows()
-    c.n_rows, c.tile_rows, c.smem_bytes = rows, t, prog.smem_bytes(t)
-    c.n_src, c.n_slot, c.n_instr = prog.n_src, len(prog.slots), len(prog.instrs)
-    c.n_table, c.n_out = len(prog.capacities), len(prog.out_cols)
-    c.n_term, c.n_param = len(prog.terms), len(prog.params)
+    offs, c.stage_bytes, c.aux_off, c.smem_bytes = prog.layout(t)
+    c.tile_rows = t
+    c.n_src, c.n_instr = prog.n_src, len(prog.instrs)
+    c.n_out, c.n_term = len(prog.out_cols), len(prog.terms)
     c.value_slot, c.capacity = prog.value_slot, prog.capacity
-    for i, x in enumerate(srcs):
-        c.src[i] = x.data_ptr()
-    for i, (cap, tb) in enumerate(zip(prog.capacities, tables)):
-        c.table[i] = tb.data_ptr()
+    c.sync_mask = sum(1 << k for k, on in enumerate(prog.sync) if on)
+    for i, cap in enumerate(prog.capacities):
         c.table_cap[i] = cap
-    for i, (s, off) in enumerate(zip(prog.slots, prog.slot_offsets(t))):
+    for i, (s, off) in enumerate(zip(prog.slots, offs)):
         c.slot[i] = _CSlot(s.kind, s.width, s.hex_width, off)
     for i, ins in enumerate(prog.instrs):
         c.instr[i] = _CInstr(ins.op, ins.dst, ins.a, ins.b, ins.i0, ins.i1,
                              ins.f0, ins.f1)
-    for i, (o, s, col, w) in enumerate(prog.terms):
-        c.term[i] = _CTerm(o, s, col, w)
     for i, p in enumerate(prog.params):
         c.param[i] = p
     for i, (kind, cols) in enumerate(zip(prog.out_kinds, prog.out_cols)):
         c.out_kind[i], c.out_cols[i] = kind, cols
+    for i, term in enumerate(prog.terms):
+        c.term[i] = _CTerm(*term)
     return c
 
 
+def _c_program(prog: TileProgram, srcs, tables, rows: int) -> _CProgram:
+    """One call's launch struct: a copy of the program's template (built on
+    its first call) with the source and table pointers and the row count
+    set."""
+    if prog.template is None:
+        prog.template = _c_template(prog)
+    c = _CProgram.from_buffer_copy(prog.template)
+    c.n_rows = rows
+    for i, x in enumerate(srcs):
+        c.src[i] = x.data_ptr()
+    for i, tb in enumerate(tables):
+        c.table[i] = tb.data_ptr()
+    return c
+
+
+@functools.cache
 def _library():
     lib = backend.load_library()
     for name, mirror in (("dataflow_program_size", _CProgram),
@@ -536,9 +638,9 @@ def _launch_apply(prog: TileProgram, srcs, tables, name: str) -> tuple:
 def _launch_fit(prog: TileProgram, srcs) -> tuple:
     device = srcs[0].device
     rows = _check_sources(prog, srcs, (), device)
-    first_pos = torch.full((prog.capacity,), ABSENT32, dtype=torch.int32,
-                           device=device)
-    counts = torch.zeros(prog.capacity, dtype=torch.int32, device=device)
+    # the launcher sets both (ABSENT32, 0) before the fold
+    first_pos = torch.empty(prog.capacity, dtype=torch.int32, device=device)
+    counts = torch.empty(prog.capacity, dtype=torch.int32, device=device)
     c = _c_program(prog, srcs, (), rows)
     c.first_pos, c.counts = first_pos.data_ptr(), counts.data_ptr()
     lib = _library()

@@ -150,6 +150,64 @@ def test_staged_kernels_on_edge_inputs(card, case):
     _check(got, want, f"{kname}/{case}")
 
 
+DATAFLOW_EDGES = [f"fit_{c}" for c in tp.FIT_EDGE_CASES] + [
+    f"rows_{n}" for n in (1, 7, 1000, 65533)] + ["dense_off_16B",
+                                                 "wide_2048"]
+
+
+def _dataflow_edge_case(card, case: str) -> list:
+    """(kernel, runner, args) of one edge instance of the redesigned
+    dataflow kernels: Hex2Int straight into the fit on every value equal
+    (one shared-table entry), every value distinct (more per tile than the
+    shared table holds: the probe-overflow path) and negative, missing and
+    >= capacity values; Pipeline III's fit and group at row counts whose
+    tail tiles are not 16-byte multiples; the group with its dense source a
+    contiguous row view off a 16-byte boundary; an output of 2,048 columns
+    (more than a block has threads)."""
+    if case == "wide_2048":
+        from repro_torch.core.pipeline import lm_token_pipeline
+        from repro_torch.data import synth
+        p = lm_token_pipeline(2048, 1000, batch_size=300).compile(
+            "cuda", device=card)
+        raw = next(synth.lm_event_batches(2048, rows=300, batch_size=300))
+        return [(k, fn, args) for k, _, fn, args in
+                p.dataflow_launches(raw, "apply") if k == "output_dataflow"]
+    if case.startswith("fit_"):
+        width, cap = 26, 65536
+        fn = df.make_fit_dataflow(
+            [df.StreamInput("h", width, np.dtype(np.uint8), 8)],
+            [df.TileStep("map", "v", ("h",), (ops.Hex2Int(8),))], "v", cap)
+        hexes = tp.fit_edge_values(case[4:], 2000, width, cap)
+        return [("fit_dataflow", fn, [torch.tensor(hexes, device=card)])]
+    p = tp.BUILDERS["III"](tp.PORT).compile("cuda", device=card)
+    p.fit(tp.fit_batches())
+    if case.startswith("rows_"):
+        raw = tp.raw_batch(rows=int(case[5:]))
+        return [(k, fn, args) for phase in ("fit", "apply")
+                for k, _, fn, args in p.dataflow_launches(raw, phase)]
+    ((kname, _, fn, args),) = p.dataflow_launches(tp.raw_batch(rows=1000),
+                                                  "apply")
+    (i,) = [i for i, s in enumerate(fn.program.slots[:fn.program.n_src])
+            if s.kind == df.KIND_F32 and s.width == 13]
+    buf = torch.empty(args[i].shape[0] + 1, 13, device=card)
+    buf[1:] = args[i]
+    args = list(args)
+    args[i] = buf[1:]  # contiguous, 52 B past a 16-byte boundary
+    assert args[i].is_contiguous() and args[i].data_ptr() % 16
+    return [(kname, fn, args)]
+
+
+@pytest.mark.parametrize("case", DATAFLOW_EDGES)
+def test_dataflow_kernels_on_edge_inputs(card, case):
+    for kname, fn, args in _dataflow_edge_case(card, case):
+        before = df.LAUNCHES[kname]
+        got = fn(*args)
+        assert df.LAUNCHES[kname] == before + 1
+        want = fn.plain(*args)
+        torch.cuda.synchronize()
+        _check(got, want, f"{case}/{kname}")
+
+
 @pytest.mark.parametrize("dim", [128, 13])
 def test_stacked_bag_equals_per_feature_launches(card, dim):
     """One stacked launch over a 26-feature plan (strided columns, -1

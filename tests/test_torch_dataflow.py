@@ -117,3 +117,162 @@ def test_tile_rows_fit_shared_memory():
     assert prog.bytes_per_row == 52 + 208 + 4 + 52 + 104 + 104
     assert prog.tile_rows() == 64
     assert prog.smem_bytes(64) <= df.SMEM_TARGET
+
+
+# ---------------------------------------------------------------------------
+# the encoding the redesigned kernels run: column map, barriers, launch
+# struct, and the fit's edge values
+# ---------------------------------------------------------------------------
+
+def _lm(ns):
+    return ns.pipeline.lm_token_pipeline(16, 1000, batch_size=64)
+
+
+MAP_BUILDERS = {**tp.BUILDERS, "lm": _lm}
+
+
+def _programs(name: str):
+    """(kind, output names or vocab id, program) of every dataflow kernel
+    the port compiles for a pipeline, grouped and ungrouped."""
+    _, port_t = tp.build_pair(MAP_BUILDERS[name])
+    out = []
+    for optimize in ("auto", "off"):
+        p = port_t.compile("cuda", device="cpu", optimize=optimize)
+        out += [("group", tuple(g.outputs), fn.program)
+                for g, fn in zip(p._active_groups, p._group_fns)]
+        out += [("solo", (po,), fn.program) for po, fn in p._solo_fns.items()]
+        out += [("fit", vid, fn.program) for vid, fn in p._fit_fns.items()]
+    return p.plan, out
+
+
+@pytest.mark.parametrize("name", sorted(MAP_BUILDERS))
+def test_column_map_equals_term_list(name):
+    """Every output column of every apply program maps to its terminal's
+    (slot, column), in pack order, then padding up to ``pad_cols_to``."""
+    plan, progs = _programs(name)
+    pack = {po.name: po for po in plan.pack}
+    n_apply = 0
+    for kind, outputs, prog in progs:
+        if kind == "fit":
+            assert prog.colmap == []
+            continue
+        n_apply += 1
+        slot_of = {s.name: i for i, s in enumerate(prog.slots)}
+        want, cols = [], []
+        for o in outputs:
+            po = pack[o]
+            terms = [(slot_of[b], c) for b in po.buffers
+                     for c in range(plan.buffers[b].width)]
+            n = -(-max(len(terms), 1) // po.pad_cols_to) * po.pad_cols_to
+            want += terms + [(-1, 0)] * (n - len(terms))
+            cols.append(n)
+        assert prog.colmap == want, (name, outputs)
+        assert prog.out_cols == cols
+    assert n_apply
+
+
+@pytest.mark.parametrize("name", sorted(MAP_BUILDERS))
+def test_instructions_without_barrier_are_read_elementwise(name):
+    """A barrier may be left out after instruction k only if every reader
+    of its output up to the next barrier is an elementwise opcode over an
+    output of the same width (it reads the element the same thread wrote);
+    ONEHOT, CROSS and the last instruction always keep theirs."""
+    from repro_torch.core import operators as ops_lib
+    _, progs = _programs(name)
+    for kind, what, prog in progs:
+        ins, slots, sync = prog.instrs, prog.slots, prog.sync
+        assert len(sync) == len(ins)
+        if ins:
+            assert sync[-1], (kind, what)
+        for k, a in enumerate(ins):
+            if a.op in (ops_lib.OP_ONEHOT, ops_lib.OP_CROSS):
+                assert sync[k], (kind, what, k)
+            if sync[k]:
+                continue
+            for b in ins[k + 1:sync.index(True, k) + 1]:
+                reads = [b.a] + ([b.b] if b.op == ops_lib.OP_CROSS else [])
+                if a.dst in reads:
+                    assert b.op != ops_lib.OP_ONEHOT, (kind, what, k)
+                    assert slots[b.dst].width == slots[a.dst].width
+    if name == "III":  # two elementwise chains: one barrier, at the end
+        group = next(p for kind, _, p in progs if kind == "group")
+        assert group.sync == [False] * 5 + [True]
+
+
+@pytest.mark.parametrize("rows", [1000, 7])
+def test_cached_launch_struct_equals_fresh_build(rows):
+    """A call's launch struct, copied from the program's cached template,
+    equals one built from scratch byte for byte, for two sets of tensors;
+    the template itself keeps no pointer and no row count."""
+    _, port, _, _ = _pair("III")
+    for fn in (port._group_fns[0], port._fit_fns[next(iter(port._fit_fns))]):
+        prog = fn.program
+        for seed in (0, 1):
+            rng = np.random.default_rng(seed)
+            srcs = [torch.tensor(rng.integers(
+                0, 100, size=((s.hex_width, rows, s.width) if s.hex_width
+                              else (rows, s.width))).astype(
+                np.uint8 if s.hex_width else np.float32))
+                for s in prog.slots[:prog.n_src]]
+            tables = [torch.zeros(cap, dtype=torch.int32)
+                      for cap in prog.capacities]
+            df._c_program(prog, srcs[::-1], tables, rows + 1)  # caches
+            cached = df._c_program(prog, srcs, tables, rows)
+            prog.template = None
+            fresh = df._c_program(prog, srcs, tables, rows)
+            assert bytes(cached) == bytes(fresh)
+            assert cached.n_rows == rows
+            assert [cached.src[i] for i in range(len(srcs))] == \
+                [x.data_ptr() for x in srcs]
+        assert prog.template is not None
+        assert prog.template.n_rows == 0 and not any(prog.template.src)
+
+
+@pytest.mark.parametrize("build_form", ["scatter", "serial"])
+@pytest.mark.parametrize("case", tp.FIT_EDGE_CASES)
+def test_fit_plain_on_edge_values_matches_pallas(case, build_form):
+    """Hex2Int straight into the fit (no Modulus): every value equal, every
+    value distinct (more per tile than the kernel's shared table holds),
+    and negative, missing and >= capacity values, against the reference's
+    fit kernel in interpret mode."""
+    from repro.kernels import ref as rkref
+    from repro_torch.core import operators as pops
+    rows, width, capacity = 300, 26, 8192
+    hexes = tp.fit_edge_values(case, rows, width, capacity)
+    rfn = rdf.make_fit_dataflow(
+        [rdf.StreamInput("h", width, np.uint8, 8)],
+        [rdf.TileStep("map", "v", ("h",), fn=rkref.hex2int_digit_major)],
+        "v", capacity, block_rows=128, interpret=True, build_form=build_form)
+    want_fp, want_cnt = rfn(hexes)
+    fn = df.make_fit_dataflow(
+        [df.StreamInput("h", width, np.dtype(np.uint8), 8)],
+        [df.TileStep("map", "v", ("h",), (pops.Hex2Int(8),))], "v", capacity)
+    got_fp, got_cnt = fn(_t(hexes))
+    tp.assert_match(want_fp, got_fp, f"{case}/first_pos")
+    tp.assert_match(want_cnt, got_cnt, f"{case}/counts")
+    if case == "distinct":  # a full tile overflows the shared table
+        assert int(got_cnt.sum()) == rows * width
+        assert fn.program.tile_rows() * width > df.FIT_SLOTS
+        assert rows >= fn.program.tile_rows()
+    if case == "equal":
+        assert int(got_cnt[0x1ABC]) == rows * width
+        assert int(got_fp[0x1ABC]) == 0
+
+
+def test_wide_output_lowers_to_the_dataflow_kernel():
+    """An output of 2,048 columns (an LM batch's labels) still lowers to the
+    fused kernel: the launch struct carries terminals, not columns.  The
+    outputs equal the numpy oracle."""
+    from repro_torch.core.pipeline import lm_token_pipeline
+    from repro_torch.data import synth
+    t = lm_token_pipeline(2048, 1000, batch_size=8)
+    port = t.compile("cuda", device="cpu")
+    assert port.lowering_report()["labels"]["path"] == "fused"
+    progs = [fn.program for fn in list(port._solo_fns.values())
+             + port._group_fns]
+    assert any(sum(p.out_cols) >= 2048 for p in progs)
+    raw = next(synth.lm_event_batches(2048, rows=8, batch_size=8))
+    got = port(raw)
+    want = t.compile("numpy")(raw)
+    for k, w in want.items():
+        tp.assert_match(w, got[k], k)

@@ -108,3 +108,39 @@ def assert_outputs_match(want: dict, got: dict, msg: str = "") -> None:
     assert set(want) == set(got), (msg, set(want), set(got))
     for k in want:
         assert_match(want[k], got[k], f"{msg}/{k}")
+
+
+def hex_planes(vals: np.ndarray, missing=None) -> np.ndarray:
+    """uint32 [rows, width] -> digit-major ASCII hex uint8 [8, rows, width];
+    ``missing`` rows/columns become all-zero strings."""
+    digits = np.frombuffer(b"0123456789abcdef", np.uint8)
+    shifts = np.arange(28, -4, -4, dtype=np.uint64)
+    planes = digits[(vals.astype(np.uint64)[None] >> shifts[:, None, None])
+                    & 15]
+    if missing is not None:
+        planes[:, missing] = 0
+    return np.ascontiguousarray(planes)
+
+
+FIT_EDGE_CASES = ("equal", "distinct", "out_of_range")
+
+
+def fit_edge_values(case: str, rows: int, width: int, capacity: int):
+    """Digit-major hex whose Hex2Int values are all equal (0x1ABC), all
+    distinct (0, 1, 2, ...), or a mix of in-range, negative, missing and
+    >= ``capacity`` values."""
+    rng = np.random.default_rng(21)
+    if case == "equal":
+        return hex_planes(np.full((rows, width), 0x1ABC, np.uint32))
+    if case == "distinct":
+        return hex_planes(np.arange(rows * width, dtype=np.uint32)
+                          .reshape(rows, width))
+    vals = rng.integers(0, capacity, size=(rows, width)).astype(np.uint32)
+    pick = rng.random((rows, width))
+    vals[pick < 0.2] = rng.integers(0x80000000, 0xFFFFFFFF,
+                                    size=int((pick < 0.2).sum()),
+                                    dtype=np.uint32)  # negative
+    big = (pick >= 0.2) & (pick < 0.4)
+    vals[big] = rng.integers(capacity, 1 << 30, size=int(big.sum()),
+                             dtype=np.uint32)
+    return hex_planes(vals, missing=rng.random((rows, width)) < 0.1)
