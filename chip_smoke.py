@@ -52,7 +52,20 @@ Phases, one JSON line each; any failure exits non-zero:
                  tile than the shared table holds) and negative, missing
                  and >= capacity ids; the main path's fit and group at 1,
                  7, 1000 and 65533 rows (tails off 16 bytes); its group with
-                 the dense source a row view off a 16-byte boundary.
+                 the dense source a row view off a 16-byte boundary; the
+                 tile program's byte copy into shared memory off a 4-byte
+                 boundary (``edge:byte_copy``: a 1023-column hex output
+                 whose tiles hold 2 rows).  The wider plans and dtypes
+                 (``extra_instances``, never the kernels line's instance
+                 either): ``criteo26_group``, one vocabulary per Criteo
+                 feature (Vocab(65536) each: 26 tables, 6.8 MB) in one
+                 group launch; ``criteo4_group``, the first four features'
+                 (a program within the small struct), and
+                 ``criteo4_group:wide``, the same program forced into the
+                 wide struct; float16 outputs of the group kernel and of
+                 the packer; a bfloat16 embedding bag on the Zipf ids
+                 (bit-equal to its plain version, as every bag); and the
+                 staged build's fill alone (``fill_only``: no ids).
 4. main        — EtlJob(Pipeline III, Source.synth("I"), backend="cuda") ->
                  fit (one fit launch per chunk) -> 16 DLRM training steps at
                  DLRMConfig(vocab_size=524289) (1.75 B parameters; one group
@@ -90,8 +103,9 @@ Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
 builds the parity phase's instances from the checkout at DIR (its
 ``src/repro_torch``, built there) and times each instance's kernel wrapper
 with the same timer, skipping a wrapper the checkout lacks, then the
-forward of ``cached_embedding_lookup`` over the same lookahead plan: no
-plain versions, library calls or paths.  One JSON line each, with the
+forward of ``cached_embedding_lookup`` over the same lookahead plan, and
+``floor``, a one-element torch op (what the timer reads for a launch that
+does nothing): no plain versions, library calls or paths.  One JSON line each, with the
 launches per call and a checksum of the output, so two checkouts (a parent
 and its change) compare in one process each, on one card.
 """
@@ -131,6 +145,50 @@ REPLACES = {"group_dataflow": "src/repro/kernels/dataflow.py:367",
 PATH_INSTANCE = {"embedding_bag_cached": "stacked_plan"}
 EDGE_ROWS = (1, 7, 1000, 65533)  # tail tiles that are not 16-byte multiples
 DISTINCT_ROWS = 16384            # 425,984 distinct ids under capacity 524288
+CRITEO_VOCAB = 65536             # per-feature vocabularies of criteo*_group
+BYTE_COPY_COLS, BYTE_COPY_ROWS = 1023, 4096  # 2-row tiles, planes off 4 B
+# instances that never stand for a kernel in the kernels line
+EXTRA = ("criteo26_group", "criteo4_group", "criteo4_group:wide",
+         "out:float16", "bag:bfloat16", "fill_only")
+
+
+def pipeline_iii_dense_as(Pipeline, Schema, ops, Vocab, dtype):
+    """Pipeline III at vocab 524288 with its dense output in ``dtype``."""
+    import numpy as np
+    p = Pipeline(Schema.criteo_kaggle(), name="pipeline_III_dense_dtype",
+                 batch_size=B)
+    d = (p.dense("dense_*") | ops.FillMissing(0.0) | ops.Clamp(0.0)
+         | ops.Logarithm())
+    s = (p.sparse("sparse_*") | ops.Hex2Int(8) | ops.Modulus(524288)
+         | Vocab(524288))
+    p.output("dense", [d], dtype=dtype, pad_cols_to=16)
+    p.output("sparse", [s], dtype=np.int32, pad_cols_to=32)
+    p.output("label", [p.label("label")], dtype=np.float32, squeeze=True)
+    return p
+
+
+def byte_copy_instance(df, core_ops):
+    """``(kernel, "edge:byte_copy", runner, args)``: Hex2Int | Modulus over
+    a 1023-column hex source into one int32 output.  A row needs so much
+    shared memory that a tile holds 2 rows, so digit plane d of a tile lies
+    2046 * d bytes into its stage: off a 4-byte boundary for odd d, the one
+    case the kernel copies byte by byte."""
+    import numpy as np
+    import torch
+    w = BYTE_COPY_COLS
+    fn = df.make_output_dataflow(
+        [df.StreamInput("h", w, np.dtype(np.uint8), 8)], (),
+        [df.TileStep("map", "v", ("h",),
+                     (core_ops.Hex2Int(8), core_ops.Modulus(1 << 20)))],
+        [("v", w)], np.int32)
+    tile = fn.program.tile_rows()
+    if tile >= 4 or (tile * w) % 4 == 0:
+        raise AssertionError(f"byte_copy: {tile}-row tiles reach no byte copy")
+    rng = np.random.default_rng(17)
+    vals = rng.integers(0, 1 << 32, size=(BYTE_COPY_ROWS, w), dtype=np.uint64)
+    raw = hex_planes(vals.astype(np.uint32), rng.random(vals.shape) < 0.05)
+    return ("output_dataflow", "edge:byte_copy", fn,
+            [torch.tensor(raw, device="cuda")])
 
 
 def hex_planes(vals, missing=None):
@@ -293,7 +351,9 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import operators as core_ops
-    from repro_torch.core.pipeline import paper_pipeline
+    from repro_torch.core.dag import Vocab
+    from repro_torch.core.pipeline import Pipeline, paper_pipeline
+    from repro_torch.core.schema import Schema
     from repro_torch.data.source import Source
     from repro_torch.etl_runtime import lookahead as la
     from repro_torch.kernels import backend
@@ -304,6 +364,8 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     from repro_torch.session import EtlJob
     from repro_torch.training.train_loop import (LoopConfig, TrainState,
                                                  make_train_step, train_loop)
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_parity  # the per-feature Criteo plan the tests build too
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -351,9 +413,10 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                    if isinstance(x, torch.Tensor))
 
     def bag_work(args, got) -> tuple:
-        """Bytes and adds of an embedding bag: ids in, output out, 4 * dim
-        per distinct row read (a gather reads only the rows it needs)."""
-        dim = got[0].shape[-1]
+        """Bytes and adds of an embedding bag: ids in, output out, one row
+        (dim elements of the table's dtype) per distinct row read (a gather
+        reads only the rows it needs)."""
+        dim = got[0].shape[-1] * got[0].element_size() // 4
         if args[0].dim() == 3:  # stacked: a row is a (feature, row) pair
             tables, cache, slot, cold = args
             feat = torch.arange(slot.shape[1], device=slot.device)
@@ -365,7 +428,8 @@ def main(root: str = HERE, time_only: bool = False) -> int:
             n_rows += int(torch.unique(feat[fall] * tables.shape[1]
                                        + cold[fall]).numel())
             return (4 * (slot.numel() + cold.numel()) + tensor_bytes(got)
-                    + 4 * dim * n_rows, int(hit.sum() + fall.sum()) * dim)
+                    + 4 * dim * n_rows,
+                    int(hit.sum() + fall.sum()) * got[0].shape[-1])
         if len(args) == 2:  # embedding_bag(table, ids)
             (table, ids), cold = args, None
             hit = (ids >= 0) & (ids < table.shape[0])
@@ -381,7 +445,7 @@ def main(root: str = HERE, time_only: bool = False) -> int:
             n_entries += int(fall.sum())
             id_bytes += 4 * cold.numel()
         return (id_bytes + tensor_bytes(got) + 4 * dim * n_rows,
-                n_entries * dim)
+                n_entries * got[0].shape[-1])
 
     def work(kname, fn, args, got) -> tuple:
         """(bytes, operations) the function needs for these inputs."""
@@ -415,7 +479,8 @@ def main(root: str = HERE, time_only: bool = False) -> int:
         by form; the kernels line reports the fastest.  Empty if none."""
         if kname == "vocab_build_chunk":
             vals, cap = args
-            if bool(((vals < 0) | (vals >= cap)).any()):
+            # with no ids scatter_reduce_ fills nothing: not the same function
+            if vals.numel() == 0 or bool(((vals < 0) | (vals >= cap)).any()):
                 return {}
             idx = vals.long()
             pos = torch.arange(vals.numel(), dtype=torch.int32, device="cuda")
@@ -432,7 +497,7 @@ def main(root: str = HERE, time_only: bool = False) -> int:
         if kname == "embedding_bag" or (kname == "embedding_bag_cached"
                                         and len(args) == 3):
             weight, ids = (args[0], args[1]) if len(args) == 2 else args[1:]
-            inp, w = ids.clamp(min=0).long(), (ids >= 0).float()
+            inp, w = ids.clamp(min=0).long(), (ids >= 0).to(weight.dtype)
             # the valid ids flat, each bag starting at its offset: the same
             # function with no weights (the ids here are -1 or in range)
             ok = ids >= 0
@@ -494,6 +559,13 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     for p in (grouped, large, off):
         launches += p.dataflow_launches(raw, "fit")
     launches += dataflow_edges(df, core_ops, Source, grouped, raw)
+    launches.append(byte_copy_instance(df, core_ops))
+    launches += extra_instances(
+        time_only, fit_chunks, raw, table, ids,
+        lambda k: torch_parity.criteo_per_feature(
+            CRITEO_VOCAB, features=k)(torch_parity.PORT),
+        lambda: pipeline_iii_dense_as(Pipeline, Schema, core_ops, Vocab,
+                                      np.float16))
     launches += [
         ("embedding_bag", "zipf1.1_nnz8", kops.embedding_bag, (table, ids)),
         ("embedding_bag_cached", "stacked_plan", stacked,
@@ -516,6 +588,8 @@ def main(root: str = HERE, time_only: bool = False) -> int:
         calls = [(k, w, (lambda f=f, a=a: f(*a))) for k, w, f, a in launches
                  if f is not None]
         calls.append(("cached_embedding_lookup", "forward", lookup_forward))
+        one = torch.zeros(1, device="cuda")
+        calls.append(("floor", "one-element add", lambda: one.add_(1)))
         return time_wrappers(root, timer, calls, backend.LAUNCHES)
     for kname, what, fn, args in launches:
         got = as_tuple(fn(*args))
@@ -570,9 +644,10 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                "gbytes_per_s": nbytes / (kernel_t["ms"] * 1e-3) / 1e9}
         emit({"phase": "parity", **rec})
         # one entry per kernel: the main path's instance where it fixes
-        # one, else the largest instance on these plans (no edge instance)
+        # one, else the largest instance on these plans (no edge or extra
+        # instance)
         path = PATH_INSTANCE.get(kname)
-        if str(what).startswith("edge:"):
+        if str(what).startswith("edge:") or what in EXTRA:
             continue
         if (kname not in kernels or what == path
                 or (kernels[kname]["what"] != path
@@ -859,6 +934,93 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def extra_instances(time_only: bool, fit_chunks, raw, table, ids,
+                    criteo, dense_f16) -> list:
+    """The wider plans' and dtypes' parity instances, ``(kernel, what,
+    runner, args)``: ``criteo26_group`` and ``criteo4_group`` (fitted on
+    the CPU through the plain versions, as the other plans are; ``criteo(k)``
+    is the plan of the first k features), ``criteo4_group:wide``,
+    ``out:float16`` for the group kernel and the packer, ``bag:bfloat16``
+    and ``fill_only``.  With ``time_only`` (``--wrappers`` on another
+    checkout) an instance that checkout cannot build is skipped, with a
+    line that says so; otherwise a failure is the phase's."""
+    import torch
+
+    fitted = {}  # k -> (the plan, its state), each fitted once
+
+    def per_feature(k: int, forced_wide: bool = False):
+        if k not in fitted:
+            t = criteo(k)
+            host = t.compile("cuda", device="cpu")
+            host.fit(iter(fit_chunks))
+            fitted[k] = t, host.state
+        t, state = fitted[k]
+        p = t.compile("cuda")
+        p.state = state
+        ((kname, _, fn, args),) = p.dataflow_launches(raw, "apply")
+        if p.lowering_report()["sparse"]["path"] != "grouped":
+            raise AssertionError(f"criteo{k}: {p.lowering_report()}")
+        if forced_wide:
+            if getattr(fn.program, "wide", None) is not False:
+                raise NotImplementedError("no small program to force wide")
+            fn.program.wide, fn.program.template = True, None
+        return kname, fn, args
+
+    def criteo26():
+        kname, fn, args = per_feature(26)
+        return [(kname, "criteo26_group", fn, args)]
+
+    def criteo4():
+        kname, fn, args = per_feature(4)
+        return [(kname, "criteo4_group", fn, args)]
+
+    def criteo4_wide():
+        kname, fn, args = per_feature(4, forced_wide=True)
+        return [(kname, "criteo4_group:wide", fn, args)]
+
+    def out_f16():
+        out = []
+        for fuse, kname in (("auto", "group_dataflow"), ("off", "packer")):
+            t = dense_f16()
+            host = t.compile("cuda", device="cpu", fuse=fuse)
+            host.fit(iter(fit_chunks[:1]))
+            p = t.compile("cuda", fuse=fuse)
+            p.state = host.state
+            for k, _, fn, args in p.dataflow_launches(raw, "apply"):
+                got = fn(*args)
+                got = got if isinstance(got, tuple) else (got,)
+                if k == kname and any(g.dtype == torch.float16 for g in got):
+                    out.append((k, "out:float16", fn, args))
+        if len(out) != 2:
+            raise AssertionError(f"out:float16: {len(out)} instances")
+        return out
+
+    def bag_bf16():
+        from repro_torch.kernels import ops as kops
+        tb = table.to(torch.bfloat16)
+        kops.embedding_bag(tb, ids[:1])  # refused by a checkout without it
+        return [("embedding_bag", "bag:bfloat16", kops.embedding_bag,
+                 (tb, ids))]
+
+    def fill_only():  # at the staged path's capacity
+        from repro_torch.kernels import ops as kops
+        return [("vocab_build_chunk", "fill_only", kops.vocab_build_chunk,
+                 (torch.empty(0, dtype=torch.int32, device="cuda"),
+                  LARGE_VOCAB))]
+
+    out = []
+    for make in (criteo26, criteo4, criteo4_wide, out_f16, bag_bf16,
+                 fill_only):
+        try:
+            out += make()
+        except (NotImplementedError, ValueError) as e:
+            if not time_only:
+                raise
+            emit({"phase": "wrappers", "skipped": make.__name__,
+                  "error": f"{type(e).__name__}: {e}"[:300]})
+    return out
 
 
 def time_wrappers(root: str, timer: DeviceTimer, calls: list,

@@ -23,7 +23,10 @@ import torch
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """The torch dtype of a numpy dtype."""
+    """The torch dtype of a numpy dtype (bfloat16 by name: numpy knows it
+    only through an extension type, which ``torch.from_numpy`` refuses)."""
+    if np.dtype(dtype).name == "bfloat16":
+        return torch.bfloat16
     return torch.from_numpy(np.empty(0, dtype)).dtype
 
 

@@ -140,22 +140,23 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
-        "launch_dataflow_apply": [ptr, ptr],
-        "launch_dataflow_fit": [ptr, ptr],
+        "launch_dataflow_apply": [ptr, i32, ptr],
+        "launch_dataflow_fit": [ptr, i32, ptr],
         "launch_fused_stage": [ptr, ptr],
-        "launch_packer": [ptr, ptr],
+        "launch_packer": [ptr, i32, ptr],
         "launch_vocab_build": [ptr, ptr, i32, i32, ptr],
         "launch_vocab_lookup": [ptr, ptr, ptr, i64, i32, i32, ptr],
         "launch_embedding_bag": [ptr, ptr, i64, ptr, i32, i32, i32, i32, i32,
-                                 ptr],
+                                 i32, ptr],
         "launch_embedding_bag_cached": [ptr, ptr, ptr, i64, ptr, i64, ptr,
-                                        i32, i32, i32, i32, i32, i32, ptr],
+                                        i32, i32, i32, i32, i32, i32, i32,
+                                        ptr],
         "launch_embedding_bag_cached_stacked": [
             ptr, i64, ptr, i64, ptr, i64, i64, ptr, i64, i64, ptr, i32, i32,
-            i32, i32, i32, i32, ptr],
-        "dataflow_program_size": [],
+            i32, i32, i32, i32, i32, ptr],
+        "dataflow_program_size": [i32],
         "stage_args_size": [],
-        "pack_args_size": [],
+        "pack_args_size": [i32],
     }
     for name, args in signatures.items():
         f = getattr(lib, name)

@@ -10,7 +10,17 @@
 //
 // The program (slots, instructions, terminals) is encoded on the host by
 // repro_torch/kernels/dataflow.py and passed by value as one
-// __grid_constant__ struct; no per-launch copy to the device.
+// __grid_constant__ struct; no per-launch copy to the device.  Two
+// instantiations of one template: Program, whose maxima (8 sources, 24
+// slots, 32 instructions, 4 tables, 4 outputs, 16 terminals) keep it under
+// the classic 4 KiB of kernel parameters, takes every program within them;
+// WideProgram (128 / 384 / 384 / 128 / 16 / 128, 25 KB) takes the larger
+// ones, such as one vocabulary per Criteo feature (28 sources, 81 slots and
+// instructions, 26 tables), through the 32,764 bytes of parameters that
+// CUDA 12.1 and later allow on sm_70 and up.  Both run the same code.
+//
+// Outputs may be of any kind of ops.cuh (f32, i32, f16, bf16, i8, u8, i16,
+// u16, u32, bool): the program computes in 32 bits and casts at the store.
 //
 // Bound on an H100: bytes (raw sources in once, packed outputs out once; a
 // few integer operations per byte).  What the design does about it:
@@ -24,8 +34,12 @@
 //   completing on the stage's mbarrier.  A range whose global address,
 //   shared address or size is not a multiple of 16 bytes (the tail tile, a
 //   source view off a 16-byte boundary) is copied by every thread when its
-//   tile comes up, words where it can, bytes where not.  Every loop walks
-//   (plane, offset): no division per byte.
+//   tile comes up, words where it can, bytes where not.  Only thread 0
+//   walks a tile's ranges: it records in shared memory the bytes it put in
+//   flight and whether a range is left for the threads, which the others
+//   read after the next barrier (a program of 26 one-column hex sources
+//   has 208 ranges a tile).  Every loop walks (plane, offset): no division
+//   per byte.
 // - Barriers only where they are needed: encode_program sets bit k of
 //   sync_mask when a later reader could take an element of instruction k's
 //   output that another thread wrote.  The same-shape elementwise opcodes
@@ -59,11 +73,6 @@
 
 #include "ops.cuh"
 
-#define MAX_SRC 8
-#define MAX_SLOT 24
-#define MAX_TABLE 4
-#define MAX_OUT 4
-#define MAX_TERM 16
 #define FIT_SLOTS 1024    // entries of the fit's shared-memory table
 #define FIT_LOG2 10
 #define FIT_PROBE 8
@@ -73,26 +82,36 @@ struct Slot { int kind, width, hex_width, offset; };
 // a terminal: `width` columns of slot `slot` at column `col` of output `out`
 struct Term { int out, slot, col, width; };
 
-// mirrored by _CProgram in repro_torch/kernels/dataflow.py
-struct Program {
-  const void* src[MAX_SRC];
-  const int* table[MAX_TABLE];
-  void* out[MAX_OUT];
+// mirrored by _program_type(limits) in repro_torch/kernels/dataflow.py
+template <int NSRC, int NSLOT, int NINSTR, int NTABLE, int NOUT, int NTERM,
+          int NPARAM>
+struct ProgramT {
+  const void* src[NSRC];
+  const int* table[NTABLE];
+  void* out[NOUT];
   int* first_pos;
   int* counts;
   int n_rows, tile_rows, smem_bytes, stage_bytes;
   int n_src, n_instr, n_out, n_term;
   int value_slot, capacity, aux_off;
-  unsigned sync_mask;  // bit k: a barrier follows instruction k
-  int table_cap[MAX_TABLE];
-  int out_kind[MAX_OUT];
-  int out_cols[MAX_OUT];
-  Slot slot[MAX_SLOT];
-  Instr instr[MAX_INSTR];
-  Term term[MAX_TERM];
-  int param[MAX_PARAM];
+  unsigned sync_mask[(NINSTR + 31) / 32];  // bit k: a barrier follows instr k
+  int table_cap[NTABLE];
+  int out_kind[NOUT];
+  int out_cols[NOUT];
+  Slot slot[NSLOT];
+  Instr instr[NINSTR];
+  Term term[NTERM];
+  int param[NPARAM];
+
+  __device__ __forceinline__ bool sync_after(int k) const {
+    if constexpr (NINSTR <= 32) return (sync_mask[0] >> k) & 1u;
+    else return (sync_mask[k >> 5] >> (k & 31)) & 1u;
+  }
 };
-static_assert(sizeof(Program) <= 4096, "the kernel parameter limit");
+using Program = ProgramT<8, 24, MAX_INSTR, 4, 4, 16, MAX_PARAM>;
+using WideProgram = ProgramT<128, 384, 384, 128, 16, 128, 512>;
+static_assert(sizeof(Program) <= 4096, "the classic kernel parameter limit");
+static_assert(sizeof(WideProgram) <= 32764, "the kernel parameter limit");
 
 // ---- bulk async copies on an mbarrier -----------------------------------
 
@@ -145,8 +164,8 @@ static __device__ __forceinline__ bool bulk_ok(const void* dst,
 // per hex digit plane (plane d of the tile lies tile_rows * width bytes
 // after plane d-1 in shared memory), one per f32/i32 source.  `stage` is
 // the ring stage the tile goes to.
-template <class F>
-static __device__ __forceinline__ void for_each_range(const Program& p,
+template <class P, class F>
+static __device__ __forceinline__ void for_each_range(const P& p,
                                                       unsigned char* stage,
                                                       int r0, int rows, F f) {
   for (int s = 0; s < p.n_src; ++s) {
@@ -165,21 +184,21 @@ static __device__ __forceinline__ void for_each_range(const Program& p,
   }
 }
 
-static __device__ __forceinline__ uint32_t bulk_bytes(const Program& p,
-                                                      unsigned char* stage,
-                                                      int r0, int rows) {
-  uint32_t total = 0;
+// Thread 0: put a tile's aligned ranges in flight on the stage's mbarrier,
+// and record in `info` the bytes in flight and whether any range is left to
+// copy_unaligned (every thread reads both after the next barrier, so no
+// thread walks the ranges but thread 0).
+template <class P>
+static __device__ void issue_tile(const P& p, unsigned char* stage,
+                                  int r0, int rows, uint64_t* bar,
+                                  uint2* info) {
+  uint32_t total = 0, by_hand = 0;
   for_each_range(p, stage, r0, rows,
                  [&](unsigned char* d, const unsigned char* g, int n) {
                    if (bulk_ok(d, g, n)) total += n;
+                   else by_hand = 1;
                  });
-  return total;
-}
-
-// Thread 0: put a tile's aligned ranges in flight on the stage's mbarrier.
-static __device__ void issue_tile(const Program& p, unsigned char* stage,
-                                  int r0, int rows, uint64_t* bar) {
-  const uint32_t total = bulk_bytes(p, stage, r0, rows);
+  *info = make_uint2(total, by_hand);
   if (total == 0) return;
   // order the generic-proxy reads and writes of this stage (the tile before
   // last, behind the block's barrier) before the async proxy's writes
@@ -195,7 +214,8 @@ static __device__ void issue_tile(const Program& p, unsigned char* stage,
 // word-aligned, each destination word comes from the two aligned source
 // words it straddles (one funnel shift); the bytes past the last whole word,
 // and a destination off a word boundary, go a byte at a time.
-static __device__ void copy_unaligned(const Program& p, unsigned char* stage,
+template <class P>
+static __device__ void copy_unaligned(const P& p, unsigned char* stage,
                                       int r0, int rows) {
   for_each_range(p, stage, r0, rows,
                  [&](unsigned char* d, const unsigned char* g, int n) {
@@ -261,7 +281,8 @@ static __device__ __forceinline__ void lookup_loop(const int* tbl, int cap,
 // stage `shift` bytes past its stage-0 offset; every other slot has one
 // copy.  Each thread owns whole elements, so an instruction may write in
 // place over its own input.
-static __device__ void run_program(const Program& p, unsigned char* sm,
+template <class P>
+static __device__ void run_program(const P& p, unsigned char* sm,
                                    int shift, int rows) {
   for (int k = 0; k < p.n_instr; ++k) {
     const Instr& in = p.instr[k];
@@ -312,7 +333,7 @@ static __device__ void run_program(const Program& p, unsigned char* sm,
       case OP_SIGRID: unary_loop<OP_SIGRID>(in, ai, di, n, p.param); break;
       default: break;
     }
-    if ((p.sync_mask >> k) & 1u) __syncthreads();
+    if (p.sync_after(k)) __syncthreads();
   }
 }
 
@@ -320,9 +341,12 @@ static __device__ void run_program(const Program& p, unsigned char* sm,
 
 // Expand the terminals into the column map in shared memory, every
 // output's columns in order: per column the byte offset of row 0, and (row
-// pitch | conversion << 16 | is-source << 18).  A padding column reads the
-// zero word after the map.
-static __device__ void expand_colmap(const Program& p, unsigned char* sm) {
+// pitch | conversion << 16 | is-source << 18 | is-float << 19).  The
+// conversion is 0 (same kind), 1 (int -> f32), 2 (f32 -> int) or 3 (an
+// output of another kind: the raw word, cast at the store by cast_out).  A
+// padding column reads the zero word after the map.
+template <class P>
+static __device__ void expand_colmap(const P& p, unsigned char* sm) {
   int2* map = reinterpret_cast<int2*>(sm + p.aux_off);
   int n_cols = 0;
   for (int o = 0; o < p.n_out; ++o) n_cols += p.out_cols[o];
@@ -334,9 +358,12 @@ static __device__ void expand_colmap(const Program& p, unsigned char* sm) {
       const Term& T = p.term[t];
       if (T.out != o) continue;
       const Slot& S = p.slot[T.slot];
-      const int conv = (p.out_kind[o] == S.kind) ? 0
-                       : (p.out_kind[o] == K_F32 ? 1 : 2);
-      const int y = 4 * S.width | conv << 16 | (T.slot < p.n_src ? 1 : 0) << 18;
+      const int ok = p.out_kind[o];
+      const int conv = (ok != K_F32 && ok != K_I32) ? 3
+                       : (ok == S.kind) ? 0 : (ok == K_F32 ? 1 : 2);
+      const int y = 4 * S.width | conv << 16 |
+                    (T.slot < p.n_src ? 1 : 0) << 18 |
+                    (S.kind == K_F32 ? 1 : 0) << 19;
       for (int c = threadIdx.x; c < T.width; c += blockDim.x)
         map[base + T.col + c] = make_int2(S.offset + 4 * c, y);
       used = T.col + T.width;
@@ -361,11 +388,59 @@ static __device__ __forceinline__ int fetch(const unsigned char* sm, int2 e,
   }
 }
 
+// The tile's rows of one output of a kind other than f32 / i32: each
+// element cast_out's bits, 4 columns a store (4, 8 or 16 bytes) where the
+// width and base allow, else one.
+static __device__ void write_cast(const int2* m, int kind, void* out_base,
+                                  int cols, const unsigned char* sm,
+                                  int shift, int r0, int rows) {
+  const int size = kind_size(kind);
+  unsigned char* out = static_cast<unsigned char*>(out_base) +
+                       static_cast<size_t>(r0) * cols * size;
+  const bool vec = ((cols & 3) == 0) &&
+                   ((reinterpret_cast<uintptr_t>(out_base) & 15) == 0);
+  const int units = vec ? cols >> 2 : cols;
+  const int total = rows * units;
+  int r = threadIdx.x / units;
+  int c = threadIdx.x - r * units;
+  const int dr = blockDim.x / units;
+  const int dc = blockDim.x - dr * units;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    if (vec) {
+      uint32_t v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int2 e = m[4 * c + u];
+        v[u] = cast_out(kind, fetch(sm, e, r, shift), (e.y >> 19) & 1);
+      }
+      if (size == 4)
+        reinterpret_cast<uint4*>(out)[i] = make_uint4(v[0], v[1], v[2], v[3]);
+      else if (size == 2)
+        reinterpret_cast<uint2*>(out)[i] =
+            make_uint2(v[0] | v[1] << 16, v[2] | v[3] << 16);
+      else
+        reinterpret_cast<uint32_t*>(out)[i] =
+            v[0] | v[1] << 8 | v[2] << 16 | v[3] << 24;
+    } else {
+      const int2 e = m[c];
+      store_out(out, i, kind,
+                cast_out(kind, fetch(sm, e, r, shift), (e.y >> 19) & 1));
+    }
+    c += dc;
+    r += dr;
+    if (c >= units) {
+      c -= units;
+      ++r;
+    }
+  }
+}
+
 // Write the tile's rows of every output.  Thread t takes units t, t +
 // THREADS, ... of the tile's contiguous output (a unit is 4 columns where
 // the width and base allow 16-byte stores, else one); (row, column) step
 // by a fixed amount, so no unit costs a division.
-static __device__ void write_outputs(const Program& p,
+template <class P>
+static __device__ void write_outputs(const P& p,
                                      const unsigned char* sm, int shift,
                                      int r0, int rows) {
   const int2* map = reinterpret_cast<const int2*>(sm + p.aux_off);
@@ -373,6 +448,10 @@ static __device__ void write_outputs(const Program& p,
     const int cols = p.out_cols[o];
     const int2* m = map;
     map += cols;
+    if (p.out_kind[o] != K_F32 && p.out_kind[o] != K_I32) {
+      write_cast(m, p.out_kind[o], p.out[o], cols, sm, shift, r0, rows);
+      continue;
+    }
     unsigned char* out = static_cast<unsigned char*>(p.out[o]) +
                          static_cast<size_t>(r0) * cols * 4;
     const bool vec = ((cols & 3) == 0) &&
@@ -404,7 +483,8 @@ static __device__ void write_outputs(const Program& p,
 
 // ---- the fit fold -----------------------------------------------------------
 
-static __device__ void clear_table(const Program& p, unsigned char* sm) {
+template <class P>
+static __device__ void clear_table(const P& p, unsigned char* sm) {
   int* key = reinterpret_cast<int*>(sm + p.aux_off);
   for (int h = threadIdx.x; h < FIT_SLOTS; h += blockDim.x) {
     key[h] = FIT_EMPTY;
@@ -437,7 +517,8 @@ static __device__ __forceinline__ bool table_add(int* key, int v, int at) {
   return false;
 }
 
-static __device__ void fit_fold(const Program& p, unsigned char* sm,
+template <class P>
+static __device__ void fit_fold(const P& p, unsigned char* sm,
                                 int shift, int r0, int rows) {
   int* key = reinterpret_cast<int*>(sm + p.aux_off);
   const Slot& V = p.slot[p.value_slot];
@@ -470,43 +551,50 @@ static __device__ void fit_fold(const Program& p, unsigned char* sm,
 
 // ---- the tile loop ----------------------------------------------------------
 
-template <bool FIT>
-static __device__ __forceinline__ void run_tiles(const Program& p) {
+template <bool FIT, class P>
+static __device__ __forceinline__ void run_tiles(const P& p) {
   extern __shared__ __align__(16) unsigned char sm[];
   __shared__ __align__(8) uint64_t bar[2];
+  __shared__ uint2 info[2];  // per stage: bytes in flight, ranges by hand
   const int n_tiles = (p.n_rows + p.tile_rows - 1) / p.tile_rows;
   if (FIT) clear_table(p, sm);
   else expand_colmap(p, sm);
+  int tile = blockIdx.x;
   if (threadIdx.x == 0) {
     mbar_init(&bar[0]);
     mbar_init(&bar[1]);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (tile < n_tiles) {
+      const int r0 = tile * p.tile_rows;
+      issue_tile(p, sm, r0, min(p.tile_rows, p.n_rows - r0), &bar[0],
+                 &info[0]);
+    }
   }
   __syncthreads();
-  int tile = blockIdx.x;
-  if (threadIdx.x == 0 && tile < n_tiles) {
-    const int r0 = tile * p.tile_rows;
-    issue_tile(p, sm, r0, min(p.tile_rows, p.n_rows - r0), &bar[0]);
-  }
   uint32_t parity = 0;  // bit s: the phase stage s's barrier completes next
   for (int k = 0; tile < n_tiles; tile += gridDim.x, ++k) {
     const int s = k & 1;
     const int shift = s * p.stage_bytes;
     const int r0 = tile * p.tile_rows;
     const int rows = min(p.tile_rows, p.n_rows - r0);
-    copy_unaligned(p, sm + shift, r0, rows);
-    if (bulk_bytes(p, sm + shift, r0, rows)) {
+    // every thread is done with the tile before (its stage, the
+    // intermediates, the fit table), and info[s] is written
+    __syncthreads();
+    const int next = tile + gridDim.x;
+    if (threadIdx.x == 0 && next < n_tiles) {  // before the wait: thread 0's
+      const int n0 = next * p.tile_rows;       // issue overlaps it
+      issue_tile(p, sm + (shift ^ p.stage_bytes), n0,
+                 min(p.tile_rows, p.n_rows - n0), &bar[s ^ 1],
+                 &info[s ^ 1]);
+    }
+    const uint2 in = info[s];
+    if (in.x) {  // the tile's bulk copies have landed
       mbar_wait(&bar[s], (parity >> s) & 1u);
       parity ^= 1u << s;
     }
-    // the tile has landed, and every thread is done with the tile before
-    // (its stage, the intermediates, the fit table)
-    __syncthreads();
-    const int next = tile + gridDim.x;
-    if (threadIdx.x == 0 && next < n_tiles) {
-      const int n0 = next * p.tile_rows;
-      issue_tile(p, sm + (shift ^ p.stage_bytes), n0,
-                 min(p.tile_rows, p.n_rows - n0), &bar[s ^ 1]);
+    if (in.y) {  // and its other ranges, by every thread
+      copy_unaligned(p, sm + shift, r0, rows);
+      __syncthreads();
     }
     run_program(p, sm, shift, rows);
     if (FIT) fit_fold(p, sm, shift, r0, rows);
@@ -531,13 +619,15 @@ fit_init_kernel(int* __restrict__ first_pos, int* __restrict__ counts,
 // ptxas aims at eight blocks, 32 registers, and spills).
 #define RESIDENT 4
 
+template <class P>
 __global__ void __launch_bounds__(THREADS, RESIDENT)
-apply_kernel(const __grid_constant__ Program p) {
+apply_kernel(const __grid_constant__ P p) {
   run_tiles<false>(p);
 }
 
+template <class P>
 __global__ void __launch_bounds__(THREADS, RESIDENT)
-fit_kernel(const __grid_constant__ Program p) {
+fit_kernel(const __grid_constant__ P p) {
   run_tiles<true>(p);
 }
 
@@ -585,7 +675,8 @@ static cudaError_t resident_blocks(const void* kernel, int smem,
 
 // The persistent grid: min(tiles, resident blocks).  The fit first sets its
 // accumulators (first_pos to ABSENT32 = INT_MAX, counts to 0) in one pass.
-static int launch(bool fit, const Program* p, void* stream) {
+template <class P>
+static int launch(bool fit, const P* p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fit && p->capacity > 0) {
     fit_init_kernel<<<grid_blocks(p->capacity), THREADS, 0, s>>>(
@@ -595,28 +686,37 @@ static int launch(bool fit, const Program* p, void* stream) {
   }
   const int n_tiles = (p->n_rows + p->tile_rows - 1) / p->tile_rows;
   if (n_tiles == 0) return 0;
-  const void* kernel = fit ? reinterpret_cast<const void*>(fit_kernel)
-                           : reinterpret_cast<const void*>(apply_kernel);
+  const void* kernel = fit ? reinterpret_cast<const void*>(fit_kernel<P>)
+                           : reinterpret_cast<const void*>(apply_kernel<P>);
   int blocks = 0;
   const cudaError_t e = resident_blocks(kernel, p->smem_bytes, &blocks);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (n_tiles < blocks) blocks = n_tiles;
-  if (fit) fit_kernel<<<blocks, THREADS, p->smem_bytes, s>>>(*p);
-  else apply_kernel<<<blocks, THREADS, p->smem_bytes, s>>>(*p);
+  if (fit) fit_kernel<P><<<blocks, THREADS, p->smem_bytes, s>>>(*p);
+  else apply_kernel<P><<<blocks, THREADS, p->smem_bytes, s>>>(*p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// `program` is a Program, or a WideProgram when `wide` is nonzero.
+static int launch_any(bool fit, const void* program, int wide,
+                      void* stream) {
+  return wide ? launch(fit, static_cast<const WideProgram*>(program), stream)
+              : launch(fit, static_cast<const Program*>(program), stream);
 }
 
 extern "C" {
 
-int launch_dataflow_apply(const void* program, void* stream) {
-  return launch(false, static_cast<const Program*>(program), stream);
+int launch_dataflow_apply(const void* program, int wide, void* stream) {
+  return launch_any(false, program, wide, stream);
 }
 
-int launch_dataflow_fit(const void* program, void* stream) {
-  return launch(true, static_cast<const Program*>(program), stream);
+int launch_dataflow_fit(const void* program, int wide, void* stream) {
+  return launch_any(true, program, wide, stream);
 }
 
-int dataflow_program_size() { return static_cast<int>(sizeof(Program)); }
+int dataflow_program_size(int wide) {
+  return static_cast<int>(wide ? sizeof(WideProgram) : sizeof(Program));
+}
 
 const char* dataflow_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,6 +1,7 @@
 // Per-element semantics of the ETL opcodes, shared by every kernel of the
 // library: the tile-program interpreter (dataflow.cu) and the staged chain
-// kernel (stage.cu) run one copy of each rule.
+// kernel (stage.cu) run one copy of each rule, and one copy of the cast of a
+// 32-bit value to the output dtype (cast_out).
 //
 // The rules follow the JAX package bit for bit: Clamp is written with
 // comparisons so NaN propagates (fmaxf would drop it), Modulus is a positive
@@ -10,6 +11,8 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -18,7 +21,64 @@
 #define MAX_PARAM 64
 #define THREADS 256
 
-enum Kind { K_F32 = 0, K_I32 = 1, K_HEX = 2 };
+// Buffer kinds: a buffer inside a program is f32 or i32 (or a raw hex
+// source); an output may be any kind below K_HEX's, one past it too.
+// Mirrored by the KIND_* constants in repro_torch/kernels/dataflow.py.
+enum Kind {
+  K_F32 = 0, K_I32 = 1, K_HEX = 2, K_F16 = 3, K_BF16 = 4, K_I8 = 5,
+  K_U8 = 6, K_I16 = 7, K_U16 = 8, K_U32 = 9, K_BOOL = 10
+};
+
+// Bytes of one element of an output kind.
+static __host__ __device__ __forceinline__ int kind_size(int k) {
+  return (k == K_F32 || k == K_I32 || k == K_U32) ? 4
+         : (k == K_F16 || k == K_BF16 || k == K_I16 || k == K_U16) ? 2 : 1;
+}
+
+// A 32-bit value (a float's bits when is_float) cast to output kind k, as
+// the element's raw bits, zero-extended.  The rules are torch's .to(dtype)
+// on the card (c10::static_cast_with_inter_type), which in range is numpy's
+// and JAX's astype: float -> int truncates toward zero (to uint8 through
+// int64), float -> float16 / bfloat16 rounds to nearest even, int ->
+// float16 / bfloat16 goes through float32, int -> a narrower int wraps,
+// anything -> bool is != 0 (NaN is true).  Out of range, float -> int
+// follows the device's conversion (saturating), as torch's does on the card.
+static __device__ __forceinline__ uint32_t cast_out(int k, int bits,
+                                                    bool is_float) {
+  const float f = is_float ? __int_as_float(bits) : static_cast<float>(bits);
+  switch (k) {
+    case K_F32: return __float_as_uint(f);
+    case K_I32: return is_float ? static_cast<uint32_t>(static_cast<int>(f))
+                                : static_cast<uint32_t>(bits);
+    case K_F16: return __half_as_ushort(__float2half_rn(f));
+    case K_BF16: return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+    case K_I8:
+      return static_cast<uint8_t>(is_float ? static_cast<int8_t>(f)
+                                           : static_cast<int8_t>(bits));
+    case K_U8:
+      return is_float ? static_cast<uint8_t>(static_cast<long long>(f))
+                      : static_cast<uint8_t>(bits);
+    case K_I16:
+      return static_cast<uint16_t>(is_float ? static_cast<int16_t>(f)
+                                            : static_cast<int16_t>(bits));
+    case K_U16: return is_float ? static_cast<uint16_t>(f)
+                                : static_cast<uint16_t>(bits);
+    case K_U32: return is_float ? static_cast<uint32_t>(f)
+                                : static_cast<uint32_t>(bits);
+    default:  // K_BOOL
+      return is_float ? (f != 0.0f) : (bits != 0);
+  }
+}
+
+// Store element i of an output of kind k (cast_out's bits).
+static __device__ __forceinline__ void store_out(void* out, long long i,
+                                                 int k, uint32_t v) {
+  switch (kind_size(k)) {
+    case 4: static_cast<uint32_t*>(out)[i] = v; break;
+    case 2: static_cast<uint16_t*>(out)[i] = static_cast<uint16_t>(v); break;
+    default: static_cast<uint8_t*>(out)[i] = static_cast<uint8_t>(v);
+  }
+}
 
 // mirrored by the OP_* constants in repro_torch/core/operators.py
 enum Op {

@@ -39,12 +39,23 @@ Kernels and the TPU kernels they replace (``src/repro/kernels/dataflow.py``):
   the accumulators is a VMEM artefact and is dropped.
 
 The staged lowering's two elementwise kernels (``csrc/stage.cu``) take the
-same opcode encoding, one thread per output element and no shared memory:
+same opcode encoding and no shared memory:
 
 - ``fused_stage`` <- ``make_fused_stage`` (l.93): one stage's elementwise
-  chain (a ``StageProgram``) over a whole buffer, cast to the output dtype.
+  chain (a ``StageProgram``) over a whole buffer, cast to the output dtype;
+  16 hex elements (one 16-byte load per digit plane) or 4 words a thread.
 - ``packer``      <- ``make_packer`` (l.149): concatenate column blocks,
-  cast, zero-pad the width.
+  cast, zero-pad the width; one thread per output element.
+
+Sizes and dtypes: a program within ``NARROW`` (8 sources, 24 slots, 32
+instructions, 4 tables, 4 outputs, 16 terminals, 64 parameters) travels in
+the kernel's ``Program`` struct, under 4 KiB; a larger one, up to ``WIDE``,
+in ``WideProgram`` (25 KB of parameters, which CUDA 12.1+ allows); past
+that ``encode_program`` raises and names the limit.  A packer takes up to
+``MAX_WIDE_BLOCK`` blocks.  Buffers inside a program are float32 or int32;
+an output may be of any dtype the JAX package's kernels return (float32,
+int32, float16, bfloat16, int8, uint8, int16, uint16, uint32, bool), cast
+once at the store as torch's ``.to`` casts.
 
 What bounds them on an H100: bytes.  Per row they read the raw sources once
 and write the packed outputs once, with a few integer operations per byte,
@@ -69,6 +80,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -81,18 +93,51 @@ from repro_torch.kernels.backend import LAUNCHES, reset_launch_counts  # noqa: F
 
 ABSENT32 = kref.ABSENT32
 
+# buffer kinds (a program's buffers are f32 or i32, or raw hex sources) and
+# the further kinds an output may take (mirrored by ``Kind`` in ops.cuh)
 KIND_F32, KIND_I32, KIND_HEX = 0, 1, 2
+KIND_F16, KIND_BF16, KIND_I8, KIND_U8 = 3, 4, 5, 6
+KIND_I16, KIND_U16, KIND_U32, KIND_BOOL = 7, 8, 9, 10
 _KIND_DTYPE = {KIND_F32: torch.float32, KIND_I32: torch.int32,
-               KIND_HEX: torch.uint8}
-_NP_KIND = {np.dtype(np.float32): KIND_F32, np.dtype(np.int32): KIND_I32}
+               KIND_HEX: torch.uint8, KIND_F16: torch.float16,
+               KIND_BF16: torch.bfloat16, KIND_I8: torch.int8,
+               KIND_U8: torch.uint8, KIND_I16: torch.int16,
+               KIND_U16: torch.uint16, KIND_U32: torch.uint32,
+               KIND_BOOL: torch.bool}
+# output dtypes by name: every dtype the JAX package's kernels return (it
+# refuses float64 and the 64-bit integers)
+_OUT_KIND = {"float32": KIND_F32, "int32": KIND_I32, "float16": KIND_F16,
+             "bfloat16": KIND_BF16, "int8": KIND_I8, "uint8": KIND_U8,
+             "int16": KIND_I16, "uint16": KIND_U16, "uint32": KIND_U32,
+             "bool": KIND_BOOL}
 
-# fixed maxima of the by-value program struct (mirrored in dataflow.cu);
-# the struct stays under the 4 KiB kernel-parameter limit
-MAX_SRC, MAX_SLOT, MAX_INSTR, MAX_TABLE = 8, 24, 32, 4
-MAX_OUT, MAX_TERM, MAX_PARAM = 4, 16, 64
+
+@dataclasses.dataclass(frozen=True)
+class Limits:
+    """Maxima of one instantiation of the kernel's by-value program struct
+    (``ProgramT`` in dataflow.cu)."""
+
+    src: int
+    slot: int
+    instr: int
+    table: int
+    out: int
+    term: int
+    param: int
+
+
+# ``Program``: within these the struct stays under the classic 4 KiB of
+# kernel parameters; ``WideProgram`` (25 KB) takes every larger program up
+# to its own maxima, through CUDA 12.1's 32,764 bytes of parameters
+NARROW = Limits(src=8, slot=24, instr=32, table=4, out=4, term=16, param=64)
+WIDE = Limits(src=128, slot=384, instr=384, table=128, out=16, term=128,
+              param=512)
+MAX_INSTR, MAX_PARAM = NARROW.instr, NARROW.param  # a staged chain's maxima
 FIT_SLOTS = 1024  # entries of the fit's shared-memory table
 MAX_TERM_WIDTH = 1 << 14  # a terminal's row pitch (4 B a column) fits 16 bits
-MAX_BLOCK = 32  # column blocks of one packer (mirrored in stage.cu)
+# column blocks of one packer: PackArgs takes up to MAX_BLOCK, WidePackArgs
+# up to MAX_WIDE_BLOCK (mirrored in stage.cu; both under 4 KiB)
+MAX_BLOCK, MAX_WIDE_BLOCK = 32, 128
 THREADS = 256
 # shared memory one block asks for: ~64 KiB lets three blocks share an SM
 SMEM_TARGET = 64 * 1024
@@ -102,11 +147,51 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+# uint16 / uint32 outputs of the plain versions are built as their signed
+# twins' bits and viewed at the end: PyTorch's CUDA indexing does not take
+# the unsigned dtypes (index_cuda is not implemented for UInt16 / UInt32)
+_STORE_AS = {KIND_U16: torch.int16, KIND_U32: torch.int32}
+
+
+def _cast(x: torch.Tensor, kind: int) -> torch.Tensor:
+    """An f32 / i32 tensor cast to output kind ``kind`` as the kernels cast
+    (``cast_out`` in csrc/ops.cuh: torch's ``.to``), held in ``_STORE_AS``'s
+    dtype for uint16 / uint32 (in range the same bits; float -> uint32
+    truncates through int64)."""
+    if kind == KIND_U32:
+        x = x.to(torch.int64) if x.is_floating_point() else x
+        return x.to(torch.int32)
+    if kind == KIND_U16:
+        return x.to(torch.int32).to(torch.int16)
+    return x.to(_KIND_DTYPE[kind])
+
+
+def _as_kind(x: torch.Tensor, kind: int) -> torch.Tensor:
+    """The tensor ``_cast`` built, in the output kind's dtype."""
+    return x.view(_KIND_DTYPE[kind]) if kind in _STORE_AS else x
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return np.dtype(dtype).name
+
+
 def _kind_of(dtype) -> int:
-    kind = _NP_KIND.get(np.dtype(dtype))
-    if kind is None:
+    """The kind of a buffer inside a program: float32 or int32."""
+    kind = _OUT_KIND.get(_dtype_name(dtype))
+    if kind not in (KIND_F32, KIND_I32):
         raise NotImplementedError(
             f"the dataflow kernels carry float32/int32 buffers, not {dtype}")
+    return kind
+
+
+def _out_kind_of(dtype) -> int:
+    """The kind of an output: any dtype the JAX package's kernels return."""
+    kind = _OUT_KIND.get(_dtype_name(dtype))
+    if kind is None:
+        raise NotImplementedError(
+            f"the kernels write {sorted(_OUT_KIND)} outputs, not {dtype}")
     return kind
 
 
@@ -206,6 +291,7 @@ class TileProgram:
     terms: list = dataclasses.field(default_factory=list)
     value_slot: int = -1
     capacity: int = 0
+    wide: bool = False  # past NARROW: the kernel takes ``WideProgram``
     # the call-independent launch struct, built on the first launch
     template: Optional[ctypes.Structure] = dataclasses.field(
         default=None, repr=False, compare=False)
@@ -213,6 +299,13 @@ class TileProgram:
     @property
     def bytes_per_row(self) -> int:
         return sum(s.bytes_per_row for s in self.slots)
+
+    @property
+    def counts(self) -> Limits:
+        """What the program needs of a ``Limits``."""
+        return Limits(self.n_src, len(self.slots), len(self.instrs),
+                      len(self.capacities), len(self.out_cols),
+                      len(self.terms), len(self.params))
 
     @property
     def colmap(self) -> list:
@@ -261,6 +354,15 @@ class TileProgram:
 
 
 _ELEMENTWISE = frozenset(range(1, 13)) - {ops_lib.OP_ONEHOT}
+
+
+_LIMIT_NAMES = ("sources", "slots", "instructions", "tables", "outputs",
+                "terminals", "parameters")
+
+
+def _within(need: Limits, lim: Limits) -> bool:
+    return all(n <= m for n, m in zip(dataclasses.astuple(need),
+                                       dataclasses.astuple(lim)))
 
 
 def _barriers(slots: list, instrs: list) -> list:
@@ -368,7 +470,7 @@ def encode_program(inputs: Sequence[StreamInput],
                        sync=_barriers(slots, instrs))
     for o, g in enumerate(outputs):
         widths = [int(w) for _, w in g.terminals]
-        prog.out_kinds.append(_kind_of(g.out_dtype))
+        prog.out_kinds.append(_out_kind_of(g.out_dtype))
         prog.out_cols.append(_round_up(max(sum(widths), 1),
                                        max(g.pad_cols_to, 1)))
         col = 0
@@ -388,15 +490,13 @@ def encode_program(inputs: Sequence[StreamInput],
     if value_buf is not None:
         prog.value_slot = index[value_buf]
         prog.capacity = int(capacity)
-    if (len(inputs) > MAX_SRC or len(slots) > MAX_SLOT
-            or len(instrs) > MAX_INSTR or len(tables) > MAX_TABLE
-            or len(prog.out_cols) > MAX_OUT or len(prog.terms) > MAX_TERM
-            or len(params) > MAX_PARAM):
+    over = [f"{n} {what} (at most {m})" for what, n, m in zip(
+        _LIMIT_NAMES, dataclasses.astuple(prog.counts),
+        dataclasses.astuple(WIDE)) if n > m]
+    if over:
         raise NotImplementedError(
-            f"program exceeds the kernel's fixed maxima: {len(inputs)} "
-            f"sources, {len(slots)} slots, {len(instrs)} instructions, "
-            f"{len(tables)} tables, {len(prog.out_cols)} outputs, "
-            f"{len(prog.terms)} terminals, {len(params)} parameters")
+            "program exceeds the kernel's maxima: " + ", ".join(over))
+    prog.wide = not _within(prog.counts, NARROW)
     return prog
 
 
@@ -470,19 +570,18 @@ def apply_dataflow_plain(prog: TileProgram, srcs, tables) -> tuple:
     rows = _rows(prog, srcs)
     outs, at = [], 0
     for kind, n_cols in zip(prog.out_kinds, prog.out_cols):
-        dtype = _KIND_DTYPE[kind]
         cmap = prog.colmap[at:at + n_cols]
         at += n_cols
         used = sorted({s for s, _ in cmap if s >= 0})
         first, blocks, width = {}, [], 0
         for s in used:
             first[s] = width
-            blocks.append(env[s].to(dtype))
+            blocks.append(_cast(env[s], kind))
             width += env[s].shape[1]
-        blocks.append(torch.zeros(rows, 1, dtype=dtype,
-                                  device=srcs[0].device))
+        blocks.append(_cast(torch.zeros(rows, 1, dtype=torch.int32,
+                                        device=srcs[0].device), kind))
         idx = [first[s] + c if s >= 0 else width for s, c in cmap]
-        outs.append(torch.cat(blocks, dim=1)[:, idx])
+        outs.append(_as_kind(torch.cat(blocks, dim=1)[:, idx], kind))
     return tuple(outs)
 
 
@@ -514,27 +613,35 @@ class _CTerm(ctypes.Structure):
                 ("col", ctypes.c_int), ("width", ctypes.c_int)]
 
 
-class _CProgram(ctypes.Structure):
-    """Mirror of ``struct Program`` in csrc/dataflow.cu (checked by size)."""
+@functools.cache
+def _program_type(lim: Limits) -> type:
+    """The ctypes mirror of ``ProgramT`` at ``lim`` in csrc/dataflow.cu
+    (checked by size when the library loads)."""
 
-    _fields_ = [("src", ctypes.c_void_p * MAX_SRC),
-                ("table", ctypes.c_void_p * MAX_TABLE),
-                ("out", ctypes.c_void_p * MAX_OUT),
-                ("first_pos", ctypes.c_void_p),
-                ("counts", ctypes.c_void_p),
-                ("n_rows", ctypes.c_int), ("tile_rows", ctypes.c_int),
-                ("smem_bytes", ctypes.c_int), ("stage_bytes", ctypes.c_int),
-                ("n_src", ctypes.c_int), ("n_instr", ctypes.c_int),
-                ("n_out", ctypes.c_int), ("n_term", ctypes.c_int),
-                ("value_slot", ctypes.c_int), ("capacity", ctypes.c_int),
-                ("aux_off", ctypes.c_int), ("sync_mask", ctypes.c_uint),
-                ("table_cap", ctypes.c_int * MAX_TABLE),
-                ("out_kind", ctypes.c_int * MAX_OUT),
-                ("out_cols", ctypes.c_int * MAX_OUT),
-                ("slot", _CSlot * MAX_SLOT),
-                ("instr", _CInstr * MAX_INSTR),
-                ("term", _CTerm * MAX_TERM),
-                ("param", ctypes.c_int * MAX_PARAM)]
+    class CProgram(ctypes.Structure):
+        _fields_ = [("src", ctypes.c_void_p * lim.src),
+                    ("table", ctypes.c_void_p * lim.table),
+                    ("out", ctypes.c_void_p * lim.out),
+                    ("first_pos", ctypes.c_void_p),
+                    ("counts", ctypes.c_void_p),
+                    ("n_rows", ctypes.c_int), ("tile_rows", ctypes.c_int),
+                    ("smem_bytes", ctypes.c_int),
+                    ("stage_bytes", ctypes.c_int),
+                    ("n_src", ctypes.c_int), ("n_instr", ctypes.c_int),
+                    ("n_out", ctypes.c_int), ("n_term", ctypes.c_int),
+                    ("value_slot", ctypes.c_int), ("capacity", ctypes.c_int),
+                    ("aux_off", ctypes.c_int),
+                    ("sync_mask", ctypes.c_uint * -(-lim.instr // 32)),
+                    ("table_cap", ctypes.c_int * lim.table),
+                    ("out_kind", ctypes.c_int * lim.out),
+                    ("out_cols", ctypes.c_int * lim.out),
+                    ("slot", _CSlot * lim.slot),
+                    ("instr", _CInstr * lim.instr),
+                    ("term", _CTerm * lim.term),
+                    ("param", ctypes.c_int * lim.param)]
+
+    CProgram.__name__ = "CWideProgram" if lim == WIDE else "CProgram"
+    return CProgram
 
 
 def _rows(prog: TileProgram, srcs) -> int:
@@ -566,17 +673,19 @@ def _check_sources(prog: TileProgram, srcs, tables, device) -> int:
     return rows
 
 
-def _c_template(prog: TileProgram) -> _CProgram:
+def _c_template(prog: TileProgram) -> ctypes.Structure:
     """The launch struct's call-independent part: layout, instructions,
     barriers, parameters and terminals (no pointers, no row count)."""
-    c = _CProgram()
+    c = _program_type(WIDE if prog.wide else NARROW)()
     t = prog.tile_rows()
     offs, c.stage_bytes, c.aux_off, c.smem_bytes = prog.layout(t)
     c.tile_rows = t
     c.n_src, c.n_instr = prog.n_src, len(prog.instrs)
     c.n_out, c.n_term = len(prog.out_cols), len(prog.terms)
     c.value_slot, c.capacity = prog.value_slot, prog.capacity
-    c.sync_mask = sum(1 << k for k, on in enumerate(prog.sync) if on)
+    for k, on in enumerate(prog.sync):
+        if on:
+            c.sync_mask[k // 32] |= 1 << (k % 32)
     for i, cap in enumerate(prog.capacities):
         c.table_cap[i] = cap
     for i, (s, off) in enumerate(zip(prog.slots, offs)):
@@ -593,13 +702,13 @@ def _c_template(prog: TileProgram) -> _CProgram:
     return c
 
 
-def _c_program(prog: TileProgram, srcs, tables, rows: int) -> _CProgram:
+def _c_program(prog: TileProgram, srcs, tables, rows: int):
     """One call's launch struct: a copy of the program's template (built on
     its first call) with the source and table pointers and the row count
     set."""
     if prog.template is None:
         prog.template = _c_template(prog)
-    c = _CProgram.from_buffer_copy(prog.template)
+    c = type(prog.template).from_buffer_copy(prog.template)
     c.n_rows = rows
     for i, x in enumerate(srcs):
         c.src[i] = x.data_ptr()
@@ -611,12 +720,14 @@ def _c_program(prog: TileProgram, srcs, tables, rows: int) -> _CProgram:
 @functools.cache
 def _library():
     lib = backend.load_library()
-    for name, mirror in (("dataflow_program_size", _CProgram),
-                         ("stage_args_size", _CStage),
-                         ("pack_args_size", _CPack)):
-        if getattr(lib, name)() != ctypes.sizeof(mirror):
-            raise RuntimeError(f"{name}: a struct in csrc/ does not match its "
-                               f"ctypes mirror {mirror.__name__}")
+    for size, mirror in ((lib.dataflow_program_size(0), _program_type(NARROW)),
+                         (lib.dataflow_program_size(1), _program_type(WIDE)),
+                         (lib.stage_args_size(), _CStage),
+                         (lib.pack_args_size(0), _pack_type(MAX_BLOCK)),
+                         (lib.pack_args_size(1), _pack_type(MAX_WIDE_BLOCK))):
+        if size != ctypes.sizeof(mirror):
+            raise RuntimeError(f"a struct in csrc/ ({size} bytes) does not "
+                               f"match its ctypes mirror {mirror.__name__}")
     return lib
 
 
@@ -630,7 +741,8 @@ def _launch_apply(prog: TileProgram, srcs, tables, name: str) -> tuple:
         c.out[i] = o.data_ptr()
     lib = _library()
     backend.check_launch(lib, lib.launch_dataflow_apply(
-        ctypes.byref(c), backend.stream_of(device)), name, device)
+        ctypes.byref(c), int(prog.wide), backend.stream_of(device)), name,
+        device)
     LAUNCHES[name] += 1
     return outs
 
@@ -645,7 +757,8 @@ def _launch_fit(prog: TileProgram, srcs) -> tuple:
     c.first_pos, c.counts = first_pos.data_ptr(), counts.data_ptr()
     lib = _library()
     backend.check_launch(lib, lib.launch_dataflow_fit(
-        ctypes.byref(c), backend.stream_of(device)), "fit_dataflow", device)
+        ctypes.byref(c), int(prog.wide), backend.stream_of(device)),
+        "fit_dataflow", device)
     LAUNCHES["fit_dataflow"] += 1
     return first_pos, counts
 
@@ -767,7 +880,7 @@ def encode_stage(ops: Sequence, in_dtype, out_dtype,
             f"chain exceeds the kernel's fixed maxima: {len(instrs)} "
             f"instructions, {len(params)} parameters")
     return StageProgram(kind, int(hex_width), tuple(instrs), tuple(params),
-                        _kind_of(dtype), _kind_of(out_dtype))
+                        _kind_of(dtype), _out_kind_of(out_dtype))
 
 
 def fused_stage_plain(prog: StageProgram, x: torch.Tensor) -> torch.Tensor:
@@ -776,7 +889,7 @@ def fused_stage_plain(prog: StageProgram, x: torch.Tensor) -> torch.Tensor:
     env = [x, x]
     for ins in prog.instrs:
         env[1] = _run_instr(ins, env, prog, ())
-    return env[1].to(_KIND_DTYPE[prog.out_kind])
+    return _as_kind(_cast(env[1], prog.out_kind), prog.out_kind)
 
 
 class _CStage(ctypes.Structure):
@@ -798,8 +911,19 @@ def _launch_stage(prog: StageProgram, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"fused_stage: want digit-major uint8"
                          f"[{prog.hex_width}, ...], got {list(x.shape)}")
     shape = x.shape[1:] if prog.in_kind == KIND_HEX else x.shape
-    out = torch.empty(shape, dtype=_KIND_DTYPE[prog.out_kind],
-                      device=x.device)
+    dtype = _KIND_DTYPE[prog.out_kind]
+    # the kernel's first vector starts `head` elements in (the input's
+    # first 16-byte boundary; none when hex planes lie a stride apart that
+    # is no multiple of 16); the output is a view at the offset that puts
+    # that element on a 16-byte boundary too
+    n, phase = math.prod(shape), x.data_ptr() & 15
+    if prog.in_kind == KIND_HEX:
+        head = (16 - phase) % 16 if n % 16 == 0 else 0
+    else:
+        head = (16 - phase) % 16 // 4
+    size = dtype.itemsize
+    off = (-head * size) % 16 // size
+    out = torch.empty(n + off, dtype=dtype, device=x.device)[off:].view(shape)
     c = _CStage(src=x.data_ptr(), out=out.data_ptr(), n=out.numel(),
                 in_kind=prog.in_kind, hex_width=prog.hex_width,
                 val_kind=prog.val_kind, out_kind=prog.out_kind,
@@ -849,16 +973,23 @@ class PackLayout:
     out_cols: int
 
 
-class _CPack(ctypes.Structure):
-    """Mirror of ``struct PackArgs`` in csrc/stage.cu (checked by size)."""
+@functools.cache
+def _pack_type(max_block: int) -> type:
+    """The ctypes mirror of ``PackArgsT<max_block>`` in csrc/stage.cu
+    (checked by size when the library loads)."""
 
-    _fields_ = [("src", ctypes.c_void_p * MAX_BLOCK), ("out", ctypes.c_void_p),
-                ("rows", ctypes.c_longlong),
-                ("out_cols", ctypes.c_int), ("n_block", ctypes.c_int),
-                ("out_kind", ctypes.c_int),
-                ("kind", ctypes.c_int * MAX_BLOCK),
-                ("width", ctypes.c_int * MAX_BLOCK),
-                ("col", ctypes.c_int * MAX_BLOCK)]
+    class CPack(ctypes.Structure):
+        _fields_ = [("src", ctypes.c_void_p * max_block),
+                    ("out", ctypes.c_void_p),
+                    ("rows", ctypes.c_longlong),
+                    ("out_cols", ctypes.c_int), ("n_block", ctypes.c_int),
+                    ("out_kind", ctypes.c_int),
+                    ("kind", ctypes.c_int * max_block),
+                    ("width", ctypes.c_int * max_block),
+                    ("col", ctypes.c_int * max_block)]
+
+    CPack.__name__ = f"CPack{max_block}"
+    return CPack
 
 
 def _check_blocks(lay: PackLayout, blocks) -> int:
@@ -880,8 +1011,10 @@ def _check_blocks(lay: PackLayout, blocks) -> int:
 def packer_plain(lay: PackLayout, blocks) -> torch.Tensor:
     """Plain version of the packer kernel."""
     _check_blocks(lay, blocks)
-    packed = kref.pack_blocks(blocks, _KIND_DTYPE[lay.out_kind])
-    return torch.nn.functional.pad(packed, (0, lay.out_cols - packed.shape[1]))
+    packed = torch.cat([_cast(b, lay.out_kind) for b in blocks], dim=1)
+    packed = torch.nn.functional.pad(packed,
+                                     (0, lay.out_cols - packed.shape[1]))
+    return _as_kind(packed, lay.out_kind)
 
 
 def _launch_packer(lay: PackLayout, blocks) -> torch.Tensor:
@@ -889,15 +1022,18 @@ def _launch_packer(lay: PackLayout, blocks) -> torch.Tensor:
     device = blocks[0].device
     out = torch.empty(rows, lay.out_cols, dtype=_KIND_DTYPE[lay.out_kind],
                       device=device)
-    c = _CPack(out=out.data_ptr(), rows=rows, out_cols=lay.out_cols,
-               n_block=len(blocks), out_kind=lay.out_kind)
+    wide = len(blocks) > MAX_BLOCK
+    c = _pack_type(MAX_WIDE_BLOCK if wide else MAX_BLOCK)(
+        out=out.data_ptr(), rows=rows, out_cols=lay.out_cols,
+        n_block=len(blocks), out_kind=lay.out_kind)
     col = 0
     for k, (b, kind, w) in enumerate(zip(blocks, lay.kinds, lay.widths)):
         c.src[k], c.kind[k], c.width[k], c.col[k] = b.data_ptr(), kind, w, col
         col += w
     lib = _library()
     backend.check_launch(lib, lib.launch_packer(
-        ctypes.byref(c), backend.stream_of(device)), "packer", device)
+        ctypes.byref(c), int(wide), backend.stream_of(device)), "packer",
+        device)
     LAUNCHES["packer"] += 1
     return out
 
@@ -905,16 +1041,17 @@ def _launch_packer(lay: PackLayout, blocks) -> torch.Tensor:
 def make_packer(col_widths: Sequence[int], in_dtypes: Sequence, out_dtype, *,
                 pad_cols_to: int = 128):
     """fn(*blocks) -> packed ``[rows, padded(sum(col_widths))]`` from ONE
-    kernel launch: float32/int32 ``[rows, w_k]`` blocks concatenated, cast
-    to ``out_dtype`` (float -> int truncates toward zero), zero-padded to a
-    multiple of ``pad_cols_to``."""
+    kernel launch: up to ``MAX_WIDE_BLOCK`` float32/int32 ``[rows, w_k]``
+    blocks concatenated, cast to ``out_dtype`` (any output dtype; float ->
+    int truncates toward zero), zero-padded to a multiple of
+    ``pad_cols_to``."""
     widths = tuple(int(w) for w in col_widths)
-    if len(widths) != len(in_dtypes) or not 0 < len(widths) <= MAX_BLOCK:
-        raise ValueError(f"packer takes 1..{MAX_BLOCK} blocks with one dtype "
-                         f"each, got {len(widths)} widths and "
+    if len(widths) != len(in_dtypes) or not 0 < len(widths) <= MAX_WIDE_BLOCK:
+        raise ValueError(f"packer takes 1..{MAX_WIDE_BLOCK} blocks with one "
+                         f"dtype each, got {len(widths)} widths and "
                          f"{len(in_dtypes)} dtypes")
     lay = PackLayout(tuple(_kind_of(d) for d in in_dtypes), widths,
-                     _kind_of(out_dtype),
+                     _out_kind_of(out_dtype),
                      _round_up(sum(widths), max(int(pad_cols_to), 1)))
 
     def plain(*blocks):

@@ -28,8 +28,11 @@ single-feature call keeps the warp-per-bag kernel.
 
 Both bag kernels pool through one routine, summing over ``nnz`` in order,
 as the plain versions (``kernels/ref.py``) do: cached and uncached bags are
-bit-identical when the cache rows mirror the table rows.  Tables are f32
-only (both packages' DLRM keep f32 tables); any other dtype raises.  The
+bit-identical when the cache rows mirror the table rows.  Tables may be
+float32, float16 or bfloat16 (the JAX package's bags take any float table
+and return its dtype): rows are summed in float32 and the result rounded to
+the table's dtype once, as the plain versions do; any other dtype (float64,
+integers) raises, and a cached bag's cache and table share one dtype.  The
 index arrays are int32 ``[batch, nnz]`` whose rows may be strided (a column
 slice of a wider plan matrix), but each row must be contiguous.
 
@@ -55,11 +58,21 @@ embedding_bag_plain = kref.embedding_bag
 embedding_bag_cached_plain = kref.embedding_bag_cached
 
 
+# table dtypes and their codes in csrc/embedding_bag.cu (BagDtype)
+DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
 def _table(x: torch.Tensor, what: str, ndim: int = 2) -> None:
-    if x.dim() != ndim or x.dtype != torch.float32:
+    if x.dim() != ndim or x.dtype not in DTYPES:
         shape = "[rows, dim]" if ndim == 2 else "[T, rows, dim]"
-        raise ValueError(f"{what}: want a float32 {shape} tensor, got "
-                         f"{x.dtype}{list(x.shape)}")
+        raise ValueError(f"{what}: want a float16, bfloat16 or float32 "
+                         f"{shape} tensor, got {x.dtype}{list(x.shape)}")
+
+
+def _same_dtype(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
+    if a.dtype != b.dtype:
+        raise ValueError(f"{what}: cache {a.dtype} and table {b.dtype} "
+                         "differ")
 
 
 def _ids(x: torch.Tensor, device: torch.device, what: str) -> int:
@@ -75,25 +88,28 @@ def _ids(x: torch.Tensor, device: torch.device, what: str) -> int:
 
 
 def _aligned(*xs: torch.Tensor) -> int:
-    """1 when the float4 path applies: dim % 4 == 0, 16-byte row bases."""
-    return int(all(x.shape[-1] % 4 == 0 and x.data_ptr() % 16 == 0
+    """1 when the 4-element path applies: dim % 4 == 0, row bases aligned
+    to 4 elements (16 bytes of float32, 8 of a 16-bit type)."""
+    return int(all(x.shape[-1] % 4 == 0
+                   and x.data_ptr() % (4 * x.element_size()) == 0
                    for x in xs))
 
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """table: f32[vocab, dim], indices: int32[batch, nnz] -> f32[batch, dim]."""
+    """table: T[vocab, dim] (T float32, float16 or bfloat16), indices:
+    int32[batch, nnz] -> T[batch, dim]."""
     _table(table, "embedding_bag table")
     if backend.on_cpu(indices):
         return embedding_bag_plain(table, indices)
-    backend.require(table, torch.float32, "embedding_bag table")
+    backend.require(table, table.dtype, "embedding_bag table")
     stride = _ids(indices, table.device, "embedding_bag indices")
     (batch, nnz), (vocab, dim) = indices.shape, table.shape
-    out = torch.empty(batch, dim, dtype=torch.float32, device=table.device)
+    out = torch.empty(batch, dim, dtype=table.dtype, device=table.device)
     lib = backend.load_library()
     backend.check_launch(lib, lib.launch_embedding_bag(
         table.data_ptr(), indices.data_ptr(), stride, out.data_ptr(), batch,
-        nnz, vocab, dim, _aligned(table), backend.stream_of(table.device)),
-        "embedding_bag", table.device)
+        nnz, vocab, dim, _aligned(table), DTYPES[table.dtype],
+        backend.stream_of(table.device)), "embedding_bag", table.device)
     LAUNCHES["embedding_bag"] += 1
     return out
 
@@ -102,20 +118,23 @@ def embedding_bag_cached(table: torch.Tensor, cache: torch.Tensor,
                          slot_idx: torch.Tensor,
                          cold_idx: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """table: f32[vocab, dim], cache: f32[cache_rows, dim], slot_idx and
-    cold_idx: int32[batch, nnz] -> f32[batch, dim]."""
+    """table: T[vocab, dim], cache: T[cache_rows, dim] (T float32, float16
+    or bfloat16), slot_idx and cold_idx: int32[batch, nnz] -> T[batch,
+    dim]."""
     _table(table, "embedding_bag_cached table")
     _table(cache, "embedding_bag_cached cache")
+    if cold_idx is not None:
+        _same_dtype(cache, table, "embedding_bag_cached")
     if backend.on_cpu(slot_idx):
         return embedding_bag_cached_plain(table, cache, slot_idx, cold_idx)
-    backend.require(cache, torch.float32, "embedding_bag_cached cache")
+    backend.require(cache, cache.dtype, "embedding_bag_cached cache")
     dev = cache.device
     slot_stride = _ids(slot_idx, dev, "embedding_bag_cached slot_idx")
     batch, nnz = slot_idx.shape
     dim = cache.shape[1]
     cold_ptr, cold_stride, vec = None, 0, _aligned(cache)
     if cold_idx is not None:
-        backend.require(table, torch.float32, "embedding_bag_cached table")
+        backend.require(table, table.dtype, "embedding_bag_cached table")
         if cold_idx.shape != slot_idx.shape or table.shape[1] != dim \
                 or table.device != dev:
             raise ValueError(
@@ -126,13 +145,13 @@ def embedding_bag_cached(table: torch.Tensor, cache: torch.Tensor,
         cold_stride = _ids(cold_idx, dev, "embedding_bag_cached cold_idx")
         cold_ptr = cold_idx.data_ptr()
         vec = _aligned(cache, table)
-    out = torch.empty(batch, dim, dtype=torch.float32, device=dev)
+    out = torch.empty(batch, dim, dtype=cache.dtype, device=dev)
     lib = backend.load_library()
     backend.check_launch(lib, lib.launch_embedding_bag_cached(
         cache.data_ptr(), table.data_ptr(), slot_idx.data_ptr(), slot_stride,
         cold_ptr, cold_stride, out.data_ptr(), batch, nnz, cache.shape[0],
-        table.shape[0], dim, vec, backend.stream_of(dev)),
-        "embedding_bag_cached", dev)
+        table.shape[0], dim, vec, DTYPES[cache.dtype],
+        backend.stream_of(dev)), "embedding_bag_cached", dev)
     LAUNCHES["embedding_bag_cached"] += 1
     return out
 
@@ -140,16 +159,18 @@ def embedding_bag_cached(table: torch.Tensor, cache: torch.Tensor,
 def _stacked_cached_bag(tables: torch.Tensor, cache: torch.Tensor,
                         slot_idx: torch.Tensor,
                         cold_idx: torch.Tensor) -> torch.Tensor:
-    """tables: f32[T, vocab, dim], cache: f32[T, cache_rows, dim], slot_idx
-    and cold_idx: int32[batch, T] (any strides) -> f32[batch, T, dim]."""
+    """tables: D[T, vocab, dim], cache: D[T, cache_rows, dim] (D float32,
+    float16 or bfloat16), slot_idx and cold_idx: int32[batch, T] (any
+    strides) -> D[batch, T, dim]."""
     _table(tables, "stacked embedding_bag_cached tables", 3)
     _table(cache, "stacked embedding_bag_cached cache", 3)
+    _same_dtype(cache, tables, "stacked embedding_bag_cached")
     if backend.on_cpu(slot_idx):
         return kref.embedding_bag_cached_stacked(tables, cache, slot_idx,
                                                  cold_idx)
-    backend.require(tables, torch.float32,
+    backend.require(tables, tables.dtype,
                     "stacked embedding_bag_cached tables")
-    backend.require(cache, torch.float32,
+    backend.require(cache, cache.dtype,
                     "stacked embedding_bag_cached cache")
     dev = cache.device
     n_feat, _, dim = tables.shape
@@ -168,14 +189,14 @@ def _stacked_cached_bag(tables: torch.Tensor, cache: torch.Tensor,
             f"{list(slot_idx.shape)} and cold_idx {list(cold_idx.shape)} do "
             "not match")
     batch = slot_idx.shape[0]
-    out = torch.empty(batch, n_feat, dim, dtype=torch.float32, device=dev)
+    out = torch.empty(batch, n_feat, dim, dtype=cache.dtype, device=dev)
     lib = backend.load_library()
     backend.check_launch(lib, lib.launch_embedding_bag_cached_stacked(
         cache.data_ptr(), cache.stride(0), tables.data_ptr(),
         tables.stride(0), slot_idx.data_ptr(), slot_idx.stride(0),
         slot_idx.stride(1), cold_idx.data_ptr(), cold_idx.stride(0),
         cold_idx.stride(1), out.data_ptr(), batch, n_feat, cache.shape[1],
-        tables.shape[1], dim, _aligned(cache, tables),
+        tables.shape[1], dim, _aligned(cache, tables), DTYPES[cache.dtype],
         backend.stream_of(dev)), "embedding_bag_cached", dev)
     LAUNCHES["embedding_bag_cached"] += 1
     return out

@@ -148,13 +148,15 @@ def vocab_lookup_masked(x: torch.Tensor, table: torch.Tensor,
 # the table.  Rows are pooled over ``nnz`` in order, as the CUDA kernels do.
 
 def _pool(rows: torch.Tensor) -> torch.Tensor:
-    """[batch, nnz, dim] -> [batch, dim], summed over nnz in order (the
-    shared epilogue that makes cached and uncached bags bit-identical)."""
-    out = torch.zeros(rows.shape[0], rows.shape[2], dtype=rows.dtype,
+    """[batch, nnz, dim] -> [batch, dim], summed over nnz in order in
+    float32 and rounded once to the rows' dtype (the shared epilogue that
+    makes cached and uncached bags bit-identical; the JAX package's sum of
+    a 16-bit bag runs in float32 too)."""
+    out = torch.zeros(rows.shape[0], rows.shape[2], dtype=torch.float32,
                       device=rows.device)
     for k in range(rows.shape[1]):
-        out = out + rows[:, k]
-    return out
+        out = out + rows[:, k].float()
+    return out.to(rows.dtype)
 
 
 def _gather_rows(table: torch.Tensor, idx: torch.Tensor,
@@ -206,7 +208,9 @@ def embedding_bag_cached_stacked(tables: torch.Tensor, cache: torch.Tensor,
     rows = torch.where(cold[..., None],
                        tables[feat, torch.where(cold, cold_idx, 0).long()],
                        rows)
-    return torch.zeros_like(rows) + rows  # _pool's 0.0 + row (-0.0 -> +0.0)
+    # _pool's 0.0 + row (-0.0 -> +0.0), in float32, rounded back
+    return (torch.zeros_like(rows, dtype=torch.float32)
+            + rows.float()).to(rows.dtype)
 
 
 def scatter_add_rows(shape, indices: torch.Tensor, grad: torch.Tensor,

@@ -8,8 +8,10 @@ stays whole in device memory, so the split and its argument are dropped.
 - ``vocab_build_chunk`` <- ``vocab_build_chunk`` / ``_build_kernel``
   (l.86 / l.58): first-occurrence position of each value of a flat int32
   chunk, ``ABSENT32`` where absent.  Values outside ``[0, capacity)`` (the
-  ``-1`` padding among them) are ignored.  One ``atomicMin`` per value; min
-  is order-independent, so the result is bit-exact.
+  ``-1`` padding among them) are ignored.  Each block folds its positions
+  into a shared-memory table and flushes one ``atomicMin`` per distinct
+  value (skipped where the table already holds a smaller position); min is
+  order-independent, so the result is bit-exact.
 - ``vocab_lookup`` <- ``vocab_lookup`` / ``_lookup_kernel`` (l.137 / l.118):
   ``table[x]`` where ``0 <= x < capacity`` and ``table[x] >= 0``, else
   ``n_unique`` (the OOV index).  It takes the raw table and ``n_unique``, as

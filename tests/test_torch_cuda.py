@@ -1,8 +1,11 @@
 """The CUDA kernels against their plain versions on the card (the dataflow
 kernels, the staged lowering's four and the two embedding bags), cached ==
 uncached bags bit for bit, the cached lookup's deterministic backward, and
-the stream handoff of the executor.  Needs an NVIDIA GPU with nvcc: marked
-``cuda`` and skipped elsewhere (a CUDA kernel has no interpret mode).
+the stream handoff of the executor; the wide program struct (26 per-feature
+vocabularies in one group), every output dtype, 16-bit bags, the tile
+program's byte copy and the edges of the redesigned stage and build
+kernels.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
+elsewhere (a CUDA kernel has no interpret mode).
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -334,3 +337,264 @@ def test_executor_stream_handoff_matches_direct_apply(card):
     for a, b in zip(delivered, direct):
         for k in a:
             assert torch.equal(a[k], b[k]), k
+
+
+def _launch_all(calls, msg: str) -> None:
+    """Run each (kernel, runner, args): one counted launch each, equal to
+    its plain version."""
+    for kname, fn, args in calls:
+        before = df.LAUNCHES[kname]
+        got = fn(*args)
+        assert df.LAUNCHES[kname] == before + 1, (msg, kname)
+        want = fn.plain(*args)
+        torch.cuda.synchronize()
+        _check(got, want, f"{msg}/{kname}")
+
+
+def test_criteo_per_feature_group(card):
+    """26 per-feature vocabularies (Vocab(65536)) at B = 65536: the group
+    takes the wide program struct (26 tables) in one launch, and each fit
+    is one launch, all equal to their plain versions."""
+    p = tp.criteo_per_feature(65536)(tp.PORT)
+    host = p.compile("cuda", device="cpu")
+    host.fit(tp.fit_batches())
+    cp = p.compile("cuda", device=card)
+    cp.state = host.state
+    raw = tp.raw_batch(rows=65536)
+    apply = cp.dataflow_launches(raw, "apply")
+    assert [k for k, *_ in apply] == ["group_dataflow"]
+    assert apply[0][2].program.wide
+    fit = cp.dataflow_launches(tp.raw_batch(rows=4096), "fit")
+    assert [k for k, *_ in fit] == ["fit_dataflow"] * 26
+    _launch_all([(k, fn, args) for k, _, fn, args in apply + fit], "criteo26")
+
+
+# the reference's output dtypes a Pipeline can name without an extension
+# type (bfloat16 takes the kernel-level test below)
+PIPELINE_DTYPES = [d for d in tp.OUT_DTYPES if d != "bfloat16"]
+
+
+@pytest.mark.parametrize("fuse", ["auto", "off"])
+@pytest.mark.parametrize("dtype", PIPELINE_DTYPES)
+def test_output_dtypes(card, dtype, fuse):
+    """Every output dtype through the group kernel (fused) and through the
+    stage and packer kernels (staged), values in range."""
+    p = tp.in_range_outputs(np.dtype(dtype))(tp.PORT).compile(
+        "cuda", device=card, fuse=fuse)
+    p.fit(tp.fit_batches())
+    raw = tp.raw_batch(rows=1000)
+    calls = p.dataflow_launches(raw, "apply")
+    written = set()
+    for _, _, fn, args in calls:
+        got = fn(*args)
+        written |= {str(g.dtype).removeprefix("torch.")
+                    for g in (got if isinstance(got, tuple) else (got,))}
+    assert dtype in written
+    _launch_all([(k, fn, args) for k, _, fn, args in calls], dtype)
+
+
+@pytest.mark.parametrize("dtype", tp.OUT_DTYPES)
+def test_stage_and_packer_cast_to_every_dtype(card, dtype):
+    """fused_stage and packer with each output dtype (bfloat16 included),
+    on views off a 16-byte boundary and row counts off a vector."""
+    rng = np.random.default_rng(12)
+    out = getattr(torch, dtype)
+    x = torch.tensor((rng.random((1001 * 13 + 1,)) * 100).astype(np.float32),
+                     device=card)[1:].view(1001, 13)
+    ids = torch.tensor(rng.integers(0, 250, size=(1001, 5)).astype(np.int32),
+                       device=card)
+    stage = kops.fused_stage([ops.Clamp(0.0, 90.0)], in_dtype=np.float32,
+                             out_dtype=out)
+    pack = kops.packer([13, 5], [np.float32, np.int32], out, pad_cols_to=32)
+    _launch_all([("fused_stage", stage, [x]), ("packer", pack, [x, ids])],
+                dtype)
+
+
+@pytest.mark.parametrize("variant", ["uncached", "two_level", "cache_only",
+                                     "stacked"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dim", [128, 13])
+def test_16bit_bags(card, dtype, variant, dim):
+    """bfloat16 / float16 tables: each bag bit-equal to its plain version
+    (both sum in float32 in one order and round once), the cached bags
+    bit-equal to the uncached one, the stacked one to the per-feature
+    launches; the 4-element path at dim 128, the scalar one at dim 13."""
+    rng = np.random.default_rng(9)
+    dt = getattr(torch, dtype)
+    tbl = torch.tensor(rng.normal(size=(5000, dim)).astype(np.float32),
+                       device=card).to(dt)
+    idx = rng.integers(-1, 5003, size=(777, 8)).astype(np.int32)
+    ids = torch.tensor(idx, device=card)
+    uncached = kops.embedding_bag(tbl, ids)
+    assert uncached.dtype == dt
+    if variant == "uncached":
+        _launch_all([("embedding_bag", kops.embedding_bag, [tbl, ids])],
+                    dtype)
+        return
+    if variant == "stacked":
+        tables = tbl.view(1, 5000, dim).expand(3, -1, -1).contiguous()
+        cache = tbl[:300].view(1, 300, dim).expand(3, -1, -1).contiguous()
+        slot = torch.tensor(rng.integers(-100, 303, size=(777, 3)).astype(
+            np.int32), device=card)
+        cold = ids[:, :3]
+        _launch_all([("embedding_bag_cached", kbag._stacked_cached_bag,
+                      [tables, cache, slot, cold])], dtype)
+        got = kbag._stacked_cached_bag(tables, cache, slot, cold)
+        want = torch.stack([kops.embedding_bag_cached(
+            tables[t], cache[t], slot[:, t:t + 1], cold[:, t:t + 1])
+            for t in range(3)], dim=1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        return
+    rows = 300 if variant == "two_level" else 5000
+    slot = torch.tensor(np.where((idx >= 0) & (idx < rows), idx, -1).astype(
+        np.int32), device=card)
+    cold = ids if variant == "two_level" else None
+    cache = tbl[:rows].contiguous()
+    args = [tbl, cache, slot] + ([cold] if cold is not None else [])
+    _launch_all([("embedding_bag_cached", kops.embedding_bag_cached, args)],
+                dtype)
+    got = kops.embedding_bag_cached(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, uncached)
+
+
+def test_tile_byte_copy(card):
+    """A 1023-column hex output: a row needs so much shared memory that a
+    tile holds 2 rows, so digit plane d of a tile lies 2046 * d bytes into
+    its stage (off a 4-byte boundary for odd d), the case the kernel copies
+    byte by byte; at a row count whose last tile is 1 row."""
+    w = 1023
+    fn = df.make_output_dataflow(
+        [df.StreamInput("h", w, np.dtype(np.uint8), 8)], (),
+        [df.TileStep("map", "v", ("h",), (ops.Hex2Int(8), ops.Modulus(4099)))],
+        [("v", w)], np.int32)
+    assert fn.program.tile_rows() == 2
+    rng = np.random.default_rng(4)
+    vals = rng.integers(0, 1 << 32, size=(301, w), dtype=np.uint64)
+    hexes = tp.hex_planes(vals.astype(np.uint32), rng.random(vals.shape) < 0.1)
+    _launch_all([("output_dataflow", fn, [torch.tensor(hexes, device=card)])],
+                "byte_copy")
+
+
+def _hex_views(card, rng, rows: int, cols: int) -> list:
+    """Digit-major hex of ``rows x cols`` elements (non-hex bytes and
+    missing strings among them), contiguous and as views 1, 5 and 16 bytes
+    into a larger buffer (planes a stride apart that is or is not a
+    multiple of 16 bytes, whatever ``rows * cols`` is)."""
+    chars = np.frombuffer(b"0123456789abcdefABCDEFgz !~", np.uint8)
+    raw = chars[rng.integers(0, len(chars), size=(8, rows, cols))]
+    raw[:, rng.random((rows, cols)) < 0.1] = 0
+    base = torch.tensor(raw, device=card)
+    out = [base]
+    for off in (1, 5, 16):
+        buf = torch.zeros(base.numel() + off, dtype=torch.uint8, device=card)
+        view = buf[off:].view(8, rows, cols)
+        view.copy_(base)
+        out.append(view)
+    return out
+
+
+STAGE_EDGE_ELEMS = [(1, 1), (7, 1), (65533, 1), (1000, 26), (65536, 26)]
+
+
+@pytest.mark.parametrize("rows,cols", STAGE_EDGE_ELEMS)
+def test_stage_kernel_edges(card, rows, cols):
+    """The redesigned stage kernel on 1, 7 and 65533 elements, Pipeline
+    III's 26 columns, hex views off a 16-byte boundary (vector heads) and
+    planes a stride apart that is no multiple of 16 (the all-scalar path),
+    missing strings and bytes that are no hex digit, and f32 views off 4,
+    8 and 12 bytes; outputs of 4, 2 and 1 bytes."""
+    rng = np.random.default_rng(rows * 31 + cols)
+    hexes = _hex_views(card, rng, rows, cols)
+    calls = []
+    for out in (np.int32, np.int16, np.uint8):
+        sparse = kops.fused_stage([ops.Hex2Int(8), ops.FillMissing(7),
+                                   ops.Modulus(200)], in_dtype=np.uint8,
+                                  out_dtype=out, hex_width=8)
+        calls += [("fused_stage", sparse, [h]) for h in hexes]
+    n = rows * cols
+    flat = torch.tensor((rng.normal(size=n + 3) * 10).astype(np.float32),
+                        device=card)
+    flat[::5] = float("nan")
+    dense = kops.fused_stage([ops.FillMissing(0.0), ops.Clamp(0.0),
+                              ops.Logarithm()], in_dtype=np.float32,
+                             out_dtype=np.float32)
+    calls += [("fused_stage", dense, [flat[k:k + n].view(rows, cols)])
+              for k in range(4)]
+    _launch_all(calls, f"stage {rows}x{cols}")
+
+
+BUILD_EDGES = ["n_1", "n_7", "n_65533", "view_off_4", "view_off_8",
+               "view_off_12", "all_equal", "all_distinct", "out_of_range"]
+
+
+@pytest.mark.parametrize("case", BUILD_EDGES)
+def test_build_kernel_edges(card, case):
+    """The redesigned build on 1, 7 and 65533 ids, id views off a 16-byte
+    boundary, all-equal ids (one shared-table entry for every block),
+    all-distinct ids (more per block than the shared table holds: the
+    probe-overflow path) and ids that are negative or >= capacity."""
+    rng = np.random.default_rng(len(case))
+    cap = 65536
+    if case.startswith("n_"):
+        vals = rng.integers(0, cap, size=int(case[2:])).astype(np.int32)
+    elif case.startswith("view_off_"):
+        k = int(case[9:]) // 4
+        vals = rng.integers(0, 5000, size=100003).astype(np.int32)
+        buf = torch.tensor(np.concatenate([np.zeros(k, np.int32), vals]),
+                           device=card)
+        _launch_all([("vocab_build_chunk", kops.vocab_build_chunk,
+                      [buf[k:], cap])], case)
+        return
+    elif case == "all_equal":
+        vals = np.full(300001, 1234, np.int32)
+    elif case == "all_distinct":
+        cap = 1 << 22
+        vals = rng.permutation(cap)[:1703936].astype(np.int32)
+    else:
+        vals = rng.integers(-cap, 2 * cap, size=300001).astype(np.int32)
+        vals[::7] = -1
+    _launch_all([("vocab_build_chunk", kops.vocab_build_chunk,
+                  [torch.tensor(vals, device=card), cap])], case)
+
+
+@pytest.mark.parametrize("kind", ["fit", "group", "packer"])
+def test_wide_structs(card, kind):
+    """The wide structs on programs that would fit the small ones: a fit
+    and Pipeline III's group forced into ``WideProgram`` (no plan here
+    needs a wide fit), and a 40-block packer (``WidePackArgs``), each equal
+    to its plain version and to the small struct's launch."""
+    rng = np.random.default_rng(40)
+    if kind == "packer":
+        fn = kops.packer([3] * 40, [np.float32, np.int32] * 20, np.int32,
+                         pad_cols_to=128)
+        blocks = [torch.tensor((rng.normal(size=(777, 3)) * 100).astype(
+            np.float32 if k % 2 == 0 else np.int32), device=card)
+            for k in range(40)]
+        _launch_all([("packer", fn, blocks)], "40 blocks")
+        return
+    if kind == "fit":
+        fn = df.make_fit_dataflow(
+            [df.StreamInput("h", 26, np.dtype(np.uint8), 8)],
+            [df.TileStep("map", "v", ("h",), (ops.Hex2Int(8),
+                                              ops.Modulus(65536)))], "v",
+            65536)
+        args = [torch.tensor(tp.fit_edge_values("out_of_range", 3001, 26,
+                                                65536), device=card)]
+        name = "fit_dataflow"
+    else:
+        p = tp.BUILDERS["III"](tp.PORT).compile("cuda", device=card)
+        p.fit(tp.fit_batches())
+        ((name, _, fn, args),) = p.dataflow_launches(tp.raw_batch(rows=1000),
+                                                     "apply")
+    assert not fn.program.wide
+    small = fn(*args)
+    fn.program.wide, fn.program.template = True, None
+    try:
+        _launch_all([(name, fn, args)], f"wide {kind}")
+        wide = fn(*args)
+        torch.cuda.synchronize()
+        _check(wide, small, f"wide {kind} vs small")
+    finally:
+        fn.program.wide, fn.program.template = False, None

@@ -151,11 +151,19 @@ def test_wrappers_route_by_device_and_refuse_other_dtypes():
     kops.embedding_bag(*_t(tbl, idx))
     kops.embedding_bag_cached(*_t(tbl, tbl, idx, idx))
     assert backend.LAUNCHES == before  # CPU tensors: plain versions only
+    # 16-bit tables are taken and give their own dtype; float64 and integer
+    # tables are refused (the reference's bags take neither), and so is a
+    # cached bag whose cache and table differ in dtype
+    for dt in (torch.bfloat16, torch.float16):
+        got = kops.embedding_bag(torch.tensor(tbl).to(dt), torch.tensor(idx))
+        assert got.dtype == dt and got.shape == (5, 8)
     with pytest.raises(ValueError, match="float32"):
-        kops.embedding_bag(torch.tensor(tbl).bfloat16(), torch.tensor(idx))
+        kops.embedding_bag(torch.tensor(tbl).double(), torch.tensor(idx))
     with pytest.raises(ValueError, match="float32"):
+        kops.embedding_bag(torch.tensor(idx), torch.tensor(idx))
+    with pytest.raises(ValueError, match="differ"):
         kops.embedding_bag_cached(torch.tensor(tbl), torch.tensor(tbl).half(),
-                                  torch.tensor(idx))
+                                  torch.tensor(idx), torch.tensor(idx))
     meta = torch.empty(5, 2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         kops.embedding_bag(torch.tensor(tbl), meta)
@@ -220,3 +228,59 @@ def test_stacked_cached_bag_routes_and_refuses_bad_shapes():
     meta = torch.empty(5, 3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         kbag._stacked_cached_bag(tt, tc, meta, meta)
+
+
+# one unit in the last place of each 16-bit dtype, relative: both packages
+# sum a 16-bit bag in float32 and round once, but may add in another order
+ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+
+
+@pytest.mark.parametrize("variant", ["uncached", "two_level", "cache_only"])
+@pytest.mark.parametrize("dtype", sorted(ULP))
+def test_16bit_bags_match_pallas_and_cached_equals_uncached(dtype, variant):
+    """bfloat16 / float16 tables against the JAX kernels in interpret mode
+    (the table's dtype out; within one unit in the last place, relative,
+    plus 1e-6 absolute for sums that cancel), and inside the port the
+    cached bag bit-equal to the uncached one on the same logical ids."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    rng = _rng("16bit", dtype, variant)
+    tbl, idx = _bag(rng, 90, 12, 41, 6, sentinels=0.2)
+    tt, jt = torch.tensor(tbl).to(tdt), jnp.asarray(tbl).astype(jdt)
+    uncached = kops.embedding_bag(tt, torch.tensor(idx))
+    assert uncached.dtype == tdt
+    if variant == "uncached":
+        got = uncached
+        want = rkops.embedding_bag(jt, jnp.asarray(idx), partitions=2,
+                                   interpret=True)
+    else:
+        # hot ids below 30 sit in the cache at their own row; the rest fall
+        # through to the table (two_level) or are staged (cache_only)
+        cache_rows = 30 if variant == "two_level" else 90
+        slot = np.where(idx < cache_rows, idx, -1).astype(np.int32)
+        cold = idx if variant == "two_level" else None
+        got = kops.embedding_bag_cached(
+            tt, tt[:cache_rows].clone(), torch.tensor(slot),
+            None if cold is None else torch.tensor(cold))
+        want = rkops.embedding_bag_cached(
+            jt, jt[:cache_rows], jnp.asarray(slot),
+            None if cold is None else jnp.asarray(cold), partitions=2,
+            interpret=True)
+        assert torch.equal(got, uncached)
+    assert tp.dtype_name(want) == tp.dtype_name(got) == dtype
+    np.testing.assert_allclose(tp.to_np(got), tp.to_np(want),
+                               rtol=ULP[dtype], atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", sorted(ULP))
+def test_16bit_stacked_bag_equals_per_feature_bags(dtype):
+    """The stacked cached bag at a 16-bit dtype is the per-feature bag of
+    every feature, stacked, bit for bit, in the tables' dtype."""
+    tables, cache, slot, cold = _stacked_plan(_rng("stacked16", dtype), 4, 6,
+                                              30, 5, 8)
+    tdt = getattr(torch, dtype)
+    tt, tc = torch.tensor(tables).to(tdt), torch.tensor(cache).to(tdt)
+    got = kbag._stacked_cached_bag(tt, tc, slot, cold)
+    per_feature = torch.stack([kops.embedding_bag_cached(
+        tt[t], tc[t], slot[:, t:t + 1], cold[:, t:t + 1]) for t in range(4)],
+        dim=1)
+    assert got.dtype == tdt and torch.equal(got, per_feature)

@@ -178,9 +178,19 @@ def test_staged_encodings_refuse_what_no_kernel_takes():
     with pytest.raises(TypeError, match="Hex2Int"):
         kops.fused_stage([pops.Modulus(7)], in_dtype=np.uint8,
                          out_dtype=np.int32, hex_width=8)
+    # past the small struct's 32 blocks the packer takes the wide one; past
+    # that it refuses, and so it does a dtype the reference refuses too
+    wide = kops.packer([4] * (df.MAX_BLOCK + 1),
+                       [np.int32] * (df.MAX_BLOCK + 1), np.int32)
+    blocks = [torch.full((3, 4), k, dtype=torch.int32)
+              for k in range(df.MAX_BLOCK + 1)]
+    assert torch.equal(wide(*blocks)[:, :4 * len(blocks)],
+                       torch.cat(blocks, dim=1))
     with pytest.raises(ValueError, match="blocks"):
-        kops.packer([4] * (df.MAX_BLOCK + 1), [np.int32] * (df.MAX_BLOCK + 1),
-                    np.int32)
+        kops.packer([4] * (df.MAX_WIDE_BLOCK + 1),
+                    [np.int32] * (df.MAX_WIDE_BLOCK + 1), np.int32)
+    with pytest.raises(NotImplementedError, match="float64"):
+        kops.packer([4], [np.int32], np.float64)
     fn = kops.packer([2, 3], [np.float32, np.int32], np.int32, pad_cols_to=8)
     with pytest.raises(ValueError, match=r"block 1: want \[4, 3\]"):
         fn(torch.zeros(4, 2), torch.zeros(4, 2, dtype=torch.int32))

@@ -58,6 +58,50 @@ def kitchen_sink(ns):
     return p
 
 
+def criteo_per_feature(vocab: int, modulus: int = 4194304,
+                       features: int = 26):
+    """Builder: one vocabulary per Criteo feature, as DLRM users lay out
+    Criteo: ``sparse_i | Hex2Int(8) | Modulus(modulus) | Vocab(vocab)`` for
+    i < ``features`` (all 26 by default) in one ``sparse`` output; dense
+    and label as in Pipeline III.  ``chip_smoke.py`` builds its
+    ``criteo*_group`` instances from it too."""
+    def build(ns):
+        o = ns.ops
+        p = ns.Pipeline(ns.Schema.criteo_kaggle(), name="criteo_per_feature")
+        d = p.dense("dense_*") | o.FillMissing(0.0) | o.Clamp(0.0) | \
+            o.Logarithm()
+        s = [p.sparse(f"sparse_{i}") | o.Hex2Int(8) | o.Modulus(modulus)
+             | ns.Vocab(vocab) for i in range(features)]
+        p.output("dense", [d], dtype=np.float32, pad_cols_to=16)
+        p.output("sparse", s, dtype=np.int32, pad_cols_to=32)
+        p.output("label", [p.label("label")], dtype=np.float32, squeeze=True)
+        return p
+    return build
+
+
+def in_range_outputs(dtype):
+    """Builder: Pipeline III's shape with its dense and sparse outputs in
+    ``dtype`` and every value inside that dtype's range (the dense floats
+    clamped to [0, 100], the ids bounded by Modulus(200)): casts of values
+    out of range depend on the platform in both packages."""
+    def build(ns):
+        o = ns.ops
+        p = ns.Pipeline(ns.Schema.criteo_kaggle(), name="out_dtype")
+        d = p.dense("dense_*") | o.FillMissing(0.0) | o.Clamp(0.0, 100.0)
+        s = p.sparse("sparse_*") | o.Hex2Int(8) | o.Modulus(200)
+        p.output("dense", [d], dtype=dtype, pad_cols_to=16)
+        p.output("sparse", [s], dtype=dtype, pad_cols_to=32)
+        p.output("label", [p.label("label")], dtype=np.float32, squeeze=True)
+        return p
+    return build
+
+
+# the output dtypes the reference returns besides float32 / int32 (it
+# refuses float64 and the 64-bit integers)
+OUT_DTYPES = ("float16", "bfloat16", "int8", "uint8", "int16", "uint16",
+              "uint32", "bool")
+
+
 BUILDERS = {"I": paper("I"), "II": paper("II"), "III": paper("III"),
             "sink": kitchen_sink}
 
@@ -89,9 +133,21 @@ def raw_batch(rows: int = 600, seed: int = 9) -> dict:
 
 
 def to_np(x) -> np.ndarray:
+    """numpy of either package's array; bfloat16 (which numpy knows only
+    through an extension type) as float32, its values exactly."""
     if hasattr(x, "detach"):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        x = x.detach().cpu()
+        return (x.float() if str(x.dtype) == "torch.bfloat16"
+                else x).numpy()
+    a = np.asarray(x)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def dtype_name(x) -> str:
+    """The element type's name, the same for both packages' arrays."""
+    if hasattr(x, "detach"):
+        return str(x.dtype).removeprefix("torch.")
+    return np.asarray(x).dtype.name
 
 
 def assert_match(want, got, msg: str = "") -> None:
