@@ -64,8 +64,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  ``criteo4_group:wide``, the same program forced into the
                  wide struct; float16 outputs of the group kernel and of
                  the packer; a bfloat16 embedding bag on the Zipf ids
-                 (bit-equal to its plain version, as every bag); and the
-                 staged build's fill alone (``fill_only``: no ids).
+                 (bit-equal to its plain version, as every bag); the
+                 staged build's fill alone (``fill_only``: no ids); and the
+                 packer over 26 and over 128 one-column blocks
+                 (``pack:26x1``, ``pack:128x1``).  The packer's other
+                 instances are the plans': staged_main's sparse output
+                 (["sparse"], int32 [B, 26] -> [B, 32]) and the
+                 ``fuse="off"`` plan's dense (["dense"], float32 [B, 13] ->
+                 [B, 16]) and sparse outputs.
 4. main        — EtlJob(Pipeline III, Source.synth("I"), backend="cuda") ->
                  fit (one fit launch per chunk) -> 16 DLRM training steps at
                  DLRMConfig(vocab_size=524289) (1.75 B parameters; one group
@@ -149,7 +155,8 @@ CRITEO_VOCAB = 65536             # per-feature vocabularies of criteo*_group
 BYTE_COPY_COLS, BYTE_COPY_ROWS = 1023, 4096  # 2-row tiles, planes off 4 B
 # instances that never stand for a kernel in the kernels line
 EXTRA = ("criteo26_group", "criteo4_group", "criteo4_group:wide",
-         "out:float16", "bag:bfloat16", "fill_only")
+         "out:float16", "bag:bfloat16", "fill_only", "pack:26x1",
+         "pack:128x1")
 
 
 def pipeline_iii_dense_as(Pipeline, Schema, ops, Vocab, dtype):
@@ -942,8 +949,12 @@ def extra_instances(time_only: bool, fit_chunks, raw, table, ids,
     runner, args)``: ``criteo26_group`` and ``criteo4_group`` (fitted on
     the CPU through the plain versions, as the other plans are; ``criteo(k)``
     is the plan of the first k features), ``criteo4_group:wide``,
-    ``out:float16`` for the group kernel and the packer, ``bag:bfloat16``
-    and ``fill_only``.  With ``time_only`` (``--wrappers`` on another
+    ``out:float16`` for the group kernel and the packer, ``bag:bfloat16``,
+    ``fill_only``, and the packer over 26 int32 [B, 1] blocks into int32
+    [B, 32] (``pack:26x1``, the small struct) and over 128 float32 and
+    int32 [B, 1] blocks in turn into int32 [B, 128] (``pack:128x1``, the
+    wide struct at its maximum): ``fuse="off"``'s layout of per-column
+    chains.  With ``time_only`` (``--wrappers`` on another
     checkout) an instance that checkout cannot build is skipped, with a
     line that says so; otherwise a failure is the phase's."""
     import torch
@@ -1004,6 +1015,24 @@ def extra_instances(time_only: bool, fit_chunks, raw, table, ids,
         return [("embedding_bag", "bag:bfloat16", kops.embedding_bag,
                  (tb, ids))]
 
+    def one_column_packers():  # fuse="off"'s layout of per-column chains
+        import numpy as np
+        from repro_torch.kernels import ops as kops
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        out = []
+        for what, dtypes, pad in (
+                ("pack:26x1", [np.int32] * 26, 32),
+                ("pack:128x1", [np.float32, np.int32] * 64, 128)):
+            fn = kops.packer([1] * len(dtypes), dtypes, np.int32,
+                             pad_cols_to=pad)
+            blocks = [torch.randn(B, 1, generator=gen, device="cuda") * 300
+                      if d is np.float32 else
+                      torch.randint(0, 1 << 20, (B, 1), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                      for d in dtypes]
+            out.append(("packer", what, fn, blocks))
+        return out
+
     def fill_only():  # at the staged path's capacity
         from repro_torch.kernels import ops as kops
         return [("vocab_build_chunk", "fill_only", kops.vocab_build_chunk,
@@ -1012,7 +1041,7 @@ def extra_instances(time_only: bool, fit_chunks, raw, table, ids,
 
     out = []
     for make in (criteo26, criteo4, criteo4_wide, out_f16, bag_bf16,
-                 fill_only):
+                 fill_only, one_column_packers):
         try:
             out += make()
         except (NotImplementedError, ValueError) as e:

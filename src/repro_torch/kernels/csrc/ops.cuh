@@ -30,7 +30,7 @@ enum Kind {
 };
 
 // Bytes of one element of an output kind.
-static __host__ __device__ __forceinline__ int kind_size(int k) {
+static constexpr __host__ __device__ __forceinline__ int kind_size(int k) {
   return (k == K_F32 || k == K_I32 || k == K_U32) ? 4
          : (k == K_F16 || k == K_BF16 || k == K_I16 || k == K_U16) ? 2 : 1;
 }

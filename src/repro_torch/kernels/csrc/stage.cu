@@ -38,9 +38,30 @@
 // grid is sized to the work: one pass of one vector a thread, in blocks of
 // STAGE_THREADS (smaller blocks spread the last wave's work more evenly).
 //
-// packer_kernel: one thread per output element in a grid-stride loop (the
-// TPU kernels' lane and sublane padding has no counterpart: the ragged edge
-// is the loop bound).
+// packer_kernel: one block of THREADS per tile of R rows (R a multiple of
+// 16, chosen on the host: pack_tile in repro_torch/kernels/dataflow.py).
+// For every column block k, rows [r0, r0 + R) are one contiguous span of
+// R * w_k words; a warp a block (several warps a block where there are
+// fewer blocks than warps) puts the span in flight into shared memory with
+// cp.async (16-byte copies, which skip L1; 4-byte ones for the head before
+// the first 16-byte boundary and for the tail), every span of the tile
+// before any is read, and no register holds them.  The same warp writes
+// the block's entries of the tile's column map (per output column: the
+// shared word of row 0, the row pitch and whether the word is a float;
+// padding columns read one zero word), so no element searches the blocks
+// and the work per element does not depend on the block count.  The output
+// tile [R, out_cols] is one contiguous span too, which starts on a 16-byte
+// boundary for any output size because R is a multiple of 16: a thread
+// gathers 16 bytes of it (4 words, 8 halves or 16 bytes) from shared
+// memory through the map, casts in registers and writes them with one
+// streaming store (__stcs); (row, column) step by a fixed amount from one
+// vector to the thread's next and by one column within a vector, so no
+// element costs a division, and all index math in a tile is 32-bit.  The
+// ragged last tile is the loop bound, not padding.  A row too wide for 16
+// rows of it to fit PACK_SMEM_MAX is walked in windows of output columns
+// (the grid's second dimension), each row's part copied and written a word
+// at a time.  The launcher takes both structs and every output kind, each
+// kind its own instantiation (the cast is one case).
 //
 // The per-opcode rules and the output cast are ops.cuh's, the same copy the
 // dataflow interpreter runs.  Arguments travel by value as one
@@ -75,6 +96,7 @@ struct PackArgsT {
   void* out;
   long long rows;
   int out_cols, n_block, out_kind;
+  int tile_rows, tile_cols;  // R (a multiple of 16); out_cols or a window
   int kind[MAXB];
   int width[MAXB];
   int col[MAXB];
@@ -318,43 +340,189 @@ stage_kernel(const __grid_constant__ StageArgs a, long long head,
 
 // ---- the packer --------------------------------------------------------------
 
-// WORD: the output is f32 / i32 (a 4-byte word, the one-branch cast);
-// else any other kind through cast_out.
-template <class A, bool WORD>
+#define PACK_SMEM_MAX (48 * 1024)  // shared memory of one tile, no opt-in
+
+// Shared memory of a tile of R rows and C output columns (words): the column
+// map (entry c at c + c / 32, so the lanes of a warp read it without bank
+// conflicts), the zero word the padding columns read, then from
+// pack_data(C) on block k's rows at R * (its first column in the window) +
+// 4 * pack_skew(k) + the 16-byte phase of its source, so that its 16-byte
+// copies land on 16-byte boundaries.  The skew grows by 1 a block and by 2
+// every 8th: one-column blocks read 4 columns apart by a warp (a 16-byte
+// store of 4-byte elements) then fall in 8 banks, not 2 (4 k alone put
+// 16 lanes on one bank).  Mirrored by pack_smem_bytes in
+// repro_torch/kernels/dataflow.py.
+static __host__ __device__ __forceinline__ int pack_zero(int cols) {
+  return cols + (cols >> 5);
+}
+static __host__ __device__ __forceinline__ int pack_data(int cols) {
+  return (pack_zero(cols) + 4) & ~3;
+}
+static __host__ __device__ __forceinline__ int pack_skew(int k) {
+  return k + (k >> 3);
+}
+
+static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One word / one 16-byte vector from global into shared memory, through no
+// register (cp.async; the 16-byte form caches in L2 only).
+static __device__ __forceinline__ void copy4(int* s, const int* g) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(s)),
+               "l"(g) : "memory");
+}
+static __device__ __forceinline__ void copy16(int* s, const int* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(s)),
+               "l"(g) : "memory");
+}
+
+// Output column c of the window in tile row r, cast to KIND: map entry =
+// shared word of row 0 | row pitch << 16 | is-float << 31.
+template <int KIND>
+static __device__ __forceinline__ uint32_t pack_elem(const int* sm,
+                                                     const uint32_t* map,
+                                                     int r, int c) {
+  const uint32_t m = map[c + (c >> 5)];
+  const int bits = sm[(m & 0xFFFF) + r * ((m >> 16) & 0x7FFF)];
+  return cast_out(KIND, bits, m >> 31);
+}
+
+// KIND: the output kind (ops.cuh), so the cast is one case.
+template <class A, int KIND>
 __global__ void __launch_bounds__(THREADS)
 packer_kernel(const __grid_constant__ A a) {
-  const long long n = a.rows * a.out_cols;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += step) {
-    const long long r = i / a.out_cols;
-    const int c = static_cast<int>(i - r * a.out_cols);
-    int b = -1;
-    for (int k = 0; k < a.n_block; ++k)
-      if (c >= a.col[k] && c < a.col[k] + a.width[k]) b = k;
-    int bits = 0;  // zero in the padding columns, as every kind
-    bool is_float = false;
-    if (b >= 0) {
-      const long long e = r * a.width[b] + (c - a.col[b]);
-      bits = static_cast<const int*>(a.src[b])[e];
-      is_float = a.kind[b] == K_F32;
-      if (WORD && a.kind[b] != a.out_kind)  // float -> int truncates
-        bits = (a.out_kind == K_F32)
-                   ? __float_as_int(static_cast<float>(bits))
-                   : static_cast<int>(__int_as_float(bits));
+  extern __shared__ __align__(16) int sm[];
+  constexpr int SIZE = kind_size(KIND);
+  constexpr int V = 16 / SIZE;  // elements of one 16-byte store
+  uint32_t* map = reinterpret_cast<uint32_t*>(sm);
+  const int R = a.tile_rows;
+  const long long r0 = static_cast<long long>(blockIdx.x) * R;
+  const int rows = static_cast<int>(min(static_cast<long long>(R),
+                                        a.rows - r0));
+  const int c0 = blockIdx.y * a.tile_cols;
+  const int cols = min(a.tile_cols, a.out_cols - c0);  // of the window
+  const int zero = pack_zero(a.tile_cols);
+  const int data = pack_data(a.tile_cols);
+  const int lane = threadIdx.x & 31;
+  // every block's rows in flight, and the block's map entries: a warp a
+  // block, or `parts` warps a block where there are fewer blocks than warps
+  const int parts = max(THREADS / 32 / a.n_block, 1);
+  for (int u = threadIdx.x >> 5; u < a.n_block * parts; u += THREADS / 32) {
+    const int k = u / parts;
+    const int first = 32 * (u - k * parts) + lane, step = 32 * parts;
+    const int w = a.width[k], col = a.col[k];
+    const int lo = max(c0 - col, 0), hi = min(c0 + cols - col, w);
+    if (lo >= hi) continue;
+    const int n = hi - lo;  // the block's columns in the window
+    const int* g = static_cast<const int*>(a.src[k]) + r0 * w + lo;
+    const int ph = static_cast<int>(reinterpret_cast<uintptr_t>(g) >> 2) & 3;
+    const int at = data + R * (col + lo - c0) + 4 * pack_skew(k) + ph;
+    int* s = sm + at;
+    if (n == w) {  // whole rows: one span, 16 bytes a copy past its head
+      const int len = rows * w;
+      const int head = min((4 - ph) & 3, len);
+      const int n_vec = (len - head) >> 2;
+      const int tail = head + 4 * n_vec;
+      if (first < head) copy4(s + first, g + first);
+      for (int v = first; v < n_vec; v += step)
+        copy16(s + head + 4 * v, g + head + 4 * v);
+      if (first < len - tail) copy4(s + tail + first, g + tail + first);
+    } else {  // a window's part of each row
+      for (int r = 0; r < rows; ++r)
+        for (int j = first; j < n; j += step)
+          copy4(s + r * n + j, g + static_cast<long long>(r) * w + j);
     }
-    if (WORD) static_cast<int*>(a.out)[i] = bits;
-    else store_out(a.out, i, a.out_kind, cast_out(a.out_kind, bits, is_float));
+    const uint32_t entry = static_cast<uint32_t>(a.kind[k] == K_F32) << 31 |
+                           static_cast<uint32_t>(n) << 16;
+    for (int j = first; j < n; j += step) {
+      const int c = col + lo + j - c0;
+      map[c + (c >> 5)] = entry | static_cast<uint32_t>(at + j);
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  const int used = a.col[a.n_block - 1] + a.width[a.n_block - 1];
+  for (int c = max(used - c0, 0) + threadIdx.x; c < cols; c += THREADS)
+    map[c + (c >> 5)] = static_cast<uint32_t>(zero);  // pitch 0, an int
+  if (threadIdx.x == 0) sm[zero] = 0;
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  if (cols != a.out_cols) {  // a window: each row's part, a word at a time
+    for (int r = threadIdx.x >> 5; r < rows; r += THREADS / 32)
+      for (int c = lane; c < cols; c += 32)
+        store_out(a.out, (r0 + r) * a.out_cols + c0 + c, KIND,
+                  pack_elem<KIND>(sm, map, r, c));
+    return;
+  }
+  // whole rows: the tile's output is one span from a 16-byte boundary
+  void* out = static_cast<unsigned char*>(a.out) + r0 * cols * SIZE;
+  const int total = rows * cols;
+  const int n_vec = total / V;
+  int r = threadIdx.x * V / cols;
+  int c = threadIdx.x * V - r * cols;
+  const int dr = THREADS * V / cols;
+  const int dc = THREADS * V - dr * cols;
+  for (int i = threadIdx.x; i < n_vec; i += THREADS) {
+    uint32_t o[V];
+    int rr = r, cc = c;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      o[j] = pack_elem<KIND>(sm, map, rr, cc);
+      if (++cc == cols) {
+        cc = 0;
+        ++rr;
+      }
+    }
+    store_vec<V, SIZE>(out, static_cast<long long>(i) * V, o, true);
+    c += dc;
+    r += dr;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
+  const int e = n_vec * V + threadIdx.x;  // past the last whole vector
+  if (e < total) {
+    const int er = e / cols;
+    store_out(out, e, KIND, pack_elem<KIND>(sm, map, er, e - er * cols));
   }
 }
 
+template <class A, int KIND>
+static int launch_pack_kind(const A* a, cudaStream_t s) {
+  const int R = a->tile_rows, C = a->tile_cols;
+  const int used = a->col[a->n_block - 1] + a->width[a->n_block - 1];
+  const long long tiles = (a->rows + R - 1) / R;
+  const int windows = (a->out_cols + C - 1) / C;
+  const size_t smem = 4 * static_cast<size_t>(
+      pack_data(C) + R * min(used, C) + 4 * pack_skew(a->n_block));
+  if (smem > PACK_SMEM_MAX || tiles > 0x7FFFFFFFLL || windows > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  packer_kernel<A, KIND>
+      <<<dim3(static_cast<unsigned>(tiles), windows), THREADS, smem, s>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class A>
-static void launch_pack(const A* a, long long n, cudaStream_t s) {
-  if (a->out_kind == K_F32 || a->out_kind == K_I32)
-    packer_kernel<A, true><<<grid_blocks(n), THREADS, 0, s>>>(*a);
-  else
-    packer_kernel<A, false><<<grid_blocks(n), THREADS, 0, s>>>(*a);
+static int launch_pack(const A* a, cudaStream_t s) {
+  if (a->rows == 0 || a->out_cols == 0) return 0;
+  if (a->n_block < 1 || a->tile_rows < 16 || a->tile_rows % 16 != 0 ||
+      a->tile_cols < 1 || (reinterpret_cast<uintptr_t>(a->out) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (a->out_kind) {
+    case K_F32: return launch_pack_kind<A, K_F32>(a, s);
+    case K_I32: return launch_pack_kind<A, K_I32>(a, s);
+    case K_F16: return launch_pack_kind<A, K_F16>(a, s);
+    case K_BF16: return launch_pack_kind<A, K_BF16>(a, s);
+    case K_I8: return launch_pack_kind<A, K_I8>(a, s);
+    case K_U8: return launch_pack_kind<A, K_U8>(a, s);
+    case K_I16: return launch_pack_kind<A, K_I16>(a, s);
+    case K_U16: return launch_pack_kind<A, K_U16>(a, s);
+    case K_U32: return launch_pack_kind<A, K_U32>(a, s);
+    case K_BOOL: return launch_pack_kind<A, K_BOOL>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <bool HEX, int SIZE>
@@ -400,21 +568,12 @@ int launch_fused_stage(const void* args, void* stream) {
                              : launch_stage_sized<false>(a, s);
 }
 
-// `args` is a PackArgs, or a WidePackArgs when `wide` is nonzero.
+// `args` is a PackArgs, or a WidePackArgs when `wide` is nonzero; its
+// output starts on a 16-byte boundary (the wrapper allocates it).
 int launch_packer(const void* args, int wide, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide) {
-    const WidePackArgs* a = static_cast<const WidePackArgs*>(args);
-    const long long n = a->rows * a->out_cols;
-    if (n == 0) return 0;
-    launch_pack(a, n, s);
-  } else {
-    const PackArgs* a = static_cast<const PackArgs*>(args);
-    const long long n = a->rows * a->out_cols;
-    if (n == 0) return 0;
-    launch_pack(a, n, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return wide ? launch_pack(static_cast<const WidePackArgs*>(args), s)
+              : launch_pack(static_cast<const PackArgs*>(args), s);
 }
 
 int stage_args_size() { return static_cast<int>(sizeof(StageArgs)); }

@@ -38,14 +38,16 @@ Kernels and the TPU kernels they replace (``src/repro/kernels/dataflow.py``):
   first-occurrence/count build.  The TPU kernel's ``partitions`` split of
   the accumulators is a VMEM artefact and is dropped.
 
-The staged lowering's two elementwise kernels (``csrc/stage.cu``) take the
-same opcode encoding and no shared memory:
+The staged lowering's two elementwise kernels (``csrc/stage.cu``; the
+stage takes the same opcode encoding):
 
 - ``fused_stage`` <- ``make_fused_stage`` (l.93): one stage's elementwise
   chain (a ``StageProgram``) over a whole buffer, cast to the output dtype;
   16 hex elements (one 16-byte load per digit plane) or 4 words a thread.
 - ``packer``      <- ``make_packer`` (l.149): concatenate column blocks,
-  cast, zero-pad the width; one thread per output element.
+  cast, zero-pad the width; one block of threads per tile of rows
+  (``pack_tile``), the blocks' rows copied into shared memory and the
+  output gathered through a column map, 16 bytes a store.
 
 Sizes and dtypes: a program within ``NARROW`` (8 sources, 24 slots, 32
 instructions, 4 tables, 4 outputs, 16 terminals, 64 parameters) travels in
@@ -984,12 +986,64 @@ def _pack_type(max_block: int) -> type:
                     ("rows", ctypes.c_longlong),
                     ("out_cols", ctypes.c_int), ("n_block", ctypes.c_int),
                     ("out_kind", ctypes.c_int),
+                    ("tile_rows", ctypes.c_int), ("tile_cols", ctypes.c_int),
                     ("kind", ctypes.c_int * max_block),
                     ("width", ctypes.c_int * max_block),
                     ("col", ctypes.c_int * max_block)]
 
     CPack.__name__ = f"CPack{max_block}"
     return CPack
+
+
+# the packer's tiles (csrc/stage.cu): a tile's input and output bytes at
+# most where 16 rows fit, the shared memory of one tile (no opt-in past
+# 48 KiB), the output columns of a window of a row too wide for that, and
+# the tiles per SM a launch has where its rows allow
+PACK_TILE_BYTES = 32 * 1024
+PACK_SMEM_MAX = 48 * 1024
+PACK_WINDOW = 512
+PACK_TILES_PER_SM = 4
+
+
+def pack_smem_bytes(lay: PackLayout, tile_rows: int, tile_cols: int) -> int:
+    """Shared memory of one packer tile (``pack_data`` in csrc/stage.cu):
+    the column map (a word a column, one more each 32) and the zero word,
+    rounded up to 16 bytes, then ``tile_rows`` rows of the window's input
+    columns and the blocks' skew (``pack_skew``: 16 bytes a block, 32 every
+    8th, which spreads one-column blocks over the banks)."""
+    data = (tile_cols + (tile_cols >> 5) + 4) & ~3
+    used = min(sum(lay.widths), tile_cols)
+    n = len(lay.widths)
+    return 4 * (data + tile_rows * used + 4 * (n + (n >> 3)))
+
+
+@functools.cache
+def _pack_tile_max(lay: PackLayout) -> tuple:
+    size = _KIND_DTYPE[lay.out_kind].itemsize
+    rows = min(PACK_TILE_BYTES // (4 * max(sum(lay.widths), 1)),
+               PACK_TILE_BYTES // (size * lay.out_cols)) // 16 * 16
+    for r in (max(rows, 16), 16):
+        if pack_smem_bytes(lay, r, lay.out_cols) <= PACK_SMEM_MAX:
+            return r, lay.out_cols
+    return 16, PACK_WINDOW
+
+
+def pack_tile(lay: PackLayout, rows: int, sms: int) -> tuple:
+    """``(tile_rows, tile_cols)`` of a packer launch over ``rows`` rows on a
+    card of ``sms`` SMs: the most rows, a multiple of 16 (so every tile of
+    the output starts on a 16-byte boundary at any element size), whose
+    input and output each take at most ``PACK_TILE_BYTES``, and few enough
+    for ``PACK_TILES_PER_SM`` tiles an SM where ``rows`` allow; 16 at least;
+    over the whole row when its tile fits ``PACK_SMEM_MAX``, else 16 rows in
+    windows of ``PACK_WINDOW`` output columns."""
+    tile_rows, tile_cols = _pack_tile_max(lay)
+    spread = _round_up(-(-rows // (PACK_TILES_PER_SM * sms)), 16)
+    return max(min(tile_rows, spread), 16), tile_cols
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_blocks(lay: PackLayout, blocks) -> int:
@@ -1023,9 +1077,11 @@ def _launch_packer(lay: PackLayout, blocks) -> torch.Tensor:
     out = torch.empty(rows, lay.out_cols, dtype=_KIND_DTYPE[lay.out_kind],
                       device=device)
     wide = len(blocks) > MAX_BLOCK
+    tile_rows, tile_cols = pack_tile(lay, rows, _sm_count(device.index))
     c = _pack_type(MAX_WIDE_BLOCK if wide else MAX_BLOCK)(
         out=out.data_ptr(), rows=rows, out_cols=lay.out_cols,
-        n_block=len(blocks), out_kind=lay.out_kind)
+        n_block=len(blocks), out_kind=lay.out_kind, tile_rows=tile_rows,
+        tile_cols=tile_cols)
     col = 0
     for k, (b, kind, w) in enumerate(zip(blocks, lay.kinds, lay.widths)):
         c.src[k], c.kind[k], c.width[k], c.col[k] = b.data_ptr(), kind, w, col

@@ -3,8 +3,8 @@ kernels, the staged lowering's four and the two embedding bags), cached ==
 uncached bags bit for bit, the cached lookup's deterministic backward, and
 the stream handoff of the executor; the wide program struct (26 per-feature
 vocabularies in one group), every output dtype, 16-bit bags, the tile
-program's byte copy and the edges of the redesigned stage and build
-kernels.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
+program's byte copy and the edges of the redesigned stage, build and
+packer kernels.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
 elsewhere (a CUDA kernel has no interpret mode).
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -598,3 +598,77 @@ def test_wide_structs(card, kind):
         _check(wide, small, f"wide {kind} vs small")
     finally:
         fn.program.wide, fn.program.template = False, None
+
+
+# packer layouts (widths, pad_cols_to): staged_main's sparse output (one
+# 26-column block), 26 and 128 one-column blocks, 33 blocks of widths 1, 3,
+# 13 and 26 (rows off 16 bytes) and a row too wide for whole-row tiles (a
+# 1500-column block beside narrow ones: windows of output columns)
+PACK_LAYOUTS = {"1x26": ([26], 32), "26x1": ([1] * 26, 32),
+                "33_mixed": ([1, 3, 13, 26] * 8 + [1], 1),
+                "128x1": ([1] * 128, 128), "window": ([1500, 3, 13], 1)}
+PACK_ROWS = ["1", "7", "R-1", "R+1", "65533", "full_tiles"]
+
+
+def _pack_case(card, layout: str, out, rows: int, pad=None):
+    """A packer of ``PACK_LAYOUTS[layout]`` (i32 and f32 blocks in turn)
+    into ``out`` and its blocks at ``rows`` rows, values in [0, 100): block
+    k is a contiguous view 4 * (k % 4) bytes past a 16-byte boundary, so
+    every phase of the copies' heads runs."""
+    widths, layout_pad = PACK_LAYOUTS[layout]
+    dtypes = [np.float32 if k % 2 else np.int32 for k in range(len(widths))]
+    fn = kops.packer(widths, dtypes, out,
+                     pad_cols_to=layout_pad if pad is None else pad)
+    rng = np.random.default_rng(rows + len(widths))
+    blocks = []
+    for k, (w, d) in enumerate(zip(widths, dtypes)):
+        vals = torch.tensor((rng.random((rows, w)) * 100).astype(d),
+                            device=card)
+        off = k % 4
+        buf = torch.zeros(rows * w + off, dtype=vals.dtype, device=card)
+        blocks.append(buf[off:].view(rows, w))
+        blocks[-1].copy_(vals)
+        assert blocks[-1].data_ptr() % 16 == 4 * off
+    return fn, blocks
+
+
+def _pack_equal(fn, blocks, msg: str) -> None:
+    """One counted launch, bit-equal to the plain version."""
+    before = df.LAUNCHES["packer"]
+    got = fn(*blocks)
+    assert df.LAUNCHES["packer"] == before + 1, msg
+    want = fn.plain(*blocks)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape, msg
+    assert torch.equal(got, want), msg
+
+
+@pytest.mark.parametrize("rows", PACK_ROWS)
+@pytest.mark.parametrize("layout", sorted(PACK_LAYOUTS))
+def test_packer_tiles(card, layout, rows):
+    """The redesigned packer at row counts whose last tile is ragged (R is
+    the layout's largest tile; ``full_tiles`` has PACK_TILES_PER_SM tiles
+    of R an SM and a last one of R - 1 rows), bit-equal to its plain
+    version."""
+    fn, _ = _pack_case(card, layout, np.int32, 1)
+    big, cols = df._pack_tile_max(fn.program)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    n = {"R-1": big - 1, "R+1": big + 1,
+         "full_tiles": df.PACK_TILES_PER_SM * sms * big + big - 1}.get(
+             rows) or int(rows)
+    assert (cols == fn.program.out_cols) == (layout != "window")
+    if rows == "full_tiles":
+        assert df.pack_tile(fn.program, n, sms)[0] == big
+    fn, blocks = _pack_case(card, layout, np.int32, n)
+    _pack_equal(fn, blocks, f"{layout}/{n} rows")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32", *tp.OUT_DTYPES])
+def test_packer_casts_every_layout(card, dtype):
+    """Every output dtype on every packer layout, padded to multiples of 1
+    and of 128 columns, at a row count off every tile (1000 rows)."""
+    for layout in sorted(PACK_LAYOUTS):
+        for pad in (1, 128):
+            fn, blocks = _pack_case(card, layout, getattr(torch, dtype),
+                                    1000, pad)
+            _pack_equal(fn, blocks, f"{dtype}/{layout}/pad {pad}")

@@ -119,6 +119,48 @@ def test_tile_rows_fit_shared_memory():
     assert prog.smem_bytes(64) <= df.SMEM_TARGET
 
 
+# packer layouts (widths, output dtype, pad_cols_to): staged_main's sparse
+# output, 26 and 128 one-column blocks, staged_off's dense output in
+# float32 and float16, a bool output padded to 128, rows too wide for 16 of
+# them in shared memory (one block, and many)
+PACK_TILE_LAYOUTS = {
+    "sparse_26": ([26], np.int32, 32), "26x1": ([1] * 26, np.int32, 32),
+    "128x1": ([1] * 128, np.int32, 128), "dense_13": ([13], np.float32, 16),
+    "dense_13_f16": ([13], np.float16, 16), "bool_1": ([1], np.bool_, 128),
+    "wide_1500": ([1500, 3, 13], np.int32, 1),
+    "wide_100x20": ([100] * 20, np.uint8, 1)}
+
+
+@pytest.mark.parametrize("rows", [1, 1000, 65536, 10 ** 6])
+@pytest.mark.parametrize("layout", sorted(PACK_TILE_LAYOUTS))
+def test_pack_tile_fits_and_aligns(layout, rows):
+    """The packer's tile (``pack_tile``, on a card of 132 SMs): a multiple
+    of 16 rows, so every tile of the output starts on a 16-byte boundary;
+    within the shared memory of one tile and the map's 16-bit shared
+    offsets and 15-bit pitches; tiles of ``PACK_TILE_BYTES`` at most, or of
+    the fewest rows that give each SM ``PACK_TILES_PER_SM``; windows of
+    ``PACK_WINDOW`` columns only for rows of which 16 do not fit."""
+    widths, out, pad = PACK_TILE_LAYOUTS[layout]
+    lay = df.make_packer(widths, [np.int32] * len(widths), out,
+                         pad_cols_to=pad).program
+    tile_rows, tile_cols = df.pack_tile(lay, rows, 132)
+    size = np.dtype(out).itemsize
+    smem = df.pack_smem_bytes(lay, tile_rows, tile_cols)
+    assert tile_rows >= 16 and tile_rows % 16 == 0
+    assert (tile_rows * lay.out_cols * size) % 16 == 0
+    assert smem <= df.PACK_SMEM_MAX and smem // 4 < 1 << 16
+    assert min(max(widths), tile_cols) < 1 << 15
+    whole = df.pack_smem_bytes(lay, 16, lay.out_cols) <= df.PACK_SMEM_MAX
+    assert tile_cols == (lay.out_cols if whole else df.PACK_WINDOW)
+    assert whole == layout.startswith(("sparse", "26x1", "128x1", "dense",
+                                       "bool"))
+    if whole and tile_rows > 16:
+        assert tile_rows * max(4 * sum(widths), size * lay.out_cols) <= \
+            df.PACK_TILE_BYTES
+        assert (tile_rows - 16) * df.PACK_TILES_PER_SM * 132 < rows or \
+            tile_rows == df._pack_tile_max(lay)[0]
+
+
 # ---------------------------------------------------------------------------
 # the encoding the redesigned kernels run: column map, barriers, launch
 # struct, and the fit's edge values

@@ -171,6 +171,25 @@ def test_packer_plain_matches_pallas(widths, out_dtype, rows, in_dtype):
     tp.assert_match(want, got, "packed")
 
 
+@pytest.mark.parametrize("rows", [8, 100])
+@pytest.mark.parametrize("n_block,pad", [(26, 32), (128, 128)])
+def test_packer_plain_matches_pallas_on_one_column_blocks(n_block, pad, rows):
+    """The layout of per-column chains under ``fuse="off"``: 26 int32
+    [rows, 1] blocks into int32 [rows, 32] (the small struct), and 128
+    float32 and int32 [rows, 1] blocks in turn into int32 [rows, 128] (the
+    wide struct at its maximum; float -> int truncates toward zero)."""
+    dtypes = ([np.int32] * n_block if n_block == 26
+              else [np.float32, np.int32] * (n_block // 2))
+    rng = _rng("pack_one_column", n_block, rows)
+    blocks = [(rng.normal(size=(rows, 1)) * 300).astype(d) for d in dtypes]
+    want = rkops.packer([1] * n_block, dtypes, np.int32, pad_cols_to=pad,
+                        interpret=True)(*[jnp.asarray(b) for b in blocks])
+    got = kops.packer([1] * n_block, dtypes, np.int32, pad_cols_to=pad)(
+        *[torch.tensor(b) for b in blocks])
+    assert tuple(got.shape) == (rows, pad)
+    tp.assert_match(want, got, f"{n_block} blocks")
+
+
 def test_staged_encodings_refuse_what_no_kernel_takes():
     with pytest.raises(NotImplementedError, match="OneHot"):
         kops.fused_stage([pops.OneHot(3)], in_dtype=np.int32,
