@@ -101,7 +101,39 @@ Phases, one JSON line each; any failure exits non-zero:
                  fit, outputs against the numpy oracle, and one batch's apply
                  time grouped vs staged.
 
-Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last the
+9. online_main  — the online continuous-training path at main's width:
+                 a producer thread replays 16 Source.synth("I") batches
+                 onto an EventBus at 20 events/s, faster than the trainer
+                 steps; an OnlineTrainer (repro_torch.online) consumes
+                 them through the executor (Pipeline III at vocab 524288,
+                 one group launch per batch, on the executor's stream) into
+                 16 steps of DLRMConfig(vocab_size=524289), refitting every
+                 4 steps over a window of 4 events (fit_incremental: one fit
+                 launch per event, on the trainer's stream, swapped in with
+                 a version bump), with the freshness shedder on (0.5 s)
+                 and every transformed batch traced.  Versions rise by one
+                 per refit; each refit's tables equal a numpy merge of the
+                 window's plain fit into the previous state, bit for bit;
+                 every traced batch equals a fresh compile("cuda") at its
+                 version, bit for bit; losses finite; the shedder dropped
+                 events and the p95 event age at delivery is in bound.
+10. online_ckpt — repro_torch.launch.online.build_service at its default
+                 widths (vocab 4096, d_emb 32, B 256) for 16 steps with a
+                 checkpoint every 4 (2 kept) and an EmbedCache (refresh;
+                 invalidated at every refit): exactly 2 committed
+                 checkpoints remain and resume_or_init restores the newest
+                 into a fresh model bit for bit.
+11. autotune_main — main's EtlJob with autotune=PipelineController([],
+                 window_deliveries=2) over 32 batches: the row_tile and
+                 fuse knobs swap compiled variants into the running
+                 executor (a knob the search left alone by batch 12 is moved
+                 there by its own actuator); every delivered batch equals
+                 the untuned run's batch of the same index, bit for bit.
+                 Then one batch's apply is timed at each declared row_tile
+                 (the dataflow kernels' rows per tile beside it).
+
+Then the ``{"kernels": [...]}`` line (``launches_online_main`` beside the
+kernels online_main ran), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.
 
     python3 chip_smoke.py --wrappers DIR
@@ -118,6 +150,7 @@ and its change) compare in one process each, on one card.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -157,6 +190,8 @@ BYTE_COPY_COLS, BYTE_COPY_ROWS = 1023, 4096  # 2-row tiles, planes off 4 B
 EXTRA = ("criteo26_group", "criteo4_group", "criteo4_group:wide",
          "out:float16", "bag:bfloat16", "fill_only", "pack:26x1",
          "pack:128x1")
+ONLINE_STALENESS_S = 0.5  # online_main's shedder: event age at delivery
+ONLINE_RATE_HZ = 20.0     # online_main's producer: ~4x the trainer's steps/s
 
 
 def pipeline_iii_dense_as(Pipeline, Schema, ops, Vocab, dtype):
@@ -256,6 +291,326 @@ def dataflow_edges(df, core_ops, Source, grouped, raw) -> list:
         raise AssertionError("the dense view is not off a 16-byte boundary")
     out.append((kname, "edge:dense_off_16B", fn, args))
     return out
+
+
+def online_main(tmpl, state0, expect) -> dict:
+    """The online path at main's width: a producer thread replays 16
+    ``Source.synth("I")`` batches, made before it starts, onto an
+    ``EventBus`` at ``ONLINE_RATE_HZ``, faster than the trainer takes them;
+    an ``OnlineTrainer`` runs 16 DLRM steps (vocab 524289, d_emb 128) with a
+    refit every 4 steps over a window of 4 events, the shedder on at
+    ``ONLINE_STALENESS_S`` and every transformed batch traced.  Checks:
+    versions rise by one per refit; each refit's tables are the numpy merge
+    of its window's plain fit into the previous state, bit for bit; every
+    traced batch (shed ones too) is bit-equal to a fresh compile("cuda") at
+    its version; losses finite; the shedder dropped events (each counted in
+    ``dropped_stale``) and the p95 event age at delivery is within the
+    bound; one group launch per transformed batch and one fit launch per
+    window event.  The drop order is reported, not held: the shedder drops
+    the oldest *visible* event, and one in a stage's hands is not."""
+    import threading
+
+    import numpy as np
+    import torch
+    import torch_parity  # the numpy merge, apart from the port's
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.source import Source
+    from repro_torch.kernels import dataflow as df
+    from repro_torch.models import dlrm
+    from repro_torch.online import EventBus, OnlineConfig, OnlineTrainer, replay
+    from repro_torch.session import EtlJob
+    from repro_torch.training.train_loop import TrainState, make_train_step
+
+    bus = EventBus(capacity=64)
+    job = EtlJob(tmpl, Source.events(bus, "events"), backend="cuda",
+                 name="online")
+    compiled = job.compiled
+    compiled.state = state0  # fitted through the plain versions above
+    refits: list = []
+    fit_incremental = compiled.fit_incremental
+
+    def recording(batch_iter):
+        window, prev = list(batch_iter), compiled.state
+        t0 = time.perf_counter()
+        new = fit_incremental(iter(window))
+        torch.cuda.synchronize()
+        refits.append((prev, window, new, time.perf_counter() - t0))
+        return new
+    compiled.fit_incremental = recording
+
+    cfg = dlrm.DLRMConfig(vocab_size=DLRM_VOCAB)
+    model = dlrm.DLRM(cfg, generator=torch.Generator(device="cuda")
+                      .manual_seed(0))
+    tcfg = TrainConfig(lr=1e-3)
+    step = make_train_step(dlrm.loss_fn, tcfg)
+    losses: list = []
+
+    def step_fn(st, batch):
+        st, m = step(st, batch)
+        losses.append(float(m["loss"]))
+        return st, m
+
+    n_steps = 16
+    ocfg = OnlineConfig(refit_every=4, window_batches=4,
+                        shed_max_staleness_s=ONLINE_STALENESS_S,
+                        get_timeout_s=0.5)
+    tr = OnlineTrainer(job, TrainState.create(model, tcfg), step_fn, ocfg,
+                       bus=bus, topic="events", trace_batches=256)
+    stop = threading.Event()
+    feed = list(Source.synth("I", rows=16 * B, batch_size=B, seed=100))
+
+    def producer():
+        try:
+            replay(bus, "events", itertools.cycle(feed),
+                   rate_hz=ONLINE_RATE_HZ, stop=stop)
+        finally:
+            bus.close()
+
+    thread = threading.Thread(target=producer, name="online-producer")
+    df.reset_launch_counts()
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        tr.run(max_steps=n_steps, deadline_s=300.0)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join(timeout=60.0)
+    wall = time.perf_counter() - t0
+    launches = dict(df.LAUNCHES)
+    if thread.is_alive():
+        raise AssertionError("online_main: the producer did not stop")
+    st = tr.stats
+    # kernel calls of the job's program, launched or not: every transformed
+    # batch (one a stopped executor dropped too) and every window event
+    transformed = compiled.dataflow_calls["apply"]
+    expect(launches, {"group_dataflow": transformed,
+                      "fit_dataflow": st.refit_batches}, "online_main")
+    if transformed < n_steps or compiled.dataflow_calls["fit"] != \
+            st.refit_batches:
+        raise AssertionError(f"online_main: calls {compiled.dataflow_calls}")
+    if st.steps != n_steps or len(losses) != n_steps or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"online_main: {st.steps} steps, losses {losses}")
+    v0 = state0.version
+    if st.versions != list(range(v0 + 1, v0 + 1 + st.swaps)) or \
+            st.swaps + st.refit_skipped != n_steps // 4 or st.swaps < 3:
+        raise AssertionError(f"online_main: versions {st.versions}, "
+                             f"{st.refit_skipped} refits skipped")
+    plain = tmpl.compile("cuda", device="cpu")
+    for prev, window, new, _ in refits:
+        tables, n_unique = torch_parity.merge_refit(
+            prev, plain._fit_tables(iter(window))[0])
+        if new.n_unique != n_unique or new.version != prev.version + 1:
+            raise AssertionError(f"refit to v{new.version}: n_unique "
+                                 f"{new.n_unique}, merge {n_unique}")
+        for vid, t in tables.items():
+            np.testing.assert_array_equal(new.tables[vid], t,
+                                          err_msg=f"refit v{new.version}")
+    pct, shed = tr.staleness_percentiles(), tr.shed_stats()
+    dropped_stale = tr.executor.stats.dropped_stale
+    if shed.dropped < 1 or dropped_stale < shed.dropped or \
+            not pct["p95"] <= ONLINE_STALENESS_S:
+        raise AssertionError(f"online_main: shed {shed.dropped}, "
+                             f"dropped_stale {dropped_stale}, p95 event age "
+                             f"{pct['p95']} s (bound {ONLINE_STALENESS_S})")
+    arrivals = list(shed.dropped_arrivals)
+    inversions = sum(a < max(arrivals[:i])
+                     for i, a in enumerate(arrivals) if i)
+    fresh: dict = {}
+    traced = list(tr.trace)
+    if len(traced) != min(transformed, 256):
+        raise AssertionError(f"online_main: {len(traced)} traced of "
+                             f"{transformed} transformed")
+    for version, raw, packed in traced:
+        if version not in fresh:
+            fresh[version] = tmpl.compile("cuda")
+            fresh[version].state = tr.state_history[version]
+        for k, v in fresh[version](raw).items():
+            if not np.array_equal(packed[k], v.cpu().numpy()):
+                raise AssertionError(f"online_main: a batch at v{version} "
+                                     f"differs from a fresh compile ({k})")
+    out = {"steps": st.steps, "swaps": st.swaps,
+           "refit_skipped": st.refit_skipped, "versions": st.versions,
+           "refit_batches": st.refit_batches,
+           "refit_seconds": [r[3] for r in refits],
+           "traced": len(traced),
+           "traced_versions": sorted({v for v, _, _ in traced}),
+           "transformed": transformed,
+           "shed": shed.dropped, "dropped_stale": dropped_stale,
+           "max_age_at_drop_s": shed.max_age_at_drop_s,
+           "drop_order_inversions": inversions,
+           "producer_rate_hz": ONLINE_RATE_HZ,
+           "staleness_bound_s": ONLINE_STALENESS_S,
+           "staleness_p50_s": pct["p50"], "staleness_p95_s": pct["p95"],
+           "wall_seconds": wall, "rows_per_s": st.steps * B / wall,
+           "launches": launches, "losses": losses,
+           "params": cfg.param_count(), "bus": bus.counts()}
+    del tr, model, job, compiled, plain, fresh, traced, refits, feed
+    torch.cuda.empty_cache()
+    return out
+
+
+def online_ckpt(root: str, expect) -> dict:
+    """``repro_torch.launch.online.build_service`` at its default widths
+    (vocab 4096, d_emb 32, B 256) with checkpoints every 4 steps (2 kept)
+    and an EmbedCache (refresh, invalidated at every refit) for 16 steps:
+    exactly 2 committed checkpoints remain, and ``resume_or_init`` restores
+    the newest into a fresh model bit for bit."""
+    import shutil
+    import threading
+
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import dataflow as df
+    from repro_torch.launch.online import build_parser, build_service
+    from repro_torch.models import dlrm
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training.train_loop import TrainState, resume_or_init
+
+    d = os.path.join(root, "build", "online_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    args = build_parser().parse_args([
+        "--duration", "120", "--steps", "16", "--refit-every", "4",
+        "--refit-window", "4", "--checkpoint-every", "4", "--keep-ckpts",
+        "2", "--ckpt-dir", d, "--embed-cache-rows", "64", "--log-every", "0",
+        "--shed-max-staleness", "2.0"])
+    trainer, bus, producer = build_service(args)
+    thread = threading.Thread(target=producer, name="online-producer")
+    df.reset_launch_counts()
+    thread.start()
+    try:
+        trainer.run(max_steps=args.steps, deadline_s=300.0)
+        torch.cuda.synchronize()
+    finally:
+        producer.stop.set()
+        thread.join(timeout=60.0)
+    launches = dict(df.LAUNCHES)
+    st = trainer.stats
+    expect(launches, {"group_dataflow":
+                      trainer.job.compiled.dataflow_calls["apply"],
+                      "fit_dataflow": st.refit_batches,
+                      "embedding_bag_cached": st.steps}, "online_ckpt")
+    committed = sorted(int(p.split("_")[1]) for p in os.listdir(d)
+                       if os.path.exists(os.path.join(d, p, "COMMITTED")))
+    if st.steps != 16 or committed != [12, 16] or st.swaps < 1 or \
+            trainer.embed_cache.generation != st.swaps:
+        raise AssertionError(f"online_ckpt: {st.steps} steps, checkpoints "
+                             f"{committed}, swaps {st.swaps}, cache "
+                             f"generation {trainer.embed_cache.generation}")
+    model = trainer.state.model
+    tcfg = TrainConfig(lr=1e-3)
+    restored = resume_or_init(lambda: TrainState.create(dlrm.DLRM(
+        model.cfg, generator=torch.Generator(device="cuda").manual_seed(99)),
+        tcfg), d)
+    want = dlrm.state_to_jax_leaves(trainer.state)
+    got = dlrm.state_to_jax_leaves(restored)
+    equal = restored.step == trainer.state.step and all(
+        torch.equal(a, b) for a, b in zip(want, got))
+    if not equal:
+        raise AssertionError("online_ckpt: the restored state differs")
+    out = {"steps": st.steps, "swaps": st.swaps, "versions": st.versions,
+           "checkpoints_written": st.checkpoints, "committed": committed,
+           "latest": ckpt_lib.latest_step(d), "leaves": len(got),
+           "restored_bit_equal": equal,
+           "cache_generation": trainer.embed_cache.generation,
+           "params": model.cfg.param_count(), "launches": launches}
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def autotune_main(tmpl, state0, expect, n_batches: int = 32) -> dict:
+    """Main's EtlJob with ``autotune=PipelineController([],
+    window_deliveries=2)`` over 32 batches against the same job without it:
+    every delivered batch bit-equal to the untuned run's batch of the same
+    index.  A compile-time knob the search did not move by batch 12 is
+    moved there by its own actuator (row_tile to another declared
+    candidate, fuse off), so ``swap_pipeline`` runs on the card.  Every
+    declared row_tile runs its dataflow kernels at rows per tile of its
+    own; one batch's apply is timed at each (the base first and last)."""
+    import numpy as np
+    from repro_torch.data.source import Source
+    from repro_torch.etl_runtime.controller import PipelineController
+    from repro_torch.kernels import dataflow as df
+    from repro_torch.session import EtlJob
+
+    def run(ctl):
+        job = EtlJob(tmpl, Source.synth("I", rows=n_batches * B,
+                                        batch_size=B, seed=13),
+                     backend="cuda", autotune=ctl)
+        job.compiled.state = state0
+        base = (job.compiled.plan.row_tile, True)
+        out, forced = [], []
+        df.reset_launch_counts()
+        t0 = time.perf_counter()
+        with job.batches() as ex:
+            knobs = {k.name: k for k in ctl.knobs} if ctl else {}
+            for i, batch in enumerate(ex):
+                out.append({k: v.cpu().numpy() for k, v in batch.items()})
+                if ctl is None or i != 12:
+                    continue
+                tiles = {t for t, _ in job.swap_log} | {base[0]}
+                if len(tiles) == 1:
+                    rt = knobs["row_tile"]
+                    rt.set(next(c for c in rt.candidates if c != base[0]))
+                    forced.append("row_tile")
+                if all(f for _, f in job.swap_log):
+                    knobs["fuse"].set(False)
+                    forced.append("fuse")
+        wall = time.perf_counter() - t0
+        return job, out, forced, dict(df.LAUNCHES), wall, base
+
+    _, want, _, _, plain_wall, _ = run(None)
+    ctl = PipelineController([], window_deliveries=2)
+    job, got, forced, launches, wall, base = run(ctl)
+    if len(got) != len(want) or len(got) != n_batches:
+        raise AssertionError(f"autotune_main: {len(got)} / {len(want)} "
+                             "batches")
+    for i, (w, g) in enumerate(zip(want, got)):
+        for k in w:
+            if not np.array_equal(w[k], g[k]):
+                raise AssertionError(f"autotune_main: batch {i} ({k}) "
+                                     "differs from the untuned run")
+    prev, row_swaps, fuse_swaps = base, 0, 0
+    for key in job.swap_log:
+        row_swaps += key[0] != prev[0]
+        fuse_swaps += key[1] != prev[1]
+        prev = key
+    if row_swaps < 1 or fuse_swaps < 1:
+        raise AssertionError(f"autotune_main: swaps {job.swap_log}")
+    off = launches.get("vocab_lookup", 0)
+    expect(launches, {k: v for k, v in {
+        "group_dataflow": n_batches - off, "fused_stage": 2 * off,
+        "vocab_lookup": off, "packer": 2 * off}.items() if v},
+        "autotune_main")
+    tiles = next(k for k in ctl.knobs if k.name == "row_tile").candidates
+    cp = job.compiled
+    variants = {t: cp if t == base[0] else cp.with_knobs(row_tile=t)
+                for t in tiles}
+    kernel_tiles = {t: v.kernel_tiles() for t, v in variants.items()}
+    if len(set(kernel_tiles.values())) != len(tiles):
+        raise AssertionError(f"autotune_main: row tiles {kernel_tiles}")
+    raw = next(iter(Source.synth("I", rows=B, batch_size=B, seed=13)))
+    cols = cp._device_columns(raw)
+    timer = DeviceTimer()
+    tile_ms = []
+    for t in (base[0], *(t for t in tiles if t != base[0]), base[0]):
+        v = variants[t]
+        tables = v._device_tables(cp.state)
+        tile_ms.append({"row_tile": t, "kernel_tiles": list(kernel_tiles[t]),
+                        **timer(lambda: v._apply_fn(tables, cols))})
+    del timer
+    return {"batches": len(got), "bit_equal": True,
+            "swap_log": [list(k) for k in job.swap_log],
+            "row_tile_swaps": row_swaps, "fuse_swaps": fuse_swaps,
+            "forced": forced, "windows": ctl.window,
+            "decision_counts": ctl.decision_counts(),
+            "decisions": [list(d) for d in ctl.decision_log()],
+            "knobs": {k: str(v) for k, v in ctl.knob_values().items()},
+            "row_tile_candidates": list(tiles),
+            "row_tile_apply_ms": tile_ms,
+            "launches": launches, "wall_seconds": wall,
+            "untuned_wall_seconds": plain_wall}
 
 
 def emit(obj: dict) -> None:
@@ -910,6 +1265,13 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                        for k, v in staged_p.lowering_report().items()},
           "apply_ms": apply_ms})
 
+    # ---- the online path: bus -> OnlineTrainer (refits, shedder) ---------
+    online = online_main(tmpl, states["III"], expect)
+    emit({"phase": "online_main", **online})
+    emit({"phase": "online_ckpt", **online_ckpt(root, expect)})
+    emit({"phase": "autotune_main",
+          **autotune_main(tmpl, states["III"], expect)})
+
     path_launches = {"group_dataflow": main["launches"]["group_dataflow"],
                      "fit_dataflow": main["fit_launches"]["fit_dataflow"],
                      "output_dataflow": solo_launches["output_dataflow"]}
@@ -935,6 +1297,8 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                     "what": r["what"]})
         if name == "embedding_bag":
             out[-1]["launches_from"] = "parity phase"
+        if name in online["launches"]:
+            out[-1]["launches_online_main"] = online["launches"][name]
     emit({"kernels": out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -171,6 +171,15 @@ class CompiledPipeline:
     # knob recompilation
     # ------------------------------------------------------------------
 
+    def kernel_tiles(self) -> tuple:
+        """Rows per tile of every dataflow kernel (groups, solo outputs,
+        fits, in build order) on the ``cuda`` backend, else ``()``."""
+        if self.backend != "cuda":
+            return ()
+        fns = [*self._group_fns, *self._solo_fns.values(),
+               *self._fit_fns.values()]
+        return tuple(fn.program.tile_rows() for fn in fns)
+
     def fuse_spec(self):
         """The current fuse setting in ``with_knobs``-compatible form."""
         if self.fuse == "off":
@@ -180,8 +189,8 @@ class CompiledPipeline:
     def with_knobs(self, *, row_tile: Optional[int] = None, fuse=None):
         """Recompile at new knob settings, SHARING vocabulary state.
 
-        ``row_tile`` re-judges legality at the new plan tile (the CUDA
-        kernels pick their own shared-memory tile either way); ``fuse``
+        ``row_tile`` re-judges legality at the new plan tile and caps the
+        dataflow kernels' rows per tile (``kernel_tiles``); ``fuse``
         takes the constructor's forms.  The returned pipeline aliases
         ``self.state``."""
         new_tile = (self.plan.row_tile if row_tile is None
@@ -372,7 +381,8 @@ class CompiledPipeline:
                 name, tuple((b, self.plan.buffers[b].width) for b in po.buffers),
                 po.dtype, po.pad_cols_to))
         return kops.group_dataflow(self._stream_inputs(group.source_buffers),
-                                   tables, steps, outs)
+                                   tables, steps, outs,
+                                   row_tile=self.plan.row_tile)
 
     def _build_dataflow_fn(self, po: PackOutput, dp: DataflowProgram):
         """One legal ungrouped output -> its single-output kernel."""
@@ -380,13 +390,15 @@ class CompiledPipeline:
         terminals = [(b, self.plan.buffers[b].width) for b in po.buffers]
         return kops.output_dataflow(self._stream_inputs(dp.source_buffers),
                                     tables, steps, terminals, po.dtype,
-                                    pad_cols_to=po.pad_cols_to)
+                                    pad_cols_to=po.pad_cols_to,
+                                    row_tile=self.plan.row_tile)
 
     def _build_fit_dataflow_fn(self, fp: FitProgram):
         """One legal FitProgram -> its single fit kernel."""
         steps, _ = self._tile_steps(fp.stage_ids)
         return kops.fit_dataflow(self._stream_inputs(fp.source_buffers),
-                                 steps, fp.in_buf, fp.capacity)
+                                 steps, fp.in_buf, fp.capacity,
+                                 row_tile=self.plan.row_tile)
 
     def _build_apply(self) -> Callable:
         """``apply(tables, cols, trace=None) -> packed``: the staged stages
@@ -520,7 +532,45 @@ class CompiledPipeline:
                                    version=self.state.version + 1)
         return self.state
 
+    def fit_incremental(self, batch_iter) -> PipelineState:
+        """Online vocabulary refresh over a window of NEW events.
+
+        Unlike ``fit`` (which rebuilds the tables from scratch), this merges
+        the window into the current state **rank-stably**: every value the
+        pipeline already admitted keeps its rank — so embedding rows learned
+        by a live trainer keep their meaning across the swap — and values
+        first seen in the window are appended in first-occurrence order at
+        ranks ``n_unique ..``.  The frequency filter (``min_count``) applies
+        per window.  The window's tables come from the fit kernels (on the
+        cuda backend); the merge is host numpy.  The swap is a single
+        attribute store of a fresh ``PipelineState`` with a version bump, so
+        concurrent apply calls (which snapshot the state once per batch) are
+        each served by exactly one version, and the device tables follow the
+        version (``_device_tables``)."""
+        cur = self.state
+        if not self.plan.vocab_fits:
+            self.state = dataclasses.replace(cur, version=cur.version + 1)
+            return self.state
+        win_tables, _ = self._fit_tables(batch_iter)
+        tables, n_unique = {}, {}
+        for vid, wt in win_tables.items():
+            base = np.asarray(cur.tables[vid])
+            n = int(cur.n_unique[vid])
+            wt = np.asarray(wt)
+            new_vals = np.flatnonzero((wt >= 0) & (base < 0))
+            order = np.argsort(wt[new_vals], kind="stable")
+            merged = base.copy()
+            merged[new_vals[order]] = n + np.arange(len(new_vals),
+                                                    dtype=np.int32)
+            tables[vid] = merged
+            n_unique[vid] = n + int(len(new_vals))
+        self.state = PipelineState(tables=tables, n_unique=n_unique,
+                                   version=cur.version + 1)
+        return self.state
+
     def _fit_tables(self, batch_iter) -> tuple:
+        """Run the chunked fit over ``batch_iter`` and return ``(tables,
+        n_unique)`` without touching ``self.state``."""
         if self.backend == "numpy":
             gens = {vf.vocab_id: ops_lib.VocabGen(vf.capacity,
                                                   min_count=vf.min_count)
@@ -561,7 +611,10 @@ class CompiledPipeline:
         version: the OOV-resolved int32[capacity] table of every vocabulary
         a dataflow kernel gathers from, and the raw table + n_unique of
         every vocabulary a staged lookup reads.  A plan that looks one
-        vocabulary up both ways ships both forms."""
+        vocabulary up both ways ships both forms.  Keyed on the version of
+        the ``state`` handed in (the caller's one snapshot), never on
+        ``self.state``; only the newest version's tables are held, so an
+        older version's are released when the next is uploaded."""
         ver, cached = self._table_cache
         if ver == state.version:
             return cached
@@ -583,7 +636,9 @@ class CompiledPipeline:
 
     def apply_versioned(self, raw_batch: dict) -> tuple:
         """Apply one batch against a single state snapshot and return
-        ``(packed, version)``."""
+        ``(packed, version)``: the snapshot is read exactly once, so a
+        concurrent ``fit_incremental`` swap never serves one batch a mix of
+        two versions, and the caller learns which version it was."""
         state = self.state
         if self.backend == "numpy":
             bufs = self._run_stages_numpy(self._gather_sources(raw_batch),
@@ -606,6 +661,13 @@ class CompiledPipeline:
     def __call__(self, raw_batch: dict) -> dict:
         """Apply phase: raw columnar batch -> packed training-ready tensors."""
         return self.apply_versioned(raw_batch)[0]
+
+    def referenced_columns(self) -> list:
+        """Raw columns the apply program reads (projection-pushdown set)."""
+        return self.plan.referenced_columns()
+
+    def resource_summary(self) -> dict:
+        return self.plan.resource_summary()
 
     def optimize_report(self) -> dict:
         return self.plan.optimize_report()

@@ -28,9 +28,10 @@ The plan is backend-neutral; compiler.py lowers it to numpy / torch / cuda.
 Legality is the JAX package's *logical* judgement, unchanged, so both
 packages make the same plan decisions ("VMEM" in the names below is the
 reference's budget vocabulary).  The TPU-only lane-padding / gather-scratch
-pass of the reference is not carried over: the CUDA kernels pick their own
-shared-memory row tile (``kernels/dataflow.py``), independent of the plan's
-``row_tile``, and no result depends on it.
+pass of the reference is not carried over: the CUDA dataflow kernels take
+the plan's ``row_tile`` as the most rows a tile has and halve it until one
+block's shared memory fits its target (``kernels/dataflow.py``); no result
+depends on the tile.
 """
 
 from __future__ import annotations

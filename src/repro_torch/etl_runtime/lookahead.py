@@ -335,6 +335,11 @@ class LookaheadStage(threading.Thread):
         self._buf: collections.deque = collections.deque()
         self._window = max(1, cfg.window)
 
+    def set_window(self, window: int) -> None:
+        """Retarget the lookahead depth W; takes effect on the next batch
+        (a shrink releases the now-excess envelopes then)."""
+        self._window = max(1, int(window))
+
     def _indices(self, env) -> np.ndarray:
         x = env.payload[self.cfg.key]
         if not isinstance(x, torch.Tensor):
@@ -394,8 +399,11 @@ class LookaheadStage(threading.Thread):
                         self.cfg, idx.shape[1], stats=self.cache_stats)
                 self.planner.push(idx)
                 self._buf.append(item)
-                # a full window releases its oldest envelope, one per push
-                ok = len(self._buf) < self._window or self._release()
+                ok = True
+                # drain to the live window target (a shrunk window releases
+                # the excess; at steady state this pops one per push)
+                while ok and len(self._buf) >= self._window:
+                    ok = self._release()
             except Exception as e:
                 if self.on_error:
                     self.on_error(e)

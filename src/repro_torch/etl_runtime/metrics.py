@@ -33,6 +33,18 @@ def _fmt_labels(labels: Optional[Mapping[str, str]]) -> str:
     return "{" + inner + "}"
 
 
+def counters_to_prometheus(values: Mapping[str, float], *,
+                           prefix: str = "repro",
+                           labels: Optional[Mapping[str, str]] = None) -> str:
+    """Render a flat name -> value map as Prometheus counter lines."""
+    lines = []
+    for name in sorted(values):
+        metric = f"{prefix}_{name}"
+        lines.append(f"# TYPE {metric} counter")
+        lines.append(f"{metric}{_fmt_labels(labels)} {values[name]:.9g}")
+    return "\n".join(lines) + "\n"
+
+
 def stats_to_prometheus(stats: RuntimeStats, *, prefix: str = "repro_etl",
                         labels: Optional[Mapping[str, str]] = None) -> str:
     """Render RuntimeStats (incl. per-stage StageStats) as Prometheus text.
@@ -112,8 +124,8 @@ def stats_to_prometheus(stats: RuntimeStats, *, prefix: str = "repro_etl",
         lines.append(f"# TYPE {metric} gauge")
         lines.append(f"{metric}{_fmt_labels(base)} {cache.hit_rate():.9g}")
 
-    # live knob values (the staging credits; the controller that tunes
-    # them in the JAX package is not ported yet)
+    # self-tuning controller: live knob values + decision counts (present
+    # when the executor ran with autotune / adaptive credits)
     knobs = getattr(stats, "knobs", None)
     if knobs:
         num_knobs = {k: v for k, v in knobs.items()
@@ -132,6 +144,17 @@ def stats_to_prometheus(stats: RuntimeStats, *, prefix: str = "repro_etl",
                 lbl = _fmt_labels({**base, "knob": k,
                                    "value": str(str_knobs[k])})
                 lines.append(f"{metric}{lbl} 1")
+    controller = getattr(stats, "controller", None)
+    if controller is not None:
+        metric = f"{prefix}_controller_decisions_total"
+        lines.append(f"# TYPE {metric} counter")
+        for action, n in sorted(controller.decision_counts().items()):
+            lbl = _fmt_labels({**base, "action": action})
+            lines.append(f"{metric}{lbl} {n}")
+        metric = f"{prefix}_controller_queued_bytes_estimate"
+        lines.append(f"# TYPE {metric} gauge")
+        lines.append(f"{metric}{_fmt_labels(base)} "
+                     f"{controller.total_queued_bytes():.9g}")
     return "\n".join(lines) + "\n"
 
 

@@ -35,8 +35,17 @@ Backpressure: each queue holds at most ``credits`` items.  Freshness: with
 stage error stops the pipeline and re-raises at the consumer.  Timing goes
 through an injected ``Clock``.
 
-Not ported yet (they raise ``NotImplementedError``): the knob controller
-(``autotune`` / ``adaptive_credits``) and mesh / sharding placement.
+Knobs (``etl_runtime/controller.py``): ``autotune=`` runs the
+measured-throughput ``PipelineController`` over the executor's actuators
+(``set_credits``, ``set_prefetch_depth``, ``set_lookahead_window``; the job
+adds ``swap_pipeline`` for the compile-time knobs), and the deprecated
+``adaptive_credits=True`` builds the occupancy-rule controller on the
+credits alone.  Resizes land in ``stats.credit_grows`` /
+``stats.credit_shrinks``.  ``stage_queues()`` is what the global freshness
+shedder (``online/shed.py``) sweeps.
+
+Not ported yet (it raises ``NotImplementedError``): mesh / sharding
+placement.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from repro_torch.core.semantics import PipelineSemantics
 from repro_torch.data.source import Source
 from repro_torch.etl_runtime import transfer as transfer_lib
 from repro_torch.etl_runtime.clock import SYSTEM_CLOCK, Clock
+from repro_torch.etl_runtime.controller import PipelineController
 from repro_torch.etl_runtime.lookahead import CacheStats, LookaheadStage
 
 
@@ -91,6 +101,14 @@ class CreditQueue:
 
     def wake(self) -> None:
         with self._cv:
+            self._cv.notify_all()
+
+    def set_capacity(self, capacity: int) -> None:
+        """Resize the credit budget.  Growing unblocks credit-waiting
+        producers; shrinking never evicts queued items — the queue drains
+        down to the new bound."""
+        with self._cv:
+            self.capacity = max(1, capacity)
             self._cv.notify_all()
 
     def put(self, item, *, drop_oldest: bool = False):
@@ -138,6 +156,29 @@ class CreditQueue:
             item = self._dq.popleft()
             self._cv.notify_all()
             return item
+
+    def peek_oldest_key(self, key_fn: Callable) -> Optional[float]:
+        """Smallest non-``None`` ``key_fn(item)`` among queued items (the
+        oldest arrival when keyed by envelope arrival), or ``None``: how the
+        global freshness shedder (``online/shed.py``) finds the stalest
+        in-flight event across all stage queues."""
+        with self._cv:
+            keys = [k for item in self._dq
+                    if (k := key_fn(item)) is not None]
+            return min(keys) if keys else None
+
+    def drop_by_key(self, key_fn: Callable, key: float):
+        """Remove and return the first queued item whose ``key_fn`` equals
+        ``key`` (``None`` if it moved downstream since the peek).  Counted
+        in ``dropped`` like every other freshness shed."""
+        with self._cv:
+            for i, item in enumerate(self._dq):
+                if key_fn(item) == key:
+                    del self._dq[i]
+                    self.dropped += 1
+                    self._cv.notify_all()
+                    return item
+            return None
 
 
 @dataclass
@@ -236,9 +277,11 @@ class RuntimeStats:
     ingest_events: int = 0
     t_start: Optional[float] = None          # monotonic, set at start()
     t_last_ingest: Optional[float] = None    # monotonic, last read item
-    # live knob values ({name: value}); exported as gauges by
-    # etl_runtime.metrics
+    # live knob values ({name: value}) and the owning PipelineController
+    # when the executor runs with autotune / adaptive credits; exported as
+    # gauges by etl_runtime.metrics
     knobs: dict = field(default_factory=dict)
+    controller: Optional[object] = None
     # lookahead embedding-cache accounting (etl_runtime.lookahead.CacheStats)
     # when the executor runs with a lookahead config; None otherwise
     cache: Optional[CacheStats] = None
@@ -551,6 +594,10 @@ class SourcePrefetcher:
                 return
             yield item
 
+    def set_credits(self, credits: int) -> None:
+        """Resize the prefetch depth (the controller's prefetch knob)."""
+        self._q.set_capacity(max(1, int(credits)))
+
     def close(self) -> None:
         self._stop.set()
         if isinstance(self._source, Source):
@@ -580,6 +627,16 @@ class StreamingExecutor:
     credits : staging-buffer depth per queue (2 = double buffering).
     place : optional placement hook ``packed -> ready``.
     read_timeout_s : straggler bound on the raw queue.
+    adaptive_credits : deprecated spelling of the occupancy-rule credits
+        controller (grow on starvation, shrink on idle-full, with
+        hysteresis); ignored when ``autotune`` is set.
+    max_credits : upper bound for adaptive / autotuned credit growth.
+    autotune : ``True`` builds the measured-throughput
+        ``PipelineController`` over this executor's knobs (credits, prefetch
+        depth, lookahead window); a ``PipelineController`` instance is bound
+        as is (its knob list is extended with the executor knobs it does not
+        already declare).  Decisions and live knob values land in
+        ``stats.controller`` / ``stats.knobs`` and the Prometheus export.
     length_key : fallback batch -> sortable length for bucket_by_length.
     lookahead : optional ``etl_runtime.lookahead.EmbedCacheConfig``; adds the
         lookahead stage after **place**: a window of W in-flight envelopes
@@ -598,18 +655,19 @@ class StreamingExecutor:
                  place: Optional[Callable[[dict], dict]] = None,
                  sharding=None, mesh=None,
                  read_timeout_s: float = 30.0,
-                 adaptive_credits: bool = False, autotune=None,
+                 adaptive_credits: bool = False, max_credits: int = 8,
+                 autotune=None,
                  length_key: Callable = default_length_key,
                  lookahead=None, clock: Optional[Clock] = None):
-        for flag, what in ((mesh is not None or sharding is not None,
-                            "mesh/sharding placement"),
-                           (bool(adaptive_credits or autotune),
-                            "the knob controller (autotune/adaptive_credits)")):
-            if flag:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if mesh is not None or sharding is not None:
+            raise NotImplementedError("mesh/sharding placement is not "
+                                      "ported yet")
         self.pipeline = pipeline
         self.semantics = semantics or getattr(pipeline, "semantics", None)
         self.credits = max(1, credits)
+        self.max_credits = max(self.credits, max_credits)
+        self.current_credits = self.credits
+        self.lookahead = lookahead
         self.read_timeout_s = read_timeout_s
         self.clock = clock or SYSTEM_CLOCK
         self.place = place or (lambda b: b)
@@ -674,6 +732,8 @@ class StreamingExecutor:
                 on_error=_on_error, clock=ck))
             place_in_q = self._sorted_q
 
+        # the transform reads self.pipeline per batch (not a captured
+        # reference), so swap_pipeline takes effect on the next batch
         device = getattr(pipeline, "device", None)
         if device is not None and torch.device(device).type == "cuda":
             run = transfer_lib.StreamTransform(lambda raw: self.pipeline(raw),
@@ -701,17 +761,31 @@ class StreamingExecutor:
                    on_put=_on_shed if lookahead is not None else _on_delivered,
                    on_error=_on_error, clock=ck),
         ]
+        self._lookahead_stage = None
         if lookahead is not None:
             self.stats.cache = CacheStats(row_bytes=lookahead.row_bytes)
-            self._stages.append(LookaheadStage(
+            self._lookahead_stage = LookaheadStage(
                 self.stats.stages["lookahead"], self._placed_q, self._ready_q,
                 lookahead, cache_stats=self.stats.cache,
-                on_put=_on_delivered, on_error=_on_error, clock=ck))
+                on_put=_on_delivered, on_error=_on_error, clock=ck)
+            self._stages.append(self._lookahead_stage)
         self._on_error = _on_error
         self._reader = threading.Thread(target=self._read_loop,
                                         name="etl-read", daemon=True)
         self._started = False
-        self.stats.knobs["credits"] = self.credits
+
+        # ---- knob controller (autotune / deprecated adaptive_credits) ----
+        self.stats.knobs["credits"] = self.current_credits
+        self._controller = None
+        if autotune:
+            if isinstance(autotune, PipelineController):
+                autotune.bind_executor(self)
+                self._controller = autotune
+            else:
+                self._controller = PipelineController.for_executor(self)
+        elif adaptive_credits:
+            self._controller = PipelineController.adaptive_credits(self)
+        self.stats.controller = self._controller
 
     def _read_loop(self):
         def wrap(raw, idx):
@@ -726,6 +800,60 @@ class StreamingExecutor:
         _pump_source(self._source, self._raw_q, self.stats.stages["read"],
                      self._stop, wrap=wrap, on_error=self._on_error,
                      clock=self.clock)
+
+    # ---- knob actuators (PipelineController apply hooks) -----------------
+
+    def set_credits(self, credits: int) -> None:
+        """Resize the whole staging budget to ``credits``: every stage queue,
+        the raw (read -> transform) queue included.  Grow / shrink counters
+        move by one per call, as the controller moves one step at a time."""
+        credits = max(1, int(credits))
+        if credits == self.current_credits:
+            return
+        if credits > self.current_credits:
+            self.stats.credit_grows += 1
+        else:
+            self.stats.credit_shrinks += 1
+        self.current_credits = credits
+        for q in (self._raw_q, self._packed_q, self._ready_q, self._sorted_q,
+                  self._placed_q):
+            if q is not None:
+                q.set_capacity(credits)
+        self.stats.raw_resizes += 1
+        self.stats.knobs["credits"] = credits
+
+    def set_prefetch_depth(self, depth: int) -> None:
+        """Resize only the raw (read -> transform) queue: the prefetch-depth
+        knob, independent of the downstream staging credits."""
+        depth = max(1, int(depth))
+        self._raw_q.set_capacity(depth)
+        self.stats.knobs["prefetch_depth"] = depth
+
+    def set_lookahead_window(self, window: int) -> None:
+        """Resize the lookahead planning window (no-op without the
+        lookahead stage)."""
+        if self._lookahead_stage is not None:
+            self._lookahead_stage.set_window(window)
+            self.stats.knobs["lookahead_window"] = max(1, int(window))
+
+    def swap_pipeline(self, pipeline) -> None:
+        """Swap the transform program (the row-tile / fuse knobs' actuator:
+        ``EtlJob`` recompiles with ``CompiledPipeline.with_knobs``, sharing
+        the vocabulary state, and swaps the result in here).  A single
+        attribute store: the transform stage reads ``self.pipeline`` once
+        per batch, so the next batch runs the new program and a batch in
+        flight finishes on the old one."""
+        self.pipeline = pipeline
+
+    def _adapt(self, wait_s: float) -> None:
+        """One deliver-side observation, forwarded to the controller.
+        Fullness is sampled at pop time (the item just taken plus the
+        remaining depth), so it does not race the producer refilling."""
+        if self._controller is None:
+            return
+        full_at_pop = len(self._ready_q) + 1 >= self._ready_q.capacity
+        self._controller.on_delivery(wait_s=wait_s, ready_full=full_at_pop,
+                                     now=self.clock.monotonic())
 
     # ---- public API ------------------------------------------------------
 
@@ -754,6 +882,7 @@ class StreamingExecutor:
         if item.arrival is not None:
             self.stats.note_delivered(item.arrival,
                                       now=self.clock.monotonic())
+        self._adapt(wait)
         return transfer_lib.receive(item.payload, item.event)
 
     def __iter__(self):
@@ -802,3 +931,20 @@ class StreamingExecutor:
 
     def __exit__(self, *exc):
         self.stop()
+
+    def stage_queues(self) -> dict:
+        """Live stage queues in pipeline order (upstream -> downstream): the
+        surface ``online/shed.py`` sweeps for global oldest-first freshness
+        shedding.  With a lookahead stage the ready queue holds *planned*
+        batches (their cache admits must execute in order), so shedders
+        must not drop from it."""
+        qs = {"raw": self._raw_q, "packed": self._packed_q}
+        if self._sorted_q is not None:
+            qs["sorted"] = self._sorted_q
+        if self._placed_q is not None:
+            qs["placed"] = self._placed_q
+        qs["ready"] = self._ready_q
+        return qs
+
+    def queue_depths(self) -> dict:
+        return {name: len(q) for name, q in self.stage_queues().items()}

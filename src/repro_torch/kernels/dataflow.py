@@ -11,7 +11,9 @@ program as data:
   every step output), instructions (opcode + slots + parameters, from
   ``Operator.encode``), the packer epilogue's terminals, and for the fit the
   value slot and capacity.
-- The kernel: a persistent grid of blocks walks the row tiles.  Each block
+- The kernel: a persistent grid of blocks walks the row tiles
+  (``TileProgram.tile_rows``: the plan's ``row_tile``, halved until one
+  block's shared memory fits ``SMEM_TARGET``).  Each block
   keeps a two-stage ring of source tiles in shared memory, the next tile's
   sources in flight as bulk async copies while the current one runs; the
   instructions run with a barrier only where ``encode_program`` marks one
@@ -144,6 +146,9 @@ THREADS = 256
 # shared memory one block asks for: ~64 KiB lets three blocks share an SM
 SMEM_TARGET = 64 * 1024
 SMEM_MAX = 227 * 1024
+# the plan's default row tile (the planner's DATAFLOW_BLOCK_ROWS): the most
+# rows a tile of the dataflow kernels has
+ROW_TILE = 256
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -294,6 +299,7 @@ class TileProgram:
     value_slot: int = -1
     capacity: int = 0
     wide: bool = False  # past NARROW: the kernel takes ``WideProgram``
+    row_tile: int = ROW_TILE  # the plan's row tile: caps ``tile_rows``
     # the call-independent launch struct, built on the first launch
     template: Optional[ctypes.Structure] = dataclasses.field(
         default=None, repr=False, compare=False)
@@ -322,9 +328,9 @@ class TileProgram:
         return cmap
 
     def tile_rows(self) -> int:
-        """Rows per tile: the largest power of two up to 256 whose shared
-        memory (``layout``) fits ``SMEM_TARGET`` bytes."""
-        t = 256
+        """Rows per tile: the largest power of two up to ``row_tile`` whose
+        shared memory (``layout``) fits ``SMEM_TARGET`` bytes."""
+        t = 1 << (max(1, self.row_tile).bit_length() - 1)
         while t > 1 and self.smem_bytes(t) > SMEM_TARGET:
             t //= 2
         if self.smem_bytes(t) > SMEM_MAX:
@@ -410,8 +416,10 @@ def encode_program(inputs: Sequence[StreamInput],
                    steps: Sequence[TileStep], *,
                    outputs: Sequence[GroupOutput] = (),
                    value_buf: Optional[str] = None,
-                   capacity: int = 0) -> TileProgram:
-    """Lower a TileStep program to the interpreter's slot/instruction form."""
+                   capacity: int = 0,
+                   row_tile: int = ROW_TILE) -> TileProgram:
+    """Lower a TileStep program to the interpreter's slot/instruction form
+    (``row_tile`` caps the kernel's rows per tile)."""
     slots: list = []
     index: dict = {}
 
@@ -469,7 +477,7 @@ def encode_program(inputs: Sequence[StreamInput],
     prog = TileProgram(slots=slots, n_src=len(inputs), instrs=instrs,
                        params=params,
                        capacities=[t.capacity for t in tables],
-                       sync=_barriers(slots, instrs))
+                       sync=_barriers(slots, instrs), row_tile=int(row_tile))
     for o, g in enumerate(outputs):
         widths = [int(w) for _, w in g.terminals]
         prog.out_kinds.append(_out_kind_of(g.out_dtype))
@@ -772,10 +780,12 @@ def _launch_fit(prog: TileProgram, srcs) -> tuple:
 def make_group_dataflow(inputs: Sequence[StreamInput],
                         tables: Sequence[TableInput],
                         steps: Sequence[TileStep],
-                        outputs: Sequence[GroupOutput]):
+                        outputs: Sequence[GroupOutput], *,
+                        row_tile: int = ROW_TILE):
     """fn(*sources, *tables) -> tuple of packed tensors, one per output,
     from ONE kernel launch (plain version for CPU tensors)."""
-    prog = encode_program(inputs, tables, steps, outputs=outputs)
+    prog = encode_program(inputs, tables, steps, outputs=outputs,
+                          row_tile=row_tile)
     n_src = len(inputs)
 
     def plain(*arrays):
@@ -795,12 +805,13 @@ def make_output_dataflow(inputs: Sequence[StreamInput],
                          tables: Sequence[TableInput],
                          steps: Sequence[TileStep],
                          terminals: Sequence[tuple], out_dtype, *,
-                         pad_cols_to: int = 1):
+                         pad_cols_to: int = 1, row_tile: int = ROW_TILE):
     """fn(*sources, *tables) -> packed [rows, padded(sum widths)]: the
     one-output case of the group kernel."""
     out = GroupOutput("out", tuple((str(n), int(w)) for n, w in terminals),
                       np.dtype(out_dtype), pad_cols_to)
-    prog = encode_program(inputs, tables, steps, outputs=[out])
+    prog = encode_program(inputs, tables, steps, outputs=[out],
+                          row_tile=row_tile)
     n_src = len(inputs)
 
     def plain(*arrays):
@@ -818,14 +829,15 @@ def make_output_dataflow(inputs: Sequence[StreamInput],
 
 def make_fit_dataflow(inputs: Sequence[StreamInput],
                       steps: Sequence[TileStep],
-                      value_buf: str, capacity: int):
+                      value_buf: str, capacity: int, *,
+                      row_tile: int = ROW_TILE):
     """fn(*sources) -> (first_pos int32[capacity], counts int32[capacity]).
 
     Positions are global row-major ``row * width + col`` over the chunk;
     ``ABSENT32`` marks values absent from it; values < 0 or >= capacity
     drop."""
     prog = encode_program(inputs, (), steps, value_buf=value_buf,
-                          capacity=capacity)
+                          capacity=capacity, row_tile=row_tile)
 
     def plain(*srcs):
         return fit_dataflow_plain(prog, srcs)

@@ -19,7 +19,10 @@ uncached one bit for bit.
 
 ``params_from_jax`` maps the JAX package's parameter pytree (as numpy
 arrays) to this module's ``state_dict``: JAX's ``x @ w`` stores ``w`` as
-``(in, out)``, ``nn.Linear`` as ``(out, in)``.
+``(in, out)``, ``nn.Linear`` as ``(out, in)``.  ``state_to_jax_leaves`` /
+``load_jax_leaves`` carry a whole train state (model, AdamW moments, step)
+across as the JAX package's ``TrainState`` leaf list, so a checkpoint
+written by either package restores in the other.
 """
 
 from __future__ import annotations
@@ -147,3 +150,54 @@ def params_from_jax(tree: dict) -> dict:
             out[f"{name}.{i}.weight"] = torch.tensor(np.asarray(layer["w"]).T)
             out[f"{name}.{i}.bias"] = torch.tensor(np.asarray(layer["b"]))
     return out
+
+
+def _jax_leaf_order(model: DLRM) -> list:
+    """``(index into model.parameters(), transposed)`` in the JAX package's
+    flatten order of its parameter pytree: dict keys sorted (``bot_mlp``,
+    ``tables``, ``top_mlp``), each layer's ``b`` before its ``w``."""
+    index = {n: i for i, (n, _) in enumerate(model.named_parameters())}
+    order = []
+    for name in ("bot_mlp", "tables", "top_mlp"):
+        if name == "tables":
+            order.append((index["tables"], False))
+            continue
+        for i in range(len(getattr(model, name))):
+            order += [(index[f"{name}.{i}.bias"], False),
+                      (index[f"{name}.{i}.weight"], True)]
+    return order
+
+
+def state_to_jax_leaves(state) -> list:
+    """A train state (``model``: a ``DLRM``, ``opt``: AdamW ``{"m", "v"}``
+    in ``model.parameters()`` order, ``step``) as the JAX package's
+    ``TrainState(params, opt, step)`` leaves, in its flatten order: the
+    parameters, then ``m``, then ``v`` (each ``w`` as ``[in, out]``: a
+    transposed view, no copy), then ``step`` as an int32 scalar."""
+    order = _jax_leaf_order(state.model)
+    leaves = []
+    for group in (list(state.model.parameters()), state.opt["m"],
+                  state.opt["v"]):
+        leaves += [group[i].detach().t() if tr else group[i].detach()
+                   for i, tr in order]
+    leaves.append(torch.tensor(state.step, dtype=torch.int32))
+    return leaves
+
+
+@torch.no_grad()
+def load_jax_leaves(state, leaves) -> object:
+    """The inverse of ``state_to_jax_leaves``: copy ``leaves`` (arrays or
+    tensors in that order and layout) into ``state``'s parameters and
+    moments in place, on their devices, and set its step.  Returns
+    ``state``."""
+    want = state_to_jax_leaves(state)
+    if len(leaves) != len(want):
+        raise ValueError(f"{len(leaves)} leaves for a state of {len(want)}")
+    for dst, src in zip(want[:-1], leaves[:-1]):
+        src = torch.as_tensor(np.asarray(src))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"leaf shape {tuple(src.shape)} != "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(src)  # dst may be a transposed view: copy_ writes through
+    state.step = int(np.asarray(leaves[-1]))
+    return state

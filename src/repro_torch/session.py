@@ -31,15 +31,19 @@ The paper's training-aware ETL abstraction ends at the trainer, not at
 - **executor lifecycle**: ``batches()`` starts the staged executor and tears
   it down on exit; ``stats()`` exposes its ``RuntimeStats``;
   ``metrics_file`` exports them as Prometheus text on close.
+- **knob controller**: ``autotune=`` tunes the executor's runtime knobs and,
+  on the ``cuda`` backend, the compile-time ``row_tile`` and ``fuse``
+  (recompiled with ``with_knobs``, state shared, and swapped into the
+  running executor).
 
-Not ported yet (``NotImplementedError``): ``autotune=``,
-``adaptive_credits=True``, ``mesh=`` / ``sharding=``.
+Not ported yet (``NotImplementedError``): ``mesh=`` / ``sharding=``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 from repro_torch.core.compiler import CompiledPipeline
@@ -48,6 +52,7 @@ from repro_torch.core.semantics import (FreshnessPolicy, OrderingPolicy,
                                         PipelineSemantics)
 from repro_torch.data.source import Source, as_source
 from repro_torch.etl_runtime import metrics as metrics_lib
+from repro_torch.etl_runtime.controller import Knob, PipelineController
 from repro_torch.etl_runtime.runtime import (RuntimeStats, SourcePrefetcher,
                                              StreamingExecutor,
                                              default_length_key)
@@ -67,8 +72,21 @@ class EtlJob:
     device : where the torch/cuda backends run; default CUDA.
     fit_source : Source for ``fit()`` when it differs from ``source``.
     freshness, ordering : per-job overrides of the pipeline's semantics.
-    credits, read_timeout_s, place, length_key, clock : forwarded to the
-        executor (see ``StreamingExecutor``).
+    credits, adaptive_credits, max_credits, read_timeout_s, place,
+    length_key, clock : forwarded to the executor (see
+        ``StreamingExecutor``).  ``adaptive_credits=True`` is deprecated —
+        pass ``autotune=`` instead.
+    autotune : ``True`` builds the measured-throughput
+        ``PipelineController`` over the executor's runtime knobs; a
+        ``PipelineController`` instance is bound as is.  On the ``cuda``
+        backend the job also declares the compile-time knobs ``row_tile``
+        (the tiles of {16, 32, 64, 128, 256, 512, the plan's} at which every
+        output and fit keeps its lowering, one for each distinct set of
+        the dataflow kernels' rows per tile; not declared when only the
+        plan's is left) and ``fuse`` on/off; their
+        actuator recompiles with ``CompiledPipeline.with_knobs`` (vocabulary
+        state shared, variants cached) and swaps the result into the
+        running executor.  ``swap_log`` lists the swaps.
     embed_cache : optional ``etl_runtime.lookahead.EmbedCacheConfig``; adds
         the lookahead prefetch stage to the executor (rows, window,
         staging slots, per-table on/off); cache accounting lands in
@@ -84,16 +102,14 @@ class EtlJob:
                  freshness: Optional[FreshnessPolicy] = None,
                  ordering: Optional[OrderingPolicy] = None,
                  credits: int = 2, adaptive_credits: bool = False,
-                 autotune=None, clock=None, read_timeout_s: float = 30.0,
+                 max_credits: int = 8, autotune=None, clock=None,
+                 read_timeout_s: float = 30.0,
                  mesh=None, sharding=None, place=None,
                  length_key: Callable = default_length_key,
                  embed_cache=None, rebatch: bool = False,
                  pushdown: bool = True, metrics_file: str = "",
                  metrics_labels: Optional[dict] = None,
                  name: Optional[str] = None):
-        if autotune or adaptive_credits:
-            raise NotImplementedError("the knob controller (autotune / "
-                                      "adaptive_credits) is not ported yet")
         self._template: Optional[Pipeline] = None
         self._compiled: Optional[CompiledPipeline] = None
         if isinstance(pipeline, Pipeline):
@@ -114,8 +130,16 @@ class EtlJob:
                             if fit_source is not None else None)
         self._freshness = freshness
         self._ordering = ordering
+        if adaptive_credits and autotune is None:
+            warnings.warn(
+                "adaptive_credits=True is deprecated; pass autotune=True "
+                "(or a PipelineController) for the unified knob controller",
+                DeprecationWarning, stacklevel=2)
+        self._autotune = autotune
+        self.swap_log: list = []  # (row_tile, fuse) of every pipeline swap
         self._executor_kw = dict(
-            credits=credits, read_timeout_s=read_timeout_s, mesh=mesh,
+            credits=credits, adaptive_credits=adaptive_credits,
+            max_credits=max_credits, read_timeout_s=read_timeout_s, mesh=mesh,
             sharding=sharding, place=place, length_key=length_key,
             lookahead=embed_cache, clock=clock)
         self._rebatch = rebatch
@@ -214,11 +238,88 @@ class EtlJob:
     # ---- executor lifecycle ----------------------------------------------
 
     def executor(self, transform=None) -> StreamingExecutor:
-        """Build (without starting) the staged executor for this job."""
-        return StreamingExecutor(transform or self.compiled,
-                                 self.apply_source(),
-                                 semantics=self.semantics,
-                                 **self._executor_kw)
+        """Build (without starting) the staged executor for this job.
+        ``transform`` overrides the transform-stage callable and keeps every
+        other setting (``online.OnlineTrainer`` wraps the compiled program
+        to tag each batch with its vocabulary version)."""
+        autotune = self._autotune
+        holder: dict = {"ex": None}
+        if autotune and transform is None:
+            autotune = self._autotune_controller(autotune, holder)
+        ex = StreamingExecutor(transform or self.compiled,
+                               self.apply_source(),
+                               semantics=self.semantics, autotune=autotune,
+                               **self._executor_kw)
+        holder["ex"] = ex
+        return ex
+
+    def _autotune_controller(self, autotune, holder: dict):
+        """Normalize ``autotune=`` to a ``PipelineController`` and, on the
+        ``cuda`` backend, declare the compile-time knobs ``row_tile`` and
+        ``fuse``.  Every row-tile candidate is compiled here, before it is
+        declared, and kept only if no output or fit changes its lowering
+        there (a tile the planner's legality rejects would demote one) and
+        its dataflow kernels' rows per tile (``kernel_tiles``: the plan
+        tile caps them, shared memory halves them) differ from every kept
+        candidate's, the base first; the actuator swaps a cached variant
+        into the executor."""
+        ctl = (autotune if isinstance(autotune, PipelineController)
+               else PipelineController([]))
+        cp = self.compiled
+        if not isinstance(cp, CompiledPipeline) or cp.backend != "cuda":
+            return ctl
+        have = {k.name for k in ctl.knobs}
+        base_tile = cp.plan.row_tile
+        fused = cp.fuse_spec() != "off"
+        cur = {"row_tile": base_tile, "fuse": fused}
+        variants = {(base_tile, fused): cp}
+
+        def variant(tile: int, fuse: bool) -> CompiledPipeline:
+            key = (tile, fuse)
+            if key not in variants:
+                variants[key] = cp.with_knobs(
+                    row_tile=tile, fuse="auto" if fuse else "off")
+            return variants[key]
+
+        def lowering(p: CompiledPipeline) -> tuple:
+            return ({k: v["path"] for k, v in p.lowering_report().items()},
+                    {k: v["path"]
+                     for k, v in p.fit_lowering_report().items()})
+
+        def swap():
+            key = (cur["row_tile"], cur["fuse"])
+            ex = holder["ex"]
+            if ex is not None:
+                ex.swap_pipeline(variant(*key))
+                ex.stats.knobs["row_tile"] = key[0]
+                ex.stats.knobs["fuse"] = key[1]
+                self.swap_log.append(key)
+
+        def apply_row_tile(v):
+            cur["row_tile"] = int(v)
+            swap()
+
+        def apply_fuse(v):
+            cur["fuse"] = bool(v)
+            swap()
+
+        if "row_tile" not in have:
+            want, seen = lowering(cp), {cp.kernel_tiles(): base_tile}
+            for t in (16, 32, 64, 128, 256, 512):
+                v = variant(t, fused)
+                if lowering(v) == want:
+                    seen.setdefault(v.kernel_tiles(), t)
+            for k in [k for k in variants if k[0] not in seen.values()]:
+                del variants[k]
+            cands = tuple(sorted(seen.values()))
+            if len(cands) > 1:
+                ctl.knobs.append(Knob("row_tile", cands, value=base_tile,
+                                      apply=apply_row_tile, kind="compute"))
+        if "fuse" not in have and fused:
+            variant(base_tile, False)
+            ctl.knobs.append(Knob("fuse", (False, True), value=True,
+                                  apply=apply_fuse, kind="compute"))
+        return ctl
 
     def start(self) -> StreamingExecutor:
         if self._executor is None:

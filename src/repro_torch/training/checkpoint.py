@@ -1,0 +1,226 @@
+"""Atomic, async checkpointing in the JAX package's layout.
+
+Layout (one directory per step)::
+
+    <dir>/step_00000100/manifest.json   structure + leaf index
+    <dir>/step_00000100/leaf_00042.npy  one array per leaf
+    <dir>/step_00000100/COMMITTED       written last (publish marker)
+
+- Atomicity: leaves, manifest and the COMMITTED marker are written into a
+  temp dir, which is then renamed; restore ignores uncommitted directories,
+  so a crash mid-save never corrupts the restore path.
+- Async: ``AsyncCheckpointer.save_async`` copies every tensor to the host on
+  the caller's thread (for a CUDA tensor that waits for the caller's
+  stream), then writes in a background thread while training goes on.
+- Leaves follow the JAX package's flatten order: dict keys sorted, lists
+  and tuples in order, ``None`` holds no leaf.  A train state whose model
+  is a ``DLRM`` is flattened as the JAX package's ``TrainState(params, opt,
+  step)`` (``models/dlrm.state_to_jax_leaves``: ``w`` as ``[in, out]``), so
+  a checkpoint written by either package restores in the other.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import tempfile
+import threading
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models import dlrm
+
+_COMMIT = "COMMITTED"
+
+
+def _is_train_state(tree) -> bool:
+    return hasattr(tree, "model") and hasattr(tree, "opt") and \
+        hasattr(tree, "step")
+
+
+def _flatten(tree) -> tuple:
+    """``(leaves, rebuild, description)``: ``rebuild(arrays)`` returns the
+    structure of ``tree`` holding ``arrays`` (a train state is filled in
+    place; a tensor leaf comes back as a tensor on that leaf's device, any
+    other leaf as a numpy array)."""
+    if _is_train_state(tree):
+        if not isinstance(tree.model, dlrm.DLRM):
+            raise NotImplementedError(
+                f"checkpointing a {type(tree.model).__name__} train state is "
+                "not ported yet (only DLRM)")
+
+        def rebuild_state(arrays):
+            return dlrm.load_jax_leaves(tree, arrays)
+        return (dlrm.state_to_jax_leaves(tree), rebuild_state,
+                "TrainState(DLRM)")
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [_flatten(tree[k]) for k in keys]
+        desc = "{" + ", ".join(f"{k!r}: {p[2]}"
+                               for k, p in zip(keys, parts)) + "}"
+        return _join(parts, lambda vals: dict(zip(keys, vals)), desc)
+    if isinstance(tree, (list, tuple)):
+        parts = [_flatten(x) for x in tree]
+        kind = type(tree)
+        desc = ("[" if kind is list else "(") + ", ".join(
+            p[2] for p in parts) + ("]" if kind is list else ")")
+        return _join(parts, lambda vals: kind(vals), desc)
+    if tree is None:
+        return [], lambda arrays: None, "None"
+    if isinstance(tree, torch.Tensor):
+        dev = tree.device
+        return [tree], lambda arrays: torch.from_numpy(arrays[0]).to(dev), "*"
+    return [tree], lambda arrays: arrays[0], "*"
+
+
+def _join(parts: list, make: Callable, desc: str) -> tuple:
+    leaves = [leaf for p in parts for leaf in p[0]]
+    counts = [len(p[0]) for p in parts]
+
+    def rebuild(arrays):
+        vals, i = [], 0
+        for (_, rb, _), n in zip(parts, counts):
+            vals.append(rb(arrays[i:i + n]))
+            i += n
+        return make(vals)
+    return leaves, rebuild, desc
+
+
+def _to_host(leaf, copy: bool) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        return (t.to("cpu", copy=True) if copy else t.cpu()).numpy()
+    return np.array(leaf) if copy else np.asarray(leaf)
+
+
+def _write(arrays: list, desc: str, ckpt_dir: str, step: int) -> str:
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_save_")
+    try:
+        index = []
+        for i, arr in enumerate(arrays):
+            name = f"leaf_{i:05d}.npy"
+            np.save(os.path.join(tmp, name), arr.copy(order="C")
+                    if not arr.flags.c_contiguous else arr)
+            index.append({"file": name, "shape": list(arr.shape),
+                          "dtype": str(arr.dtype)})
+        manifest = {"step": step, "n_leaves": len(arrays),
+                    "treedef": desc, "index": index}
+        with open(os.path.join(tmp, "manifest.json"), "w") as fh:
+            json.dump(manifest, fh)
+        with open(os.path.join(tmp, _COMMIT), "w") as fh:
+            fh.write("ok")
+        if os.path.isdir(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return final
+
+
+def save(tree: Any, ckpt_dir: str, step: int) -> str:
+    """Blocking save. Returns the committed directory path."""
+    leaves, _, desc = _flatten(tree)
+    return _write([_to_host(x, copy=False) for x in leaves], desc, ckpt_dir,
+                  step)
+
+
+class AsyncCheckpointer:
+    """Snapshot to host, then write in a daemon thread; at most one in
+    flight."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self.last_error: Optional[BaseException] = None
+
+    def save_async(self, tree, ckpt_dir: str, step: int):
+        self.wait()
+        leaves, _, desc = _flatten(tree)
+        arrays = [_to_host(x, copy=True) for x in leaves]
+
+        def work():
+            try:
+                _write(arrays, desc, ckpt_dir, step)
+            except BaseException as e:  # surfaced by wait()
+                self.last_error = e
+
+        self._thread = threading.Thread(target=work, name="ckpt-write",
+                                        daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error is not None:
+            raise self.last_error
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = []
+    for d in os.listdir(ckpt_dir):
+        if d.startswith("step_") and \
+                os.path.exists(os.path.join(ckpt_dir, d, _COMMIT)):
+            steps.append(int(d.split("_")[1]))
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str, template: Any, step: Optional[int] = None) -> Any:
+    """Restore into the structure of ``template`` (the newest committed step
+    unless ``step`` is given).  A train state template is filled in place
+    and returned; elsewhere a tensor leaf comes back as a tensor on the
+    template leaf's device and any other leaf as a numpy array."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not os.path.exists(os.path.join(d, _COMMIT)):
+        raise FileNotFoundError(f"checkpoint {d} not committed")
+    with open(os.path.join(d, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    leaves_t, rebuild, _ = _flatten(template)
+    if len(leaves_t) != manifest["n_leaves"]:
+        raise ValueError(
+            f"checkpoint has {manifest['n_leaves']} leaves; template has "
+            f"{len(leaves_t)} — structure mismatch")
+    arrays = [np.load(os.path.join(d, e["file"])) for e in manifest["index"]]
+    for a, t in zip(arrays, leaves_t):
+        shape = tuple(t.shape) if hasattr(t, "shape") else np.shape(t)
+        if tuple(a.shape) != shape:
+            raise ValueError(f"leaf shape {a.shape} != template {shape}")
+    return rebuild(arrays)
+
+
+def prune(ckpt_dir: str, keep: int = 3):
+    """Delete all but the newest ``keep`` *committed* checkpoints.
+
+    Only committed directories count toward ``keep``: a ``step_*`` dir
+    without the COMMITTED marker is crash garbage (the marker is written
+    inside the temp dir before the rename, so an in-flight save is never
+    visible as an uncommitted ``step_*``) and is deleted outright — it must
+    not displace a committed checkpoint from the keep window.
+    """
+    if not os.path.isdir(ckpt_dir):
+        return
+    committed, garbage = [], []
+    for d in os.listdir(ckpt_dir):
+        if not d.startswith("step_"):
+            continue
+        if os.path.exists(os.path.join(ckpt_dir, d, _COMMIT)):
+            committed.append(int(d.split("_")[1]))
+        else:
+            garbage.append(d)
+    for d in garbage:
+        shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+    committed.sort()
+    for s in committed[:-keep] if keep else committed:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:08d}"),
+                      ignore_errors=True)

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card (the dataflow
 kernels, the staged lowering's four and the two embedding bags), cached ==
 uncached bags bit for bit, the cached lookup's deterministic backward, and
-the stream handoff of the executor; the wide program struct (26 per-feature
+the stream handoff of the executor and the group kernel under incremental
+refits; the wide program struct (26 per-feature
 vocabularies in one group), every output dtype, 16-bit bags, the tile
 program's byte copy and the edges of the redesigned stage, build and
 packer kernels.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
@@ -672,3 +673,80 @@ def test_packer_casts_every_layout(card, dtype):
             fn, blocks = _pack_case(card, layout, getattr(torch, dtype),
                                     1000, pad)
             _pack_equal(fn, blocks, f"{dtype}/{layout}/pad {pad}")
+
+
+def test_group_kernel_under_refits(card):
+    """The group kernel runs on the executor's stream while the trainer's
+    thread swaps 8 incremental refits in: every delivered batch, tagged
+    with the version that transformed it, equals a fresh compile at that
+    version, and every refit is one fit launch per window event."""
+    from repro_torch.online import EventBus, OnlineConfig, OnlineTrainer
+
+    rows, n = 4096, 17
+    tmpl = paper_pipeline("III", batch_size=rows, **tp.SMALL)
+    bus = EventBus(capacity=64)
+    job = EtlJob(tmpl, Source.events(bus, "ev"), backend="cuda", device=card)
+    job.compiled.fit(iter(Source.synth("I", rows=2 * rows, batch_size=rows)))
+    v0 = job.compiled.state.version
+    feed = list(Source.synth("I", rows=n * rows, batch_size=rows, seed=5))
+    published = [2]
+
+    def step_fn(state, batch):
+        # one event a step: every refit window holds the two newest
+        if published[0] < n:
+            bus.publish("ev", feed[published[0]])
+            published[0] += 1
+            if published[0] == n:
+                bus.close()
+        return state, {"loss": batch["dense"].sum()}
+
+    tr = OnlineTrainer(job, None, step_fn,
+                       OnlineConfig(refit_every=2, window_batches=2,
+                                    get_timeout_s=0.1),
+                       bus=bus, topic="ev", trace_batches=n)
+    for ev in feed[:2]:
+        bus.publish("ev", ev)
+    before = dict(df.LAUNCHES)
+    tr.run(deadline_s=120.0)
+    torch.cuda.synchronize()
+    launched = {k: df.LAUNCHES[k] - before[k] for k in before}
+    assert tr.stats.steps == n and tr.stats.swaps == 8
+    assert tr.stats.versions == list(range(v0 + 1, v0 + 9))
+    assert launched["group_dataflow"] == n
+    # windows at steps 2, 4, ..., 14 hold 2 events, step 16's the last one
+    assert launched["fit_dataflow"] == tr.stats.refit_batches == 15
+    assert len(tr.trace) == n
+    assert len({v for v, _, _ in tr.trace}) >= 3
+    fresh = {}
+    for version, raw, packed in tr.trace:
+        if version not in fresh:
+            fresh[version] = tmpl.compile("cuda", device=card)
+            fresh[version].state = tr.state_history[version]
+        for k, v in fresh[version](raw).items():
+            np.testing.assert_array_equal(packed[k], v.cpu().numpy(),
+                                          err_msg=f"v{version}/{k}")
+
+
+def test_row_tile_variants_agree(card):
+    """Every row tile the ``row_tile`` knob can set, from one row up to the
+    plan's, gives the group and fit kernels' results bit for bit (tail
+    tiles included), and the kernels run at the tile the plan caps."""
+    rows = 4096
+    tmpl = paper_pipeline("III", batch_size=rows, **tp.SMALL)
+    feed = list(Source.synth("I", rows=3 * rows + 1000, batch_size=rows,
+                             seed=2))
+    base = tmpl.compile("cuda", device=card)
+    base.fit(iter(feed))
+    want = [base(raw) for raw in (feed[0], feed[-1])]
+    for t in (1, 16, 32, 128):
+        cap = 1 << (t.bit_length() - 1)
+        v = tmpl.compile("cuda", device=card, row_tile=t)
+        assert v.kernel_tiles() == tuple(min(b, cap)
+                                         for b in base.kernel_tiles())
+        v.fit(iter(feed))
+        for vid, tb in base.state.tables.items():
+            np.testing.assert_array_equal(v.state.tables[vid], tb,
+                                          err_msg=f"row_tile {t}: {vid}")
+        for raw, w in zip((feed[0], feed[-1]), want):
+            for k, x in v(raw).items():
+                assert torch.equal(x, w[k]), (t, k)

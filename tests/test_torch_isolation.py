@@ -52,7 +52,9 @@ print(len(names))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    # the online path's modules included (controller, checkpoint, fault,
+    # online.{bus,shed,service}, launch.online)
+    assert int(out.stdout.strip()) >= 43
 
 
 @pytest.fixture
@@ -99,14 +101,49 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
 def test_unported_options_raise():
     tmpl = paper_pipeline("II", small_vocab=2048)
     src = Source.synth("I", rows=10, batch_size=10)
-    for kw in ({"autotune": True}, {"adaptive_credits": True}):
-        with pytest.raises(NotImplementedError):
-            EtlJob(tmpl, src, backend="cuda", device="cpu", **kw)
     job = EtlJob(tmpl, src, backend="cuda", device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
         job.executor()
     with pytest.raises(NotImplementedError):
         ttl.make_train_step(dlrm.loss_fn, TrainConfig(microbatch=2))
+
+
+def test_knob_controller_options_build_a_controller():
+    """``autotune=`` and ``adaptive_credits=True`` (once unported) build
+    the knob controller: the throughput search over the executor's knobs
+    and, on "cuda", the compile-time ``row_tile`` and ``fuse``; the
+    occupancy rule on the credits alone."""
+    from repro_torch.etl_runtime.controller import PipelineController
+    tmpl = paper_pipeline("II", small_vocab=2048)
+    src = Source.synth("I", rows=10, batch_size=10)
+    ex = EtlJob(tmpl, src, backend="cuda", device="cpu",
+                autotune=True).executor()
+    ctl = ex.stats.controller
+    assert isinstance(ctl, PipelineController) and ctl.mode == "throughput"
+    knobs = {k.name: k for k in ctl.knobs}
+    assert set(knobs) == {"row_tile", "fuse", "credits", "prefetch_depth"}
+    assert knobs["fuse"].candidates == (False, True)
+    tiles = knobs["row_tile"].candidates
+    assert ex.pipeline.plan.row_tile in tiles and len(tiles) > 1
+    # each candidate runs kernels of its own rows per tile
+    assert len({ex.pipeline.with_knobs(row_tile=t).kernel_tiles()
+                for t in tiles}) == len(tiles)
+    with pytest.warns(DeprecationWarning):
+        job = EtlJob(tmpl, src, backend="cuda", device="cpu",
+                     adaptive_credits=True)
+    ctl = job.executor().stats.controller
+    assert ctl.mode == "occupancy" and [k.name for k in ctl.knobs] == \
+        ["credits"]
+    torch_ex = EtlJob(tmpl, src, backend="torch", device="cpu",
+                      autotune=True).executor()
+    assert {k.name for k in torch_ex.stats.controller.knobs} == \
+        {"credits", "prefetch_depth"}
+
+
+def test_online_launcher_raises_without_a_device(no_cuda):
+    from repro_torch.launch.online import build_parser, build_service
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_service(build_parser().parse_args([]))
 
 
 def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):

@@ -200,3 +200,21 @@ def fit_edge_values(case: str, rows: int, width: int, capacity: int):
     vals[big] = rng.integers(capacity, 1 << 30, size=int(big.sum()),
                              dtype=np.uint32)
     return hex_planes(vals, missing=rng.random((rows, width)) < 0.1)
+
+
+def merge_refit(prev, window_tables: dict) -> tuple:
+    """``(tables, n_unique)`` of a rank-stable incremental refit, written out
+    apart from both packages' ``fit_incremental``: the values ``prev`` lacks
+    and the window's rank tables hold get ranks ``n_unique ..`` in the
+    order of the window's ranks (its first occurrences)."""
+    tables, n_unique = {}, {}
+    for vid, wt in window_tables.items():
+        wt = np.asarray(wt)
+        base = np.array(prev.tables[vid], copy=True)
+        n = int(prev.n_unique[vid])
+        fresh = sorted((int(wt[v]), int(v)) for v in np.nonzero(wt >= 0)[0]
+                       if base[v] < 0)
+        for k, (_, v) in enumerate(fresh):
+            base[v] = n + k
+        tables[vid], n_unique[vid] = base, n + len(fresh)
+    return tables, n_unique
