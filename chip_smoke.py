@@ -132,8 +132,44 @@ Phases, one JSON line each; any failure exits non-zero:
                  Then one batch's apply is timed at each declared row_tile
                  (the dataflow kernels' rows per tile beside it).
 
-Then the ``{"kernels": [...]}`` line (``launches_online_main`` beside the
-kernels online_main ran), the nvidia-smi line, and last the
+12. multitenant_main — PipelineManager(total_credits=8): three tenants at
+                 B=65536 with weights 2:1:1 (Pipeline I; II at vocab 8192;
+                 III at 524288, both fitted on 4 chunks by the fit kernel),
+                 8 Source.synth("I") batches each, made beforehand, on
+                 their executors' own streams under the weighted transform
+                 service; every transformed batch equal to its tenant's
+                 plain (CPU) compile (integers bit for bit, floats rtol
+                 1e-5); the grants within +-1 of
+                 2:1:1 in every window of 4 while all tenants had batches
+                 left; then a hot swap of the stateless tenant (Pipeline I
+                 at modulus 1024) and 2 more batches each, and one tenant
+                 alone: rows/s per tenant, aggregate and solo, each
+                 tenant's stream span (timed events on its executor's
+                 stream around each transform call: its H2D copies and
+                 kernel, and the gaps while the host stages the copies)
+                 and, from one more run under torch.profiler, each
+                 tenant's device time (its kernels and copies).
+13. lm_ckpt     — repro_torch.launch.train at llama3_2_3b's reduced config:
+                 a checkpoint at step 4 restores bit for bit, its leaves in
+                 the JAX package's TrainState order, and the launcher
+                 resumes from it.
+14. lm_main     — repro_torch.launch.train.main in process at llama3_2_3b's
+                 full width and depth (28 layers, 3.21 B parameters,
+                 AdamW, microbatch 2), --batch 8 --seq 1024 --steps 8,
+                 fed by lm_token_pipeline on the cuda backend (at seq
+                 1024 one output launch per output a batch, as the
+                 reference's planner lowers it): parameter count, every
+                 batch bit-equal
+                 to the plain compile, the first step against one
+                 un-microbatched loss and gradient on its batch, finite
+                 losses; tok/s, step ms, peak memory, trainer utilization,
+                 the stage breakdown and an MFU estimate (6 N tokens / step
+                 time / 989 TFLOP/s dense bf16).  On running out of memory
+                 it reruns at --seq 512 and says so.
+
+Then the ``{"kernels": [...]}`` line (``launches_online_main``,
+``launches_multitenant_main`` and ``launches_lm_main`` beside the kernels
+those phases ran), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.
 
     python3 chip_smoke.py --wrappers DIR
@@ -192,6 +228,14 @@ EXTRA = ("criteo26_group", "criteo4_group", "criteo4_group:wide",
          "pack:128x1")
 ONLINE_STALENESS_S = 0.5  # online_main's shedder: event age at delivery
 ONLINE_RATE_HZ = 20.0     # online_main's producer: ~4x the trainer's steps/s
+LM_ARCH = "llama3_2_3b"
+LM_BATCH, LM_SEQ, LM_STEPS = 8, 1024, 8
+LM_OOM_SEQ = 512          # lm_main's --seq if the card runs out at LM_SEQ
+BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
+# un-microbatched vs microbatched step on one batch, bf16 compute: the two
+# split the GEMMs' rows differently, so sums round differently
+LM_CHECK_RTOL = {"loss": 2e-3, "grad_norm": 2e-2}
+MT_BATCHES = 8            # multitenant_main's batches per tenant
 
 
 def pipeline_iii_dense_as(Pipeline, Schema, ops, Vocab, dtype):
@@ -611,6 +655,552 @@ def autotune_main(tmpl, state0, expect, n_batches: int = 32) -> dict:
             "row_tile_apply_ms": tile_ms,
             "launches": launches, "wall_seconds": wall,
             "untuned_wall_seconds": plain_wall}
+
+
+def profile_step(step, state, batch, top: int = 30) -> dict:
+    """One more train step under ``torch.profiler`` (CPU and CUDA
+    activities): the wall time, the device's busy time (the sum of the
+    kernels' device time: the rest of the wall is the device's idle share)
+    and the ``top`` kernels and operators by self device time (an
+    operator's is that of the kernels it launched itself).  A profiler that
+    records no device time returns that, not a reading."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev(e, total: bool = False) -> float:
+        for k in (("device_time_total", "cuda_time_total") if total else
+                  ("self_device_time_total", "self_cuda_time_total")):
+            if hasattr(e, k):
+                return getattr(e, k) / 1e3
+        return 0.0
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        cuda = torch.autograd.DeviceType.CUDA
+        kernels = [e for e in events if e.device_type == cuda]
+        ops = [e for e in events if e.device_type != cuda and dev(e) > 0]
+        busy = sum(dev(e) for e in kernels)
+    except Exception as e:  # a profiler without CUPTI access raises
+        return {"error": repr(e)[:500]}
+    if busy <= 0:
+        return {"wall_ms": wall, "error": "no device time recorded"}
+
+    def table(rows):
+        rows = sorted(rows, key=dev, reverse=True)[:top]
+        return [{"name": e.key[:120], "self_device_ms": dev(e),
+                 "share_of_busy": dev(e) / busy, "calls": e.count}
+                for e in rows]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / wall),
+            "kernels": len(kernels), "top_kernels": table(kernels),
+            "top_ops": table(ops)}
+
+
+class TappedPipeline:
+    """A compiled pipeline that keeps each call's raw batch and output, so a
+    caller can hold what a running executor transformed against a plain
+    compile of the same raw batch.  With ``timing=True`` (CUDA) it also
+    records a pair of timed events around each call on the calling thread's
+    current stream (the executor's transform stream): ``span_ms`` sums the
+    spans, which hold the call's H2D copies and kernels and any gap while
+    the host stages them.  With ``marker`` set (a pinned host tensor of a
+    size no other copy has), each call first copies it to the device on
+    that stream, so a profiler trace shows which stream is this
+    pipeline's.  Every other attribute is the wrapped pipeline's."""
+
+    def __init__(self, pipeline, timing: bool = False):
+        self.pipeline = pipeline
+        self.timing = timing
+        self.calls: list = []
+        self.events: list = []
+        self.marker = None  # a pinned host tensor, see __call__
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["pipeline"], name)
+
+    def __call__(self, raw):
+        import torch
+        if self.marker is not None:  # tags this call's stream in a trace
+            self.marker.to(self.pipeline.device, non_blocking=True)
+        if self.timing:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        out = self.pipeline(raw)
+        if self.timing:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.events.append((start, end))
+        self.calls.append((raw, out))
+        return out
+
+    def span_ms(self) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def device_ms_by_stream(trace: dict, markers: dict) -> dict:
+    """Device time of each named stream, from a ``torch.profiler`` Chrome
+    trace: a stream is named by the marker copy found on it (``markers``:
+    name -> bytes of a host-to-device copy no other copy has), and its
+    kernels, copies and memsets are summed, the marker copies left out.
+    Returns name -> ms, and "other" for every other stream."""
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    gpu = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    by_bytes = {b: name for name, b in markers.items()}
+    stream_of = {}
+    for e in gpu:
+        args = e.get("args") or {}
+        if e["cat"] == "gpu_memcpy" and args.get("bytes") in by_bytes:
+            stream_of[args.get("stream")] = by_bytes[args["bytes"]]
+    out = {name: 0.0 for name in markers}
+    out["other"] = 0.0
+    for e in gpu:
+        args = e.get("args") or {}
+        if e["cat"] == "gpu_memcpy" and args.get("bytes") in by_bytes:
+            continue
+        out[stream_of.get(args.get("stream"), "other")] += \
+            e.get("dur", 0.0) / 1e3  # microseconds
+    return out
+
+
+def lm_launches(compiled, batches: int) -> dict:
+    """The dataflow launches ``batches`` transforms of the LM token
+    pipeline make: one group launch a batch where tokens and labels are
+    grouped, else one output launch per output."""
+    kinds = {v["path"] for v in compiled.lowering_report().values()}
+    if kinds == {"grouped"}:
+        return {"group_dataflow": batches}
+    if kinds == {"fused"}:
+        return {"output_dataflow": 2 * batches}
+    raise AssertionError(f"LM pipeline lowering {kinds}")
+
+
+def lm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
+            steps: int = LM_STEPS, extra_args=()) -> dict:
+    """``repro_torch.launch.train.main`` in process: ``--arch llama3_2_3b``
+    at full width and depth (28 layers, 3.21 B parameters, the preset's
+    ``microbatch=2``), fed by ``lm_token_pipeline`` on the cuda backend
+    (``lm_launches``: at seq 1024 one output launch per output a batch).  The train step the launcher builds is wrapped
+    (``make_train_step`` in the launcher's namespace) to keep each
+    delivered batch, time each step (synchronized) and, before the first
+    step, run one un-microbatched loss-and-gradient on that step's batch.
+    Checks: parameter count, every delivered batch bit-equal to the plain
+    (CPU) compile of its raw batch, the un-microbatched loss and global
+    gradient norm within ``LM_CHECK_RTOL`` of the first step's, finite
+    losses, the dataflow launches of every transformed batch.  If the card
+    runs out
+    of memory at ``seq`` the phase reruns at ``LM_OOM_SEQ`` and says so."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.core.pipeline import lm_token_pipeline
+    from repro_torch.data.source import Source
+    from repro_torch.kernels import dataflow as df
+    from repro_torch.launch import train as launch
+    from repro_torch.training.grad import microbatched_value_and_grad
+    from repro_torch.training.optimizer import global_norm
+
+    reduced = "--reduced" in extra_args
+    cfg = get_reduced(LM_ARCH) if reduced else get_config(LM_ARCH)
+    tcfg = launch.train_preset(LM_ARCH)
+    real = launch.make_train_step
+    tap: dict = {"batches": [], "ms": [], "metrics": [], "check": None}
+
+    def tapped(loss_fn, tc):
+        step = real(loss_fn, tc)
+        whole = microbatched_value_and_grad(loss_fn, 1)
+
+        def run(state, b):
+            tap["batches"].append({k: v.cpu() for k, v in b.items()})
+            if tap["check"] is None:
+                loss1, g1 = whole(state.model, b)
+                tap["check"] = (float(loss1), float(global_norm(g1)))
+                del g1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            loss = float(m["loss"])
+            tap["ms"].append((time.perf_counter() - t0) * 1e3)
+            tap["metrics"].append((loss, float(m["grad_norm"])))
+            return state, m
+        return run
+
+    def attempt(s: int) -> dict:
+        tap.update(batches=[], ms=[], metrics=[], check=None)
+        argv = ["--arch", LM_ARCH, "--batch", str(batch), "--seq", str(s),
+                "--steps", str(steps), "--etl-backend", "cuda",
+                "--max-restarts", "0", *extra_args]
+        launch.make_train_step = tapped
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            df.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = launch.main(argv)
+            torch.cuda.synchronize()
+            summary["wall"] = time.perf_counter() - t0
+            summary["launches"] = dict(df.LAUNCHES)
+            summary["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            launch.make_train_step = real
+        return summary
+
+    seq_used, oom, summary = seq, None, None
+    try:
+        summary = attempt(seq)
+    except torch.cuda.OutOfMemoryError as e:
+        oom = str(e).splitlines()[0]
+    if summary is None:  # out of the except block: its frames are freed
+        gc.collect()
+        torch.cuda.empty_cache()
+        seq_used = LM_OOM_SEQ
+        summary = attempt(seq_used)
+    state, stats = summary["state"], summary["stats"]
+    model = state.model
+    n_total = sum(p.numel() for p in model.parameters())
+    pad_rows = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    n_mats = sum(p.numel() for p in model.parameters() if p.dim() >= 2)
+    if n_mats - pad_rows != cfg.param_count() or \
+            len(model.blocks) != cfg.n_layers:
+        raise AssertionError(f"lm_main: {n_mats - pad_rows} matrix "
+                             f"parameters in {len(model.blocks)} blocks, "
+                             f"want {cfg.param_count()} in {cfg.n_layers}")
+    if state.step != steps or len(tap["metrics"]) != steps:
+        raise AssertionError(f"lm_main: {state.step} steps")
+    losses = [m[0] for m in tap["metrics"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"lm_main: losses {losses}")
+    transformed = stats.stages["transform"].items
+    # at seq 1024 the planner (the reference's too) lowers tokens and
+    # labels to one output kernel each: the grouped tile is over budget
+    expect(summary["launches"], lm_launches(summary["job"].compiled,
+                                            transformed), "lm_main")
+    plain = lm_token_pipeline(seq_used, cfg.vocab_size,
+                              batch_size=batch).compile("cuda", device="cpu")
+    raws = Source.lm_events(seq_used, rows=batch * (steps + 4),
+                            batch_size=batch)
+    for i, (got, raw) in enumerate(zip(tap["batches"], raws)):
+        for k, w in plain(raw).items():
+            if not torch.equal(got[k], w):
+                raise AssertionError(f"lm_main: batch {i} {k} differs from "
+                                     "the plain compile")
+    loss1, norm1 = tap["check"]
+    first = {"loss": tap["metrics"][0][0], "grad_norm": tap["metrics"][0][1]}
+    whole = {"loss": loss1, "grad_norm": norm1}
+    for k, rtol in LM_CHECK_RTOL.items():
+        if abs(whole[k] - first[k]) > rtol * abs(first[k]):
+            raise AssertionError(f"lm_main: un-microbatched {k} {whole[k]} "
+                                 f"vs microbatched {first[k]} (rtol {rtol})")
+    ms = sorted(tap["ms"][1:])
+    step_ms = ms[len(ms) // 2] if ms else float("nan")
+    last = {k: v.to(next(model.parameters()).device)
+            for k, v in tap["batches"][-1].items()}
+    profile = profile_step(real(launch.build_model(cfg).loss, tcfg), state,
+                           last)
+    tokens = batch * seq_used
+    n = cfg.param_count()
+    out = {"arch": LM_ARCH, "reduced": reduced, "layers": len(model.blocks),
+           "params_matrix": n_mats - pad_rows, "params_total": n_total,
+           "param_count": n, "batch": batch, "seq": seq_used,
+           "seq_wanted": seq, "oom_at_seq": oom,
+           "microbatch": tcfg.microbatch, "steps": len(tap["metrics"]),
+           "losses": losses, "grad_norms": [m[1] for m in tap["metrics"]],
+           "unmicrobatched_check": {"whole": whole, "microbatched": first,
+                                    "rtol": LM_CHECK_RTOL},
+           "batches_checked": len(tap["batches"]),
+           "step_ms": tap["ms"], "step_ms_median_2_on": step_ms,
+           "tok_per_s": summary["tok_per_s"],
+           "tok_per_s_steps_2_on": tokens / (step_ms / 1e3),
+           "peak_mem_gb": summary["peak_mem_gb"],
+           "trainer_utilization": summary["trainer_utilization"],
+           "consumer_wait_s": stats.consumer_wait_s,
+           "producer_wait_s": stats.producer_wait_s,
+           "mfu_estimate_6NT_vs_dense_bf16_peak":
+               6 * n * tokens / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+           "wall_seconds": summary["wall"], "launches": summary["launches"],
+           "transformed": transformed, "stages": stats.stage_breakdown(),
+           "profile_one_more_step": profile}
+    del summary, state, model, stats, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_ckpt(root: str, expect, batch: int = 8, seq: int = 128) -> dict:
+    """``launch.train.main`` at ``llama3_2_3b``'s reduced config on the card
+    with a checkpoint at step 4: ``resume_or_init`` restores it into a fresh
+    model; every leaf bit-equal, the leaves in the JAX package's
+    ``TrainState(params, opt, step)`` order (the manifest's shapes, blocks
+    stacked ``[L, ...]``), and the launcher resumes from it."""
+    import json as json_lib
+    import shutil
+
+    import torch
+    from repro_torch.kernels import dataflow as df
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as ttr
+    from repro_torch.training import checkpoint as ckpt_lib
+    from repro_torch.training.train_loop import TrainState, resume_or_init
+
+    d = os.path.join(root, "build", "lm_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    args = ["--arch", LM_ARCH, "--reduced", "--batch", str(batch), "--seq",
+            str(seq), "--ckpt-dir", d, "--ckpt-every", "4", "--max-restarts",
+            "0"]
+    df.reset_launch_counts()
+    first = launch.main(args + ["--steps", "4"])
+    torch.cuda.synchronize()
+    expect(dict(df.LAUNCHES), lm_launches(
+        first["job"].compiled, first["stats"].stages["transform"].items),
+        "lm_ckpt")
+    trained = first["state"]
+    if ckpt_lib.latest_step(d) != 4:
+        raise AssertionError(f"lm_ckpt: latest {ckpt_lib.latest_step(d)}")
+    model = trained.model
+    tcfg = launch.train_preset(LM_ARCH)
+    restored = resume_or_init(lambda: TrainState.create(
+        launch.build_model(model.cfg).init(seed=7), tcfg), d)
+    want = ttr.state_to_jax_leaves(trained)
+    got = ttr.state_to_jax_leaves(restored)
+    shapes = [list(ttr.stacked(x).shape) for x in want]
+    with open(os.path.join(d, "step_00000004", "manifest.json")) as fh:
+        manifest = json_lib.load(fh)
+    order_ok = [e["shape"] for e in manifest["index"]] == shapes
+    equal = restored.step == trained.step == 4 and len(got) == len(want) \
+        and all(torch.equal(ttr.stacked(a), ttr.stacked(b))
+                for a, b in zip(want, got))
+    if not (equal and order_ok):
+        raise AssertionError(f"lm_ckpt: bit-equal {equal}, JAX leaf order "
+                             f"{order_ok}")
+    paths = [p for p, _ in ttr.jax_leaves(model.jax_tree())]
+    resumed = launch.main(args + ["--steps", "6"])
+    if resumed["state"].step != 6 or ckpt_lib.latest_step(d) != 4:
+        raise AssertionError(f"lm_ckpt: resumed to {resumed['state'].step}")
+    out = {"steps": trained.step, "leaves": len(got),
+           "param_leaves_jax_order": paths, "restored_bit_equal": equal,
+           "manifest_shapes_in_jax_order": order_ok,
+           "treedef": manifest["treedef"], "resumed_to": 6,
+           "params": model.cfg.param_count()}
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def multitenant_main(expect, rows: int = 0,
+                     n_batches: int = MT_BATCHES) -> dict:
+    """``PipelineManager(total_credits=8)`` with three tenants at B rows,
+    weights 2:1:1, ``n_batches`` ``Source.synth("I")`` batches each (made
+    before the run, so the read stage does not pace the tenants and their
+    transforms contend for the service): ``stateless`` (Pipeline I),
+    ``vocab8k`` (II at 8192) and ``vocab512k`` (III at 524288), the last
+    two fitted on 4 chunks through the fit kernel.  Every transformed batch
+    is kept (``TappedPipeline``, with timed events on the
+    executor's stream around each call: each tenant's stream span) and
+    held against the
+    tenant's plain (CPU) compile (integer outputs bit for bit, floats
+    within rtol 1e-5); the fitted tables bit for bit against the plain
+    fit.  Then the stateless tenant is swapped for Pipeline I at
+    modulus 1024 and every tenant runs 2 more batches (the swapped one held
+    against the new pipeline's plain compile), and one tenant runs alone:
+    rows/s of each tenant, the aggregate and the solo tenant (Fig 17),
+    and each tenant's device time from one more run under
+    ``torch.profiler`` (``device_ms_by_stream``).
+    Launch counts exact (one group launch per transformed batch, one fit
+    launch per chunk); the service's grants, while all three tenants had
+    batches left, within +-1 of 2:1:1 in every window of 4."""
+    import numpy as np
+    import torch
+    from repro_torch.core.pipeline import paper_pipeline
+    from repro_torch.data.source import Source
+    from repro_torch.etl_runtime.multitenant import (PipelineManager,
+                                                     TransformService)
+    from repro_torch.kernels import dataflow as df
+
+    rows = rows or B
+    fit_chunks = list(Source.synth("I", rows=4 * rows, batch_size=rows))
+    specs = (("stateless", "I", 2.0), ("vocab8k", "II", 1.0),
+             ("vocab512k", "III", 1.0))
+    mgr = PipelineManager(total_credits=8)
+    plain, fit_launches, feeds, taps = {}, {}, {}, {}
+    for i, (name, which, w) in enumerate(specs):
+        tmpl = paper_pipeline(which, small_vocab=8192, large_vocab=524288,
+                              batch_size=rows)
+        p = tmpl.compile("cuda")
+        df.reset_launch_counts()
+        p.fit(iter(fit_chunks) if which != "I" else iter(()))
+        torch.cuda.synchronize()
+        fit_launches[name] = {k: v for k, v in df.LAUNCHES.items() if v}
+        expect(fit_launches[name], {"fit_dataflow": 4} if which != "I"
+               else {}, f"multitenant_main fit {name}")
+        plain[name] = tmpl.compile("cuda", device="cpu")
+        if which != "I":
+            plain[name].fit(iter(fit_chunks))
+        for vid, t in plain[name].state.tables.items():
+            np.testing.assert_array_equal(p.state.tables[vid], t,
+                                          err_msg=f"{name} fit")
+        batches = list(Source.synth("I", rows=n_batches * rows,
+                                    batch_size=rows, seed=30 + i))
+        feeds[name] = batches
+        taps[name] = TappedPipeline(p, timing=True)
+        mgr.add(name, taps[name], lambda b=batches: iter(b), weight=w)
+
+    def held(what: str, tap_calls: dict) -> dict:
+        """Every kept batch against its tenant's plain compile: integer
+        outputs bit-equal, float outputs within rtol 1e-5 (the repo's
+        policy: the card's log1pf and the CPU's log1p differ by ulps)."""
+        n, err = 0, 0.0
+        for name, calls in tap_calls.items():
+            for raw, out in calls:
+                for k, want in plain[name](raw).items():
+                    got = out[k].cpu()
+                    if want.dtype.is_floating_point:
+                        torch.testing.assert_close(
+                            got, want, rtol=1e-5, atol=0,
+                            msg=f"multitenant_main {what}: {name}/{k}")
+                        err = max(err, float((got - want).abs().max()))
+                    elif not torch.equal(got, want):
+                        raise AssertionError(f"multitenant_main {what}: "
+                                             f"{name}/{k} differs from its "
+                                             "plain compile")
+                n += 1
+        return {"batches": n, "float_max_abs_err": err}
+
+    def run(n: int, label: str, manager) -> dict:
+        """``manager.run(n)`` with the launches counted, every kept batch
+        held and, where the manager gates its tenants, the service's picks
+        logged with the tenants waiting at each."""
+        svc, eligible = None, []
+        if manager.service_weighted and len(manager.tenants) > 1:
+            svc = TransformService(manager.weights)
+            pick = svc._wrr.pick
+
+            def logged(e=None):
+                eligible.append(sorted(e) if e is not None else None)
+                return pick(e)
+            svc._wrr.pick = logged
+        for t in taps.values():
+            t.calls.clear()
+            t.events.clear()
+        df.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = manager.run(n_batches=n, service=svc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(df.LAUNCHES)
+        calls = {name: list(taps[name].calls) for name in manager.tenants}
+        expect(launches, {"group_dataflow": sum(map(len, calls.values()))},
+               f"multitenant_main {label}")
+        if any(r.batches != n for r in res.values()):
+            raise AssertionError(f"multitenant_main {label}: "
+                                 f"{ {k: r.batches for k, r in res.items()} }")
+        out = {"tenants": {name: {
+            "rows_per_s": r.rows_per_s, "rows": r.rows, "seconds": r.seconds,
+            "batches": r.batches, "transformed": len(calls[name]),
+            "credits": r.credits, "weight": r.weight,
+            "stream_span_ms": taps[name].span_ms(),
+            "stages": r.stage_breakdown} for name, r in res.items()},
+            "aggregate_rows_per_s": sum(r.rows for r in res.values()) / wall,
+            "wall_seconds": wall, "launches": launches,
+            "grants": list(svc.grants) if svc else [], "eligible": eligible}
+        out["batches_held"] = held(label, calls)
+        return out
+
+    first = run(n_batches, "run", mgr)
+    # the grants while every tenant still had batches: a window counts
+    # only if no tenant ran out of batches inside it
+    weights = dict(mgr.weights)
+    total_w = sum(weights.values())
+    left = {n: n_batches for n in weights}
+    windows = []
+    grants = first["grants"]
+    for i in range(0, len(grants) - 3, 4):
+        counts = {n: grants[i:i + 4].count(n) for n in weights}
+        if any(left[n] - c < 1 for n, c in counts.items()):
+            break
+        windows.append(counts)
+        for n, c in counts.items():
+            left[n] -= c
+            if abs(c - 4 * weights[n] / total_w) > 1:
+                raise AssertionError(f"multitenant_main: grants "
+                                     f"{grants[i:i + 4]} off 2:1:1")
+    if not windows:
+        raise AssertionError("multitenant_main: no window of 4 grants while "
+                             "every tenant had batches left")
+    contended = sum(1 for e in first["eligible"][:4 * len(windows)]
+                    if e is not None and len(e) == len(weights))
+    first["grant_windows"] = windows
+    first["picks_with_all_waiting"] = contended
+    del first["eligible"]
+
+    # each tenant's device time: the same run once more under the profiler,
+    # each executor's stream tagged by a marker copy of its own size
+    markers = {name: 4096 + 4 * i for i, name in enumerate(taps)}
+    try:
+        for name, t in taps.items():
+            t.marker = torch.zeros(markers[name], dtype=torch.uint8,
+                                   pin_memory=True)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            mgr.run(n_batches=n_batches)
+            torch.cuda.synchronize()
+        path = os.path.join(HERE, "build", "multitenant_trace.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)
+        os.remove(path)
+        first["device_ms"] = device_ms_by_stream(trace, markers)
+    except Exception as e:  # a profiler without CUPTI access raises
+        first["device_ms"] = {"error": repr(e)[:500]}
+    for t in taps.values():
+        t.marker = None
+
+    # hot swap: Pipeline I at modulus 1024 in place of the stateless tenant
+    new_tmpl = paper_pipeline("I", modulus=1024, batch_size=rows)
+    t0 = time.perf_counter()
+    new_p = new_tmpl.compile("cuda")
+    compile_ms = (time.perf_counter() - t0) * 1e3
+    plain["stateless"] = new_tmpl.compile("cuda", device="cpu")
+    taps["stateless"] = TappedPipeline(new_p, timing=True)
+    t0 = time.perf_counter()
+    mgr.swap("stateless", taps["stateless"],
+             lambda b=feeds["stateless"][:2]: iter(b))
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    swapped = run(2, "after swap", mgr)
+    swapped.pop("eligible")
+
+    # the same tenants without the transform service: what the gate costs
+    ungated_mgr = PipelineManager(total_credits=8, service_weighted=False)
+    for name, (p, src) in mgr.tenants.items():
+        ungated_mgr.add(name, p, src, weight=mgr.weights[name])
+    ungated_mgr.tenants["stateless"] = (taps["stateless"],
+                                        lambda b=feeds["stateless"]: iter(b))
+    ungated = run(n_batches, "ungated", ungated_mgr)
+    ungated.pop("eligible")
+
+    solo_mgr = PipelineManager(total_credits=8)
+    solo_mgr.add("vocab512k", taps["vocab512k"],
+                 lambda b=feeds["vocab512k"]: iter(b))
+    solo = run(n_batches, "solo", solo_mgr)
+    solo.pop("eligible")
+    return {"rows": rows, "batches_per_tenant": n_batches,
+            "fit_launches": fit_launches, "run": first,
+            "swap": {"compile_ms": compile_ms, "swap_ms": swap_ms,
+                     **swapped},
+            "ungated": ungated, "solo_vocab512k": solo,
+            "scaling_aggregate_over_solo":
+                first["aggregate_rows_per_s"] /
+                solo["aggregate_rows_per_s"]}
 
 
 def emit(obj: dict) -> None:
@@ -1272,6 +1862,16 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     emit({"phase": "autotune_main",
           **autotune_main(tmpl, states["III"], expect)})
 
+    # ---- multitenancy, then the ETL-fed LM trainer -----------------------
+    mt = multitenant_main(expect)
+    emit({"phase": "multitenant_main", **mt})
+    emit({"phase": "lm_ckpt", **lm_ckpt(root, expect)})
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = lm_main(root, expect)
+    emit({"phase": "lm_main", **lm})
+
     path_launches = {"group_dataflow": main["launches"]["group_dataflow"],
                      "fit_dataflow": main["fit_launches"]["fit_dataflow"],
                      "output_dataflow": solo_launches["output_dataflow"]}
@@ -1299,6 +1899,12 @@ def main(root: str = HERE, time_only: bool = False) -> int:
             out[-1]["launches_from"] = "parity phase"
         if name in online["launches"]:
             out[-1]["launches_online_main"] = online["launches"][name]
+        mt_n = (mt["run"]["launches"].get(name, 0)
+                + sum(f.get(name, 0) for f in mt["fit_launches"].values()))
+        if mt_n:
+            out[-1]["launches_multitenant_main"] = mt_n
+        if lm["launches"].get(name):
+            out[-1]["launches_lm_main"] = lm["launches"][name]
     emit({"kernels": out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

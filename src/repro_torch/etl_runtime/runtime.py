@@ -638,6 +638,11 @@ class StreamingExecutor:
         already declare).  Decisions and live knob values land in
         ``stats.controller`` / ``stats.knobs`` and the Prometheus export.
     length_key : fallback batch -> sortable length for bucket_by_length.
+    transform_service : optional acquire/release gate arbitrating the
+        transform stage's dispatch across tenants (see
+        ``etl_runtime.multitenant``): acquired around each apply call,
+        released after it.  On CUDA the apply runs on this executor's own
+        stream, so a grant orders kernel launches, not device time.
     lookahead : optional ``etl_runtime.lookahead.EmbedCacheConfig``; adds the
         lookahead stage after **place**: a window of W in-flight envelopes
         drives per-table hot-set planning and each delivered batch carries
@@ -658,7 +663,8 @@ class StreamingExecutor:
                  adaptive_credits: bool = False, max_credits: int = 8,
                  autotune=None,
                  length_key: Callable = default_length_key,
-                 lookahead=None, clock: Optional[Clock] = None):
+                 transform_service=None, lookahead=None,
+                 clock: Optional[Clock] = None):
         if mesh is not None or sharding is not None:
             raise NotImplementedError("mesh/sharding placement is not "
                                       "ported yet")
@@ -734,13 +740,24 @@ class StreamingExecutor:
 
         # the transform reads self.pipeline per batch (not a captured
         # reference), so swap_pipeline takes effect on the next batch
+        def apply(raw):
+            return self.pipeline(raw)
+        if transform_service is not None:
+            def apply(raw):
+                # weighted round-robin service: dispatch, not just staging
+                # credits, follows tenant weights
+                granted = transform_service.acquire(stop=self._stop)
+                try:
+                    return self.pipeline(raw)
+                finally:
+                    if granted:
+                        transform_service.release()
         device = getattr(pipeline, "device", None)
         if device is not None and torch.device(device).type == "cuda":
-            run = transfer_lib.StreamTransform(lambda raw: self.pipeline(raw),
-                                               torch.device(device))
+            run = transfer_lib.StreamTransform(apply, torch.device(device))
         else:
             def run(raw):
-                return self.pipeline(raw), None
+                return apply(raw), None
 
         def transform_fn(env: _Envelope) -> _Envelope:
             payload, event = run(env.payload)

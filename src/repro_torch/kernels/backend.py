@@ -14,9 +14,11 @@ Three jobs, all explicit:
   so an edit rebuilds), and load it with ``ctypes``.  No torch headers and
   no ``ninja`` are needed, so a build takes seconds.  Nothing is built or
   loaded at import time.
-- ``LAUNCHES``: one count per kernel, which its wrapper raises by one where
-  it launches the CUDA kernel and nowhere else; ``reset_launch_counts``
-  zeroes them.
+- ``LAUNCHES``: one count per kernel, which its wrapper raises by one
+  (``count_launch``) where it launches the CUDA kernel and nowhere else;
+  ``reset_launch_counts`` zeroes them.  Both take one lock, so the counts
+  stay exact while several threads launch at once (each executor's
+  transform thread, a trainer's refits).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Optional, Union
 
@@ -46,9 +49,20 @@ LAUNCHES = {name: 0 for name in (
     "embedding_bag_cached")}
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]`` (a read-modify-write: under the lock,
+    no increment from another thread is lost)."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def resolve_device(device: Union[None, str, torch.device] = None

@@ -93,7 +93,8 @@ import torch
 from repro_torch.core import operators as ops_lib
 from repro_torch.kernels import backend
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.backend import LAUNCHES, reset_launch_counts  # noqa: F401
+from repro_torch.kernels.backend import (  # noqa: F401
+    LAUNCHES, count_launch, reset_launch_counts)
 
 ABSENT32 = kref.ABSENT32
 
@@ -753,7 +754,7 @@ def _launch_apply(prog: TileProgram, srcs, tables, name: str) -> tuple:
     backend.check_launch(lib, lib.launch_dataflow_apply(
         ctypes.byref(c), int(prog.wide), backend.stream_of(device)), name,
         device)
-    LAUNCHES[name] += 1
+    count_launch(name)
     return outs
 
 
@@ -769,7 +770,7 @@ def _launch_fit(prog: TileProgram, srcs) -> tuple:
     backend.check_launch(lib, lib.launch_dataflow_fit(
         ctypes.byref(c), int(prog.wide), backend.stream_of(device)),
         "fit_dataflow", device)
-    LAUNCHES["fit_dataflow"] += 1
+    count_launch("fit_dataflow")
     return first_pos, counts
 
 
@@ -950,7 +951,7 @@ def _launch_stage(prog: StageProgram, x: torch.Tensor) -> torch.Tensor:
     lib = _library()
     backend.check_launch(lib, lib.launch_fused_stage(
         ctypes.byref(c), backend.stream_of(x.device)), "fused_stage", x.device)
-    LAUNCHES["fused_stage"] += 1
+    count_launch("fused_stage")
     return out
 
 
@@ -1102,7 +1103,7 @@ def _launch_packer(lay: PackLayout, blocks) -> torch.Tensor:
     backend.check_launch(lib, lib.launch_packer(
         ctypes.byref(c), int(wide), backend.stream_of(device)), "packer",
         device)
-    LAUNCHES["packer"] += 1
+    count_launch("packer")
     return out
 
 

@@ -52,7 +52,7 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.backend import LAUNCHES
+from repro_torch.kernels.backend import count_launch
 
 embedding_bag_plain = kref.embedding_bag
 embedding_bag_cached_plain = kref.embedding_bag_cached
@@ -110,7 +110,7 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
         table.data_ptr(), indices.data_ptr(), stride, out.data_ptr(), batch,
         nnz, vocab, dim, _aligned(table), DTYPES[table.dtype],
         backend.stream_of(table.device)), "embedding_bag", table.device)
-    LAUNCHES["embedding_bag"] += 1
+    count_launch("embedding_bag")
     return out
 
 
@@ -152,7 +152,7 @@ def embedding_bag_cached(table: torch.Tensor, cache: torch.Tensor,
         cold_ptr, cold_stride, out.data_ptr(), batch, nnz, cache.shape[0],
         table.shape[0], dim, vec, DTYPES[cache.dtype],
         backend.stream_of(dev)), "embedding_bag_cached", dev)
-    LAUNCHES["embedding_bag_cached"] += 1
+    count_launch("embedding_bag_cached")
     return out
 
 
@@ -198,7 +198,7 @@ def _stacked_cached_bag(tables: torch.Tensor, cache: torch.Tensor,
         cold_idx.stride(1), out.data_ptr(), batch, n_feat, cache.shape[1],
         tables.shape[1], dim, _aligned(cache, tables), DTYPES[cache.dtype],
         backend.stream_of(dev)), "embedding_bag_cached", dev)
-    LAUNCHES["embedding_bag_cached"] += 1
+    count_launch("embedding_bag_cached")
     return out
 
 

@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.backend import LAUNCHES
+from repro_torch.kernels.backend import count_launch
 
 ABSENT32 = kref.ABSENT32
 
@@ -53,7 +53,7 @@ def vocab_build_chunk(values: torch.Tensor, capacity: int) -> torch.Tensor:
     backend.check_launch(lib, lib.launch_vocab_build(
         values.data_ptr(), out.data_ptr(), n, int(capacity),
         backend.stream_of(values.device)), "vocab_build_chunk", values.device)
-    LAUNCHES["vocab_build_chunk"] += 1
+    count_launch("vocab_build_chunk")
     return out
 
 
@@ -83,7 +83,7 @@ def vocab_lookup(x: torch.Tensor, table: torch.Tensor,
         x.data_ptr(), table.data_ptr(), out.data_ptr(), x.numel(),
         table.numel(), int(n_unique), backend.stream_of(dev)),
         "vocab_lookup", dev)
-    LAUNCHES["vocab_lookup"] += 1
+    count_launch("vocab_lookup")
     return out
 
 

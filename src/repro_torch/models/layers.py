@@ -1,0 +1,309 @@
+"""Shared neural building blocks: plain functions on tensors (the JAX
+package's ``models/layers.py``, op for op).
+
+Conventions
+-----------
+- Weights are stored as the JAX package stores them: a projection is
+  ``[in, out]`` and applies as ``x @ w``, so a parameter tree carries over
+  from the JAX package unchanged (``models/api.params_from_jax``).
+- Dtype policy: params in ``cfg.param_dtype``, activations in
+  ``cfg.compute_dtype``; each weight is cast to the activations' dtype where
+  it is used (the reference's ``cast_tree``; no ``torch.autocast``).
+  Attention scores, softmax and the loss run in float32, as the reference's
+  ``preferred_element_type=float32`` contractions do; probabilities are
+  cast back to the compute dtype before they meet ``v``.
+- Only self-attention without a KV cache is here: the serving path
+  (``cache_init``, cross-attention, ring caches) is ROADMAP Queue A item 2's
+  serving entry.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def truncated_normal(shape, dtype, scale, *, generator: torch.Generator,
+                     device=None) -> torch.Tensor:
+    """Normal samples truncated to [-2, 2], times ``scale``, drawn in
+    float32 from ``generator`` (on its device unless ``device`` is
+    given), then cast to ``dtype``."""
+    device = device if device is not None else generator.device
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, w, eps):
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * w.to(torch.float32)).to(x.dtype)
+
+
+def layernorm(x, w, b, eps):
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(x.dtype)
+
+
+def norm_apply(x, p, kind, eps):
+    if kind == "rmsnorm":
+        return rmsnorm(x, p["w"], eps)
+    return layernorm(x, p["w"], p["b"], eps)
+
+
+def norm_init(d, kind, dtype, device=None) -> dict:
+    if kind == "rmsnorm":
+        return {"w": torch.ones((d,), dtype=dtype, device=device)}
+    return {"w": torch.ones((d,), dtype=dtype, device=device),
+            "b": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim, theta, style, device=None) -> torch.Tensor:
+    """style 'full': rotate all dims; 'half': rotate first half (ChatGLM 2d)."""
+    rot = head_dim if style == "full" else head_dim // 2
+    inv = 1.0 / (theta ** (np.arange(0, rot, 2, dtype=np.float32) / rot))
+    return torch.from_numpy(inv.astype(np.float32)).to(device)  # (rot/2,)
+
+
+def apply_rope(x, positions, inv_freq, style):
+    """x: (..., S, H, hd); positions: broadcastable int (..., S)."""
+    hd = x.shape[-1]
+    rot = inv_freq.shape[0] * 2
+    ang = positions[..., None].to(torch.float32) * inv_freq  # (...,S,rot/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos = cos[..., None, :]  # (...,S,1,rot/2)
+    sin = sin[..., None, :]
+    xr = x[..., :rot].to(torch.float32)
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    if rot == hd:
+        return yr.to(x.dtype)
+    return torch.cat([yr.to(x.dtype), x[..., rot:]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional qk-norm / sliding window)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    rope_style: str = "full"  # "full" | "half" | "none"
+    rope_theta: float = 500000.0
+    sliding_window: int = 0  # 0 = full causal
+    causal: bool = True
+
+
+def attn_init(spec: AttnSpec, dtype, *, generator: torch.Generator,
+              device=None) -> dict:
+    d, h, kv, hd = spec.d_model, spec.n_heads, spec.n_kv_heads, spec.head_dim
+    sc = 1.0 / math.sqrt(d)
+    kw = dict(generator=generator, device=device)
+    p = {"wq": truncated_normal((d, h * hd), dtype, sc, **kw),
+         "wk": truncated_normal((d, kv * hd), dtype, sc, **kw),
+         "wv": truncated_normal((d, kv * hd), dtype, sc, **kw),
+         "wo": truncated_normal((h * hd, d), dtype, 1.0 / math.sqrt(h * hd),
+                                **kw)}
+    if spec.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
+
+
+def _mask_from_positions(q_pos, k_pos, causal, window):
+    """(Sq, Sk) additive f32 bias. k_pos = -1 marks empty cache slots."""
+    ok = k_pos[None, :] >= 0
+    if causal:
+        ok = ok & (q_pos[:, None] >= k_pos[None, :])
+    if window:
+        ok = ok & ((q_pos[:, None] - k_pos[None, :]) < window)
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, torch.full_like(zero, -1e9))
+
+
+FLASH_THRESHOLD = 8192  # self-attention seqs beyond this use the chunked path
+
+
+def _scores(q, k, scale):
+    """bqhd,bkhd->bhqk with a float32 result (the reference's
+    ``preferred_element_type=float32``)."""
+    return torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                        k.to(torch.float32)) * scale
+
+
+def flash_attention(q, k, v, q_pos, k_pos, *, causal, window,
+                    q_chunk=1024, k_chunk=1024):
+    """Chunked attention with online softmax: never materializes the (Sq,
+    Sk) score matrix; loops over query and key chunks carrying (running
+    max, denominator, weighted accumulator) in float32.
+
+    q: (B,Sq,H,D); k,v: (B,Sk,H,D) (kv heads already repeated).
+    q_pos: (Sq,), k_pos: (Sk,) absolute positions (-1 = empty slot).
+    """
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    qc = min(q_chunk, Sq)
+    kc = min(k_chunk, Sk)
+    assert Sq % qc == 0 and Sk % kc == 0, (Sq, qc, Sk, kc)
+    scale = 1.0 / math.sqrt(D)
+    outs = []
+    for i in range(Sq // qc):
+        q_blk, qp = q[:, i * qc:(i + 1) * qc], q_pos[i * qc:(i + 1) * qc]
+        m = torch.full((B, H, qc), -1e30, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, qc), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, qc, D), dtype=torch.float32,
+                          device=q.device)
+        for j in range(Sk // kc):
+            k_blk, v_blk = k[:, j * kc:(j + 1) * kc], v[:, j * kc:(j + 1) * kc]
+            kp = k_pos[j * kc:(j + 1) * kc]
+            s = _scores(q_blk, k_blk, scale)
+            s = s + _mask_from_positions(qp, kp, causal, window)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(v_blk.dtype).to(torch.float32),
+                v_blk.to(torch.float32))
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2))  # (B, qc, H, D)
+    return torch.cat(outs, dim=1)
+
+
+def mha(p, x, spec: AttnSpec, *, q_pos: Optional[torch.Tensor] = None):
+    """Causal self-attention with GQA (no KV cache).  x: (B, S, D)."""
+    B, Sq, _ = x.shape
+    h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, Sq, h, hd)
+    k = (x @ p["wk"].to(dt)).reshape(B, Sq, kv, hd)
+    v = (x @ p["wv"].to(dt)).reshape(B, Sq, kv, hd)
+    if spec.qk_norm:
+        q = rmsnorm(q, p["q_norm"].to(dt), 1e-6)
+        k = rmsnorm(k, p["k_norm"].to(dt), 1e-6)
+    if q_pos is None:
+        q_pos = torch.arange(Sq, device=x.device)
+    if spec.rope_style != "none":
+        inv = rope_freqs(hd, spec.rope_theta, spec.rope_style, x.device)
+        pos = torch.broadcast_to(q_pos, (B, Sq))
+        q = apply_rope(q, pos, inv, spec.rope_style)
+        k = apply_rope(k, pos, inv, spec.rope_style)
+    k_pos = torch.arange(Sq, device=x.device)
+
+    # GQA: repeat kv heads to match q heads
+    rep = h // kv
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+
+    if Sq > 1 and Sq > FLASH_THRESHOLD:
+        # long-context path: chunked online-softmax attention (no S^2 scores)
+        out = flash_attention(q, k, v, q_pos, k_pos, causal=spec.causal,
+                              window=spec.sliding_window).to(dt)
+        return out.reshape(B, Sq, h * hd) @ p["wo"].to(dt)
+
+    scores = _scores(q, k, 1.0 / math.sqrt(hd))
+    scores = scores + _mask_from_positions(q_pos, k_pos, spec.causal,
+                                           spec.sliding_window)
+    probs = torch.softmax(scores, dim=-1).to(dt)
+    del scores
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return out.reshape(B, Sq, h * hd) @ p["wo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_init(d, f, kind, dtype, *, generator: torch.Generator,
+             device=None) -> dict:
+    sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    kw = dict(generator=generator, device=device)
+    if kind == "swiglu":
+        return {"w1": truncated_normal((d, f), dtype, sc_in, **kw),
+                "w3": truncated_normal((d, f), dtype, sc_in, **kw),
+                "w2": truncated_normal((f, d), dtype, sc_out, **kw)}
+    return {"wi": truncated_normal((d, f), dtype, sc_in, **kw),
+            "bi": torch.zeros((f,), dtype=dtype, device=device),
+            "wo": truncated_normal((f, d), dtype, sc_out, **kw),
+            "bo": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def mlp_apply(p, x, kind):
+    dt = x.dtype
+    if kind == "swiglu":
+        return (F.silu(x @ p["w1"].to(dt)) * (x @ p["w3"].to(dt))) \
+            @ p["w2"].to(dt)
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh") \
+        @ p["wo"].to(dt) + p["bo"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / heads
+# ---------------------------------------------------------------------------
+
+def embed_init(vocab, d, dtype, *, generator: torch.Generator, device=None):
+    # 1/sqrt(d): keeps tied-head logits O(1) at init
+    return truncated_normal((vocab, d), dtype, d ** -0.5, generator=generator,
+                            device=device)
+
+
+def embed_lookup(emb, tokens, compute_dtype):
+    return emb[tokens.long()].to(compute_dtype)
+
+
+def lm_logits(x, emb_or_head, tied):
+    if tied:
+        return x @ emb_or_head.to(x.dtype).t()
+    return x @ emb_or_head.to(x.dtype)
+
+
+def cross_entropy(logits, labels, *, ignore_id: int = -100,
+                  valid_vocab: int = 0):
+    """Token-level CE in f32; mean over non-ignored positions.
+
+    The reference picks the label's logit with a one-hot contraction, so a
+    label outside ``[0, V)`` (V = the logits' width) matches no column: its
+    picked logit is 0 and it contributes ``lse``, raising nothing.  Here a
+    clamped gather, zeroed where the label is out of range, gives the same
+    without a ``[T, V]`` one-hot.  ``valid_vocab``: logits at ids >=
+    valid_vocab (padded embedding rows) are masked out of the softmax.
+    """
+    lf = logits.to(torch.float32)
+    V = lf.shape[-1]
+    if valid_vocab and valid_vocab < V:
+        pad = torch.arange(V, device=lf.device) >= valid_vocab
+        lf = lf.masked_fill(pad, -1e9)
+    lse = torch.logsumexp(lf, dim=-1)
+    lab = labels.long()
+    in_range = (lab >= 0) & (lab < V)
+    picked = torch.gather(lf, -1, lab.clamp(0, V - 1)[..., None])[..., 0]
+    ll = torch.where(in_range, picked, torch.zeros_like(picked))
+    nll = lse - ll
+    mask = (labels != ignore_id).to(torch.float32)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,0 +1,283 @@
+"""Decoder-only transformer LM, dense family (the JAX package's
+``models/transformer.py``).
+
+The blocks are an ``nn.ModuleList`` of per-layer modules, not one stacked
+``[L, ...]`` parameter per leaf: indexing a stacked parameter per layer
+would make autograd build a zero-filled gradient of the whole stack for
+every layer.  ``jax_tree`` / ``load_jax_tree`` stack and split the layers
+where the JAX package's layout (one ``blocks/*`` leaf of ``[L, ...]``) is
+wanted: checkpoints and ``models/api.params_from_jax``.
+
+Remat (``cfg.remat``): ``"full"`` recomputes each block in the backward
+(``torch.utils.checkpoint``), ``"dots"`` saves the blocks' weight matmuls
+and recomputes the rest (selective activation checkpointing, as the
+reference's ``dots_with_no_batch_dims_saveable``), ``"none"`` saves all.
+
+Not ported yet (``NotImplementedError``): MoE blocks (ROADMAP Queue A item
+2, MoE), the VLM prefix (item 2, VLM) and the serving entry points
+``prefill`` / ``decode_step`` / ``init_cache`` (item 2, serving).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils import checkpoint as ckpt
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import layers as L
+
+
+
+def not_ported(what: str, item: str):
+    """Raise for a surface the port lacks, naming its ROADMAP item."""
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A "
+                              f"item 2: {item})")
+
+
+FAMILY_ITEM = {"moe": "MoE", "vlm": "VLM", "ssm": "SSM", "hybrid": "hybrid",
+               "encdec": "enc-dec"}
+
+
+def attn_spec(cfg: ModelConfig) -> L.AttnSpec:
+    return L.AttnSpec(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                      n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                      qk_norm=cfg.qk_norm, rope_style=cfg.rope_style,
+                      rope_theta=cfg.rope_theta,
+                      sliding_window=cfg.sliding_window, causal=True)
+
+
+def _params(tree: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
+
+
+class Block(nn.Module):
+    """One pre-norm block: attention, then the MLP, each residual."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device):
+        super().__init__()
+        dt = cfg.pdtype()
+        self.cfg = cfg
+        self.spec = attn_spec(cfg)
+        self.ln1 = _params(L.norm_init(cfg.d_model, cfg.norm, dt, device))
+        self.ln2 = _params(L.norm_init(cfg.d_model, cfg.norm, dt, device))
+        self.attn = _params(L.attn_init(self.spec, dt, generator=generator,
+                                        device=device))
+        self.mlp = _params(L.mlp_init(cfg.d_model, cfg.d_ff, cfg.mlp, dt,
+                                      generator=generator, device=device))
+
+    def forward(self, x):
+        cfg = self.cfg
+        xn = L.norm_apply(x, self.ln1, cfg.norm, cfg.norm_eps)
+        x = x + L.mha(self.attn, xn, self.spec)
+        y = L.norm_apply(x, self.ln2, cfg.norm, cfg.norm_eps)
+        return x + L.mlp_apply(self.mlp, y, cfg.mlp)
+
+
+_MATMULS = frozenset(getattr(torch.ops.aten, n).default
+                     for n in ("mm", "addmm"))
+
+
+def _save_weight_matmuls(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of 2-D matmuls (the weight
+    projections; attention's batched contractions run as ``bmm``) and
+    recompute everything else."""
+    if op in _MATMULS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_save_weight_matmuls)
+
+
+class Transformer(nn.Module):
+    """The dense decoder-only LM.  Parameters (JAX names): ``embed``
+    ``[padded_vocab, d]``, ``final_norm``, ``lm_head`` ``[d, padded_vocab]``
+    when untied, and ``blocks[i]`` with ``ln1``, ``ln2``, ``attn`` and
+    ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+        super().__init__()
+        if cfg.family != "dense" or cfg.moe is not None:
+            not_ported(f"family {cfg.family!r}", FAMILY_ITEM.get(
+                cfg.family, cfg.family))
+        dev = resolve_device(device)
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        self.cfg = cfg
+        dt = cfg.pdtype()
+        kw = dict(generator=generator, device=dev)
+        self.embed = nn.Parameter(L.embed_init(cfg.padded_vocab, cfg.d_model,
+                                               dt, **kw))
+        self.final_norm = _params(L.norm_init(cfg.d_model, cfg.norm, dt, dev))
+        self.lm_head = None
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(L.truncated_normal(
+                (cfg.d_model, cfg.padded_vocab), dt,
+                1.0 / (cfg.d_model ** 0.5), **kw))
+        self.blocks = nn.ModuleList(Block(cfg, **kw)
+                                    for _ in range(cfg.n_layers))
+
+    # ---- forward ---------------------------------------------------------
+
+    def _run_block(self, block: Block, x):
+        remat = self.cfg.remat
+        if remat == "none" or not torch.is_grad_enabled():
+            return block(x)
+        if remat == "full":
+            return ckpt.checkpoint(block, x, use_reentrant=False)
+        if remat == "dots":
+            return ckpt.checkpoint(block, x, use_reentrant=False,
+                                   context_fn=_dots_context)
+        raise ValueError(f"unknown remat policy {remat!r}")
+
+    def hidden_states(self, tokens, prefix_embeds=None):
+        """tokens: (B, S) int -> the final-normed hidden states."""
+        if prefix_embeds is not None:
+            not_ported("prefix_embeds", "VLM")
+        cfg = self.cfg
+        x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
+        for block in self.blocks:
+            x = self._run_block(block, x)
+        return L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
+
+    def forward(self, tokens, prefix_embeds=None):
+        x = self.hidden_states(tokens, prefix_embeds)
+        head = self.embed if self.cfg.tie_embeddings else self.lm_head
+        return L.lm_logits(x, head, self.cfg.tie_embeddings)
+
+    def loss_fn(self, batch: dict):
+        if batch.get("patch_embeds") is not None:
+            not_ported("patch_embeds", "VLM")
+        logits = self.forward(batch["tokens"])
+        return L.cross_entropy(logits, batch["labels"],
+                               valid_vocab=self.cfg.vocab_size)
+
+    # ---- serving (not ported) -------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int):
+        not_ported("init_cache", "serving")
+
+    def prefill(self, tokens, max_len: int):
+        not_ported("prefill", "serving")
+
+    def decode_step(self, cache, tokens, pos):
+        not_ported("decode_step", "serving")
+
+    # ---- the JAX package's parameter layout -----------------------------
+
+    def jax_tree(self) -> dict:
+        """The parameters in the JAX package's tree: ``blocks/<path>`` is
+        the list of the layers' tensors for that leaf (stack it for the
+        ``[L, ...]`` leaf), every other leaf the parameter itself."""
+        tree = {"embed": self.embed,
+                "final_norm": dict(self.final_norm.items())}
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head
+        blocks: dict = {}
+        for part in ("ln1", "ln2", "attn", "mlp"):
+            names = list(getattr(self.blocks[0], part).keys())
+            blocks[part] = {n: [getattr(b, part)[n] for b in self.blocks]
+                            for n in names}
+        tree["blocks"] = blocks
+        return tree
+
+    @torch.no_grad()
+    def load_jax_tree(self, tree: dict) -> "Transformer":
+        """Copy a JAX-layout parameter tree (numpy arrays or tensors; the
+        ``blocks`` leaves stacked ``[L, ...]``) into this model, in place and
+        on its device.  Shapes must match exactly (``embed`` keeps its
+        padded rows)."""
+        mine = jax_leaves(self.jax_tree())
+        theirs = jax_leaves(tree)
+        if [p for p, _ in mine] != [p for p, _ in theirs]:
+            raise ValueError(f"parameter paths differ: "
+                             f"{[p for p, _ in mine]} vs "
+                             f"{[p for p, _ in theirs]}")
+        for (path, dst), (_, src) in zip(mine, theirs):
+            copy_leaf(dst, src, path)
+        return self
+
+
+def jax_leaves(tree, prefix: str = "") -> list:
+    """``[(path, leaf)]`` in the JAX package's flatten order (dict keys
+    sorted).  A leaf is a tensor, an array, or a list of per-layer tensors
+    (a stacked ``blocks/*`` leaf)."""
+    if isinstance(tree, (dict, nn.ParameterDict)):
+        out = []
+        for k in sorted(tree.keys()):
+            out += jax_leaves(tree[k], f"{prefix}/{k}" if prefix else k)
+        return out
+    return [(prefix, tree)]
+
+
+def stacked(leaf) -> torch.Tensor:
+    """A leaf as one tensor: a list of per-layer tensors stacked (a copy)."""
+    if isinstance(leaf, list):
+        return torch.stack([t.detach() for t in leaf])
+    return leaf.detach()
+
+
+def copy_leaf(dst, src, path: str = "") -> None:
+    """Copy ``src`` (array or tensor, stacked ``[L, ...]`` when ``dst`` is a
+    list of per-layer tensors) into ``dst`` in place."""
+    if not isinstance(src, torch.Tensor):
+        src = torch.from_numpy(np.array(src))
+    if isinstance(dst, list):
+        if src.shape[0] != len(dst):
+            raise ValueError(f"{path}: {src.shape[0]} layers for {len(dst)}")
+        for i, d in enumerate(dst):
+            copy_leaf(d, src[i], f"{path}[{i}]")
+        return
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{path}: shape {tuple(src.shape)} != "
+                         f"{tuple(dst.shape)}")
+    dst.detach().copy_(src)
+
+
+def loss_fn(model: Transformer, batch: dict):
+    """``loss_fn(model, batch) -> scalar`` (the train step's signature)."""
+    return model.loss_fn(batch)
+
+
+def state_to_jax_leaves(state) -> list:
+    """A train state (``model``: a ``Transformer``, ``opt``: AdamW ``{"m",
+    "v"}`` in ``model.parameters()`` order, ``step``) as the JAX package's
+    ``TrainState(params, opt, step)`` leaves, in its flatten order: the
+    parameters, then ``m``, then ``v`` (each in the parameter tree's sorted
+    order), then ``step`` as an int32 scalar.  A ``blocks/*`` leaf is the
+    list of its per-layer tensors (stack it, e.g. on the host, for the
+    ``[L, ...]`` leaf)."""
+    model = state.model
+    params = list(model.parameters())
+    index = {id(p): i for i, p in enumerate(params)}
+    order = [leaf for _, leaf in jax_leaves(model.jax_tree())]
+
+    def pick(group, leaf):
+        if isinstance(leaf, list):
+            return [group[index[id(t)]].detach() for t in leaf]
+        return group[index[id(leaf)]].detach()
+
+    leaves = []
+    for group in (params, state.opt["m"], state.opt["v"]):
+        leaves += [pick(group, leaf) for leaf in order]
+    leaves.append(torch.tensor(state.step, dtype=torch.int32))
+    return leaves
+
+
+@torch.no_grad()
+def load_jax_leaves(state, leaves) -> object:
+    """The inverse of ``state_to_jax_leaves``: copy ``leaves`` (arrays or
+    tensors; ``blocks/*`` stacked ``[L, ...]``) into ``state``'s parameters
+    and moments in place, on their devices, and set its step.  Returns
+    ``state``."""
+    want = state_to_jax_leaves(state)
+    if len(leaves) != len(want):
+        raise ValueError(f"{len(leaves)} leaves for a state of {len(want)}")
+    for i, (dst, src) in enumerate(zip(want[:-1], leaves[:-1])):
+        copy_leaf(dst, src, f"leaf {i}")
+    state.step = int(np.asarray(leaves[-1]))
+    return state

@@ -73,7 +73,7 @@ class EtlJob:
     fit_source : Source for ``fit()`` when it differs from ``source``.
     freshness, ordering : per-job overrides of the pipeline's semantics.
     credits, adaptive_credits, max_credits, read_timeout_s, place,
-    length_key, clock : forwarded to the executor (see
+    length_key, transform_service, clock : forwarded to the executor (see
         ``StreamingExecutor``).  ``adaptive_credits=True`` is deprecated —
         pass ``autotune=`` instead.
     autotune : ``True`` builds the measured-throughput
@@ -106,7 +106,8 @@ class EtlJob:
                  read_timeout_s: float = 30.0,
                  mesh=None, sharding=None, place=None,
                  length_key: Callable = default_length_key,
-                 embed_cache=None, rebatch: bool = False,
+                 transform_service=None, embed_cache=None,
+                 rebatch: bool = False,
                  pushdown: bool = True, metrics_file: str = "",
                  metrics_labels: Optional[dict] = None,
                  name: Optional[str] = None):
@@ -141,7 +142,8 @@ class EtlJob:
             credits=credits, adaptive_credits=adaptive_credits,
             max_credits=max_credits, read_timeout_s=read_timeout_s, mesh=mesh,
             sharding=sharding, place=place, length_key=length_key,
-            lookahead=embed_cache, clock=clock)
+            transform_service=transform_service, lookahead=embed_cache,
+            clock=clock)
         self._rebatch = rebatch
         self._pushdown = pushdown
         self.metrics_file = metrics_file

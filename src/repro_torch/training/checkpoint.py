@@ -14,9 +14,11 @@ Layout (one directory per step)::
   stream), then writes in a background thread while training goes on.
 - Leaves follow the JAX package's flatten order: dict keys sorted, lists
   and tuples in order, ``None`` holds no leaf.  A train state whose model
-  is a ``DLRM`` is flattened as the JAX package's ``TrainState(params, opt,
-  step)`` (``models/dlrm.state_to_jax_leaves``: ``w`` as ``[in, out]``), so
-  a checkpoint written by either package restores in the other.
+  is a ``DLRM`` or a ``Transformer`` is flattened as the JAX package's
+  ``TrainState(params, opt, step)`` (``models/dlrm.state_to_jax_leaves``:
+  ``w`` as ``[in, out]``; ``models/transformer.state_to_jax_leaves``: each
+  ``blocks/*`` leaf the layers stacked ``[L, ...]``, on the host), so a
+  checkpoint written by either package restores in the other.
 """
 
 from __future__ import annotations
@@ -31,9 +33,12 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import dlrm
+from repro_torch.models import dlrm, transformer
 
 _COMMIT = "COMMITTED"
+
+
+_STATE_LAYOUTS = {dlrm.DLRM: dlrm, transformer.Transformer: transformer}
 
 
 def _is_train_state(tree) -> bool:
@@ -47,15 +52,17 @@ def _flatten(tree) -> tuple:
     place; a tensor leaf comes back as a tensor on that leaf's device, any
     other leaf as a numpy array)."""
     if _is_train_state(tree):
-        if not isinstance(tree.model, dlrm.DLRM):
+        kind = type(tree.model).__name__
+        mod = _STATE_LAYOUTS.get(type(tree.model))
+        if mod is None:
             raise NotImplementedError(
-                f"checkpointing a {type(tree.model).__name__} train state is "
-                "not ported yet (only DLRM)")
+                f"checkpointing a {kind} train state is not ported yet "
+                "(DLRM and Transformer are)")
 
         def rebuild_state(arrays):
-            return dlrm.load_jax_leaves(tree, arrays)
-        return (dlrm.state_to_jax_leaves(tree), rebuild_state,
-                "TrainState(DLRM)")
+            return mod.load_jax_leaves(tree, arrays)
+        return mod.state_to_jax_leaves(tree), rebuild_state, \
+            f"TrainState({kind})"
     if isinstance(tree, dict):
         keys = sorted(tree)
         parts = [_flatten(tree[k]) for k in keys]
@@ -90,6 +97,8 @@ def _join(parts: list, make: Callable, desc: str) -> tuple:
 
 
 def _to_host(leaf, copy: bool) -> np.ndarray:
+    if isinstance(leaf, list):  # per-layer tensors: stacked on the host
+        return np.stack([_to_host(t, copy=False) for t in leaf])
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         return (t.to("cpu", copy=True) if copy else t.cpu()).numpy()
@@ -193,7 +202,8 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None) -> Any:
             f"{len(leaves_t)} — structure mismatch")
     arrays = [np.load(os.path.join(d, e["file"])) for e in manifest["index"]]
     for a, t in zip(arrays, leaves_t):
-        shape = tuple(t.shape) if hasattr(t, "shape") else np.shape(t)
+        shape = ((len(t),) + tuple(t[0].shape) if isinstance(t, list)
+                 else tuple(t.shape) if hasattr(t, "shape") else np.shape(t))
         if tuple(a.shape) != shape:
             raise ValueError(f"leaf shape {a.shape} != template {shape}")
     return rebuild(arrays)

@@ -35,7 +35,7 @@ def opt_update(params, grads, state: dict, step: int,
     step in place.  Returns the pre-clip global norm."""
     if tcfg.optimizer != "adamw":
         raise NotImplementedError(f"optimizer {tcfg.optimizer!r} is not "
-                                  "ported yet")
+                                  "ported yet (ROADMAP Queue A item 2)")
     gnorm = global_norm(grads)
     scale = None
     if tcfg.max_grad_norm:

@@ -1,5 +1,5 @@
-"""Train-step construction and the checkpointed, watchdogged driver loop
-(microbatching is not ported yet: asking for it raises)."""
+"""Train-step construction (with microbatching: ``training/grad.py``) and
+the checkpointed, watchdogged driver loop."""
 
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training import fault as fault_lib
+from repro_torch.training.grad import microbatched_value_and_grad
 from repro_torch.training.optimizer import adamw_init, opt_update
 
 
@@ -34,20 +35,21 @@ class TrainState:
 
 def make_train_step(loss_fn: Callable, tcfg: TrainConfig) -> Callable:
     """``loss_fn(model, batch) -> scalar``; returns ``step(state, batch) ->
-    (state, {"loss", "grad_norm"})``.  Parameters and moments update in
-    place; gradients are dropped after each step."""
-    if tcfg.microbatch > 1:
-        raise NotImplementedError("microbatching is not ported yet")
+    (state, {"loss", "grad_norm"})``.  With ``tcfg.microbatch > 1`` the
+    batch's rows are split into that many chunks whose gradients are
+    accumulated (in ``tcfg.accum_dtype``; in place in ``.grad`` when that is
+    the parameters' dtype).  Parameters and moments update in place;
+    gradients are dropped after each step."""
+    vg = microbatched_value_and_grad(loss_fn, max(tcfg.microbatch, 1),
+                                     accum_dtype=tcfg.accum_dtype)
 
     def train_step(state: TrainState, batch) -> tuple:
         params = list(state.model.parameters())
-        loss = loss_fn(state.model, batch)
-        grads = torch.autograd.grad(loss, params)
+        loss, grads = vg(state.model, batch)
         gnorm = opt_update(params, grads, state.opt, state.step, tcfg)
         del grads
         state.step += 1
-        return state, {"loss": loss.detach().to(torch.float32),
-                       "grad_norm": gnorm}
+        return state, {"loss": loss.to(torch.float32), "grad_norm": gnorm}
 
     return train_step
 

@@ -5,11 +5,17 @@ the stream handoff of the executor and the group kernel under incremental
 refits; the wide program struct (26 per-feature
 vocabularies in one group), every output dtype, 16-bit bags, the tile
 program's byte copy and the edges of the redesigned stage, build and
-packer kernels.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
+packer kernels; the LM trainer's forward and backward against the CPU,
+three tenants at once bit for bit, and exact launch counts under four
+launching threads.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
 elsewhere (a CUDA kernel has no interpret mode).
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import sys
+import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -750,3 +756,119 @@ def test_row_tile_variants_agree(card):
         for raw, w in zip((feed[0], feed[-1]), want):
             for k, x in v(raw).items():
                 assert torch.equal(x, w[k]), (t, k)
+
+
+@pytest.mark.parametrize("compute,rel", [("float32", 1e-4),
+                                         ("bfloat16", 5e-2)])
+def test_lm_forward_and_backward_match_the_cpu(card, compute, rel):
+    """Reduced llama3_2_3b on the card against the CPU port from the same
+    parameters: logits and every gradient within ``rel`` (float32: TF32
+    off; bfloat16: the tolerance of the CPU parity tests against the
+    reference), the loss within rtol ``rel / 10``."""
+    import dataclasses
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import transformer as ttr
+    cfg = dataclasses.replace(get_reduced("llama3_2_3b"),
+                              compute_dtype=compute)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = ttr.Transformer(cfg, device="cpu", seed=3)
+        gpu = ttr.Transformer(cfg, device=card, seed=4)
+        gpu.load_jax_tree(_stack_tree(cpu.jax_tree()))
+        rng = np.random.default_rng(0)
+        tok = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+        lab = rng.integers(-2, 4 * cfg.vocab_size, (4, 64)).astype(np.int32)
+        outs = []
+        for m, dev in ((cpu, "cpu"), (gpu, card)):
+            b = {"tokens": torch.tensor(tok, device=dev),
+                 "labels": torch.tensor(lab, device=dev)}
+            loss = m.loss_fn(b)
+            loss.backward()
+            with torch.no_grad():
+                logits = m(b["tokens"]).float().cpu()
+            outs.append((float(loss.detach()), logits,
+                         [p.grad.float().cpu() for p in m.parameters()]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l0, x0, g0), (l1, x1, g1) = outs
+    assert abs(l1 - l0) <= rel / 10 * abs(l0)
+    assert float((x1 - x0).abs().max()) <= rel * float(x0.abs().max())
+    for a, b in zip(g0, g1):
+        assert float(torch.linalg.vector_norm(a - b)) <= \
+            rel * float(torch.linalg.vector_norm(a))
+
+
+def _stack_tree(tree):
+    """A ``jax_tree`` with its per-layer lists stacked (JAX layout)."""
+    from repro_torch.models import transformer as ttr
+    if isinstance(tree, dict):
+        return {k: _stack_tree(v) for k, v in tree.items()}
+    return ttr.stacked(tree).cpu()
+
+
+def test_three_tenants_on_the_card_match_their_plain_compiles(card):
+    """Three gated tenants (stateless, small and large vocabulary) run at
+    once on the card, each on its executor's stream: every batch each
+    transformed equals its plain compile's on the same raw batch (integer
+    outputs bit for bit, floats within rtol 1e-5: ``_check``)."""
+    from repro_torch.etl_runtime.multitenant import (PipelineManager,
+                                                     TransformService)
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    try:
+        import chip_smoke  # its TappedPipeline keeps each transformed batch
+    finally:
+        sys.path.pop(0)
+    rows = 4096
+    fit = list(Source.synth("I", rows=2 * rows, batch_size=rows))
+    mgr = PipelineManager(total_credits=8)
+    plain = {}
+    for name, which, w in (("stateless", "I", 2.0), ("vocab8k", "II", 1.0),
+                           ("vocab512k", "III", 1.0)):
+        tmpl = paper_pipeline(which, small_vocab=8192, batch_size=rows)
+        p = tmpl.compile("cuda", device=card)
+        p.fit(iter(fit))
+        plain[name] = tmpl.compile("cuda", device="cpu")
+        plain[name].state = p.state
+        mgr.add(name, chip_smoke.TappedPipeline(p),
+                Source.synth("I", rows=6 * rows, batch_size=rows,
+                             seed=len(name)), weight=w)
+    before = dict(df.LAUNCHES)
+    svc = TransformService(mgr.weights)
+    res = mgr.run(n_batches=6, service=svc)
+    torch.cuda.synchronize()
+    n_calls = 0
+    for name, (tapped, _) in mgr.tenants.items():
+        assert res[name].batches == 6 and len(tapped.calls) >= 6
+        n_calls += len(tapped.calls)
+        for raw, out in tapped.calls:
+            for k, w in plain[name](raw).items():
+                _check(out[k].cpu(), w, f"{name}/{k}")
+    assert df.LAUNCHES["group_dataflow"] - before["group_dataflow"] == \
+        n_calls == len(svc.grants)
+
+
+def test_launch_counts_exact_when_four_threads_launch(card):
+    p = paper_pipeline("I", modulus=4096, batch_size=2048).compile(
+        "cuda", device=card)
+    p.fit(iter(()))
+    raw = tp.raw_batch(rows=2048)
+    ((_, _, fn, args),) = p.dataflow_launches(raw, "apply")
+    barrier = threading.Barrier(4)
+
+    def work():
+        s = torch.cuda.Stream(card)
+        with torch.cuda.stream(s):
+            barrier.wait()
+            for _ in range(200):
+                fn(*args)
+        s.synchronize()
+
+    threads = [threading.Thread(target=work) for _ in range(4)]
+    before = df.LAUNCHES["group_dataflow"]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads)
+    assert df.LAUNCHES["group_dataflow"] - before == 800

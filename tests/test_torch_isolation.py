@@ -53,8 +53,10 @@ print(len(names))
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     # the online path's modules included (controller, checkpoint, fault,
-    # online.{bus,shed,service}, launch.online)
-    assert int(out.stdout.strip()) >= 43
+    # online.{bus,shed,service}, launch.online), and the LM side's
+    # (multitenant, configs.*, models.{layers,transformer,api},
+    # training.grad, launch.{presets,train})
+    assert int(out.stdout.strip()) >= 61
 
 
 @pytest.fixture
@@ -99,13 +101,31 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
 
 
 def test_unported_options_raise():
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.launch import train as launch
+    from repro_torch.models.api import build_model
+    from repro_torch.training.grad import compressed_psum_mean
     tmpl = paper_pipeline("II", small_vocab=2048)
     src = Source.synth("I", rows=10, batch_size=10)
     job = EtlJob(tmpl, src, backend="cuda", device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
         job.executor()
-    with pytest.raises(NotImplementedError):
-        ttl.make_train_step(dlrm.loss_fn, TrainConfig(microbatch=2))
+    model = dlrm.DLRM(dlrm.DLRMConfig(vocab_size=9, d_emb=4, bot_mlp=(8, 4),
+                                      top_mlp=(8, 1)), device="cpu")
+    state = ttl.TrainState.create(model, TrainConfig())
+    step = ttl.make_train_step(dlrm.loss_fn, TrainConfig(
+        optimizer="adafactor"))
+    batch = {"dense": torch.zeros(2, 16), "label": torch.zeros(2),
+             "sparse": torch.zeros(2, 32, dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="adafactor"):
+        step(state, batch)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        build_model(get_reduced("mixtral_8x7b"))
+    with pytest.raises(NotImplementedError, match="pod"):
+        launch.main(["--arch", "llama3_2_3b", "--reduced", "--device", "cpu",
+                     "--mesh", "pod"])
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+        compressed_psum_mean([torch.zeros(2)], [torch.zeros(2)], "dp")
 
 
 def test_knob_controller_options_build_a_controller():
@@ -138,6 +158,16 @@ def test_knob_controller_options_build_a_controller():
                       autotune=True).executor()
     assert {k.name for k in torch_ex.stats.controller.knobs} == \
         {"credits", "prefetch_depth"}
+
+
+def test_train_launcher_raises_without_a_device(no_cuda):
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer
+    from repro_torch.configs.registry import get_reduced
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.main(["--arch", "llama3_2_3b", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.Transformer(get_reduced("llama3_2_3b"))
 
 
 def test_online_launcher_raises_without_a_device(no_cuda):
