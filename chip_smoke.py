@@ -167,8 +167,35 @@ Phases, one JSON line each; any failure exits non-zero:
                  time / 989 TFLOP/s dense bf16).  On running out of memory
                  it reruns at --seq 512 and says so.
 
+15. moe_ckpt    — lm_ckpt's checks at kimi_k2's reduced config (1 dense and
+                 2 MoE layers, a shared expert, top-2; Adafactor with
+                 bfloat16 state, microbatch 16): a checkpoint at step 2
+                 restored bit for bit in the JAX order (Adafactor's vc / vr
+                 after the parameters), resumed to step 4.
+16. moe_main    — launch.train.main at mixtral_8x7b's full width, 2 of 32
+                 layers (3,164,667,904 matrix parameters; AdamW float32,
+                 microbatch 4, fsdp on one device), --batch 8 --seq 1024
+                 --steps 8: parameter count, batches, finite losses, the
+                 ETL launches; half the first batch un-microbatched against
+                 two microbatches with the capacity factor raised to E / k
+                 (nothing drops); the first MoE layer on the first
+                 microbatch against a float32 loop over the experts' kept
+                 pairs, and the share of routed slots dropped per expert;
+                 step ms, tok/s, peak memory, an MFU estimate from
+                 active_param_count() and one profiled step.
+17. adafactor_main — launch.train.main at llama3_405b's full width, 1 of
+                 126 layers (7,390,363,648 matrix parameters; Adafactor,
+                 bfloat16 parameters, state and accumulation, microbatch
+                 8), --batch 8 --seq 1024 --steps 6: parameter count,
+                 batches, finite losses, the ETL launches, the state's
+                 shapes (the reference's rule on the stacked leaves), one
+                 leaf's update on the card against the CPU within one
+                 bfloat16 ulp; the state's bytes against AdamW's, step ms,
+                 tok/s, peak memory.
+
 Then the ``{"kernels": [...]}`` line (``launches_online_main``,
-``launches_multitenant_main`` and ``launches_lm_main`` beside the kernels
+``launches_multitenant_main``, ``launches_lm_main``, ``launches_moe_ckpt``,
+``launches_moe_main`` and ``launches_adafactor_main`` beside the kernels
 those phases ran), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.
 
@@ -236,6 +263,14 @@ BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 # split the GEMMs' rows differently, so sums round differently
 LM_CHECK_RTOL = {"loss": 2e-3, "grad_norm": 2e-2}
 MT_BATCHES = 8            # multitenant_main's batches per tenant
+MOE_ARCH, MOE_LAYERS = "mixtral_8x7b", 2  # of 32: 3 layers would need 74 GB
+# moe_main: the first MoE layer (bf16 compute) against a float32 loop over
+# the experts, max abs error over the loop's largest magnitude (the LM
+# tests' bf16 logits tolerance)
+MOE_LOOP_TOL = 3e-2
+AF_ARCH, AF_LAYERS, AF_STEPS = "llama3_405b", 1, 6  # 1 of 126 layers
+AF_LEAF = "blocks/attn/wk"  # adafactor_main's leaf updated card vs CPU
+MOE_CKPT_ARCH = "kimi_k2"  # moe_ckpt: MoE + shared expert + Adafactor
 
 
 def pipeline_iii_dense_as(Pipeline, Schema, ops, Vocab, dtype):
@@ -783,49 +818,31 @@ def lm_launches(compiled, batches: int) -> dict:
     raise AssertionError(f"LM pipeline lowering {kinds}")
 
 
-def lm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
-            steps: int = LM_STEPS, extra_args=()) -> dict:
-    """``repro_torch.launch.train.main`` in process: ``--arch llama3_2_3b``
-    at full width and depth (28 layers, 3.21 B parameters, the preset's
-    ``microbatch=2``), fed by ``lm_token_pipeline`` on the cuda backend
-    (``lm_launches``: at seq 1024 one output launch per output a batch).  The train step the launcher builds is wrapped
-    (``make_train_step`` in the launcher's namespace) to keep each
-    delivered batch, time each step (synchronized) and, before the first
-    step, run one un-microbatched loss-and-gradient on that step's batch.
-    Checks: parameter count, every delivered batch bit-equal to the plain
-    (CPU) compile of its raw batch, the un-microbatched loss and global
-    gradient norm within ``LM_CHECK_RTOL`` of the first step's, finite
-    losses, the dataflow launches of every transformed batch.  If the card
-    runs out
-    of memory at ``seq`` the phase reruns at ``LM_OOM_SEQ`` and says so."""
-    import gc
-
-    import numpy as np
+def run_launcher(argv: list, cfg=None, on_first=None) -> dict:
+    """``repro_torch.launch.train.main(argv)`` in process, with the train
+    step it builds wrapped (``make_train_step`` in the launcher's
+    namespace) to keep each delivered batch on the host, time each step
+    (synchronized) and, before the first step, return ``on_first(state,
+    batch, loss_fn)`` into ``tap["first"]``.  With ``cfg`` the launcher
+    builds that config (``get_config`` and ``get_reduced`` in its namespace
+    return it: a depth cut).  The launch counts and the peak memory are
+    reset first.  Returns the launcher's summary with ``tap`` (``batches``,
+    step ``ms``, ``metrics``: (loss, grad norm) a step, ``first``),
+    ``wall``, ``launches`` and ``peak_mem_gb``."""
     import torch
-    from repro_torch.configs.registry import get_config, get_reduced
-    from repro_torch.core.pipeline import lm_token_pipeline
-    from repro_torch.data.source import Source
     from repro_torch.kernels import dataflow as df
     from repro_torch.launch import train as launch
-    from repro_torch.training.grad import microbatched_value_and_grad
-    from repro_torch.training.optimizer import global_norm
 
-    reduced = "--reduced" in extra_args
-    cfg = get_reduced(LM_ARCH) if reduced else get_config(LM_ARCH)
-    tcfg = launch.train_preset(LM_ARCH)
-    real = launch.make_train_step
-    tap: dict = {"batches": [], "ms": [], "metrics": [], "check": None}
+    real = (launch.make_train_step, launch.get_config, launch.get_reduced)
+    tap: dict = {"batches": [], "ms": [], "metrics": [], "first": None}
 
     def tapped(loss_fn, tc):
-        step = real(loss_fn, tc)
-        whole = microbatched_value_and_grad(loss_fn, 1)
+        step = real[0](loss_fn, tc)
 
         def run(state, b):
             tap["batches"].append({k: v.cpu() for k, v in b.items()})
-            if tap["check"] is None:
-                loss1, g1 = whole(state.model, b)
-                tap["check"] = (float(loss1), float(global_norm(g1)))
-                del g1
+            if on_first is not None and not tap["ms"]:
+                tap["first"] = on_first(state, b, loss_fn)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, m = step(state, b)
@@ -835,26 +852,32 @@ def lm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
             return state, m
         return run
 
-    def attempt(s: int) -> dict:
-        tap.update(batches=[], ms=[], metrics=[], check=None)
-        argv = ["--arch", LM_ARCH, "--batch", str(batch), "--seq", str(s),
-                "--steps", str(steps), "--etl-backend", "cuda",
-                "--max-restarts", "0", *extra_args]
-        launch.make_train_step = tapped
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            df.reset_launch_counts()
-            t0 = time.perf_counter()
-            summary = launch.main(argv)
-            torch.cuda.synchronize()
-            summary["wall"] = time.perf_counter() - t0
-            summary["launches"] = dict(df.LAUNCHES)
-            summary["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        finally:
-            launch.make_train_step = real
-        return summary
+    launch.make_train_step = tapped
+    if cfg is not None:
+        launch.get_config = launch.get_reduced = lambda arch: cfg
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        df.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = launch.main(argv)
+        torch.cuda.synchronize()
+        summary["wall"] = time.perf_counter() - t0
+        summary["launches"] = dict(df.LAUNCHES)
+        summary["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        launch.make_train_step, launch.get_config, launch.get_reduced = real
+    summary["tap"] = tap
+    return summary
 
-    seq_used, oom, summary = seq, None, None
+
+def with_oom_rerun(attempt, seq: int) -> tuple:
+    """``attempt(seq)``; if the card runs out of memory, ``attempt``
+    again at ``LM_OOM_SEQ``.  Returns (summary, seq used, the OOM's first
+    line or None)."""
+    import gc
+
+    import torch
+    summary, oom = None, None
     try:
         summary = attempt(seq)
     except torch.cuda.OutOfMemoryError as e:
@@ -862,55 +885,114 @@ def lm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
     if summary is None:  # out of the except block: its frames are freed
         gc.collect()
         torch.cuda.empty_cache()
-        seq_used = LM_OOM_SEQ
-        summary = attempt(seq_used)
-    state, stats = summary["state"], summary["stats"]
-    model = state.model
-    n_total = sum(p.numel() for p in model.parameters())
-    pad_rows = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model * (
-        1 if cfg.tie_embeddings else 2)
-    n_mats = sum(p.numel() for p in model.parameters() if p.dim() >= 2)
-    if n_mats - pad_rows != cfg.param_count() or \
-            len(model.blocks) != cfg.n_layers:
-        raise AssertionError(f"lm_main: {n_mats - pad_rows} matrix "
-                             f"parameters in {len(model.blocks)} blocks, "
-                             f"want {cfg.param_count()} in {cfg.n_layers}")
+        seq = LM_OOM_SEQ
+        summary = attempt(seq)
+    return summary, seq, oom
+
+
+def check_lm_run(name: str, summary: dict, cfg, batch: int, seq: int,
+                 steps: int, expect) -> tuple:
+    """The checks every launcher phase makes: the steps ran, finite
+    losses, the dataflow launches of every transformed batch, and every
+    delivered batch bit-equal to the plain (CPU) compile of its raw batch.
+    Returns (losses, median step ms of steps 2 on)."""
+    import torch
+    from repro_torch.core.pipeline import lm_token_pipeline
+    from repro_torch.data.source import Source
+
+    tap, state = summary["tap"], summary["state"]
     if state.step != steps or len(tap["metrics"]) != steps:
-        raise AssertionError(f"lm_main: {state.step} steps")
+        raise AssertionError(f"{name}: {state.step} steps")
     losses = [m[0] for m in tap["metrics"]]
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"lm_main: losses {losses}")
-    transformed = stats.stages["transform"].items
+        raise AssertionError(f"{name}: losses {losses}")
+    transformed = summary["stats"].stages["transform"].items
     # at seq 1024 the planner (the reference's too) lowers tokens and
     # labels to one output kernel each: the grouped tile is over budget
     expect(summary["launches"], lm_launches(summary["job"].compiled,
-                                            transformed), "lm_main")
-    plain = lm_token_pipeline(seq_used, cfg.vocab_size,
+                                            transformed), name)
+    plain = lm_token_pipeline(seq, cfg.vocab_size,
                               batch_size=batch).compile("cuda", device="cpu")
-    raws = Source.lm_events(seq_used, rows=batch * (steps + 4),
-                            batch_size=batch)
+    raws = Source.lm_events(seq, rows=batch * (steps + 4), batch_size=batch)
     for i, (got, raw) in enumerate(zip(tap["batches"], raws)):
         for k, w in plain(raw).items():
             if not torch.equal(got[k], w):
-                raise AssertionError(f"lm_main: batch {i} {k} differs from "
+                raise AssertionError(f"{name}: batch {i} {k} differs from "
                                      "the plain compile")
-    loss1, norm1 = tap["check"]
+    ms = sorted(tap["ms"][1:])
+    return losses, ms[len(ms) // 2] if ms else float("nan")
+
+
+def matrix_params(model, cfg) -> int:
+    """The model's matrix parameters less the embedding's padded rows
+    (``param_count``'s count)."""
+    pad_rows = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    return sum(p.numel() for p in model.parameters() if p.dim() >= 2) \
+        - pad_rows
+
+
+def lm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
+            steps: int = LM_STEPS, extra_args=()) -> dict:
+    """``repro_torch.launch.train.main`` in process (``run_launcher``):
+    ``--arch llama3_2_3b`` at full width and depth (28 layers, 3.21 B
+    parameters, the preset's ``microbatch=2``), fed by ``lm_token_pipeline``
+    on the cuda backend (``lm_launches``: at seq 1024 one output launch per
+    output a batch); before the first step, one un-microbatched
+    loss-and-gradient on that step's batch.  Checks: parameter count,
+    ``check_lm_run``, the un-microbatched loss and global gradient norm
+    within ``LM_CHECK_RTOL`` of the first step's.  If the card runs out of
+    memory at ``seq`` the phase reruns at ``LM_OOM_SEQ`` and says so."""
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.launch import train as launch
+    from repro_torch.training.grad import microbatched_value_and_grad
+    from repro_torch.training.optimizer import global_norm
+
+    reduced = "--reduced" in extra_args
+    cfg = get_reduced(LM_ARCH) if reduced else get_config(LM_ARCH)
+    tcfg = launch.train_preset(LM_ARCH)
+
+    def whole(state, b, loss_fn):
+        loss1, g1 = microbatched_value_and_grad(loss_fn, 1)(state.model, b)
+        out = (float(loss1), float(global_norm(g1)))
+        del g1
+        return out
+
+    def attempt(s: int) -> dict:
+        return run_launcher(
+            ["--arch", LM_ARCH, "--batch", str(batch), "--seq", str(s),
+             "--steps", str(steps), "--etl-backend", "cuda",
+             "--max-restarts", "0", *extra_args], on_first=whole)
+
+    summary, seq_used, oom = with_oom_rerun(attempt, seq)
+    state, stats, tap = summary["state"], summary["stats"], summary["tap"]
+    model = state.model
+    n_total = sum(p.numel() for p in model.parameters())
+    n_mats = matrix_params(model, cfg)
+    if n_mats != cfg.param_count() or len(model.blocks) != cfg.n_layers:
+        raise AssertionError(f"lm_main: {n_mats} matrix "
+                             f"parameters in {len(model.blocks)} blocks, "
+                             f"want {cfg.param_count()} in {cfg.n_layers}")
+    losses, step_ms = check_lm_run("lm_main", summary, cfg, batch, seq_used,
+                                   steps, expect)
+    loss1, norm1 = tap["first"]
     first = {"loss": tap["metrics"][0][0], "grad_norm": tap["metrics"][0][1]}
     whole = {"loss": loss1, "grad_norm": norm1}
     for k, rtol in LM_CHECK_RTOL.items():
         if abs(whole[k] - first[k]) > rtol * abs(first[k]):
             raise AssertionError(f"lm_main: un-microbatched {k} {whole[k]} "
                                  f"vs microbatched {first[k]} (rtol {rtol})")
-    ms = sorted(tap["ms"][1:])
-    step_ms = ms[len(ms) // 2] if ms else float("nan")
     last = {k: v.to(next(model.parameters()).device)
             for k, v in tap["batches"][-1].items()}
-    profile = profile_step(real(launch.build_model(cfg).loss, tcfg), state,
-                           last)
+    profile = profile_step(launch.make_train_step(
+        launch.build_model(cfg).loss, tcfg), state, last)
     tokens = batch * seq_used
     n = cfg.param_count()
     out = {"arch": LM_ARCH, "reduced": reduced, "layers": len(model.blocks),
-           "params_matrix": n_mats - pad_rows, "params_total": n_total,
+           "params_matrix": n_mats, "params_total": n_total,
            "param_count": n, "batch": batch, "seq": seq_used,
            "seq_wanted": seq, "oom_at_seq": oom,
            "microbatch": tcfg.microbatch, "steps": len(tap["metrics"]),
@@ -928,20 +1010,351 @@ def lm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
            "mfu_estimate_6NT_vs_dense_bf16_peak":
                6 * n * tokens / (step_ms / 1e3) / BF16_PEAK_FLOPS,
            "wall_seconds": summary["wall"], "launches": summary["launches"],
-           "transformed": transformed, "stages": stats.stage_breakdown(),
+           "transformed": stats.stages["transform"].items,
+           "stages": stats.stage_breakdown(),
            "profile_one_more_step": profile}
-    del summary, state, model, stats, last
+    del summary, state, model, stats, last, tap
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def lm_ckpt(root: str, expect, batch: int = 8, seq: int = 128) -> dict:
-    """``launch.train.main`` at ``llama3_2_3b``'s reduced config on the card
-    with a checkpoint at step 4: ``resume_or_init`` restores it into a fresh
-    model; every leaf bit-equal, the leaves in the JAX package's
+def moe_layer_check(model, cfg, tokens, n_micro: int) -> dict:
+    """The first MoE layer on the first microbatch of ``tokens`` (its input
+    from the model's own embedding and blocks before it, in the compute
+    dtype) against a plain float32 loop over the experts, each on its kept
+    (token, weight) pairs of the same routing (``moe.route``), summed back
+    per token; and, over every microbatch, the share of each expert's routed
+    slots that were dropped.  Max abs error within ``MOE_LOOP_TOL`` x the
+    loop's largest magnitude."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_lib
+
+    blk = model.moe_blocks[0]
+    E, D = cfg.moe.n_experts, cfg.d_model
+    per = tokens.shape[0] // n_micro
+    routed = torch.zeros(E, dtype=torch.int64)
+    dropped = torch.zeros(E, dtype=torch.int64)
+    ex = {k: v.detach() for k, v in blk.moe.experts.items()}
+    err = None
+    with torch.no_grad():
+        for i in range(n_micro):
+            x = L.embed_lookup(model.embed, tokens[i * per:(i + 1) * per],
+                               cfg.cdtype())
+            for b in model.blocks:
+                x = b(x)
+            x = x + L.mha(blk.attn, L.norm_apply(x, blk.ln1, cfg.norm,
+                                                  cfg.norm_eps), blk.spec)
+            y = L.norm_apply(x, blk.ln2, cfg.norm, cfg.norm_eps)
+            yf = y.reshape(-1, D)
+            plan = moe_lib.route(blk.moe, yf, cfg,
+                                 moe_lib.capacity(yf.shape[0], cfg))
+            se, keep = plan["se"].cpu(), plan["keep"].cpu()
+            routed += torch.bincount(se, minlength=E)
+            dropped += torch.bincount(se[~keep], minlength=E)
+            if i:
+                continue
+            got = moe_lib.moe_apply(blk.moe, y, cfg).reshape(-1, D).float()
+            xs = yf.float()
+            want = torch.zeros_like(xs)
+            for e in range(E):
+                sel = (plan["se"] == e) & plan["keep"]
+                t, w = plan["st"][sel], plan["sw"][sel].float()
+                xe = xs[t]
+                h = F.silu(xe @ ex["w1"][e].float()) \
+                    * (xe @ ex["w3"][e].float())
+                want.index_add_(0, t, (h @ ex["w2"][e].float()) * w[:, None])
+            if cfg.moe.n_shared_experts:
+                want += L.mlp_apply({k: v.detach().float() for k, v in
+                                     blk.moe.shared.items()}, xs, "swiglu")
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            pairs = int(plan["keep"].sum())
+    if not err <= MOE_LOOP_TOL * scale:
+        raise AssertionError(f"moe layer: max abs error {err} against the "
+                             f"loop (largest {scale}, tol {MOE_LOOP_TOL})")
+    return {"max_abs_err": err, "largest": scale, "tol": MOE_LOOP_TOL,
+            "kept_pairs_checked": pairs,
+            "tokens_checked": per * tokens.shape[1],
+            "routed_per_expert": routed.tolist(),
+            "dropped_share_per_expert": (dropped / routed.clamp(min=1))
+            .tolist(),
+            "dropped_share": float(dropped.sum() / routed.sum())}
+
+
+def moe_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
+             steps: int = LM_STEPS, layers: int = MOE_LAYERS,
+             extra_args=()) -> dict:
+    """``launch.train.main`` at ``mixtral_8x7b``'s full width (d 4096, 32 /
+    8 heads x 128, 8 experts top-2, d_ff_expert 14336, vocab 32000, window
+    4096, untied), depth cut to ``layers`` (``run_launcher``'s ``cfg``), the
+    preset's AdamW in float32, ``microbatch=4`` and ``fsdp`` on one device,
+    bf16 compute, full remat.  Before the first step, with the capacity
+    factor raised to E / k so that nothing drops (the capacity is per
+    microbatch, so at 1.25 the dropped tokens differ), half the batch's
+    loss and gradient norm un-microbatched against two microbatches of the
+    preset's rows.  Checks: parameter count, ``check_lm_run``, that
+    check within ``LM_CHECK_RTOL``, ``moe_layer_check`` on the first batch.
+    Then one more step under the profiler.  Reruns at ``LM_OOM_SEQ`` if the
+    card runs out of memory."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.launch import train as launch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.training.grad import microbatched_value_and_grad
+    from repro_torch.training.optimizer import global_norm
+
+    reduced = "--reduced" in extra_args
+    base = get_reduced(MOE_ARCH) if reduced else get_config(MOE_ARCH)
+    cfg = dataclasses.replace(base, n_layers=layers)
+    tcfg = launch.train_preset(MOE_ARCH)
+    raised = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+    def no_drop_check(state, b, loss_fn):
+        per = b["tokens"].shape[0] // tcfg.microbatch
+        half = {k: v[:2 * per] for k, v in b.items()}
+        mods = [m for m in state.model.modules() if hasattr(m, "cfg")]
+        out = {}
+        for m in mods:
+            m.cfg = raised
+        try:
+            for label, n in (("whole", 1), ("microbatched", 2)):
+                loss, g = microbatched_value_and_grad(
+                    loss_fn, n, accum_dtype=tcfg.accum_dtype)(state.model,
+                                                              half)
+                out[label] = {"loss": float(loss),
+                              "grad_norm": float(global_norm(g))}
+                del g
+        finally:
+            for m in mods:
+                m.cfg = cfg
+        return out
+
+    def attempt(s: int) -> dict:
+        return run_launcher(
+            ["--arch", MOE_ARCH, "--batch", str(batch), "--seq", str(s),
+             "--steps", str(steps), "--etl-backend", "cuda",
+             "--max-restarts", "0", *extra_args], cfg=cfg,
+            on_first=no_drop_check)
+
+    summary, seq_used, oom = with_oom_rerun(attempt, seq)
+    state, stats, tap = summary["state"], summary["stats"], summary["tap"]
+    model = state.model
+    n_mats = matrix_params(model, cfg)
+    if n_mats != cfg.param_count() or len(model.moe_blocks) != layers:
+        raise AssertionError(f"moe_main: {n_mats} matrix parameters in "
+                             f"{len(model.moe_blocks)} MoE blocks, want "
+                             f"{cfg.param_count()} in {layers}")
+    losses, step_ms = check_lm_run("moe_main", summary, cfg, batch, seq_used,
+                                   steps, expect)
+    check = tap["first"]
+    for k, rtol in LM_CHECK_RTOL.items():
+        w, m = check["whole"][k], check["microbatched"][k]
+        if abs(w - m) > rtol * abs(m):
+            raise AssertionError(f"moe_main: un-microbatched {k} {w} vs "
+                                 f"microbatched {m} (rtol {rtol})")
+    dev = next(model.parameters()).device
+    layer = moe_layer_check(model, cfg, tap["batches"][0]["tokens"].to(dev),
+                            tcfg.microbatch)
+    last = {k: v.to(dev) for k, v in tap["batches"][-1].items()}
+    profile = profile_step(launch.make_train_step(
+        launch.build_model(cfg).loss, tcfg), state, last)
+    tokens = batch * seq_used
+    active = cfg.active_param_count()
+    out = {"arch": MOE_ARCH, "reduced": reduced, "layers": layers,
+           "layers_full": base.n_layers, "params_matrix": n_mats,
+           "param_count": cfg.param_count(), "active_param_count": active,
+           "params_total": sum(p.numel() for p in model.parameters()),
+           "batch": batch, "seq": seq_used, "seq_wanted": seq,
+           "oom_at_seq": oom, "microbatch": tcfg.microbatch,
+           "fsdp": tcfg.fsdp, "optimizer": tcfg.optimizer,
+           "capacity": {"per_microbatch": moe_lib.capacity(
+               batch // tcfg.microbatch * seq_used, cfg),
+                        "factor": cfg.moe.capacity_factor},
+           "steps": len(tap["metrics"]), "losses": losses,
+           "grad_norms": [m[1] for m in tap["metrics"]],
+           "unmicrobatched_check_no_drops": {**check, "rtol": LM_CHECK_RTOL,
+                                             "capacity_factor":
+                                                 raised.moe.capacity_factor},
+           "first_moe_layer": layer,
+           "batches_checked": len(tap["batches"]),
+           "step_ms": tap["ms"], "step_ms_median_2_on": step_ms,
+           "tok_per_s": summary["tok_per_s"],
+           "tok_per_s_steps_2_on": tokens / (step_ms / 1e3),
+           "peak_mem_gb": summary["peak_mem_gb"],
+           "trainer_utilization": summary["trainer_utilization"],
+           "mfu_estimate_6_active_NT_vs_dense_bf16_peak":
+               6 * active * tokens / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+           "wall_seconds": summary["wall"], "launches": summary["launches"],
+           "transformed": stats.stages["transform"].items,
+           "stages": stats.stage_breakdown(),
+           "profile_one_more_step": profile}
+    del summary, state, model, stats, last, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def reference_factor_shapes(shape: tuple) -> dict:
+    """The JAX package's ``adafactor_init`` rule on a leaf's (stacked)
+    shape: ``vr`` / ``vc`` where the last two dims both exceed 1, else
+    ``v``."""
+    if len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1:
+        return {"vr": shape[:-1], "vc": shape[:-2] + shape[-1:]}
+    return {"v": shape}
+
+
+def bf16_ulps(a, b, scale=None) -> float:
+    """The largest distance between two bfloat16 tensors in units in the
+    last place: of the larger of the two values, or of ``scale`` where it
+    is larger (an update ``p - lr u`` that nearly cancels is rounded at the
+    scale of its terms, not of its result)."""
+    import torch
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    if scale is not None:
+        mag = torch.maximum(mag, scale.float().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -126)))
+                     - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+def adafactor_main(root: str, expect, batch: int = LM_BATCH,
+                   seq: int = LM_SEQ, steps: int = AF_STEPS,
+                   layers: int = AF_LAYERS, extra_args=()) -> dict:
+    """``launch.train.main`` at ``llama3_405b``'s full width (d 16384, 128
+    / 8 heads x 128, d_ff 53248, vocab 128256, untied), depth cut to
+    ``layers``, with the preset: Adafactor, bfloat16 parameters, state and
+    gradient accumulation, ``microbatch=8``, ``fsdp`` on one device.
+    Checks: parameter count, ``check_lm_run``, Adafactor's state shapes
+    against the reference's rule on the stacked leaves, and one leaf's
+    update (``AF_LEAF``, from the trained tensors and a seeded gradient
+    inside the clip norm) on the card against the same update on the CPU:
+    parameters and state within one bfloat16 unit in the last place (a
+    parameter's at the larger of its old and new values).  Reruns at
+    ``LM_OOM_SEQ`` if the card runs out of memory."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as ttr
+    from repro_torch.training.optimizer import leaf_shape, opt_update
+
+    reduced = "--reduced" in extra_args
+    base = get_reduced(AF_ARCH) if reduced else get_config(AF_ARCH)
+    cfg = dataclasses.replace(base, n_layers=layers)
+    tcfg = launch.train_preset(AF_ARCH)
+
+    def attempt(s: int) -> dict:
+        return run_launcher(
+            ["--arch", AF_ARCH, "--batch", str(batch), "--seq", str(s),
+             "--steps", str(steps), "--etl-backend", "cuda",
+             "--max-restarts", "0", *extra_args], cfg=cfg)
+
+    summary, seq_used, oom = with_oom_rerun(attempt, seq)
+    state, stats, tap = summary["state"], summary["stats"], summary["tap"]
+    model = state.model
+    n_mats = matrix_params(model, cfg)
+    if n_mats != cfg.param_count() or len(model.blocks) != layers:
+        raise AssertionError(f"adafactor_main: {n_mats} matrix parameters "
+                             f"in {len(model.blocks)} blocks, want "
+                             f"{cfg.param_count()} in {layers}")
+    losses, step_ms = check_lm_run("adafactor_main", summary, cfg, batch,
+                                   seq_used, steps, expect)
+    opt = state.opt
+    paths = [p for p, _ in ttr.jax_leaves(model.jax_tree())]
+    params = list(model.parameters())
+    for path, leaf, st in zip(paths, opt["leaves"], opt["f"]):
+        got = {k: tuple(v.shape) for k, v in st.items()}
+        if got != reference_factor_shapes(leaf_shape(leaf, params)) or any(
+                v.dtype != getattr(torch, tcfg.opt_state_dtype)
+                for v in st.values()):
+            raise AssertionError(f"adafactor_main: {path} state {got}")
+    state_bytes = sum(v.numel() * v.element_size() for st in opt["f"]
+                      for v in st.values())
+    adamw_bytes = 2 * sum(p.numel() for p in params) * torch.empty(
+        (), dtype=getattr(torch, tcfg.opt_state_dtype)).element_size()
+    # one leaf's update, card against CPU, from the same tensors
+    i = paths.index(AF_LEAF)
+    idx = opt["leaves"][i]
+    idx = idx if isinstance(idx, list) else [idx]
+    gen = torch.Generator(device=params[0].device).manual_seed(0)
+    ps = [params[j].detach().clone() for j in idx]
+    # inside the clip norm (~0.41 < max_grad_norm): the clip scale is a
+    # float32 reduction over the whole gradient whose order differs between
+    # the devices (2 B elements: 4.0947 vs 4.0929 measured), and it moves
+    # the rounding of the clipped bfloat16 gradient
+    gs = [torch.randn(p.shape, generator=gen, device=p.device,
+                      dtype=torch.float32).mul_(1e-4).to(p.dtype) for p in ps]
+    olds = [p.cpu() for p in ps]
+    sub = {"f": [{k: v.clone() for k, v in opt["f"][i].items()}],
+           "leaves": [list(range(len(ps)))]}
+    host = {"f": [{k: v.cpu() for k, v in sub["f"][0].items()}],
+            "leaves": sub["leaves"]}
+    hps, hgs = [p.cpu() for p in ps], [g.cpu() for g in gs]
+    opt_update(ps, gs, sub, state.step, tcfg)
+    torch.cuda.synchronize()
+    opt_update(hps, hgs, host, state.step, tcfg)
+    leaf_ulps = {"params": max(bf16_ulps(a.cpu(), b, old)
+                               for a, b, old in zip(ps, hps, olds))}
+    for k, v in sub["f"][0].items():
+        leaf_ulps[k] = bf16_ulps(v.cpu(), host["f"][0][k])
+    if max(leaf_ulps.values()) > 1:
+        raise AssertionError(f"adafactor_main: {AF_LEAF} update on the card "
+                             f"vs the CPU: {leaf_ulps} ulps")
+    tokens = batch * seq_used
+    n = cfg.param_count()
+    out = {"arch": AF_ARCH, "reduced": reduced, "layers": layers,
+           "layers_full": base.n_layers, "params_matrix": n_mats,
+           "param_count": n,
+           "params_total": sum(p.numel() for p in params),
+           "param_dtype": cfg.param_dtype, "batch": batch, "seq": seq_used,
+           "seq_wanted": seq, "oom_at_seq": oom,
+           "microbatch": tcfg.microbatch, "fsdp": tcfg.fsdp,
+           "optimizer": tcfg.optimizer,
+           "opt_state_dtype": tcfg.opt_state_dtype,
+           "accum_dtype": tcfg.accum_dtype,
+           "opt_state_bytes": state_bytes,
+           "adamw_state_bytes_same_dtype": adamw_bytes,
+           "state_shapes_match_reference_rule": True,
+           "leaf_update_card_vs_cpu": {"leaf": AF_LEAF, "ulps": leaf_ulps,
+                                       "tol_ulps": 1},
+           "steps": len(tap["metrics"]), "losses": losses,
+           "grad_norms": [m[1] for m in tap["metrics"]],
+           "batches_checked": len(tap["batches"]),
+           "step_ms": tap["ms"], "step_ms_median_2_on": step_ms,
+           "tok_per_s": summary["tok_per_s"],
+           "tok_per_s_steps_2_on": tokens / (step_ms / 1e3),
+           "peak_mem_gb": summary["peak_mem_gb"],
+           "trainer_utilization": summary["trainer_utilization"],
+           "mfu_estimate_6NT_vs_dense_bf16_peak":
+               6 * n * tokens / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+           "wall_seconds": summary["wall"], "launches": summary["launches"],
+           "transformed": stats.stages["transform"].items,
+           "stages": stats.stage_breakdown()}
+    del summary, state, model, stats, tap, params, opt, ps, gs, sub
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_ckpt(root: str, expect, batch: int = 8, seq: int = 128,
+            arch: str = LM_ARCH, every: int = 4,
+            name: str = "lm_ckpt") -> dict:
+    """``launch.train.main`` at ``arch``'s reduced config on the card with a
+    checkpoint at step ``every``: ``resume_or_init`` restores it into a
+    fresh model; every leaf bit-equal, the leaves in the JAX package's
     ``TrainState(params, opt, step)`` order (the manifest's shapes, blocks
-    stacked ``[L, ...]``), and the launcher resumes from it."""
+    stacked ``[L, ...]``; Adafactor's factors after the parameters), and
+    the launcher resumes from it to step ``every + 2``."""
     import json as json_lib
     import shutil
 
@@ -952,45 +1365,53 @@ def lm_ckpt(root: str, expect, batch: int = 8, seq: int = 128) -> dict:
     from repro_torch.training import checkpoint as ckpt_lib
     from repro_torch.training.train_loop import TrainState, resume_or_init
 
-    d = os.path.join(root, "build", "lm_ckpt")
+    d = os.path.join(root, "build", name)
     shutil.rmtree(d, ignore_errors=True)
-    args = ["--arch", LM_ARCH, "--reduced", "--batch", str(batch), "--seq",
-            str(seq), "--ckpt-dir", d, "--ckpt-every", "4", "--max-restarts",
-            "0"]
+    args = ["--arch", arch, "--reduced", "--batch", str(batch), "--seq",
+            str(seq), "--ckpt-dir", d, "--ckpt-every", str(every),
+            "--max-restarts", "0"]
     df.reset_launch_counts()
-    first = launch.main(args + ["--steps", "4"])
+    first = launch.main(args + ["--steps", str(every)])
     torch.cuda.synchronize()
-    expect(dict(df.LAUNCHES), lm_launches(
+    launches = dict(df.LAUNCHES)
+    expect(launches, lm_launches(
         first["job"].compiled, first["stats"].stages["transform"].items),
-        "lm_ckpt")
+        name)
     trained = first["state"]
-    if ckpt_lib.latest_step(d) != 4:
-        raise AssertionError(f"lm_ckpt: latest {ckpt_lib.latest_step(d)}")
+    if ckpt_lib.latest_step(d) != every:
+        raise AssertionError(f"{name}: latest {ckpt_lib.latest_step(d)}")
     model = trained.model
-    tcfg = launch.train_preset(LM_ARCH)
+    tcfg = launch.train_preset(arch)
     restored = resume_or_init(lambda: TrainState.create(
         launch.build_model(model.cfg).init(seed=7), tcfg), d)
     want = ttr.state_to_jax_leaves(trained)
     got = ttr.state_to_jax_leaves(restored)
     shapes = [list(ttr.stacked(x).shape) for x in want]
-    with open(os.path.join(d, "step_00000004", "manifest.json")) as fh:
+    with open(os.path.join(d, f"step_{every:08d}", "manifest.json")) as fh:
         manifest = json_lib.load(fh)
     order_ok = [e["shape"] for e in manifest["index"]] == shapes
-    equal = restored.step == trained.step == 4 and len(got) == len(want) \
-        and all(torch.equal(ttr.stacked(a), ttr.stacked(b))
-                for a, b in zip(want, got))
+    equal = restored.step == trained.step == every and \
+        len(got) == len(want) and \
+        all(torch.equal(ttr.stacked(a), ttr.stacked(b))
+            for a, b in zip(want, got))
     if not (equal and order_ok):
-        raise AssertionError(f"lm_ckpt: bit-equal {equal}, JAX leaf order "
+        raise AssertionError(f"{name}: bit-equal {equal}, JAX leaf order "
                              f"{order_ok}")
     paths = [p for p, _ in ttr.jax_leaves(model.jax_tree())]
-    resumed = launch.main(args + ["--steps", "6"])
-    if resumed["state"].step != 6 or ckpt_lib.latest_step(d) != 4:
-        raise AssertionError(f"lm_ckpt: resumed to {resumed['state'].step}")
-    out = {"steps": trained.step, "leaves": len(got),
+    resumed = launch.main(args + ["--steps", str(every + 2)])
+    if resumed["state"].step != every + 2:
+        raise AssertionError(f"{name}: resumed to {resumed['state'].step}")
+    dtypes: dict = {}
+    for e in manifest["index"]:
+        dtypes[e["dtype"]] = dtypes.get(e["dtype"], 0) + 1
+    out = {"arch": arch, "optimizer": tcfg.optimizer,
+           "opt_state_dtype": tcfg.opt_state_dtype,
+           "microbatch": tcfg.microbatch, "steps": trained.step,
+           "leaves": len(got), "leaf_dtypes": dtypes,
            "param_leaves_jax_order": paths, "restored_bit_equal": equal,
            "manifest_shapes_in_jax_order": order_ok,
-           "treedef": manifest["treedef"], "resumed_to": 6,
-           "params": model.cfg.param_count()}
+           "treedef": manifest["treedef"], "resumed_to": every + 2,
+           "launches": launches, "params": model.cfg.param_count()}
     shutil.rmtree(d, ignore_errors=True)
     return out
 
@@ -1872,6 +2293,15 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     lm = lm_main(root, expect)
     emit({"phase": "lm_main", **lm})
 
+    # ---- the MoE family and Adafactor ------------------------------------
+    moe_ck = lm_ckpt(root, expect, batch=16, arch=MOE_CKPT_ARCH, every=2,
+                     name="moe_ckpt")
+    emit({"phase": "moe_ckpt", **moe_ck})
+    moe = moe_main(root, expect)
+    emit({"phase": "moe_main", **moe})
+    af = adafactor_main(root, expect)
+    emit({"phase": "adafactor_main", **af})
+
     path_launches = {"group_dataflow": main["launches"]["group_dataflow"],
                      "fit_dataflow": main["fit_launches"]["fit_dataflow"],
                      "output_dataflow": solo_launches["output_dataflow"]}
@@ -1903,8 +2333,10 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                 + sum(f.get(name, 0) for f in mt["fit_launches"].values()))
         if mt_n:
             out[-1]["launches_multitenant_main"] = mt_n
-        if lm["launches"].get(name):
-            out[-1]["launches_lm_main"] = lm["launches"][name]
+        for label, ph in (("lm_main", lm), ("moe_ckpt", moe_ck),
+                          ("moe_main", moe), ("adafactor_main", af)):
+            if ph["launches"].get(name):
+                out[-1][f"launches_{label}"] = ph["launches"][name]
     emit({"kernels": out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

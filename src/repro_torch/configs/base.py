@@ -152,7 +152,7 @@ ALL_SHAPES = [TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K]
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    optimizer: str = "adamw"  # adamw | adafactor (adafactor not ported yet)
+    optimizer: str = "adamw"  # adamw | adafactor
     lr: float = 3e-4
     weight_decay: float = 0.01
     beta1: float = 0.9
@@ -162,5 +162,5 @@ class TrainConfig:
     accum_dtype: str = "float32"  # grad-accumulation dtype (bf16 at 405B/1T)
     microbatch: int = 0  # number of grad-accumulation chunks (0/1 = off)
     grad_compression: str = "none"  # none | int8_ef (not ported yet)
-    fsdp: bool = False  # not ported yet (ROADMAP Queue A item 3)
+    fsdp: bool = False  # ZeRO-3; one device shards nothing (item 3: a mesh)
     max_grad_norm: float = 1.0

@@ -20,11 +20,12 @@ the newest committed checkpoint under ``--ckpt-dir`` is restored if there is
 one (``resume_or_init``), and a retriable failure restarts the loop from it
 (``run_with_restarts``).
 
-Ported: the dense family on one device (``--mesh host``).  ``--mesh pod`` /
-``multipod`` and presets that need Adafactor or FSDP raise
-``NotImplementedError`` (ROADMAP Queue A items 2 and 3); so do the other
-model families.  Without ``--device`` and without a CUDA device the
-launcher raises.
+Ported: the dense and MoE families on one device (``--mesh host``), with
+the presets' AdamW or Adafactor; ``fsdp`` and ``seq_parallel`` are
+sharding choices, the identity on one device.  ``--mesh pod`` /
+``multipod`` raise ``NotImplementedError`` (ROADMAP Queue A item 3); so do
+the other model families (item 2).  Without ``--device`` and without a
+CUDA device the launcher raises.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 -> Model`` with init / loss / forward entry points, ``input_specs`` per
 shape cell, ``random_batch`` and ``params_from_jax``.
 
-Ported: the dense family.  The others raise ``NotImplementedError`` naming
-their ROADMAP item (Queue A item 2: MoE, then VLM, SSM, hybrid, enc-dec).
+Ported: the dense and MoE families.  The others raise
+``NotImplementedError`` naming their ROADMAP item (Queue A item 2: VLM,
+SSM, hybrid, enc-dec).
 """
 
 from __future__ import annotations
@@ -42,9 +43,10 @@ def _unported(cfg: ModelConfig):
 
 def input_specs(cfg: ModelConfig, shape: ShapeCfg) -> dict:
     """``{name: (shape, torch dtype)}`` of every model input of a shape cell
-    (the dense family's: tokens and labels; decode: one token a row)."""
+    (the dense and MoE families': tokens and labels; decode: one token a
+    row)."""
     B, S = shape.global_batch, shape.seq_len
-    if cfg.family != "dense":
+    if cfg.family not in transformer.PORTED_FAMILIES:
         _unported(cfg)
     if shape.kind == "decode":
         return {"tokens": ((B, 1), torch.int32)}
@@ -53,7 +55,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeCfg) -> dict:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in transformer.PORTED_FAMILIES:
         _unported(cfg)
 
     def init(seed: int = 0, device=None):
@@ -81,6 +83,6 @@ def random_batch(cfg: ModelConfig, shape: ShapeCfg, seed: int = 0,
 def params_from_jax(model: transformer.Transformer, tree) -> \
         transformer.Transformer:
     """Load the JAX package's parameter tree (numpy arrays: stacked
-    ``blocks/*`` leaves of ``[L, ...]``, ``embed`` with its padded rows)
-    into ``model`` in place; returns it."""
+    ``blocks/*`` and ``moe_blocks/*`` leaves of ``[L, ...]``, ``embed``
+    with its padded rows) into ``model`` in place; returns it."""
     return model.load_jax_tree(tree)

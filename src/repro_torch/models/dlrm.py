@@ -170,16 +170,25 @@ def _jax_leaf_order(model: DLRM) -> list:
 
 def state_to_jax_leaves(state) -> list:
     """A train state (``model``: a ``DLRM``, ``opt``: AdamW ``{"m", "v"}``
-    in ``model.parameters()`` order, ``step``) as the JAX package's
-    ``TrainState(params, opt, step)`` leaves, in its flatten order: the
-    parameters, then ``m``, then ``v`` (each ``w`` as ``[in, out]``: a
-    transposed view, no copy), then ``step`` as an int32 scalar."""
+    or Adafactor ``{"f"}`` in ``model.parameters()`` order, ``step``) as
+    the JAX package's ``TrainState(params, opt, step)`` leaves, in its
+    flatten order: the parameters, then ``m``, then ``v`` (each ``w`` as
+    ``[in, out]``: a transposed view, no copy) or each leaf's ``vc`` and
+    ``vr`` (or ``v``), then ``step`` as an int32 scalar."""
     order = _jax_leaf_order(state.model)
     leaves = []
-    for group in (list(state.model.parameters()), state.opt["m"],
-                  state.opt["v"]):
+    groups = [list(state.model.parameters())]
+    if "f" not in state.opt:
+        groups += [state.opt["m"], state.opt["v"]]
+    for group in groups:
         leaves += [group[i].detach().t() if tr else group[i].detach()
                    for i, tr in order]
+    for i, tr in order if "f" in state.opt else ():
+        st = state.opt["f"][i]  # Adafactor: one leaf per parameter
+        if "v" in st:
+            leaves.append(st["v"].t() if tr else st["v"])
+        else:  # a transposed w's row factor is the reference's column one
+            leaves += [st["vr"], st["vc"]] if tr else [st["vc"], st["vr"]]
     leaves.append(torch.tensor(state.step, dtype=torch.int32))
     return leaves
 
@@ -194,7 +203,8 @@ def load_jax_leaves(state, leaves) -> object:
     if len(leaves) != len(want):
         raise ValueError(f"{len(leaves)} leaves for a state of {len(want)}")
     for dst, src in zip(want[:-1], leaves[:-1]):
-        src = torch.as_tensor(np.asarray(src))
+        if not isinstance(src, torch.Tensor):
+            src = torch.as_tensor(np.asarray(src))
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"leaf shape {tuple(src.shape)} != "
                              f"{tuple(dst.shape)}")

@@ -1,0 +1,191 @@
+"""Mixture-of-Experts layer (the JAX package's ``models/moe.py``):
+token-choice top-k routing, capacity-bounded, sort-based dispatch (no
+N x E one-hot tensors).
+
+Dispatch
+--------
+1. router logits (float32, off TF32) -> softmax -> top-k experts per token,
+   ties to the lower expert index, weights renormalized;
+2. position-within-expert from a stable argsort over the expert ids;
+3. tokens scattered into a dense (E, C, D) expert batch (capacity C,
+   overflow sent to a dump slot and dropped);
+4. the experts' SwiGLU as batched matmuls over the stacked expert weights;
+5. weighted scatter-add back to token order (+ shared experts, Kimi style).
+
+One token group (the reference's ``_n_token_groups`` is the data-parallel
+degree of an active mesh; the port has no mesh), so the capacity is that
+of all the tokens one call sees: with microbatching, of one microbatch.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+
+def moe_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
+             device=None) -> dict:
+    """``router`` ``[d, E]`` in float32 whatever ``dtype``; ``experts``
+    ``w1`` / ``w3`` ``[E, d, f]`` and ``w2`` ``[E, f, d]``; ``shared``, a
+    SwiGLU MLP of width ``n_shared_experts * f``, when there are shared
+    experts."""
+    e = cfg.moe
+    d, f = cfg.d_model, e.d_ff_expert
+    sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    kw = dict(generator=generator, device=device)
+    p = {"router": L.truncated_normal((d, e.n_experts), torch.float32, sc_in,
+                                      **kw),
+         "experts": {
+             "w1": L.truncated_normal((e.n_experts, d, f), dtype, sc_in, **kw),
+             "w3": L.truncated_normal((e.n_experts, d, f), dtype, sc_in, **kw),
+             "w2": L.truncated_normal((e.n_experts, f, d), dtype, sc_out,
+                                      **kw)}}
+    if e.n_shared_experts:
+        p["shared"] = L.mlp_init(d, e.n_shared_experts * f, "swiglu", dtype,
+                                 **kw)
+    return p
+
+
+class MoE(nn.Module):
+    """The layer's parameters as a module: ``router``, ``experts`` and
+    (with shared experts) ``shared``, indexable as the JAX tree is."""
+
+    def __init__(self, cfg: ModelConfig, dtype, *,
+                 generator: torch.Generator, device=None):
+        super().__init__()
+        tree = moe_init(cfg, dtype, generator=generator, device=device)
+        self.router = nn.Parameter(tree["router"])
+        self.experts = nn.ParameterDict(
+            {k: nn.Parameter(v) for k, v in tree["experts"].items()})
+        if "shared" in tree:
+            self.shared = nn.ParameterDict(
+                {k: nn.Parameter(v) for k, v in tree["shared"].items()})
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+    def tree(self) -> dict:
+        """``{"router", "experts": {...}[, "shared": {...}]}``."""
+        out = {"router": self.router, "experts": dict(self.experts.items())}
+        if hasattr(self, "shared"):
+            out["shared"] = dict(self.shared.items())
+        return out
+
+
+def capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert for ``n_tokens`` tokens in one group (the
+    reference's ``moe_apply`` rule with G = 1), rounded up to a multiple of
+    8."""
+    e = cfg.moe
+    cap = int(max(1, math.ceil(n_tokens * e.top_k / e.n_experts
+                               * e.capacity_factor)))
+    return -(-cap // 8) * 8
+
+
+def router_logits(xf, router):
+    """``xf @ router`` in float32; on the card with TF32 off for the call
+    (TF32 would move routing decisions)."""
+    xf = xf.to(torch.float32)
+    cuda = torch.backends.cuda.matmul
+    if not (xf.is_cuda and cuda.allow_tf32):
+        return xf @ router
+    cuda.allow_tf32 = False
+    try:
+        return xf @ router
+    finally:
+        cuda.allow_tf32 = True
+
+
+def top_k(probs, k: int):
+    """``jax.lax.top_k``: the ``k`` largest along the last axis, ties to
+    the lower index (a stable descending sort; ``torch.topk`` does not
+    promise the tie order on CUDA)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(p, xf, cfg: ModelConfig, cap: int) -> dict:
+    """The dispatch plan of one token group ``xf`` (N, D): ``top_e`` /
+    ``top_w`` (N, k), and per routed (token, expert) pair in expert order
+    ``se`` (expert), ``st`` (token), ``sw`` (weight), ``pos_in_e``,
+    ``keep`` (within capacity) and ``slot`` (``E * cap`` for a dropped
+    pair)."""
+    e = cfg.moe
+    N = xf.shape[0]
+    k, E = e.top_k, e.n_experts
+    dev = xf.device
+    probs = torch.softmax(router_logits(xf, p["router"]), dim=-1)
+    top_w, top_e = top_k(probs, k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = top_e.reshape(-1)
+    flat_t = torch.arange(N, device=dev).repeat_interleave(k)
+    flat_w = top_w.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)  # grouping by expert
+    se, st, sw = flat_e[order], flat_t[order], flat_w[order]
+    # bincount(se, minlength=E), without the host sync CUDA's bincount has
+    counts = torch.zeros(E, dtype=se.dtype, device=dev).index_add_(
+        0, se, torch.ones_like(se))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(N * k, device=dev) - starts[se]
+    keep = pos_in_e < cap
+    slot = torch.where(keep, se * cap + pos_in_e,
+                       torch.full_like(pos_in_e, E * cap))
+    return {"top_e": top_e, "top_w": top_w, "se": se, "st": st, "sw": sw,
+            "pos_in_e": pos_in_e, "keep": keep, "slot": slot}
+
+
+def dispatch_ffn(p, xf, cfg: ModelConfig, cap: int):
+    """Top-k dispatch, the experts' FFN and the combine for one token
+    group ``xf`` (N, D) -> (N, D)."""
+    e = cfg.moe
+    N, D = xf.shape
+    E = e.n_experts
+    r = route(p, xf, cfg, cap)
+    slot, keep, st = r["slot"], r["keep"], r["st"]
+
+    disp = xf.new_zeros((E * cap + 1, D)).index_put((slot,), xf[st])
+    disp = disp[:E * cap].reshape(E, cap, D)
+
+    dt = xf.dtype
+    ex = p["experts"]
+    hgate = torch.bmm(disp, ex["w1"].to(dt))
+    hlin = torch.bmm(disp, ex["w3"].to(dt))
+    eout = torch.bmm(F.silu(hgate) * hlin, ex["w2"].to(dt))
+
+    eflat = eout.reshape(E * cap, D)
+    gathered = torch.where(keep[:, None],
+                           eflat[torch.clamp(slot, max=E * cap - 1)],
+                           torch.zeros((), dtype=dt, device=xf.device))
+    return xf.new_zeros((N, D)).index_add(
+        0, st, gathered * r["sw"][:, None].to(dt))
+
+
+def moe_apply(p, x, cfg: ModelConfig):
+    """x: (B, S, D) -> (B, S, D)."""
+    e = cfg.moe
+    B, S, D = x.shape
+    N = B * S
+    xf = x.reshape(N, D)
+    out = dispatch_ffn(p, xf, cfg, capacity(N, cfg))
+    if e.n_shared_experts:
+        out = out + L.mlp_apply(p["shared"], xf, "swiglu")
+    return out.reshape(B, S, D)
+
+
+def aux_load_balance_loss(p, x, cfg: ModelConfig):
+    """Switch-style load-balance auxiliary loss (fraction x router prob)."""
+    e = cfg.moe
+    N = x.shape[0] * x.shape[1]
+    xf = x.reshape(N, -1)
+    probs = torch.softmax(router_logits(xf, p["router"]), dim=-1)
+    top = torch.argmax(probs, dim=-1)
+    frac = torch.bincount(top, minlength=e.n_experts) / N
+    imp = probs.mean(0)
+    return e.n_experts * torch.sum(frac * imp)

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family (the JAX package's
+"""Decoder-only transformer LM, dense and MoE families (the JAX package's
 ``models/transformer.py``).
 
 The blocks are an ``nn.ModuleList`` of per-layer modules, not one stacked
@@ -6,16 +6,20 @@ The blocks are an ``nn.ModuleList`` of per-layer modules, not one stacked
 would make autograd build a zero-filled gradient of the whole stack for
 every layer.  ``jax_tree`` / ``load_jax_tree`` stack and split the layers
 where the JAX package's layout (one ``blocks/*`` leaf of ``[L, ...]``) is
-wanted: checkpoints and ``models/api.params_from_jax``.
+wanted: checkpoints and ``models/api.params_from_jax``.  An MoE model
+has ``blocks`` for its leading ``first_dense_layers`` (every layer without
+MoE) and ``moe_blocks`` for the rest, whose MLP is an ``MoE`` layer
+(``models/moe.py``); the JAX tree's ``blocks`` / ``moe_blocks`` leaves.
 
 Remat (``cfg.remat``): ``"full"`` recomputes each block in the backward
 (``torch.utils.checkpoint``), ``"dots"`` saves the blocks' weight matmuls
 and recomputes the rest (selective activation checkpointing, as the
-reference's ``dots_with_no_batch_dims_saveable``), ``"none"`` saves all.
+reference's ``dots_with_no_batch_dims_saveable``: the experts' batched
+products are not saved), ``"none"`` saves all.
 
-Not ported yet (``NotImplementedError``): MoE blocks (ROADMAP Queue A item
-2, MoE), the VLM prefix (item 2, VLM) and the serving entry points
-``prefill`` / ``decode_step`` / ``init_cache`` (item 2, serving).
+Not ported yet (``NotImplementedError``): the VLM prefix (ROADMAP Queue A
+item 2, VLM) and the serving entry points ``prefill`` / ``decode_step`` /
+``init_cache`` (item 2, serving).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
-
+from repro_torch.models import moe as moe_lib
 
 
 def not_ported(what: str, item: str):
@@ -37,8 +41,9 @@ def not_ported(what: str, item: str):
                               f"item 2: {item})")
 
 
-FAMILY_ITEM = {"moe": "MoE", "vlm": "VLM", "ssm": "SSM", "hybrid": "hybrid",
+FAMILY_ITEM = {"vlm": "VLM", "ssm": "SSM", "hybrid": "hybrid",
                "encdec": "enc-dec"}
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def attn_spec(cfg: ModelConfig) -> L.AttnSpec:
@@ -54,27 +59,46 @@ def _params(tree: dict) -> nn.ParameterDict:
 
 
 class Block(nn.Module):
-    """One pre-norm block: attention, then the MLP, each residual."""
+    """One pre-norm block: attention, then the MLP (the MoE layer when
+    ``moe_layer``), each residual."""
 
-    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
-                 device):
+    def __init__(self, cfg: ModelConfig, *, moe_layer: bool = False,
+                 generator: torch.Generator, device):
         super().__init__()
         dt = cfg.pdtype()
         self.cfg = cfg
+        self.moe_layer = moe_layer
         self.spec = attn_spec(cfg)
         self.ln1 = _params(L.norm_init(cfg.d_model, cfg.norm, dt, device))
         self.ln2 = _params(L.norm_init(cfg.d_model, cfg.norm, dt, device))
         self.attn = _params(L.attn_init(self.spec, dt, generator=generator,
                                         device=device))
-        self.mlp = _params(L.mlp_init(cfg.d_model, cfg.d_ff, cfg.mlp, dt,
-                                      generator=generator, device=device))
+        if moe_layer:
+            self.moe = moe_lib.MoE(cfg, dt, generator=generator,
+                                   device=device)
+        else:
+            self.mlp = _params(L.mlp_init(cfg.d_model, cfg.d_ff, cfg.mlp, dt,
+                                          generator=generator,
+                                          device=device))
 
     def forward(self, x):
         cfg = self.cfg
         xn = L.norm_apply(x, self.ln1, cfg.norm, cfg.norm_eps)
         x = x + L.mha(self.attn, xn, self.spec)
         y = L.norm_apply(x, self.ln2, cfg.norm, cfg.norm_eps)
+        if self.moe_layer:
+            return x + moe_lib.moe_apply(self.moe, y, cfg)
         return x + L.mlp_apply(self.mlp, y, cfg.mlp)
+
+    def tree(self) -> dict:
+        """This layer's parameters in the JAX block's tree."""
+        out = {k: dict(getattr(self, k).items())
+               for k in ("ln1", "ln2", "attn")}
+        if self.moe_layer:
+            out["moe"] = self.moe.tree()
+        else:
+            out["mlp"] = dict(self.mlp.items())
+        return out
 
 
 _MATMULS = frozenset(getattr(torch.ops.aten, n).default
@@ -95,14 +119,15 @@ def _dots_context():
 
 
 class Transformer(nn.Module):
-    """The dense decoder-only LM.  Parameters (JAX names): ``embed``
+    """The decoder-only LM, dense or MoE.  Parameters (JAX names): ``embed``
     ``[padded_vocab, d]``, ``final_norm``, ``lm_head`` ``[d, padded_vocab]``
-    when untied, and ``blocks[i]`` with ``ln1``, ``ln2``, ``attn`` and
-    ``mlp``."""
+    when untied, ``blocks[i]`` with ``ln1``, ``ln2``, ``attn`` and ``mlp``,
+    and ``moe_blocks[i]`` with ``moe`` in place of ``mlp``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
-        if cfg.family != "dense" or cfg.moe is not None:
+        if cfg.family not in PORTED_FAMILIES or \
+                (cfg.family == "moe") != (cfg.moe is not None):
             not_ported(f"family {cfg.family!r}", FAMILY_ITEM.get(
                 cfg.family, cfg.family))
         dev = resolve_device(device)
@@ -118,8 +143,11 @@ class Transformer(nn.Module):
             self.lm_head = nn.Parameter(L.truncated_normal(
                 (cfg.d_model, cfg.padded_vocab), dt,
                 1.0 / (cfg.d_model ** 0.5), **kw))
-        self.blocks = nn.ModuleList(Block(cfg, **kw)
-                                    for _ in range(cfg.n_layers))
+        n_dense = cfg.moe.first_dense_layers if cfg.moe else cfg.n_layers
+        self.blocks = nn.ModuleList(Block(cfg, **kw) for _ in range(n_dense))
+        self.moe_blocks = nn.ModuleList(
+            Block(cfg, moe_layer=True, **kw)
+            for _ in range(cfg.n_layers - n_dense))
 
     # ---- forward ---------------------------------------------------------
 
@@ -140,7 +168,7 @@ class Transformer(nn.Module):
             not_ported("prefix_embeds", "VLM")
         cfg = self.cfg
         x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
-        for block in self.blocks:
+        for block in (*self.blocks, *self.moe_blocks):
             x = self._run_block(block, x)
         return L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
 
@@ -170,20 +198,28 @@ class Transformer(nn.Module):
     # ---- the JAX package's parameter layout -----------------------------
 
     def jax_tree(self) -> dict:
-        """The parameters in the JAX package's tree: ``blocks/<path>`` is
-        the list of the layers' tensors for that leaf (stack it for the
-        ``[L, ...]`` leaf), every other leaf the parameter itself."""
+        """The parameters in the JAX package's tree: ``blocks/<path>`` and
+        ``moe_blocks/<path>`` are the lists of the layers' tensors for that
+        leaf (stack one for the ``[L, ...]`` leaf), every other leaf the
+        parameter itself."""
         tree = {"embed": self.embed,
                 "final_norm": dict(self.final_norm.items())}
         if self.lm_head is not None:
             tree["lm_head"] = self.lm_head
-        blocks: dict = {}
-        for part in ("ln1", "ln2", "attn", "mlp"):
-            names = list(getattr(self.blocks[0], part).keys())
-            blocks[part] = {n: [getattr(b, part)[n] for b in self.blocks]
-                            for n in names}
-        tree["blocks"] = blocks
+        for name in ("blocks", "moe_blocks"):
+            layers = getattr(self, name)
+            if len(layers):
+                tree[name] = _by_layer([b.tree() for b in layers])
         return tree
+
+    def param_leaves(self) -> list:
+        """The JAX leaves as indices into ``list(self.parameters())``: an
+        int for a leaf that is one parameter, a list of per-layer indices
+        for a stacked one (the grouping Adafactor keys its state by)."""
+        index = {id(p): i for i, p in enumerate(self.parameters())}
+        return [[index[id(t)] for t in leaf] if isinstance(leaf, list)
+                else index[id(leaf)]
+                for _, leaf in jax_leaves(self.jax_tree())]
 
     @torch.no_grad()
     def load_jax_tree(self, tree: dict) -> "Transformer":
@@ -200,6 +236,12 @@ class Transformer(nn.Module):
         for (path, dst), (_, src) in zip(mine, theirs):
             copy_leaf(dst, src, path)
         return self
+
+
+def _by_layer(trees: list) -> dict:
+    """Per-layer trees of one structure -> one tree of per-layer lists."""
+    return {k: _by_layer([t[k] for t in trees]) if isinstance(v, dict)
+            else [t[k] for t in trees] for k, v in trees[0].items()}
 
 
 def jax_leaves(tree, prefix: str = "") -> list:
@@ -225,7 +267,9 @@ def copy_leaf(dst, src, path: str = "") -> None:
     """Copy ``src`` (array or tensor, stacked ``[L, ...]`` when ``dst`` is a
     list of per-layer tensors) into ``dst`` in place."""
     if not isinstance(src, torch.Tensor):
-        src = torch.from_numpy(np.array(src))
+        a = np.array(src)  # a JAX bfloat16 array is read from its bits
+        src = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            if a.dtype.name == "bfloat16" else torch.from_numpy(a)
     if isinstance(dst, list):
         if src.shape[0] != len(dst):
             raise ValueError(f"{path}: {src.shape[0]} layers for {len(dst)}")
@@ -245,25 +289,26 @@ def loss_fn(model: Transformer, batch: dict):
 
 def state_to_jax_leaves(state) -> list:
     """A train state (``model``: a ``Transformer``, ``opt``: AdamW ``{"m",
-    "v"}`` in ``model.parameters()`` order, ``step``) as the JAX package's
-    ``TrainState(params, opt, step)`` leaves, in its flatten order: the
-    parameters, then ``m``, then ``v`` (each in the parameter tree's sorted
-    order), then ``step`` as an int32 scalar.  A ``blocks/*`` leaf is the
-    list of its per-layer tensors (stack it, e.g. on the host, for the
-    ``[L, ...]`` leaf)."""
-    model = state.model
-    params = list(model.parameters())
-    index = {id(p): i for i, p in enumerate(params)}
-    order = [leaf for _, leaf in jax_leaves(model.jax_tree())]
-
+    "v"}`` in ``model.parameters()`` order, or Adafactor ``{"f"}`` in JAX
+    leaf order; ``step``) as the JAX package's ``TrainState(params, opt,
+    step)`` leaves, in its flatten order: the parameters, then ``m``, then
+    ``v`` (each in the parameter tree's sorted order) or, for Adafactor,
+    each leaf's ``vc`` and ``vr`` (or ``v``), then ``step`` as an int32
+    scalar.  A ``blocks/*`` / ``moe_blocks/*`` leaf is the list of its
+    per-layer tensors (stack it, e.g. on the host, for the ``[L, ...]``
+    leaf); Adafactor's state is stored stacked."""
     def pick(group, leaf):
         if isinstance(leaf, list):
-            return [group[index[id(t)]].detach() for t in leaf]
-        return group[index[id(leaf)]].detach()
+            return [group[i].detach() for i in leaf]
+        return group[leaf].detach()
 
-    leaves = []
-    for group in (params, state.opt["m"], state.opt["v"]):
-        leaves += [pick(group, leaf) for leaf in order]
+    groups = [list(state.model.parameters())]
+    if "f" not in state.opt:
+        groups += [state.opt["m"], state.opt["v"]]
+    order = state.model.param_leaves()
+    leaves = [pick(group, leaf) for group in groups for leaf in order]
+    for st in state.opt.get("f", ()):
+        leaves += [st[k] for k in sorted(st)]
     leaves.append(torch.tensor(state.step, dtype=torch.int32))
     return leaves
 
@@ -272,8 +317,8 @@ def state_to_jax_leaves(state) -> list:
 def load_jax_leaves(state, leaves) -> object:
     """The inverse of ``state_to_jax_leaves``: copy ``leaves`` (arrays or
     tensors; ``blocks/*`` stacked ``[L, ...]``) into ``state``'s parameters
-    and moments in place, on their devices, and set its step.  Returns
-    ``state``."""
+    and optimizer state in place, on their devices, and set its step.
+    Returns ``state``."""
     want = state_to_jax_leaves(state)
     if len(leaves) != len(want):
         raise ValueError(f"{len(leaves)} leaves for a state of {len(want)}")

@@ -79,7 +79,7 @@ def _flatten(tree) -> tuple:
         return [], lambda arrays: None, "None"
     if isinstance(tree, torch.Tensor):
         dev = tree.device
-        return [tree], lambda arrays: torch.from_numpy(arrays[0]).to(dev), "*"
+        return [tree], lambda arrays: torch.as_tensor(arrays[0]).to(dev), "*"
     return [tree], lambda arrays: arrays[0], "*"
 
 
@@ -96,13 +96,31 @@ def _join(parts: list, make: Callable, desc: str) -> tuple:
     return leaves, rebuild, desc
 
 
+# numpy has no bfloat16: a bfloat16 leaf is written as the JAX package
+# writes one (2-byte void records holding the bits; "bfloat16" in the
+# manifest) and read back from its bits
+_BF16_HOST = np.dtype("V2")
+
+
 def _to_host(leaf, copy: bool) -> np.ndarray:
     if isinstance(leaf, list):  # per-layer tensors: stacked on the host
         return np.stack([_to_host(t, copy=False) for t in leaf])
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
-        return (t.to("cpu", copy=True) if copy else t.cpu()).numpy()
+        bf16 = t.dtype == torch.bfloat16
+        if bf16:
+            t = t.view(torch.int16)
+        a = (t.to("cpu", copy=True) if copy else t.cpu()).numpy()
+        return a.view(_BF16_HOST) if bf16 else a
     return np.array(leaf) if copy else np.asarray(leaf)
+
+
+def _from_host(a: np.ndarray, dtype: str):
+    """A loaded leaf: a bfloat16 one as a tensor, any other as is."""
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+            torch.bfloat16)
+    return a
 
 
 def _write(arrays: list, desc: str, ckpt_dir: str, step: int) -> str:
@@ -116,7 +134,8 @@ def _write(arrays: list, desc: str, ckpt_dir: str, step: int) -> str:
             np.save(os.path.join(tmp, name), arr.copy(order="C")
                     if not arr.flags.c_contiguous else arr)
             index.append({"file": name, "shape": list(arr.shape),
-                          "dtype": str(arr.dtype)})
+                          "dtype": "bfloat16" if arr.dtype == _BF16_HOST
+                          else str(arr.dtype)})
         manifest = {"step": step, "n_leaves": len(arrays),
                     "treedef": desc, "index": index}
         with open(os.path.join(tmp, "manifest.json"), "w") as fh:
@@ -200,7 +219,8 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None) -> Any:
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves; template has "
             f"{len(leaves_t)} — structure mismatch")
-    arrays = [np.load(os.path.join(d, e["file"])) for e in manifest["index"]]
+    arrays = [_from_host(np.load(os.path.join(d, e["file"])), e["dtype"])
+              for e in manifest["index"]]
     for a, t in zip(arrays, leaves_t):
         shape = ((len(t),) + tuple(t[0].shape) if isinstance(t, list)
                  else tuple(t.shape) if hasattr(t, "shape") else np.shape(t))

@@ -15,13 +15,13 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training import fault as fault_lib
 from repro_torch.training.grad import microbatched_value_and_grad
-from repro_torch.training.optimizer import adamw_init, opt_update
+from repro_torch.training.optimizer import opt_init, opt_update
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters are updated in place), the optimizer
-    moments, and the step count."""
+    state, and the step count."""
 
     model: nn.Module
     opt: dict
@@ -29,8 +29,13 @@ class TrainState:
 
     @staticmethod
     def create(model: nn.Module, tcfg: TrainConfig) -> "TrainState":
-        return TrainState(model=model,
-                          opt=adamw_init(list(model.parameters()), tcfg))
+        """A fresh state for ``tcfg.optimizer``; Adafactor's is keyed by
+        the model's JAX leaves (``param_leaves()``, where the model has
+        stacked ones), else by parameter."""
+        leaves = model.param_leaves() if hasattr(model, "param_leaves") \
+            else None
+        return TrainState(model=model, opt=opt_init(
+            list(model.parameters()), tcfg, leaves=leaves))
 
 
 def make_train_step(loss_fn: Callable, tcfg: TrainConfig) -> Callable:
@@ -38,8 +43,9 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig) -> Callable:
     (state, {"loss", "grad_norm"})``.  With ``tcfg.microbatch > 1`` the
     batch's rows are split into that many chunks whose gradients are
     accumulated (in ``tcfg.accum_dtype``; in place in ``.grad`` when that is
-    the parameters' dtype).  Parameters and moments update in place;
-    gradients are dropped after each step."""
+    the parameters' dtype).  Parameters and optimizer state (AdamW or
+    Adafactor, ``tcfg.optimizer``) update in place; gradients are dropped
+    after each step."""
     vg = microbatched_value_and_grad(loss_fn, max(tcfg.microbatch, 1),
                                      accum_dtype=tcfg.accum_dtype)
 

@@ -300,3 +300,46 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path):
     ref = ref_ck.restore(str(tmp_path), zeros)
     assert int(ref.step) == 4
     _assert_port_equals_ref(port, ref)
+
+
+def test_adafactor_checkpoint_restores_across_packages(tmp_path):
+    """A DLRM Adafactor state (one leaf per parameter; a transposed
+    ``w``'s row factor is the reference's column factor) saved by the port
+    restores in the reference, and back in the port, bit for bit."""
+    import jax
+    from repro.configs.base import TrainConfig as RefTrainConfig
+    from repro.training import checkpoint as ref_ck
+    from repro.training.train_loop import TrainState as RefTrainState
+
+    tc = TrainConfig(lr=1e-3, optimizer="adafactor")
+    gen = torch.Generator().manual_seed(0)
+    port = TrainState.create(dlrm.DLRM(CFG, device="cpu", generator=gen), tc)
+    step = make_train_step(dlrm.loss_fn, tc)
+    for i in range(2):
+        port, _ = step(port, _batch(i))
+    ck.save(port, str(tmp_path / "a"), port.step)
+    ref_dlrm, cfg = _ref_cfg()
+    shapes = jax.eval_shape(lambda: RefTrainState.create(
+        ref_dlrm.init(jax.random.key(0), cfg),
+        RefTrainConfig(lr=1e-3, optimizer="adafactor")))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                   shapes)
+    ref = ref_ck.restore(str(tmp_path / "a"), zeros)
+    assert int(ref.step) == 2
+    mine = [x.numpy() for x in dlrm.state_to_jax_leaves(port)]
+    theirs = [np.asarray(x) for x in jax.tree_util.tree_leaves(ref)]
+    assert [a.shape for a in mine] == [b.shape for b in theirs]
+    for i, (a, b) in enumerate(zip(mine, theirs)):
+        np.testing.assert_array_equal(a, b, err_msg=f"leaf {i}")
+    # the reference's column factor of top_mlp[0].w ([16 in, 16 out]) is
+    # the port's row factor of its [out, in] weight
+    np.testing.assert_array_equal(
+        np.asarray(ref.opt["f"]["top_mlp"][0]["w"]["vc"]),
+        port.opt["f"][[n for n, _ in port.model.named_parameters()].index(
+            "top_mlp.0.weight")]["vr"].numpy())
+    ref_ck.save(ref, str(tmp_path / "b"), 2)
+    back = ck.restore(str(tmp_path / "b"), TrainState.create(
+        dlrm.DLRM(CFG, device="cpu"), tc))
+    for a, b in zip(dlrm.state_to_jax_leaves(back),
+                    dlrm.state_to_jax_leaves(port)):
+        assert torch.equal(a, b)

@@ -7,7 +7,8 @@ vocabularies in one group), every output dtype, 16-bit bags, the tile
 program's byte copy and the edges of the redesigned stage, build and
 packer kernels; the LM trainer's forward and backward against the CPU,
 three tenants at once bit for bit, and exact launch counts under four
-launching threads.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
+launching threads; the MoE family and bfloat16-state optimizer steps
+against the CPU.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
 elsewhere (a CUDA kernel has no interpret mode).
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -872,3 +873,132 @@ def test_launch_counts_exact_when_four_threads_launch(card):
         t.join(120)
     assert not any(t.is_alive() for t in threads)
     assert df.LAUNCHES["group_dataflow"] - before == 800
+
+
+@pytest.mark.parametrize("compute,rel", [("float32", 1e-4),
+                                         ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "kimi_k2"])
+def test_moe_matches_the_cpu(card, arch, compute, rel):
+    """The reduced MoE configs on the card against the CPU port from the
+    same parameters: the first MoE layer's routing (``top_e``,
+    ``pos_in_e``, ``keep``, ``slot``) equal on a seeded input; then the
+    model's loss within rtol ``rel / 10``, its logits within ``rel`` of
+    the largest and every gradient within ``rel`` in relative norm
+    (float32: TF32 off; bfloat16: the CPU parity tests' tolerance).  The
+    card's expert choices are pinned to the CPU run's: in float32 none of
+    its own may differ; in bfloat16 the router's input differs in its last
+    bits between the devices, so a token near a tie may pick another
+    expert (measured: 1-2 of 256 rows a layer at kimi_k2, none at
+    mixtral_8x7b), and at most 5 % of the rows may."""
+    import dataclasses
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as ttr
+    cfg = dataclasses.replace(get_reduced(arch), compute_dtype=compute)
+    real_top_k = moe.top_k
+    chosen, calls, flips = [], [0], [0, 0]
+
+    def recording(probs, k):
+        vals, idx = real_top_k(probs, k)
+        chosen.append(idx.cpu())
+        return vals, idx
+
+    def pinned(probs, k):
+        _, own = real_top_k(probs, k)
+        idx = chosen[calls[0]].to(probs.device)
+        calls[0] += 1
+        flips[0] += int((own != idx).any(-1).sum())
+        flips[1] += idx.shape[0]
+        return probs.gather(-1, idx), idx
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = ttr.Transformer(cfg, device="cpu", seed=3)
+        gpu = ttr.Transformer(cfg, device=card, seed=4)
+        gpu.load_jax_tree(_stack_tree(cpu.jax_tree()))
+        rng = np.random.default_rng(0)
+        xf = rng.normal(size=(96, cfg.d_model)).astype(np.float32)
+        tok = rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+        lab = rng.integers(-2, 4 * cfg.vocab_size, (4, 64)).astype(np.int32)
+        outs, plans = [], []
+        for m, dev, top in ((cpu, "cpu", recording), (gpu, card, pinned)):
+            with torch.no_grad():
+                plans.append({k: v.cpu() for k, v in moe.route(
+                    m.moe_blocks[0].moe, torch.tensor(xf, device=dev), cfg,
+                    moe.capacity(96, cfg)).items()})
+            b = {"tokens": torch.tensor(tok, device=dev),
+                 "labels": torch.tensor(lab, device=dev)}
+            moe.top_k = top
+            try:
+                loss = m.loss_fn(b)
+                loss.backward()
+                with torch.no_grad():
+                    logits = m(b["tokens"]).float().cpu()
+            finally:
+                moe.top_k = real_top_k
+            outs.append((float(loss.detach()), logits,
+                         [p.grad.float().cpu() for p in m.parameters()]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for k in ("top_e", "pos_in_e", "keep", "slot"):
+        assert torch.equal(plans[0][k], plans[1][k]), k
+    assert calls[0] == len(chosen) > 0
+    if compute == "float32":
+        assert flips[0] == 0
+    else:
+        assert flips[0] <= 0.05 * flips[1]
+    (l0, x0, g0), (l1, x1, g1) = outs
+    assert abs(l1 - l0) <= rel / 10 * abs(l0)
+    assert float((x1 - x0).abs().max()) <= rel * float(x0.abs().max())
+    for a, b in zip(g0, g1):
+        assert float(torch.linalg.vector_norm(a - b)) <= \
+            rel * float(torch.linalg.vector_norm(a))
+
+
+def _bf16_ulps(a, b, scale=None) -> float:
+    import chip_smoke
+    return chip_smoke.bf16_ulps(a.cpu(), b.cpu(),
+                                None if scale is None else scale.cpu())
+
+
+@pytest.mark.parametrize("optimizer", ["adafactor", "adamw"])
+def test_bf16_state_step_matches_the_cpu(card, optimizer):
+    """Two optimizer steps with bfloat16 parameters and state on the card
+    against the CPU port from the same tensors (a stacked [2, 64, 96]
+    leaf, stacked vectors [1, 64] and [2, 64], a [512, 64] matrix), the
+    gradient inside the clip norm (the clip scale is a float32 reduction
+    whose order differs between the devices): parameters and state within
+    one bfloat16 unit in the last place (a parameter's at the larger of
+    its old and new values)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.training import optimizer as topt
+    tc = TrainConfig(optimizer=optimizer, opt_state_dtype="bfloat16",
+                     lr=1e-2, weight_decay=0.1)
+    rng = np.random.default_rng(0)
+    shapes = [(64, 96), (64, 96), (64,), (64,), (64,), (512, 64)]
+    leaves = [[0, 1], [2], [3, 4], 5]
+
+    def tensors(scale):
+        return [torch.tensor(rng.normal(size=s) * scale,
+                             dtype=torch.float32).to(torch.bfloat16)
+                for s in shapes]
+    params, grads = tensors(1.0), tensors(2e-3)  # grad norm ~0.22
+    runs = []
+    for dev in ("cpu", card):
+        ps = [p.clone().to(dev) for p in params]
+        st = topt.opt_init(ps, tc, leaves=leaves)
+        for i in range(2):
+            topt.opt_update(ps, [g.to(dev) for g in grads], st, i, tc)
+        flat = st["f"] if optimizer == "adafactor" else [
+            {"m": m, "v": v} for m, v in zip(st["m"], st["v"])]
+        runs.append((ps, flat))
+    (p0, s0), (p1, s1) = runs
+    assert float(topt.global_norm(grads)) < tc.max_grad_norm
+    for a, b, old in zip(p0, p1, params):
+        assert _bf16_ulps(a, b, old) <= 1
+    for a, b in zip(s0, s1):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].shape == b[k].shape
+            assert _bf16_ulps(a[k], b[k]) <= 1, k

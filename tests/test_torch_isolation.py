@@ -110,22 +110,38 @@ def test_unported_options_raise():
     job = EtlJob(tmpl, src, backend="cuda", device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
         job.executor()
-    model = dlrm.DLRM(dlrm.DLRMConfig(vocab_size=9, d_emb=4, bot_mlp=(8, 4),
-                                      top_mlp=(8, 1)), device="cpu")
-    state = ttl.TrainState.create(model, TrainConfig())
-    step = ttl.make_train_step(dlrm.loss_fn, TrainConfig(
-        optimizer="adafactor"))
-    batch = {"dense": torch.zeros(2, 16), "label": torch.zeros(2),
-             "sparse": torch.zeros(2, 32, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        step(state, batch)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(get_reduced("mixtral_8x7b"))
+    with pytest.raises(NotImplementedError, match="VLM"):
+        build_model(get_reduced("internvl2_2b"))
     with pytest.raises(NotImplementedError, match="pod"):
         launch.main(["--arch", "llama3_2_3b", "--reduced", "--device", "cpu",
                      "--mesh", "pod"])
     with pytest.raises(NotImplementedError, match="Queue A item 3"):
         compressed_psum_mean([torch.zeros(2)], [torch.zeros(2)], "dp")
+
+
+def test_adafactor_and_moe_run():
+    """Once unported: a DLRM steps with Adafactor (one leaf per parameter,
+    the weights' factors in the port's [out, in] layout) and the MoE family
+    builds."""
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models.api import build_model
+    model = dlrm.DLRM(dlrm.DLRMConfig(vocab_size=9, d_emb=4, bot_mlp=(8, 4),
+                                      top_mlp=(8, 1)), device="cpu")
+    tc = TrainConfig(optimizer="adafactor")
+    state = ttl.TrainState.create(model, tc)
+    step = ttl.make_train_step(dlrm.loss_fn, tc)
+    batch = {"dense": torch.zeros(2, 16), "label": torch.zeros(2),
+             "sparse": torch.zeros(2, 32, dtype=torch.int32)}
+    before = [p.detach().clone() for p in model.parameters()]
+    state, m = step(state, batch)
+    assert state.step == 1 and torch.isfinite(m["loss"])
+    assert [sorted(s) for s in state.opt["f"]] == [
+        ["vc", "vr"] if p.dim() >= 2 and min(p.shape[-2:]) > 1 else ["v"]
+        for p in model.parameters()]
+    assert any(not torch.equal(a, p) for a, p in zip(before,
+                                                     model.parameters()))
+    moe = build_model(get_reduced("mixtral_8x7b")).init(device="cpu")
+    assert len(moe.moe_blocks) == 2 and len(moe.blocks) == 0
 
 
 def test_knob_controller_options_build_a_controller():

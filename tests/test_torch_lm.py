@@ -514,19 +514,28 @@ def test_launcher_feeds_the_pipelines_batches(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--arch", "llama3_405b", "--reduced"], "adafactor"),
-    (["--arch", "qwen3_32b", "--reduced"], "fsdp"),
     (["--arch", "llama3_2_3b", "--reduced", "--mesh", "pod"], "pod"),
-    (["--arch", "mixtral_8x7b", "--reduced"], "fsdp")])
+    (["--arch", "llama3_405b", "--reduced", "--mesh", "multipod"],
+     "multipod"),
+    (["--arch", "mixtral_8x7b", "--reduced", "--mesh", "pod"], "pod"),
+    (["--arch", "internvl2_2b", "--reduced"], "VLM")])
 def test_launcher_raises_for_what_is_not_ported(argv, what):
+    """A mesh and the unported families raise; the Adafactor, fsdp and MoE
+    presets train (``tests/test_torch_moe.py``)."""
     from repro_torch.launch import train as launch
     with pytest.raises(NotImplementedError, match=what):
         launch.main(argv + ["--device", "cpu", "--steps", "1"])
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x7b", "internvl2_2b",
-                                  "mamba2_370m", "zamba2_2_7b",
-                                  "whisper_base"])
+def test_int8_gradient_compression_raises_naming_item_3():
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+        presets.check_ported(TrainConfig(grad_compression="int8_ef"))
+    for arch in treg.ARCH_IDS:  # every preset is accepted
+        presets.check_ported(presets.train_preset(arch))
+
+
+@pytest.mark.parametrize("arch", ["internvl2_2b", "mamba2_370m",
+                                  "zamba2_2_7b", "whisper_base"])
 def test_other_families_raise_naming_their_item(arch):
     cfg = treg.get_reduced(arch)
     with pytest.raises(NotImplementedError, match="Queue A item 2"):
