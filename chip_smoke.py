@@ -192,11 +192,59 @@ Phases, one JSON line each; any failure exits non-zero:
                  leaf's update on the card against the CPU within one
                  bfloat16 ulp; the state's bytes against AdamW's, step ms,
                  tok/s, peak memory.
+18. serve_main  — repro_torch.launch.serve.main in process at llama3_2_3b's
+                 full width and depth (28 layers, float32 parameters, bf16
+                 compute), --batch 8 --prompt-len 1024 --max-new 128,
+                 greedy, its prompts from lm_token_pipeline on the cuda
+                 backend (two output launches at 1024): the prompt batch
+                 bit-equal to the plain compile; prefill s, decode tok/s and
+                 step ms; the cache's bytes against 2 L B len n_kv hd 2
+                 (+ pos); the decode step against its HBM bound (parameters
+                 as stored plus the cache, over 3.35 TB/s); the GQA
+                 repeat's and the weight casts' bytes a step (estimates);
+                 one decode step under torch.profiler; a teacher-forced
+                 check: one forward over the prompt and 16 generated tokens
+                 against prefill + 16 decode steps fed the same tokens,
+                 logits within 3e-2 x the largest, and each served token
+                 the forward's argmax wherever its top-2 margin exceeds
+                 that tolerance.
+19. serve_moe   — serve_main's run at mixtral_8x7b's full width, 2 of 32
+                 layers, --batch 4 --prompt-len 4064 --max-new 64: a
+                 4096-slot ring (the window) that the decode steps wrap;
+                 the check (40 tokens, 8 of them past the wrap) runs with
+                 the capacity factor raised to E / k on the same
+                 parameters (a prefill drops routed slots at 1.25, a decode
+                 step of B tokens none) and the forward's expert choices
+                 pinned (bf16 near-ties; at most 5 % of rows would choose
+                 otherwise).  At 4064 tokens the prompt pipeline lowers to
+                 the staged kernels (one fused_stage, two packers).  On
+                 running out of memory it reruns at --batch 2 and says so.
+20. ssm_main    — mamba2_370m at full width and depth (48 layers): the
+                 launcher with its preset (AdamW, microbatch 4), --batch 8
+                 --seq 1024 --steps 8 (lm_main's checks and readings), then
+                 launch.serve.main at serve_main's sizes: the state's bytes
+                 against L B ((d_conv - 1) (d_inner + 2 G N) 2 + H N P 4) at
+                 every length, decode tok/s against its bound (parameters,
+                 the state read and written), one profiled train step and
+                 one profiled decode step, and the teacher-forced check at
+                 float32 compute on the same parameters (at bf16 the
+                 recurrence drifts from the chunked forward over 48 layers:
+                 recorded, not asserted).
+21. vlm_main    — internvl2_2b at full width and depth (24 layers): the
+                 launcher (text only, as the reference's launcher feeds it),
+                 --batch 8 --seq 1024 --steps 4; one loss and backward on
+                 random_batch with 256 patch embeddings and 768 text tokens
+                 (the loss equal to the cross-entropy over the returned
+                 logits' text positions, finite gradients); then
+                 launch.serve.main --batch 4 --prompt-len 256 --max-new 32
+                 (text only: the reference's prefill takes no patches) with
+                 the teacher-forced check.
 
 Then the ``{"kernels": [...]}`` line (``launches_online_main``,
 ``launches_multitenant_main``, ``launches_lm_main``, ``launches_moe_ckpt``,
-``launches_moe_main`` and ``launches_adafactor_main`` beside the kernels
-those phases ran), the nvidia-smi line, and last the
+``launches_moe_main``, ``launches_adafactor_main``, ``launches_serve_main``,
+``launches_serve_moe``, ``launches_ssm_main`` and ``launches_vlm_main``
+beside the kernels those phases ran), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.
 
     python3 chip_smoke.py --wrappers DIR
@@ -213,6 +261,8 @@ and its change) compare in one process each, on one card.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -271,6 +321,20 @@ MOE_LOOP_TOL = 3e-2
 AF_ARCH, AF_LAYERS, AF_STEPS = "llama3_405b", 1, 6  # 1 of 126 layers
 AF_LEAF = "blocks/attn/wk"  # adafactor_main's leaf updated card vs CPU
 MOE_CKPT_ARCH = "kimi_k2"  # moe_ckpt: MoE + shared expert + Adafactor
+SERVE_ARCH = "llama3_2_3b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 1024, 128
+SERVE_CHECK = 16          # generated tokens in the teacher-forced check
+SERVE_TOL = 3e-2          # decode vs forward: the LM tests' bf16 tolerance
+# serve_moe: 4064 + 64 tokens against mixtral's 4096-token window, so the
+# ring wraps; its check runs 40 tokens, 8 of them past the wrap
+SERVE_MOE_BATCH, SERVE_MOE_PROMPT, SERVE_MOE_NEW = 4, 4064, 64
+SERVE_MOE_CHECK = 40
+# teacher-forced MoE checks: share of routed rows whose own expert choice
+# may differ from the forward's (bf16 near-ties; the card tests' bound)
+MOE_FLIP_SHARE = 0.05
+SSM_ARCH = "mamba2_370m"
+VLM_ARCH, VLM_STEPS = "internvl2_2b", 4
+VLM_SERVE_BATCH, VLM_PROMPT, VLM_NEW = 4, 256, 32
 
 
 def pipeline_iii_dense_as(Pipeline, Schema, ops, Vocab, dtype):
@@ -692,13 +756,13 @@ def autotune_main(tmpl, state0, expect, n_batches: int = 32) -> dict:
             "untuned_wall_seconds": plain_wall}
 
 
-def profile_step(step, state, batch, top: int = 30) -> dict:
-    """One more train step under ``torch.profiler`` (CPU and CUDA
-    activities): the wall time, the device's busy time (the sum of the
-    kernels' device time: the rest of the wall is the device's idle share)
-    and the ``top`` kernels and operators by self device time (an
-    operator's is that of the kernels it launched itself).  A profiler that
-    records no device time returns that, not a reading."""
+def profile_step(fn, top: int = 30) -> dict:
+    """``fn()`` (one more train or decode step) under ``torch.profiler``
+    (CPU and CUDA activities), synchronized: the wall time, the device's
+    busy time (the sum of the kernels' device time: the rest of the wall is
+    the device's idle share) and the ``top`` kernels and operators by self
+    device time (an operator's is that of the kernels it launched itself).
+    A profiler that records no device time returns that, not a reading."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -714,8 +778,7 @@ def profile_step(step, state, batch, top: int = 30) -> dict:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            state, m = step(state, batch)
-            float(m["loss"])
+            fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
@@ -809,12 +872,17 @@ def device_ms_by_stream(trace: dict, markers: dict) -> dict:
 def lm_launches(compiled, batches: int) -> dict:
     """The dataflow launches ``batches`` transforms of the LM token
     pipeline make: one group launch a batch where tokens and labels are
-    grouped, else one output launch per output."""
+    grouped, one output launch per output where each fits a tile, and
+    past that (a long prompt: its tile is over the budget) the staged
+    kernels: one stage for the tokens' hash chain (the labels pass
+    through) and one packer per output."""
     kinds = {v["path"] for v in compiled.lowering_report().values()}
     if kinds == {"grouped"}:
         return {"group_dataflow": batches}
     if kinds == {"fused"}:
         return {"output_dataflow": 2 * batches}
+    if kinds == {"staged"}:
+        return {"fused_stage": batches, "packer": 2 * batches}
     raise AssertionError(f"LM pipeline lowering {kinds}")
 
 
@@ -987,8 +1055,8 @@ def lm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
                                  f"vs microbatched {first[k]} (rtol {rtol})")
     last = {k: v.to(next(model.parameters()).device)
             for k, v in tap["batches"][-1].items()}
-    profile = profile_step(launch.make_train_step(
-        launch.build_model(cfg).loss, tcfg), state, last)
+    step = launch.make_train_step(launch.build_model(cfg).loss, tcfg)
+    profile = profile_step(lambda: step(state, last))
     tokens = batch * seq_used
     n = cfg.param_count()
     out = {"arch": LM_ARCH, "reduced": reduced, "layers": len(model.blocks),
@@ -1119,11 +1187,8 @@ def moe_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
     def no_drop_check(state, b, loss_fn):
         per = b["tokens"].shape[0] // tcfg.microbatch
         half = {k: v[:2 * per] for k, v in b.items()}
-        mods = [m for m in state.model.modules() if hasattr(m, "cfg")]
         out = {}
-        for m in mods:
-            m.cfg = raised
-        try:
+        with config_swapped(state.model, raised):
             for label, n in (("whole", 1), ("microbatched", 2)):
                 loss, g = microbatched_value_and_grad(
                     loss_fn, n, accum_dtype=tcfg.accum_dtype)(state.model,
@@ -1131,9 +1196,6 @@ def moe_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
                 out[label] = {"loss": float(loss),
                               "grad_norm": float(global_norm(g))}
                 del g
-        finally:
-            for m in mods:
-                m.cfg = cfg
         return out
 
     def attempt(s: int) -> dict:
@@ -1163,8 +1225,8 @@ def moe_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
     layer = moe_layer_check(model, cfg, tap["batches"][0]["tokens"].to(dev),
                             tcfg.microbatch)
     last = {k: v.to(dev) for k, v in tap["batches"][-1].items()}
-    profile = profile_step(launch.make_train_step(
-        launch.build_model(cfg).loss, tcfg), state, last)
+    step = launch.make_train_step(launch.build_model(cfg).loss, tcfg)
+    profile = profile_step(lambda: step(state, last))
     tokens = batch * seq_used
     active = cfg.active_param_count()
     out = {"arch": MOE_ARCH, "reduced": reduced, "layers": layers,
@@ -1413,6 +1475,555 @@ def lm_ckpt(root: str, expect, batch: int = 8, seq: int = 128,
            "treedef": manifest["treedef"], "resumed_to": every + 2,
            "launches": launches, "params": model.cfg.param_count()}
     shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def run_serve(argv: list, cfg=None) -> dict:
+    """``repro_torch.launch.serve.main(argv)`` in process; with ``cfg`` the
+    launcher builds that config (``get_config`` / ``get_reduced`` in its
+    namespace return it: a depth cut).  The launch counts and the peak
+    memory are reset first.  Returns the launcher's summary with
+    ``wall``, ``launches`` (the prompt job's) and ``peak_mem_gb``."""
+    import torch
+    from repro_torch.kernels import dataflow as df
+    from repro_torch.launch import serve as serve_launch
+
+    real = (serve_launch.get_config, serve_launch.get_reduced)
+    if cfg is not None:
+        serve_launch.get_config = serve_launch.get_reduced = \
+            lambda arch: cfg
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        df.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = serve_launch.main(argv)
+        torch.cuda.synchronize()
+        summary["wall"] = time.perf_counter() - t0
+        summary["launches"] = dict(df.LAUNCHES)
+        summary["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        serve_launch.get_config, serve_launch.get_reduced = real
+    return summary
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a (nested dict of) tensors."""
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def check_prompts(name: str, summary: dict, expect) -> dict:
+    """The serve launcher's prompt job: its dataflow launches (the LM
+    pipeline's lowering at the prompt length) and its batch bit-equal to
+    the plain (CPU) compile of the raw batch."""
+    import torch
+    from repro_torch.core.pipeline import lm_token_pipeline
+    from repro_torch.data.source import Source
+
+    B, S = summary["prompts"].shape
+    cfg = summary["cfg"]
+    expect(summary["launches"], lm_launches(
+        summary["job"].compiled, summary["etl"].stages["transform"].items),
+        name)
+    raw = next(iter(Source.lm_events(S, rows=B, batch_size=B, seed=0)))
+    plain = lm_token_pipeline(S, cfg.vocab_size, batch_size=B).compile(
+        "cuda", device="cpu")(raw)
+    if not torch.equal(summary["prompts"].cpu(), plain["tokens"]):
+        raise AssertionError(f"{name}: prompts differ from the plain "
+                             "compile")
+    return summary["launches"]
+
+
+def teacher_forced_check(name: str, summary: dict, n: int,
+                         greedy: bool = True, tol: float = SERVE_TOL,
+                         strict: bool = True) -> dict:
+    """One forward on the card over the prompt and the first ``n``
+    generated tokens against prefill + ``n`` decode steps fed the same
+    tokens: the decode logits predicting positions ``S .. S + n`` within
+    ``tol`` x the forward's largest magnitude, and the chosen token (the
+    served one with ``greedy``, else the decode logits' argmax) equal to
+    the forward's argmax wherever its top-2 margin exceeds ``tol`` x that
+    magnitude.  An SSM's forward runs over a whole number of SSD chunks
+    (the tokens past ``S + n`` cannot move the earlier logits).  An MoE
+    model's prefill and decode take the forward's expert choices for the
+    same (row, position) (``moe.top_k`` pinned, as the card tests pin the
+    CPU's): in bfloat16 the router's input differs in its last bits
+    between a forward over B x S tokens and a step over B, so a token near
+    a tie may pick another expert, which moves its logits by far more
+    than the tolerance (2.0 of 4.6 seen); how many rows would have chosen
+    otherwise is reported and held within ``MOE_FLIP_SHARE``.  With
+    ``strict=False`` nothing is asserted (a reading).  Returns the
+    readings, the cache after the last step and the next position (for a
+    profiled decode step)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_lib
+
+    model, module, prompts = summary["model"], summary["module"], \
+        summary["prompts"]
+    cfg = module.cfg
+    B, S = prompts.shape
+    served = torch.as_tensor(summary["tokens"], device=prompts.device)
+    seq = torch.cat([prompts, served.to(prompts.dtype)], 1)
+    F_len = S + n
+    if cfg.family == "ssm" and F_len > cfg.ssm.chunk:
+        F_len += -F_len % cfg.ssm.chunk
+    if F_len > seq.shape[1] or n >= served.shape[1]:
+        raise AssertionError(f"{name}: {served.shape[1]} served tokens for "
+                             f"a check over {n}")
+    real_top_k = moe_lib.top_k
+    choices, pins, flips = [], [], []
+
+    def record(probs, k):
+        vals, idx = real_top_k(probs, k)
+        choices.append(idx)
+        return vals, idx
+
+    def pinned(probs, k):
+        _, own = real_top_k(probs, k)
+        idx = pins.pop(0)
+        flips.append((own != idx).any(-1).sum())
+        return probs.gather(-1, idx), idx
+
+    try:
+        with torch.inference_mode():
+            moe_lib.top_k = record
+            h = module.hidden_states(seq[:, :F_len])[:, S - 1:S + n]
+            fwd = L.lm_logits(h, module.head(), cfg.tie_embeddings).float()
+            del h
+            by_pos = [c.view(B, F_len, -1) for c in choices]
+            pins += [c[:, :S].reshape(B * S, -1) for c in by_pos]
+            for i in range(n):
+                pins += [c[:, S + i] for c in by_pos]
+            moe_lib.top_k = pinned
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.prefill(module, {"tokens": prompts},
+                                      summary["max_len"])
+            torch.cuda.synchronize()
+            warm_prefill_s = time.perf_counter() - t0
+            dec = [lg[:, -1].float()]
+            for i in range(n):
+                lg, cache = model.decode_step(module, cache,
+                                              seq[:, S + i:S + i + 1], S + i)
+                dec.append(lg[:, -1].float())
+            dec = torch.stack(dec, 1)
+    finally:
+        moe_lib.top_k = real_top_k
+    if pins:
+        raise AssertionError(f"{name}: {len(pins)} expert choices unused")
+    with torch.inference_mode():
+        largest = float(fwd.abs().max())
+        err = (dec - fwd).abs().amax(dim=(0, 2))  # per position
+        top2 = torch.topk(fwd, 2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > tol * largest
+        chosen = served[:, :n + 1] if greedy else dec.argmax(-1)
+        wrong = sure & (chosen != fwd.argmax(-1))
+    out = {"positions": [S, S + n], "max_abs_err": float(err.max()),
+           "largest": largest, "tol": tol,
+           "max_abs_err_by_position": [float(e) for e in err],
+           "tokens_checked": int(sure.sum()), "tokens_total": sure.numel(),
+           "tokens_differing": int(wrong.sum()),
+           "chosen": "served" if greedy else "decode argmax",
+           # the serve's prefill is the model's first call (cold)
+           "prefill_s_warm": warm_prefill_s}
+    if choices:
+        rows = B * (S + n) * len(choices)  # per MoE layer: prefill, steps
+        out["routing_pinned"] = {
+            "rows": rows, "own_choice_differs": int(sum(flips)),
+            "bound_share": MOE_FLIP_SHARE}
+        if strict and int(sum(flips)) > MOE_FLIP_SHARE * rows:
+            raise AssertionError(f"{name}: routing {out['routing_pinned']}")
+    if strict and (not out["max_abs_err"] <= tol * largest
+                   or out["tokens_differing"]):
+        raise AssertionError(f"{name}: decode vs forward {out}")
+    return {"check": out, "cache": cache, "next": seq[:, S + n:S + n + 1],
+            "next_pos": S + n}
+
+
+@contextlib.contextmanager
+def config_swapped(module, cfg):
+    """``cfg`` on the module and every submodule that holds one, for the
+    block (the parameters stay as they are)."""
+    mods = [m for m in module.modules() if hasattr(m, "cfg")]
+    old = [m.cfg for m in mods]
+    for m in mods:
+        m.cfg = cfg
+    try:
+        yield
+    finally:
+        for m, c in zip(mods, old):
+            m.cfg = c
+
+
+def decode_once(model, module, tf: dict):
+    """One more decode step after ``teacher_forced_check``'s (its cache was
+    made under inference mode, so the step runs there too)."""
+    import torch
+    with torch.inference_mode():
+        return model.decode_step(module, tf["cache"], tf["next"],
+                                 tf["next_pos"])
+
+
+def serve_readings(summary: dict, bound_bytes: int) -> dict:
+    """Prefill seconds, decode tok/s and step ms, and the decode step's
+    HBM bound (``bound_bytes`` over ``HBM_BYTES_PER_S``)."""
+    st = summary["stats"]
+    steps = summary["tokens"].shape[1]
+    B = summary["tokens"].shape[0]
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    step_ms = st.decode_s / steps * 1e3
+    return {"batch": B, "prompt_len": summary["prompts"].shape[1],
+            "max_new": steps, "prefill_s": st.prefill_s,
+            "decode_s": st.decode_s, "decode_tok_per_s": st.tokens_per_s,
+            "decode_step_ms": step_ms,
+            "decode_step_bound_ms": bound_ms,
+            "decode_tok_per_s_bound": B / (bound_ms / 1e3),
+            "decode_share_of_bound": bound_ms / step_ms,
+            "peak_mem_gb": summary["peak_mem_gb"],
+            "wall_seconds": summary["wall"],
+            "first_sequence": summary["tokens"][0][:16].tolist()}
+
+
+def param_bytes(module) -> int:
+    return sum(p.numel() * p.element_size() for p in module.parameters())
+
+
+def free_memory() -> None:
+    """Collect what the last phase dropped and hand the card's cached
+    blocks back, so the next phase starts from an empty allocator."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_main(root: str, expect, arch: str = SERVE_ARCH,
+               batch: int = SERVE_BATCH, prompt: int = SERVE_PROMPT,
+               new: int = SERVE_NEW, check: int = SERVE_CHECK,
+               extra_args=()) -> dict:
+    """``launch.serve.main`` at ``llama3_2_3b``'s full width and depth (28
+    layers, float32 parameters, bf16 compute), greedy, its prompts from the
+    ETL on the card.  Readings: prefill s, decode tok/s and step ms; the
+    cache's bytes against ``2 L B len n_kv hd 2`` (+ ``pos``); the decode
+    step against its HBM bound (the parameters as stored, read once, plus
+    the cache); the GQA repeat's and the weight casts' bytes a step; one
+    decode step under the profiler.  Checks: the prompt job's launches and
+    batch, ``teacher_forced_check`` over ``check`` tokens."""
+    import torch
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.models import transformer as ttr
+
+    reduced = "--reduced" in extra_args
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    summary = run_serve(["--arch", arch, "--batch", str(batch),
+                         "--prompt-len", str(prompt), "--max-new", str(new),
+                         *extra_args])
+    launches = check_prompts("serve_main", summary, expect)
+    module = summary["module"]
+    if len(module.blocks) != cfg.n_layers:
+        raise AssertionError(f"serve_main: {len(module.blocks)} layers")
+    tf = teacher_forced_check("serve_main", summary, check)
+    cache = tf["cache"]
+    length = ttr.cache_len(cfg, prompt + new)
+    kv_bytes = 2 * cfg.n_layers * batch * length * cfg.n_kv_heads * \
+        cfg.hd * 2
+    cache_bytes = tensor_bytes(cache)
+    if cache_bytes != kv_bytes + cfg.n_layers * length * 4:
+        raise AssertionError(f"serve_main: cache {cache_bytes} B")
+    pbytes = param_bytes(module)
+    profile = profile_step(lambda: decode_once(summary["model"], module, tf))
+    n_par = sum(p.numel() for p in module.parameters())
+    out = {"arch": arch, "reduced": reduced, "layers": cfg.n_layers,
+           "params_matrix": matrix_params(module, cfg),
+           "param_count": cfg.param_count(), "param_bytes": pbytes,
+           "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype,
+           **serve_readings(summary, pbytes + cache_bytes),
+           "cache_len": length, "cache_bytes": cache_bytes,
+           "cache_kv_formula_bytes": kv_bytes,
+           # K and V repeated to n_heads in bf16, every layer (written)
+           "gqa_repeat_bytes_per_step_est": 2 * cfg.n_layers * batch
+           * length * cfg.n_heads * cfg.hd * 2,
+           "weight_cast_bytes_per_step_est": n_par * (4 + 2),
+           "teacher_forced": tf["check"], "launches": launches,
+           "profile_one_decode_step": profile}
+    return out
+
+
+def serve_moe(root: str, expect, arch: str = MOE_ARCH,
+              layers: int = MOE_LAYERS, batch: int = SERVE_MOE_BATCH,
+              prompt: int = SERVE_MOE_PROMPT, new: int = SERVE_MOE_NEW,
+              check: int = SERVE_MOE_CHECK, extra_args=()) -> dict:
+    """``launch.serve.main`` at ``mixtral_8x7b``'s full width, depth cut to
+    ``layers``: a 4096-slot ring (the window), and prompt + new tokens
+    past it, so the last decode steps write over wrapped slots.  The check
+    runs with the capacity factor raised to E / k on the same parameters
+    (a prefill over B x S tokens drops routed slots at 1.25, a decode step
+    of B tokens none): ``teacher_forced_check`` over ``check`` tokens, the
+    decode logits at the first decode position and past the wrap reported
+    apart.  If the card runs out of memory the phase reruns at half the
+    batch and says so."""
+    import torch
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.models import transformer as ttr
+
+    reduced = "--reduced" in extra_args
+    base = get_reduced(arch) if reduced else get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=layers)
+    raised = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+    def attempt(b: int) -> dict:
+        summary = run_serve(["--arch", arch, "--batch", str(b),
+                             "--prompt-len", str(prompt), "--max-new",
+                             str(new), *extra_args], cfg=cfg)
+        launches = check_prompts("serve_moe", summary, expect)
+        with config_swapped(summary["module"], raised):
+            tf = teacher_forced_check("serve_moe", summary, check,
+                                      greedy=False)
+        return summary, launches, tf
+
+    oom, used = None, batch
+    try:
+        summary, launches, tf = attempt(batch)
+    except torch.cuda.OutOfMemoryError as e:
+        oom = str(e).splitlines()[0]
+    if oom is not None:
+        free_memory()
+        used = batch // 2
+        summary, launches, tf = attempt(used)
+    module, cache = summary["module"], tf["cache"]
+    length = ttr.cache_len(cfg, prompt + new)
+    pos = cache["moe_blocks"]["pos"][0]
+    wrapped = int((pos >= length).sum())
+    if length != cfg.sliding_window or prompt + check <= length or \
+            wrapped != prompt + check - length:
+        raise AssertionError(f"serve_moe: ring of {length}, {wrapped} "
+                             "slots rewritten past the wrap")
+    kv_bytes = 2 * layers * used * length * cfg.n_kv_heads * cfg.hd * 2
+    cache_bytes = tensor_bytes(cache)
+    errs = tf["check"]["max_abs_err_by_position"]
+    wrap_at = 1 + length - prompt  # decode logits at position `length`
+    out = {"arch": arch, "reduced": reduced, "layers": layers,
+           "layers_full": base.n_layers,
+           "params_matrix": matrix_params(module, cfg),
+           "param_count": cfg.param_count(),
+           "param_bytes": param_bytes(module), "batch_wanted": batch,
+           "oom_at_batch": oom,
+           **serve_readings(summary, param_bytes(module) + cache_bytes),
+           "cache_len": length, "cache_bytes": cache_bytes,
+           "cache_kv_formula_bytes": kv_bytes,
+           "slots_rewritten_past_wrap": wrapped,
+           "check_capacity_factor": raised.moe.capacity_factor,
+           "teacher_forced": tf["check"],
+           "max_abs_err_first_decode": errs[1],
+           "max_abs_err_past_wrap": max(errs[wrap_at:]),
+           "past_wrap_positions": [length, prompt + check - 1],
+           "launches": launches}
+    return out
+
+
+def counted_params(model, cfg) -> int:
+    """``param_count``'s count of the model: its matrices (an SSM's
+    projections, not its convolutions, plus each layer's ``norm_w``) less
+    the embedding's padded rows."""
+    if cfg.family != "ssm":
+        return matrix_params(model, cfg)
+    pad_rows = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model * (
+        1 if cfg.tie_embeddings else 2)
+    return sum(p.numel() for n, p in model.named_parameters()
+               if (p.dim() >= 2 and ".conv_" not in n)
+               or n.endswith("norm_w")) - pad_rows
+
+
+def train_readings(name: str, summary: dict, cfg, batch: int, seq: int,
+                   steps: int, expect) -> dict:
+    """A launcher run's checks (``check_lm_run``, the parameter count) and
+    readings: losses, step ms, tok/s, peak memory, an MFU estimate."""
+    tap, model = summary["tap"], summary["state"].model
+    n = counted_params(model, cfg)
+    if n != cfg.param_count():
+        raise AssertionError(f"{name}: {n} parameters counted, want "
+                             f"{cfg.param_count()}")
+    losses, step_ms = check_lm_run(name, summary, cfg, batch, seq, steps,
+                                   expect)
+    tokens = batch * seq
+    stats = summary["stats"]
+    return {"params_counted": n, "param_count": cfg.param_count(),
+            "params_total": sum(p.numel() for p in model.parameters()),
+            "batch": batch, "seq": seq, "steps": len(tap["metrics"]),
+            "losses": losses, "grad_norms": [m[1] for m in tap["metrics"]],
+            "batches_checked": len(tap["batches"]), "step_ms": tap["ms"],
+            "step_ms_median_2_on": step_ms,
+            "tok_per_s": summary["tok_per_s"],
+            "tok_per_s_steps_2_on": tokens / (step_ms / 1e3),
+            "peak_mem_gb": summary["peak_mem_gb"],
+            "trainer_utilization": summary["trainer_utilization"],
+            "mfu_estimate_6NT_vs_dense_bf16_peak":
+                6 * n * tokens / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+            "wall_seconds": summary["wall"],
+            "launches": summary["launches"],
+            "transformed": stats.stages["transform"].items}
+
+
+def add_launches(*counts) -> dict:
+    out: dict = {}
+    for c in counts:
+        for k, v in c.items():
+            if v:
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def ssm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
+             steps: int = LM_STEPS, prompt: int = SERVE_PROMPT,
+             new: int = SERVE_NEW, check: int = SERVE_CHECK,
+             extra_args=()) -> dict:
+    """``mamba2_370m`` at full width and depth (48 layers): the launcher
+    with its preset (AdamW, microbatch 4), then ``launch.serve.main``
+    (greedy) with ``teacher_forced_check`` at float32 compute on the same
+    parameters (the bf16 one is a reading); the decode state's bytes
+    against ``L B ((d_conv - 1) (d_inner + 2 G N) 2 + H N P 4)``, constant
+    in length, and decode tok/s against its HBM bound (the parameters as
+    stored, read once, and the state read and written)."""
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.launch import train as launch
+    from repro_torch.models import ssm as ssm_lib
+
+    reduced = "--reduced" in extra_args
+    cfg = get_reduced(SSM_ARCH) if reduced else get_config(SSM_ARCH)
+    tcfg = launch.train_preset(SSM_ARCH)
+    summary = run_launcher(
+        ["--arch", SSM_ARCH, "--batch", str(batch), "--seq", str(seq),
+         "--steps", str(steps), "--etl-backend", "cuda",
+         "--max-restarts", "0", *extra_args])
+    state = summary["state"]
+    if len(state.model.blocks) != cfg.n_layers:
+        raise AssertionError("ssm_main: layers")
+    train = {"microbatch": tcfg.microbatch, "optimizer": tcfg.optimizer,
+             **train_readings("ssm_main", summary, cfg, batch, seq, steps,
+                              expect)}
+    dev = next(state.model.parameters()).device
+    last = {k: v.to(dev) for k, v in summary["tap"]["batches"][-1].items()}
+    step = launch.make_train_step(launch.build_model(cfg).loss, tcfg)
+    train["profile_one_more_step"] = profile_step(lambda: step(state, last))
+    del summary, state, last
+    free_memory()
+    summary = run_serve(["--arch", SSM_ARCH, "--batch", str(batch),
+                         "--prompt-len", str(prompt), "--max-new", str(new),
+                         *extra_args])
+    serve_launches = check_prompts("ssm_main serve", summary, expect)
+    module = summary["module"]
+    # bf16 decode drifts from the chunked forward with depth and steps (a
+    # float32 difference between the recurrence and the SSD moves bf16
+    # roundings, and 48 recurrent layers carry them on): a reading; the
+    # check runs at float32 compute on the same parameters
+    tf = teacher_forced_check("ssm_main", summary, check, strict=False)
+    with config_swapped(module, dataclasses.replace(
+            cfg, compute_dtype="float32")):
+        tf32 = teacher_forced_check("ssm_main", summary, check,
+                                    greedy=False)
+    cache = tf["cache"]
+    d_inner, H, G, N, P = ssm_lib.dims(cfg)
+    formula = cfg.n_layers * batch * ((cfg.ssm.d_conv - 1)
+                                      * (d_inner + 2 * G * N) * 2
+                                      + H * N * P * 4)
+    state_bytes = tensor_bytes(cache)
+    if state_bytes != formula or tensor_bytes(module.init_cache(
+            batch, 16 * (prompt + new))) != formula:
+        raise AssertionError(f"ssm_main: state {state_bytes} B, want "
+                             f"{formula} at every length")
+    pbytes = param_bytes(module)
+    profile = profile_step(lambda: decode_once(summary["model"], module, tf))
+    out = {"arch": SSM_ARCH, "reduced": reduced, "layers": cfg.n_layers,
+           "train": train,
+           "serve": {**serve_readings(summary, pbytes + 2 * state_bytes),
+                     "param_bytes": pbytes, "state_bytes": state_bytes,
+                     "state_formula_bytes": formula,
+                     "teacher_forced_bf16_reading": tf["check"],
+                     "teacher_forced_float32": tf32["check"],
+                     "launches": serve_launches,
+                     "profile_one_decode_step": profile},
+           "launches": add_launches(train["launches"], serve_launches)}
+    return out
+
+
+def vlm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
+             steps: int = VLM_STEPS, serve_batch: int = VLM_SERVE_BATCH,
+             prompt: int = VLM_PROMPT, new: int = VLM_NEW,
+             check: int = SERVE_CHECK, extra_args=()) -> dict:
+    """``internvl2_2b`` at full width and depth (24 layers): the launcher
+    (text only, as the reference's launcher feeds it; the preset's
+    microbatch 2); one loss and backward on ``random_batch`` with
+    ``n_patches`` (256) patch embeddings and ``seq - n_patches`` text
+    tokens, whose loss must equal the cross-entropy over the text
+    positions of the returned logits (rtol 1e-5) and whose gradients must
+    be finite; then ``launch.serve.main`` (text-only, greedy) with
+    ``teacher_forced_check``."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.launch import train as launch
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    from repro_torch.training.optimizer import global_norm
+
+    reduced = "--reduced" in extra_args
+    cfg = get_reduced(VLM_ARCH) if reduced else get_config(VLM_ARCH)
+    tcfg = launch.train_preset(VLM_ARCH)
+    summary = run_launcher(
+        ["--arch", VLM_ARCH, "--batch", str(batch), "--seq", str(seq),
+         "--steps", str(steps), "--etl-backend", "cuda",
+         "--max-restarts", "0", *extra_args])
+    model = summary["state"].model
+    if len(model.blocks) != cfg.n_layers:
+        raise AssertionError("vlm_main: layers")
+    train = {"microbatch": tcfg.microbatch, "optimizer": tcfg.optimizer,
+             **train_readings("vlm_main", summary, cfg, batch, seq, steps,
+                              expect)}
+    dev = next(model.parameters()).device
+    rows = max(batch // max(tcfg.microbatch, 1), 1)
+    b = api.random_batch(cfg, ShapeCfg("vlm", seq, rows, "train"), seed=0,
+                         device=dev)
+    P = b["patch_embeds"].shape[1]
+    for p in model.parameters():
+        p.grad = None
+    loss = model.loss_fn(b)
+    loss.backward()
+    grads = [p.grad for p in model.parameters()]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    gnorm = float(global_norm(grads))
+    with torch.no_grad():
+        logits = model(b["tokens"], b["patch_embeds"])
+        ce = float(L.cross_entropy(logits[:, P:], b["labels"],
+                                   valid_vocab=cfg.vocab_size))
+    del logits, grads
+    for p in model.parameters():
+        p.grad = None
+    loss = float(loss.detach())
+    prefix = {"rows": rows, "patches": P, "text": b["tokens"].shape[1],
+              "loss": loss, "ce_text_positions": ce,
+              "grads_finite": finite, "grad_norm": gnorm}
+    if not (finite and abs(loss - ce) <= 1e-5 * abs(ce)):
+        raise AssertionError(f"vlm_main: prefix check {prefix}")
+    del summary, model, b
+    free_memory()
+    summary = run_serve(["--arch", VLM_ARCH, "--batch", str(serve_batch),
+                         "--prompt-len", str(prompt), "--max-new", str(new),
+                         *extra_args])
+    serve_launches = check_prompts("vlm_main serve", summary, expect)
+    tf = teacher_forced_check("vlm_main", summary, check)
+    module = summary["module"]
+    out = {"arch": VLM_ARCH, "reduced": reduced, "layers": cfg.n_layers,
+           "train": train, "prefix_loss_and_backward": prefix,
+           "serve": {**serve_readings(summary, param_bytes(module)
+                                      + tensor_bytes(tf["cache"])),
+                     "teacher_forced": tf["check"],
+                     "launches": serve_launches},
+           "launches": add_launches(train["launches"], serve_launches)}
     return out
 
 
@@ -2302,6 +2913,20 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     af = adafactor_main(root, expect)
     emit({"phase": "adafactor_main", **af})
 
+    # ---- serving, the SSM family and the VLM prefix ----------------------
+    free_memory()
+    srv = serve_main(root, expect)
+    emit({"phase": "serve_main", **srv})
+    free_memory()
+    smoe = serve_moe(root, expect)
+    emit({"phase": "serve_moe", **smoe})
+    free_memory()
+    ssm_ph = ssm_main(root, expect)
+    emit({"phase": "ssm_main", **ssm_ph})
+    free_memory()
+    vlm = vlm_main(root, expect)
+    emit({"phase": "vlm_main", **vlm})
+
     path_launches = {"group_dataflow": main["launches"]["group_dataflow"],
                      "fit_dataflow": main["fit_launches"]["fit_dataflow"],
                      "output_dataflow": solo_launches["output_dataflow"]}
@@ -2334,7 +2959,9 @@ def main(root: str = HERE, time_only: bool = False) -> int:
         if mt_n:
             out[-1]["launches_multitenant_main"] = mt_n
         for label, ph in (("lm_main", lm), ("moe_ckpt", moe_ck),
-                          ("moe_main", moe), ("adafactor_main", af)):
+                          ("moe_main", moe), ("adafactor_main", af),
+                          ("serve_main", srv), ("serve_moe", smoe),
+                          ("ssm_main", ssm_ph), ("vlm_main", vlm)):
             if ph["launches"].get(name):
                 out[-1][f"launches_{label}"] = ph["launches"][name]
     emit({"kernels": out})

@@ -162,5 +162,5 @@ class TrainConfig:
     accum_dtype: str = "float32"  # grad-accumulation dtype (bf16 at 405B/1T)
     microbatch: int = 0  # number of grad-accumulation chunks (0/1 = off)
     grad_compression: str = "none"  # none | int8_ef (not ported yet)
-    fsdp: bool = False  # ZeRO-3; one device shards nothing (item 3: a mesh)
+    fsdp: bool = False  # ZeRO-3; one device shards nothing (a mesh: ROADMAP Queue A: distribution)
     max_grad_norm: float = 1.0

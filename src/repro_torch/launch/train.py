@@ -20,12 +20,14 @@ the newest committed checkpoint under ``--ckpt-dir`` is restored if there is
 one (``resume_or_init``), and a retriable failure restarts the loop from it
 (``run_with_restarts``).
 
-Ported: the dense and MoE families on one device (``--mesh host``), with
-the presets' AdamW or Adafactor; ``fsdp`` and ``seq_parallel`` are
-sharding choices, the identity on one device.  ``--mesh pod`` /
-``multipod`` raise ``NotImplementedError`` (ROADMAP Queue A item 3); so do
-the other model families (item 2).  Without ``--device`` and without a
-CUDA device the launcher raises.
+Ported: the dense, MoE, VLM and SSM families on one device (``--mesh
+host``), with the presets' AdamW or Adafactor; ``fsdp`` and
+``seq_parallel`` are sharding choices, the identity on one device.  As the
+reference's launcher does, it feeds tokens and labels only, so a VLM
+trains on text alone.  ``--mesh pod`` / ``multipod`` raise
+``NotImplementedError`` (ROADMAP Queue A: distribution); so do the hybrid
+and enc-dec families (their own Queue A items).  Without ``--device`` and
+without a CUDA device the launcher raises.
 """
 
 from __future__ import annotations
@@ -49,6 +51,19 @@ from repro_torch.training.train_loop import (LoopConfig, TrainState,
                                              train_loop)
 
 
+def placer(backend: str, device):
+    """The executor's place stage for ``backend``: the ``numpy`` backend's
+    batches are moved to ``device``; the ``torch`` / ``cuda`` backends'
+    are there already (None)."""
+    if backend != "numpy":
+        return None
+    dev = resolve_device(device)
+
+    def place(b):
+        return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+    return place
+
+
 def make_job(cfg, batch, seq, steps, *, backend="cuda", device=None,
              metrics_file="", embed_cache=None, autotune=None) -> EtlJob:
     """Declarative ingest session: raw event logs -> token batches on the
@@ -63,14 +78,8 @@ def make_job(cfg, batch, seq, steps, *, backend="cuda", device=None,
     """
     pipe = lm_token_pipeline(seq, cfg.vocab_size, batch_size=batch)
     src = Source.lm_events(seq, rows=batch * (steps + 4), batch_size=batch)
-    place = None
-    if backend == "numpy":
-        dev = resolve_device(device)
-
-        def place(b):
-            return {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
     return EtlJob(pipe, src, backend=backend, device=device, credits=2,
-                  place=place, metrics_file=metrics_file,
+                  place=placer(backend, device), metrics_file=metrics_file,
                   embed_cache=embed_cache, autotune=autotune,
                   metrics_labels={"arch": cfg.name})
 
@@ -135,7 +144,7 @@ def main(argv=None) -> dict:
     check_ported(tcfg)
     if args.mesh != "host":
         raise NotImplementedError(f"--mesh {args.mesh} is not ported yet "
-                                  "(ROADMAP Queue A item 3: distribution)")
+                                  "(ROADMAP Queue A: distribution)")
     model = build_model(cfg)
     dev = resolve_device(args.device)
     summary: dict = {}

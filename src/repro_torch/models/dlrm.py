@@ -141,6 +141,11 @@ def loss_fn(model: DLRM, batch: dict) -> torch.Tensor:
     return per.mean()
 
 
+def predict(model: DLRM, batch: dict) -> torch.Tensor:
+    """Click probabilities: the sigmoid of the logits."""
+    return torch.sigmoid(model(batch))
+
+
 def params_from_jax(tree: dict) -> dict:
     """The JAX package's ``dlrm.init`` pytree (leaves as numpy arrays) ->
     a ``state_dict`` for ``DLRM.load_state_dict``."""

@@ -12,15 +12,19 @@ Conventions
   Attention scores, softmax and the loss run in float32, as the reference's
   ``preferred_element_type=float32`` contractions do; probabilities are
   cast back to the compute dtype before they meet ``v``.
-- Only self-attention without a KV cache is here: the serving path
-  (``cache_init``, cross-attention, ring caches) is ROADMAP Queue A item 2's
-  serving entry.
+- KV caches (``cache_init``) are written in place at the decode position
+  (a ring buffer modulo its length for sliding-window models): the caller
+  keeps the cache it passed, as the reference's decode donates it.
+  Cross-attention (``kv_x=``) waits for the enc-dec family (ROADMAP
+  Queue A: enc-dec).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+from collections.abc import Mapping
 from typing import Optional
 
 import numpy as np
@@ -132,6 +136,19 @@ def attn_init(spec: AttnSpec, dtype, *, generator: torch.Generator,
     return p
 
 
+def cache_init(batch, length, n_kv, head_dim, dtype, device=None) -> dict:
+    """KV cache with a true-position array (supports ring buffers for SWA).
+
+    ``pos[s]`` is the absolute position stored in slot s (-1 = empty); masks
+    are derived from it, so ring wraparound needs no special casing.
+    """
+    shape = (batch, length, n_kv, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((length,), -1, dtype=torch.int32,
+                              device=device)}
+
+
 def _mask_from_positions(q_pos, k_pos, causal, window):
     """(Sq, Sk) additive f32 bias. k_pos = -1 marks empty cache slots."""
     ok = k_pos[None, :] >= 0
@@ -194,8 +211,17 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal, window,
     return torch.cat(outs, dim=1)
 
 
-def mha(p, x, spec: AttnSpec, *, q_pos: Optional[torch.Tensor] = None):
-    """Causal self-attention with GQA (no KV cache).  x: (B, S, D)."""
+def mha(p, x, spec: AttnSpec, *, q_pos: Optional[torch.Tensor] = None,
+        cache: Optional[dict] = None, cache_pos: Optional[int] = None,
+        ring: bool = False):
+    """Causal self-attention with GQA and an optional KV cache.
+    x: (B, Sq, D).
+
+    ``cache`` (from ``cache_init``) is written in place at ``cache_pos`` (a
+    host int; modulo the cache's length when ``ring``), and the queries
+    attend over the whole cache, masked by its positions.  Ring writes
+    require Sq == 1 (decode) or a span that does not wrap.
+    """
     B, Sq, _ = x.shape
     h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     dt = x.dtype
@@ -206,13 +232,26 @@ def mha(p, x, spec: AttnSpec, *, q_pos: Optional[torch.Tensor] = None):
         q = rmsnorm(q, p["q_norm"].to(dt), 1e-6)
         k = rmsnorm(k, p["k_norm"].to(dt), 1e-6)
     if q_pos is None:
-        q_pos = torch.arange(Sq, device=x.device)
+        start = 0 if cache_pos is None else cache_pos
+        q_pos = torch.arange(start, start + Sq, device=x.device)
     if spec.rope_style != "none":
         inv = rope_freqs(hd, spec.rope_theta, spec.rope_style, x.device)
         pos = torch.broadcast_to(q_pos, (B, Sq))
         q = apply_rope(q, pos, inv, spec.rope_style)
         k = apply_rope(k, pos, inv, spec.rope_style)
-    k_pos = torch.arange(Sq, device=x.device)
+
+    if cache is not None:
+        length = cache["k"].shape[1]
+        slot = cache_pos % length if ring else cache_pos
+        # the reference's dynamic_update_slice clamps a span that would run
+        # past the end
+        slot = max(0, min(slot, length - Sq))
+        cache["k"][:, slot:slot + Sq] = k.to(cache["k"].dtype)
+        cache["v"][:, slot:slot + Sq] = v.to(cache["v"].dtype)
+        cache["pos"][slot:slot + Sq] = q_pos.to(torch.int32)
+        k, v, k_pos = cache["k"], cache["v"], cache["pos"]
+    else:
+        k_pos = torch.arange(Sq, device=x.device)
 
     # GQA: repeat kv heads to match q heads
     rep = h // kv
@@ -220,7 +259,7 @@ def mha(p, x, spec: AttnSpec, *, q_pos: Optional[torch.Tensor] = None):
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
 
-    if Sq > 1 and Sq > FLASH_THRESHOLD:
+    if Sq > 1 and max(Sq, k.shape[1]) > FLASH_THRESHOLD:
         # long-context path: chunked online-softmax attention (no S^2 scores)
         out = flash_attention(q, k, v, q_pos, k_pos, causal=spec.causal,
                               window=spec.sliding_window).to(dt)
@@ -251,6 +290,35 @@ def mlp_init(d, f, kind, dtype, *, generator: torch.Generator,
             "bi": torch.zeros((f,), dtype=dtype, device=device),
             "wo": truncated_normal((f, d), dtype, sc_out, **kw),
             "bo": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def cast_tree(p, dtype):
+    """A tensor, or a (nested) dict of them, with every tensor cast to
+    ``dtype``."""
+    if isinstance(p, Mapping):
+        return {k: cast_tree(v, dtype) for k, v in p.items()}
+    return p.to(dtype)
+
+
+def cast_tree_except(p, dtype, keep: tuple) -> dict:
+    """Cast a param dict to dtype, leaving ``keep`` keys untouched (float32
+    master copies of the SSM's scalar parameters)."""
+    return {k: v if k in keep else cast_tree(v, dtype) for k, v in p.items()}
+
+
+@contextlib.contextmanager
+def true_float32(x: torch.Tensor):
+    """Float32 matmuls on the card without TF32 for the block (TF32 would
+    move routing decisions and the SSM's decays); nothing on the CPU."""
+    cuda = torch.backends.cuda.matmul
+    if not (x.is_cuda and cuda.allow_tf32):
+        yield
+        return
+    cuda.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cuda.allow_tf32 = True
 
 
 def mlp_apply(p, x, kind):

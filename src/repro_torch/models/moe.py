@@ -92,14 +92,8 @@ def router_logits(xf, router):
     """``xf @ router`` in float32; on the card with TF32 off for the call
     (TF32 would move routing decisions)."""
     xf = xf.to(torch.float32)
-    cuda = torch.backends.cuda.matmul
-    if not (xf.is_cuda and cuda.allow_tf32):
+    with L.true_float32(xf):
         return xf @ router
-    cuda.allow_tf32 = False
-    try:
-        return xf @ router
-    finally:
-        cuda.allow_tf32 = True
 
 
 def top_k(probs, k: int):

@@ -1,0 +1,350 @@
+"""Mamba2 (SSD, state-space duality, arXiv:2405.21060): the JAX package's
+``models/ssm.py`` in PyTorch.
+
+Training uses the chunked SSD algorithm: quadratic attention-like compute
+inside chunks of Q tokens plus a linear recurrent state pass between
+chunks.  Decoding is the O(1)-per-token recurrence on the (H, N, P) state:
+no KV cache.  Every SSD contraction and decay runs in float32, off TF32 on
+the card (``layers.true_float32``).
+
+Head layout: d_inner = expand * d_model split into H heads of P = head_dim;
+B / C projections are per group (G groups broadcast over heads).
+
+The model (``SSM``) holds ``embed``, per-layer blocks (``ln`` and
+``mixer``), ``final_norm`` and ``lm_head`` when untied, in the JAX
+package's tree (``jax_tree`` / ``load_jax_tree``, shared with the
+transformer).  ``A_log``, ``D`` and ``dt_bias`` are float32 whatever the
+parameter dtype.  The decode state is the reference's stacked layout:
+``conv`` ``{"x", "b", "c"}`` ``[L, B, d_conv - 1, C]`` in the compute dtype
+and ``ssm`` ``[L, B, H, N, P]`` in float32, updated in place.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils import checkpoint as ckpt
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import LM, _params
+
+FLOAT32_KEYS = ("A_log", "D", "dt_bias")
+
+
+def dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    H = d_inner // s.head_dim
+    return d_inner, H, s.n_groups, s.d_state, s.head_dim
+
+
+def mixer_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
+               device=None) -> dict:
+    """Per-stream projections (z / x / B / C / dt), as the reference keeps
+    them; ``A_log``, ``D`` and ``dt_bias`` in float32."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_inner, H, G, N, P = dims(cfg)
+    sc = 1.0 / math.sqrt(d)
+    kw = dict(generator=generator, device=device)
+
+    def tn(shape, scale):
+        return L.truncated_normal(shape, dtype, scale, **kw)
+
+    def full(n, value, dt=dtype):
+        return torch.full((n,), value, dtype=dt, device=device)
+
+    return {
+        "z_proj": tn((d, d_inner), sc),
+        "x_proj": tn((d, d_inner), sc),
+        "b_proj": tn((d, G * N), sc),
+        "c_proj": tn((d, G * N), sc),
+        "dt_proj": tn((d, H), sc),
+        "conv_wx": tn((s.d_conv, d_inner), 0.5),
+        "conv_bx": full(d_inner, 0.0),
+        "conv_wb": tn((s.d_conv, G * N), 0.5),
+        "conv_bb": full(G * N, 0.0),
+        "conv_wc": tn((s.d_conv, G * N), 0.5),
+        "conv_bc": full(G * N, 0.0),
+        "A_log": full(H, 0.0, torch.float32),  # A = -exp(A_log) = -1
+        "D": full(H, 1.0, torch.float32),
+        "dt_bias": full(H, -2.0, torch.float32),  # softplus(-2) ~ 0.12
+        "norm_w": full(d_inner, 1.0),
+        "out_proj": tn((d_inner, d), 1.0 / math.sqrt(d_inner)),
+    }
+
+
+def _causal_conv(u, w, b, *, state=None):
+    """Depthwise causal conv. u: (B,S,C); w: (K,C). state: (B,K-1,C) or None.
+
+    Returns (y, new_state) where new_state holds the last K-1 inputs (a
+    view of the padded input).
+    """
+    K = w.shape[0]
+    if state is None:
+        pad = u.new_zeros((u.shape[0], K - 1, u.shape[2]))
+    else:
+        pad = state.to(u.dtype)
+    up = torch.cat([pad, u], dim=1)
+    y = sum(up[:, i:i + u.shape[1], :] * w[i] for i in range(K))
+    y = y + b
+    return F.silu(y), up[:, -(K - 1):, :]
+
+
+def _ssd_chunked(xh, dt, A, Bh, Ch, chunk, init_state=None):
+    """Chunked SSD scan.
+
+    xh: (B,S,H,P) f32; dt: (B,S,H) f32 (post-softplus); A: (H,) f32 (negative);
+    Bh, Ch: (B,S,H,N) f32.  Returns (y: (B,S,H,P), final_state: (B,H,N,P)).
+    """
+    Bsz, S, H, P = xh.shape
+    N = Bh.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"sequence {S} is not a multiple of the SSD chunk "
+                         f"{Q}")
+    nc = S // Q
+
+    def r(t):
+        return t.reshape((Bsz, nc, Q) + tuple(t.shape[2:]))
+
+    xc, dtc, Bc, Cc = r(xh), r(dt), r(Bh), r(Ch)
+    with L.true_float32(xh):
+        dA = dtc * A  # (B,nc,Q,H), negative
+        cs = torch.cumsum(dA, dim=2)  # inclusive cumsum within chunk
+        total = cs[:, :, -1, :]  # (B,nc,H)
+
+        # intra-chunk: y[i] = sum_{j<=i} (C_i . B_j) exp(cs_i - cs_j) dt_j x_j
+        CB = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc)
+        seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # (b,c,i,j,h)
+        mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                     device=xh.device))
+        # masked before the exp: seg above the diagonal is a decay sum that
+        # passes 88 on long chunks, and exp's backward at inf is 0 * inf
+        # (NaN) even where the mask drops it; below, the values are the
+        # reference's, whose where-after-exp gives NaN gradients there
+        decay = torch.exp(torch.where(mask[None, None, :, :, None], seg,
+                                      torch.full((), -torch.inf,
+                                                 device=xh.device)))
+        scores = CB * decay * dtc[:, :, None, :, :]
+        y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xc)
+
+        # per-chunk local end state: S_c = sum_j exp(total - cs_j) dt_j B_j x_j^T
+        w = torch.exp(total[:, :, None, :] - cs) * dtc  # (b,c,j,h)
+        S_local = torch.einsum("bcjh,bcjhn,bcjhp->bchnp", w, Bc, xc)
+
+        # inter-chunk recurrence over c: S_prev[c] = S_prev[c-1]*exp(total)
+        # + local
+        s = (xh.new_zeros((Bsz, H, N, P)) if init_state is None
+             else init_state.to(torch.float32))
+        prevs = []
+        for c in range(nc):
+            prevs.append(s)
+            s = s * torch.exp(total[:, c])[:, :, None, None] + S_local[:, c]
+        S_prevs = torch.stack(prevs, dim=1)  # (B,nc,H,N,P): before chunk
+
+        y_inter = torch.einsum("bcihn,bchnp->bcihp", Cc, S_prevs)
+        y_inter = y_inter * torch.exp(cs)[..., None]
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
+    return y, s
+
+
+def _projections(p, x, conv_state):
+    """z, the three causal convolutions' outputs and new states, and the
+    raw dt: what ``mixer_apply`` and ``mixer_decode`` share."""
+    cs = conv_state or {}
+    z = x @ p["z_proj"]
+    xr, ncx = _causal_conv(x @ p["x_proj"], p["conv_wx"], p["conv_bx"],
+                           state=cs.get("x"))
+    Braw, ncb = _causal_conv(x @ p["b_proj"], p["conv_wb"], p["conv_bb"],
+                             state=cs.get("b"))
+    Craw, ncc = _causal_conv(x @ p["c_proj"], p["conv_wc"], p["conv_bc"],
+                             state=cs.get("c"))
+    return z, xr, Braw, Craw, x @ p["dt_proj"], {"x": ncx, "b": ncb,
+                                                 "c": ncc}
+
+
+def mixer_apply(p, x, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
+                return_state=False):
+    """Full-sequence mixer. x: (B,S,D). Returns y [, (conv_state, ssm_state)]."""
+    d_inner, H, G, N, P = dims(cfg)
+    p = L.cast_tree_except(p, x.dtype, FLOAT32_KEYS)
+    z, xr, Braw, Craw, dtraw, new_conv = _projections(p, x, conv_state)
+
+    Bsz, S, _ = x.shape
+    xh = xr.reshape(Bsz, S, H, P).to(torch.float32)
+    Bh = Braw.reshape(Bsz, S, G, N).to(torch.float32)
+    Ch = Craw.reshape(Bsz, S, G, N).to(torch.float32)
+    rep = H // G
+    Bh = torch.repeat_interleave(Bh, rep, dim=2)
+    Ch = torch.repeat_interleave(Ch, rep, dim=2)
+    dt = F.softplus(dtraw.to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    y, final = _ssd_chunked(xh, dt, A, Bh, Ch, cfg.ssm.chunk,
+                            init_state=ssm_state)
+    y = y + xh * p["D"][None, None, :, None]
+    y = y.reshape(Bsz, S, d_inner).to(x.dtype)
+    y = L.rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, (new_conv, final)
+    return out
+
+
+def mixer_decode(p, x, cfg: ModelConfig, conv_state, ssm_state):
+    """One-token recurrence. x: (B,1,D). Returns (y, (conv_state, ssm_state))."""
+    d_inner, H, G, N, P = dims(cfg)
+    p = L.cast_tree_except(p, x.dtype, FLOAT32_KEYS)
+    z, xr, Braw, Craw, dtraw, new_conv = _projections(p, x, conv_state)
+
+    Bsz = x.shape[0]
+    xh = xr.reshape(Bsz, H, P).to(torch.float32)
+    Bh = torch.repeat_interleave(Braw.reshape(Bsz, G, N), H // G,
+                                 dim=1).to(torch.float32)
+    Ch = torch.repeat_interleave(Craw.reshape(Bsz, G, N), H // G,
+                                 dim=1).to(torch.float32)
+    dt = F.softplus(dtraw.to(torch.float32)[:, 0, :] + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt * A)  # (B,H)
+    # state update: S = S*dA + dt * B x^T
+    upd = dt[..., None, None] * Bh[..., :, None] * xh[..., None, :]
+    new_state = ssm_state * dA[..., None, None] + upd
+    with L.true_float32(xh):
+        y = torch.einsum("bhn,bhnp->bhp", Ch, new_state)
+    y = y + xh * p["D"][None, :, None]
+    y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
+    y = L.rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+    return y @ p["out_proj"], (new_conv, new_state)
+
+
+# ---------------------------------------------------------------------------
+# pure-Mamba2 LM (mamba2-370m)
+# ---------------------------------------------------------------------------
+
+class SSMBlock(nn.Module):
+    """One residual block: norm, then the mixer."""
+
+    def __init__(self, cfg: ModelConfig, *, generator: torch.Generator,
+                 device):
+        super().__init__()
+        dt = cfg.pdtype()
+        self.cfg = cfg
+        self.ln = _params(L.norm_init(cfg.d_model, cfg.norm, dt, device))
+        self.mixer = _params(mixer_init(cfg, dt, generator=generator,
+                                        device=device))
+
+    def _normed(self, x):
+        return L.norm_apply(x, self.ln, self.cfg.norm, self.cfg.norm_eps)
+
+    def forward(self, x):
+        return x + mixer_apply(self.mixer, self._normed(x), self.cfg)
+
+    def tree(self) -> dict:
+        return {"ln": dict(self.ln.items()),
+                "mixer": dict(self.mixer.items())}
+
+
+class SSM(LM):
+    """The Mamba2 LM.  Parameters (JAX names): ``embed`` ``[padded_vocab,
+    d]``, ``blocks[i]`` with ``ln`` and ``mixer``, ``final_norm``,
+    ``lm_head`` ``[d, padded_vocab]`` when untied."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+        super().__init__()
+        if cfg.family != "ssm" or cfg.ssm is None:
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} is not "
+                             "the SSM's")
+        dev = resolve_device(device)
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        self.cfg = cfg
+        dt = cfg.pdtype()
+        kw = dict(generator=generator, device=dev)
+        self.embed = nn.Parameter(L.embed_init(cfg.padded_vocab, cfg.d_model,
+                                               dt, **kw))
+        self.blocks = nn.ModuleList(SSMBlock(cfg, **kw)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = _params(L.norm_init(cfg.d_model, cfg.norm, dt, dev))
+        self.lm_head = None
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(L.truncated_normal(
+                (cfg.d_model, cfg.padded_vocab), dt,
+                1.0 / math.sqrt(cfg.d_model), **kw))
+
+    def hidden_states(self, tokens):
+        cfg = self.cfg
+        x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
+        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        for block in self.blocks:
+            x = ckpt.checkpoint(block, x, use_reentrant=False) if remat \
+                else block(x)
+        return L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
+
+    def forward(self, tokens):
+        return L.lm_logits(self.hidden_states(tokens), self.head(),
+                           self.cfg.tie_embeddings)
+
+    def loss_fn(self, batch: dict):
+        return L.cross_entropy(self.forward(batch["tokens"]),
+                               batch["labels"],
+                               valid_vocab=self.cfg.vocab_size)
+
+    # ---- serving --------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return init_cache(self.cfg, batch, max_len, self.embed.device)
+
+    @torch.no_grad()
+    def prefill(self, tokens, max_len: int) -> tuple:
+        """Chunked-SSD prefill; returns (last-token logits, decode-ready
+        state)."""
+        cache = self.init_cache(tokens.shape[0], max_len)
+        x = L.embed_lookup(self.embed, tokens, self.cfg.cdtype())
+        for i, block in enumerate(self.blocks):
+            y, (conv, ssm) = mixer_apply(block.mixer, block._normed(x),
+                                         self.cfg, return_state=True)
+            x = x + y
+            _store(cache, i, conv, ssm)
+        return self.final_logits(x[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens, pos=None) -> tuple:
+        """tokens: (B, 1); the recurrence is position-free.  Updates
+        ``cache`` in place; returns (logits (B, 1, V), cache)."""
+        x = L.embed_lookup(self.embed, tokens, self.cfg.cdtype())
+        for i, block in enumerate(self.blocks):
+            conv = {k: v[i] for k, v in cache["conv"].items()}
+            y, (nconv, nssm) = mixer_decode(block.mixer, block._normed(x),
+                                            self.cfg, conv, cache["ssm"][i])
+            x = x + y
+            _store(cache, i, nconv, nssm)
+        return self.final_logits(x), cache
+
+
+def _store(cache: dict, i: int, conv: dict, ssm) -> None:
+    for k, v in conv.items():
+        cache["conv"][k][i].copy_(v)
+    cache["ssm"][i].copy_(ssm)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """The O(1) decode state (``max_len`` is unused): the last d_conv - 1
+    inputs of each convolution and the SSD state, stacked over layers."""
+    del max_len
+    dev = resolve_device(device)
+    d_inner, H, G, N, P = dims(cfg)
+    Lr, k = cfg.n_layers, cfg.ssm.d_conv - 1
+
+    def zeros(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    return {"conv": {"x": zeros((Lr, batch, k, d_inner), cfg.cdtype()),
+                     "b": zeros((Lr, batch, k, G * N), cfg.cdtype()),
+                     "c": zeros((Lr, batch, k, G * N), cfg.cdtype())},
+            "ssm": zeros((Lr, batch, H, N, P), torch.float32)}

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, dense and MoE families (the JAX package's
-``models/transformer.py``).
+"""Decoder-only transformer LM: the dense, MoE and VLM-prefix families (the
+JAX package's ``models/transformer.py``), trained and served.
 
 The blocks are an ``nn.ModuleList`` of per-layer modules, not one stacked
 ``[L, ...]`` parameter per leaf: indexing a stacked parameter per layer
@@ -10,6 +10,8 @@ wanted: checkpoints and ``models/api.params_from_jax``.  An MoE model
 has ``blocks`` for its leading ``first_dense_layers`` (every layer without
 MoE) and ``moe_blocks`` for the rest, whose MLP is an ``MoE`` layer
 (``models/moe.py``); the JAX tree's ``blocks`` / ``moe_blocks`` leaves.
+A VLM prepends ``prefix_embeds`` (stub patch embeddings) to the text, and
+its loss counts the text positions only.
 
 Remat (``cfg.remat``): ``"full"`` recomputes each block in the backward
 (``torch.utils.checkpoint``), ``"dots"`` saves the blocks' weight matmuls
@@ -17,9 +19,13 @@ and recomputes the rest (selective activation checkpointing, as the
 reference's ``dots_with_no_batch_dims_saveable``: the experts' batched
 products are not saved), ``"none"`` saves all.
 
-Not ported yet (``NotImplementedError``): the VLM prefix (ROADMAP Queue A
-item 2, VLM) and the serving entry points ``prefill`` / ``decode_step`` /
-``init_cache`` (item 2, serving).
+Serving: ``init_cache`` allocates one KV cache a layer group in the
+reference's stacked layout (``k`` / ``v`` ``[L, B, len, n_kv, hd]`` in the
+compute dtype, ``pos`` ``[L, len]``; ``len`` is ``min(max_len,
+sliding_window)`` for a sliding-window model, a ring).  ``prefill`` runs
+the cache-free forward and fills each layer's cache from K / V recomputed
+on that layer's input tail; ``decode_step`` writes one position a layer in
+place.  Positions are host ints, so decoding never waits on the card.
 """
 
 from __future__ import annotations
@@ -36,14 +42,14 @@ from repro_torch.models import moe as moe_lib
 
 
 def not_ported(what: str, item: str):
-    """Raise for a surface the port lacks, naming its ROADMAP item."""
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A "
-                              f"item 2: {item})")
+    """Raise for a surface the port lacks, naming its ROADMAP Queue A item
+    by name."""
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A: "
+                              f"{item})")
 
 
-FAMILY_ITEM = {"vlm": "VLM", "ssm": "SSM", "hybrid": "hybrid",
-               "encdec": "enc-dec"}
-PORTED_FAMILIES = ("dense", "moe")
+FAMILY_ITEM = {"hybrid": "hybrid", "encdec": "enc-dec"}
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 
 
 def attn_spec(cfg: ModelConfig) -> L.AttnSpec:
@@ -81,14 +87,40 @@ class Block(nn.Module):
                                           generator=generator,
                                           device=device))
 
-    def forward(self, x):
+    def forward(self, x, cache=None, pos=None):
+        """``cache`` / ``pos``: this layer's KV cache, written in place at
+        position ``pos`` (decode)."""
         cfg = self.cfg
         xn = L.norm_apply(x, self.ln1, cfg.norm, cfg.norm_eps)
-        x = x + L.mha(self.attn, xn, self.spec)
+        x = x + L.mha(self.attn, xn, self.spec, cache=cache, cache_pos=pos,
+                      ring=bool(cfg.sliding_window))
         y = L.norm_apply(x, self.ln2, cfg.norm, cfg.norm_eps)
         if self.moe_layer:
             return x + moe_lib.moe_apply(self.moe, y, cfg)
         return x + L.mlp_apply(self.mlp, y, cfg.mlp)
+
+    def tail_kv(self, tail_x, tail_pos, cache: dict) -> None:
+        """Fill this layer's ``cache`` with the K / V of the layer inputs
+        ``tail_x`` (B, T, D) at the contiguous positions ``tail_pos`` (T <=
+        the cache's length), each in slot ``position % length`` (the ring
+        layout; every other slot stays empty)."""
+        cfg, spec = self.cfg, self.spec
+        B, T, _ = tail_x.shape
+        kv, hd, dt = spec.n_kv_heads, spec.head_dim, tail_x.dtype
+        y = L.norm_apply(tail_x, self.ln1, cfg.norm, cfg.norm_eps)
+        k = (y @ self.attn["wk"].to(dt)).reshape(B, T, kv, hd)
+        v = (y @ self.attn["wv"].to(dt)).reshape(B, T, kv, hd)
+        if spec.qk_norm:
+            k = L.rmsnorm(k, self.attn["k_norm"].to(dt), 1e-6)
+        if spec.rope_style != "none":
+            inv = L.rope_freqs(hd, spec.rope_theta, spec.rope_style,
+                               tail_x.device)
+            k = L.apply_rope(k, torch.broadcast_to(tail_pos, (B, T)), inv,
+                             spec.rope_style)
+        slots = tail_pos % cache["k"].shape[1]
+        cache["k"][:, slots] = k.to(cache["k"].dtype)
+        cache["v"][:, slots] = v.to(cache["v"].dtype)
+        cache["pos"][slots] = tail_pos.to(torch.int32)
 
     def tree(self) -> dict:
         """This layer's parameters in the JAX block's tree."""
@@ -118,18 +150,110 @@ def _dots_context():
     return ckpt.create_selective_checkpoint_contexts(_save_weight_matmuls)
 
 
-class Transformer(nn.Module):
-    """The decoder-only LM, dense or MoE.  Parameters (JAX names): ``embed``
-    ``[padded_vocab, d]``, ``final_norm``, ``lm_head`` ``[d, padded_vocab]``
-    when untied, ``blocks[i]`` with ``ln1``, ``ln2``, ``attn`` and ``mlp``,
-    and ``moe_blocks[i]`` with ``moe`` in place of ``mlp``."""
+class LM(nn.Module):
+    """What the LMs share: ``embed``, ``final_norm``, ``lm_head`` when
+    untied, per-layer blocks in the groups ``LAYER_GROUPS`` (each block's
+    ``tree()`` its JAX subtree), and the JAX package's parameter layout."""
+
+    LAYER_GROUPS: tuple = ("blocks",)
+
+    def head(self):
+        return self.embed if self.cfg.tie_embeddings else self.lm_head
+
+    def final_logits(self, x):
+        """The final norm, then the head."""
+        cfg = self.cfg
+        x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
+        return L.lm_logits(x, self.head(), cfg.tie_embeddings)
+
+    def jax_tree(self) -> dict:
+        """The parameters in the JAX package's tree: ``blocks/<path>`` and
+        ``moe_blocks/<path>`` are the lists of the layers' tensors for that
+        leaf (stack one for the ``[L, ...]`` leaf), every other leaf the
+        parameter itself."""
+        tree = {"embed": self.embed,
+                "final_norm": dict(self.final_norm.items())}
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head
+        for name in self.LAYER_GROUPS:
+            layers = getattr(self, name)
+            if len(layers):
+                tree[name] = _by_layer([b.tree() for b in layers])
+        return tree
+
+    def param_leaves(self) -> list:
+        """The JAX leaves as indices into ``list(self.parameters())``: an
+        int for a leaf that is one parameter, a list of per-layer indices
+        for a stacked one (the grouping Adafactor keys its state by)."""
+        index = {id(p): i for i, p in enumerate(self.parameters())}
+        return [[index[id(t)] for t in leaf] if isinstance(leaf, list)
+                else index[id(leaf)]
+                for _, leaf in jax_leaves(self.jax_tree())]
+
+    @torch.no_grad()
+    def load_jax_tree(self, tree: dict) -> "LM":
+        """Copy a JAX-layout parameter tree (numpy arrays or tensors; the
+        ``blocks`` leaves stacked ``[L, ...]``) into this model, in place and
+        on its device.  Shapes must match exactly (``embed`` keeps its
+        padded rows)."""
+        mine = jax_leaves(self.jax_tree())
+        theirs = jax_leaves(tree)
+        if [p for p, _ in mine] != [p for p, _ in theirs]:
+            raise ValueError(f"parameter paths differ: "
+                             f"{[p for p, _ in mine]} vs "
+                             f"{[p for p, _ in theirs]}")
+        for (path, dst), (_, src) in zip(mine, theirs):
+            copy_leaf(dst, src, path)
+        return self
+
+
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """A layer's KV slots: a ring of the window for a sliding-window
+    model."""
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """``{"blocks": ..., "moe_blocks": ...}`` (the groups the model has),
+    each ``cache_init``'s tensors stacked over the group's layers."""
+    dev = resolve_device(device)
+    length = cache_len(cfg, max_len)
+    n_dense = cfg.moe.first_dense_layers if cfg.moe else cfg.n_layers
+    cache = {}
+    for group, n in (("blocks", n_dense), ("moe_blocks",
+                                           cfg.n_layers - n_dense)):
+        if n:
+            one = L.cache_init(batch, length, cfg.n_kv_heads, cfg.hd,
+                               cfg.cdtype(), device=dev)
+            cache[group] = {k: v.expand((n,) + v.shape).clone()
+                            for k, v in one.items()}
+    return cache
+
+
+def layer_cache(cache: dict, group: str, i: int) -> dict:
+    """Layer ``i`` of a group's stacked cache (views: writes go through)."""
+    return {k: v[i] for k, v in cache[group].items()}
+
+
+class Transformer(LM):
+    """The decoder-only LM, dense, MoE or VLM.  Parameters (JAX names):
+    ``embed`` ``[padded_vocab, d]``, ``final_norm``, ``lm_head`` ``[d,
+    padded_vocab]`` when untied, ``blocks[i]`` with ``ln1``, ``ln2``,
+    ``attn`` and ``mlp``, and ``moe_blocks[i]`` with ``moe`` in place of
+    ``mlp``."""
+
+    LAYER_GROUPS = ("blocks", "moe_blocks")
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
-        if cfg.family not in PORTED_FAMILIES or \
+        if cfg.family in FAMILY_ITEM:
+            not_ported(f"family {cfg.family!r}", FAMILY_ITEM[cfg.family])
+        if cfg.family not in TRANSFORMER_FAMILIES or \
                 (cfg.family == "moe") != (cfg.moe is not None):
-            not_ported(f"family {cfg.family!r}", FAMILY_ITEM.get(
-                cfg.family, cfg.family))
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                             "transformer's")
         dev = resolve_device(device)
         generator = torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
@@ -162,80 +286,69 @@ class Transformer(nn.Module):
                                    context_fn=_dots_context)
         raise ValueError(f"unknown remat policy {remat!r}")
 
+    def _groups(self):
+        return (("blocks", self.blocks), ("moe_blocks", self.moe_blocks))
+
     def hidden_states(self, tokens, prefix_embeds=None):
-        """tokens: (B, S) int -> the final-normed hidden states."""
-        if prefix_embeds is not None:
-            not_ported("prefix_embeds", "VLM")
+        """tokens: (B, S) int [; prefix_embeds: (B, P, D), the VLM's patch
+        embeddings, placed before the text] -> the final-normed hidden
+        states."""
         cfg = self.cfg
         x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         for block in (*self.blocks, *self.moe_blocks):
             x = self._run_block(block, x)
         return L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
 
     def forward(self, tokens, prefix_embeds=None):
-        x = self.hidden_states(tokens, prefix_embeds)
-        head = self.embed if self.cfg.tie_embeddings else self.lm_head
-        return L.lm_logits(x, head, self.cfg.tie_embeddings)
+        return L.lm_logits(self.hidden_states(tokens, prefix_embeds),
+                           self.head(), self.cfg.tie_embeddings)
 
     def loss_fn(self, batch: dict):
-        if batch.get("patch_embeds") is not None:
-            not_ported("patch_embeds", "VLM")
-        logits = self.forward(batch["tokens"])
+        prefix = batch.get("patch_embeds")
+        logits = self.forward(batch["tokens"], prefix)
+        if prefix is not None:
+            logits = logits[:, prefix.shape[1]:]  # loss on text positions
         return L.cross_entropy(logits, batch["labels"],
                                valid_vocab=self.cfg.vocab_size)
 
-    # ---- serving (not ported) -------------------------------------------
+    # ---- serving --------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int):
-        not_ported("init_cache", "serving")
-
-    def prefill(self, tokens, max_len: int):
-        not_ported("prefill", "serving")
-
-    def decode_step(self, cache, tokens, pos):
-        not_ported("decode_step", "serving")
-
-    # ---- the JAX package's parameter layout -----------------------------
-
-    def jax_tree(self) -> dict:
-        """The parameters in the JAX package's tree: ``blocks/<path>`` and
-        ``moe_blocks/<path>`` are the lists of the layers' tensors for that
-        leaf (stack one for the ``[L, ...]`` leaf), every other leaf the
-        parameter itself."""
-        tree = {"embed": self.embed,
-                "final_norm": dict(self.final_norm.items())}
-        if self.lm_head is not None:
-            tree["lm_head"] = self.lm_head
-        for name in ("blocks", "moe_blocks"):
-            layers = getattr(self, name)
-            if len(layers):
-                tree[name] = _by_layer([b.tree() for b in layers])
-        return tree
-
-    def param_leaves(self) -> list:
-        """The JAX leaves as indices into ``list(self.parameters())``: an
-        int for a leaf that is one parameter, a list of per-layer indices
-        for a stacked one (the grouping Adafactor keys its state by)."""
-        index = {id(p): i for i, p in enumerate(self.parameters())}
-        return [[index[id(t)] for t in leaf] if isinstance(leaf, list)
-                else index[id(leaf)]
-                for _, leaf in jax_leaves(self.jax_tree())]
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return init_cache(self.cfg, batch, max_len, self.embed.device)
 
     @torch.no_grad()
-    def load_jax_tree(self, tree: dict) -> "Transformer":
-        """Copy a JAX-layout parameter tree (numpy arrays or tensors; the
-        ``blocks`` leaves stacked ``[L, ...]``) into this model, in place and
-        on its device.  Shapes must match exactly (``embed`` keeps its
-        padded rows)."""
-        mine = jax_leaves(self.jax_tree())
-        theirs = jax_leaves(tree)
-        if [p for p, _ in mine] != [p for p, _ in theirs]:
-            raise ValueError(f"parameter paths differ: "
-                             f"{[p for p, _ in mine]} vs "
-                             f"{[p for p, _ in theirs]}")
-        for (path, dst), (_, src) in zip(mine, theirs):
-            copy_leaf(dst, src, path)
-        return self
+    def prefill(self, tokens, max_len: int) -> tuple:
+        """Process a whole prompt (B, S); returns (last-token logits (B, 1,
+        V), cache).  The logits come from the cache-free forward (with the
+        sliding-window mask where configured); each layer's cache is filled
+        from its input's last ``min(S, cache length)`` tokens, so a
+        sliding-window model keeps only its window (ring layout)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        cache = self.init_cache(B, max_len)
+        T = min(S, cache_len(cfg, max_len))
+        tail_pos = torch.arange(S - T, S, device=self.embed.device)
+        x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
+        for group, layers in self._groups():
+            for i, block in enumerate(layers):
+                block.tail_kv(x[:, S - T:], tail_pos,
+                              layer_cache(cache, group, i))
+                x = block(x)
+        return self.final_logits(x[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens, pos: int) -> tuple:
+        """tokens: (B, 1) int at position ``pos`` (a host int).  Writes each
+        layer's K / V into ``cache`` in place; returns (logits (B, 1, V),
+        cache).  An MoE layer routes the B tokens as one group."""
+        pos = int(pos)
+        x = L.embed_lookup(self.embed, tokens, self.cfg.cdtype())
+        for group, layers in self._groups():
+            for i, block in enumerate(layers):
+                x = block(x, layer_cache(cache, group, i), pos)
+        return self.final_logits(x), cache
 
 
 def _by_layer(trees: list) -> dict:

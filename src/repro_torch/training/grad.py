@@ -9,7 +9,8 @@ dtype is the parameters' own, so a step holds one set of gradients (at
 not fit beside the AdamW state on one 80 GB card).
 
 ``compressed_psum_mean`` (int8 all-reduce with error feedback) waits for
-distribution (ROADMAP Queue A item 3) and raises.
+distribution (ROADMAP Queue A: distribution) and raises; its error-feedback
+state, ``ef_init``, is here.
 """
 
 from __future__ import annotations
@@ -90,6 +91,17 @@ def microbatched_value_and_grad(loss_fn: Callable, n_micro: int,
 # int8 gradient compression with error feedback
 # ---------------------------------------------------------------------------
 
+def ef_init(params):
+    """The error-feedback residuals: float32 zeros shaped like ``params`` (a
+    tensor, or a dict / list / tuple of them, nested), on their devices."""
+    if isinstance(params, dict):
+        return {k: ef_init(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(ef_init(v) for v in params)
+    return torch.zeros(params.shape, dtype=torch.float32,
+                       device=params.device)
+
+
 def quantize_int8(x):
     """Per-tensor symmetric int8. Returns (q, scale)."""
     xf = x.to(torch.float32)
@@ -106,5 +118,5 @@ def dequantize_int8(q, scale):
 def compressed_psum_mean(grads, ef_state, axis_name: str):
     """Error-feedback int8 all-reduce mean: not ported yet."""
     raise NotImplementedError(
-        "compressed_psum_mean is not ported yet (ROADMAP Queue A item 3: "
+        "compressed_psum_mean is not ported yet (ROADMAP Queue A: "
         "distribution, on torch.distributed)")

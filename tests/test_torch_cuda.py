@@ -1002,3 +1002,61 @@ def test_bf16_state_step_matches_the_cpu(card, optimizer):
         for k in a:
             assert a[k].shape == b[k].shape
             assert _bf16_ulps(a[k], b[k]) <= 1, k
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "mixtral_8x7b",
+                                  "mamba2_370m"])
+def test_serving_matches_the_cpu(card, arch):
+    """The reduced dense, MoE (a 16-token ring) and SSM configs at float32
+    compute, TF32 off: prefill of 20 tokens, then 4 decode steps, on the
+    card against the CPU port from the same parameters: every step's
+    logits and the final cache within rtol 1e-4 (absolute floor 1e-4 x
+    the largest), cache positions bit-equal, and greedy ``generate``'s
+    tokens equal."""
+    import dataclasses
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import api
+    from repro_torch.serving import decode
+    cfg = dataclasses.replace(get_reduced(arch), compute_dtype="float32")
+    model = api.build_model(cfg)
+
+    def close(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        torch.testing.assert_close(b, a, rtol=1e-4,
+                                   atol=1e-4 * float(a.abs().max()))
+
+    def leaves(c):
+        return [x for v in c.values() for x in
+                (leaves(v) if isinstance(v, dict) else [v])]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = model.init(seed=3, device="cpu")
+        gpu = model.init(seed=4, device=card)
+        gpu.load_jax_tree(_stack_tree(cpu.jax_tree()))
+        tok = torch.tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 24)).astype(np.int32))
+        out = []
+        for m, dev in ((cpu, "cpu"), (gpu, card)):
+            t = tok.to(dev)
+            lg, cache = model.prefill(m, {"tokens": t[:, :20]}, 32)
+            steps = [lg]
+            for pos in range(20, 24):
+                lg, cache = model.decode_step(m, cache, t[:, pos:pos + 1],
+                                              pos)
+                steps.append(lg)
+            toks, _ = decode.generate(model, m, t[:, :20], max_new=6,
+                                      max_len=26)
+            out.append((steps, leaves(cache), toks))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (s0, c0, t0), (s1, c1, t1) = out
+    for a, b in zip(s0, s1):
+        close(a, b)
+    for a, b in zip(c0, c1):
+        if a.dtype.is_floating_point:
+            close(a, b)
+        else:
+            assert torch.equal(a, b.cpu())
+    np.testing.assert_array_equal(t0, t1)

@@ -75,6 +75,19 @@ def test_logits_and_loss_match():
                         dlrm.loss_fn(model, _t(b)), "loss")
 
 
+def test_predict_matches_the_reference():
+    """``predict``: the sigmoid of the logits, in [0, 1], within the
+    logits' tolerance of the reference's."""
+    rcfg, params, model = _models(seed=2)
+    b = _batch(seed=4)
+    want = np.asarray(rdlrm.predict(params, {k: jnp.asarray(v)
+                                             for k, v in b.items()}, rcfg))
+    with torch.no_grad():
+        got = dlrm.predict(model, _t(b))
+    assert got.shape == (128,) and bool(((got >= 0) & (got <= 1)).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
 def test_three_adamw_steps_match():
     rcfg, params, model = _models(seed=1)
     rstate = rtl.TrainState.create(params, RefTrainConfig(lr=3e-3))

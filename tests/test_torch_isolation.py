@@ -110,12 +110,12 @@ def test_unported_options_raise():
     job = EtlJob(tmpl, src, backend="cuda", device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
         job.executor()
-    with pytest.raises(NotImplementedError, match="VLM"):
-        build_model(get_reduced("internvl2_2b"))
+    with pytest.raises(NotImplementedError, match="Queue A: hybrid"):
+        build_model(get_reduced("zamba2_2_7b"))
     with pytest.raises(NotImplementedError, match="pod"):
         launch.main(["--arch", "llama3_2_3b", "--reduced", "--device", "cpu",
                      "--mesh", "pod"])
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+    with pytest.raises(NotImplementedError, match="Queue A: distribution"):
         compressed_psum_mean([torch.zeros(2)], [torch.zeros(2)], "dp")
 
 

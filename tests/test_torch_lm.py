@@ -390,6 +390,27 @@ def test_remat_policies_give_equal_gradients():
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-8)
 
 
+def test_ef_init_matches_reference():
+    """Float32 zeros shaped like the parameters, in the same tree, whatever
+    the parameters' dtype."""
+    tree = {"w": np.ones((3, 4), np.float32), "b": [np.ones((5,), np.int8)],
+            "h": np.ones((2,), np.float16)}
+    want = rgrad.ef_init(jax.tree_util.tree_map(jnp.asarray, tree))
+    got = grad.ef_init({"w": torch.ones(3, 4), "b": [torch.ones(5,
+                                                                dtype=torch.int8)],
+                        "h": torch.ones(2, dtype=torch.bfloat16)})
+    assert got.keys() == want.keys() and isinstance(got["b"], list)
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        assert g.dtype == torch.float32 and w.dtype == jnp.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    _, _, _, model = _pair("llama3_2_3b")
+    ef = grad.ef_init(list(model.parameters()))
+    assert [tuple(e.shape) for e in ef] == \
+        [tuple(p.shape) for p in model.parameters()]
+    assert all(e.dtype == torch.float32 and not e.any() for e in ef)
+
+
 def test_int8_quantization_matches_reference():
     x = np.random.default_rng(0).normal(size=(64, 64)).astype(np.float32) * 3
     rq, rs = rgrad.quantize_int8(jnp.asarray(x))
@@ -518,30 +539,34 @@ def test_launcher_feeds_the_pipelines_batches(monkeypatch):
     (["--arch", "llama3_405b", "--reduced", "--mesh", "multipod"],
      "multipod"),
     (["--arch", "mixtral_8x7b", "--reduced", "--mesh", "pod"], "pod"),
-    (["--arch", "internvl2_2b", "--reduced"], "VLM")])
+    (["--arch", "zamba2_2_7b", "--reduced"], "Queue A: hybrid")])
 def test_launcher_raises_for_what_is_not_ported(argv, what):
     """A mesh and the unported families raise; the Adafactor, fsdp and MoE
-    presets train (``tests/test_torch_moe.py``)."""
+    presets train (``tests/test_torch_moe.py``), and so do the VLM and the
+    SSM (``tests/test_torch_vlm.py``, ``tests/test_torch_ssm.py``)."""
     from repro_torch.launch import train as launch
     with pytest.raises(NotImplementedError, match=what):
         launch.main(argv + ["--device", "cpu", "--steps", "1"])
 
 
 def test_int8_gradient_compression_raises_naming_item_3():
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+    with pytest.raises(NotImplementedError, match="Queue A: distribution"):
         presets.check_ported(TrainConfig(grad_compression="int8_ef"))
     for arch in treg.ARCH_IDS:  # every preset is accepted
         presets.check_ported(presets.train_preset(arch))
 
 
-@pytest.mark.parametrize("arch", ["internvl2_2b", "mamba2_370m",
-                                  "zamba2_2_7b", "whisper_base"])
-def test_other_families_raise_naming_their_item(arch):
+@pytest.mark.parametrize("arch,item", [("zamba2_2_7b", "hybrid"),
+                                       ("whisper_base", "enc-dec")])
+def test_other_families_raise_naming_their_item(arch, item):
+    """The unported families name their ROADMAP Queue A item by its name
+    (a renumbering of the queue leaves the message right)."""
     cfg = treg.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        api.build_model(cfg)
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        ttr.Transformer(cfg, device="cpu")
+    for build in (api.build_model, lambda c: ttr.Transformer(c, device="cpu"),
+                  lambda c: api.input_specs(c, ShapeCfg("t", 8, 1, "train"))):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue A: {item}"):
+            build(cfg)
 
 
 @pytest.mark.parametrize("seq", [64, 1024])
