@@ -239,12 +239,40 @@ Phases, one JSON line each; any failure exits non-zero:
                  launch.serve.main --batch 4 --prompt-len 256 --max-new 32
                  (text only: the reference's prefill takes no patches) with
                  the teacher-forced check.
+22. hybrid_main — zamba2_2_7b at full width and depth (54 Mamba2 layers,
+                 one shared attention block applied after every 9, window
+                 4096): the launcher with its preset (AdamW, microbatch 4,
+                 full remat), --batch 8 --seq 1024 --steps 4 (two output
+                 launches a batch), one profiled step; then
+                 launch.serve.main --batch 4 --prompt-len 4096 --max-new
+                 128 (the prompt through the staged kernels: one
+                 fused_stage, two packers), every decode step past the
+                 ring's wrap: the state's bytes (the SSM's, and a ring of
+                 min(window, max_len) slots per application) against the
+                 formula at two lengths, decode tok/s against its bound
+                 (parameters, the SSM state read and written, the rings
+                 read), one profiled decode step, and ssm_main's
+                 teacher-forced checks (float32 asserted, bf16 a reading).
+23. encdec_main — whisper_base at full width and depth (6 + 6 layers,
+                 1500 frames).  Both launchers refuse it (no launcher feeds
+                 frames, in either package); build_model and random_batch
+                 (448 decoder tokens, 1500 frames a row, batch 8) train 4
+                 steps with the preset (AdamW, microbatch 1), one profiled
+                 step; then 128 greedy tokens from Model.prefill /
+                 decode_step over 8 prompts of 64 tokens from the serve
+                 launcher's make_prompt_job on the cuda backend (one group
+                 launch) and random_batch's frames: the self and cross
+                 caches' bytes against their formulas, decode tok/s against
+                 its bound, one profiled decode step, prefill + 16 decode
+                 steps against decode_train's logits at float32 compute
+                 within 1e-4 x the largest (bf16 a reading).
 
 Then the ``{"kernels": [...]}`` line (``launches_online_main``,
 ``launches_multitenant_main``, ``launches_lm_main``, ``launches_moe_ckpt``,
 ``launches_moe_main``, ``launches_adafactor_main``, ``launches_serve_main``,
-``launches_serve_moe``, ``launches_ssm_main`` and ``launches_vlm_main``
-beside the kernels those phases ran), the nvidia-smi line, and last the
+``launches_serve_moe``, ``launches_ssm_main``, ``launches_vlm_main``,
+``launches_hybrid_main`` and ``launches_encdec_main`` beside the kernels
+those phases ran), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.
 
     python3 chip_smoke.py --wrappers DIR
@@ -335,6 +363,14 @@ MOE_FLIP_SHARE = 0.05
 SSM_ARCH = "mamba2_370m"
 VLM_ARCH, VLM_STEPS = "internvl2_2b", 4
 VLM_SERVE_BATCH, VLM_PROMPT, VLM_NEW = 4, 256, 32
+HYBRID_ARCH, HYBRID_STEPS = "zamba2_2_7b", 4
+# 4096 + 128 = 33 SSD chunks of 128 (the teacher-forced forward runs whole
+# chunks); every decode step is past the 4096-token window
+HYBRID_SERVE_BATCH, HYBRID_PROMPT, HYBRID_NEW = 4, 4096, 128
+ENCDEC_ARCH, ENCDEC_STEPS = "whisper_base", 4
+ENCDEC_SEQ = 448          # Whisper's decoder context
+ENCDEC_SERVE_BATCH, ENCDEC_PROMPT, ENCDEC_NEW = 8, 64, 128
+FORCED_F32_TOL = 1e-4     # float32 teacher-forced checks: the LM tests' bound
 
 
 def pipeline_iii_dense_as(Pipeline, Schema, ops, Vocab, dtype):
@@ -1544,8 +1580,9 @@ def teacher_forced_check(name: str, summary: dict, n: int,
     ``tol`` x the forward's largest magnitude, and the chosen token (the
     served one with ``greedy``, else the decode logits' argmax) equal to
     the forward's argmax wherever its top-2 margin exceeds ``tol`` x that
-    magnitude.  An SSM's forward runs over a whole number of SSD chunks
-    (the tokens past ``S + n`` cannot move the earlier logits).  An MoE
+    magnitude.  An SSM's or a hybrid's forward runs over a whole number of
+    SSD chunks (the tokens past ``S + n`` cannot move the earlier
+    logits).  An MoE
     model's prefill and decode take the forward's expert choices for the
     same (row, position) (``moe.top_k`` pinned, as the card tests pin the
     CPU's): in bfloat16 the router's input differs in its last bits
@@ -1567,7 +1604,7 @@ def teacher_forced_check(name: str, summary: dict, n: int,
     served = torch.as_tensor(summary["tokens"], device=prompts.device)
     seq = torch.cat([prompts, served.to(prompts.dtype)], 1)
     F_len = S + n
-    if cfg.family == "ssm" and F_len > cfg.ssm.chunk:
+    if cfg.ssm is not None and F_len > cfg.ssm.chunk:
         F_len += -F_len % cfg.ssm.chunk
     if F_len > seq.shape[1] or n >= served.shape[1]:
         raise AssertionError(f"{name}: {served.shape[1]} served tokens for "
@@ -1827,16 +1864,17 @@ def serve_moe(root: str, expect, arch: str = MOE_ARCH,
 
 
 def counted_params(model, cfg) -> int:
-    """``param_count``'s count of the model: its matrices (an SSM's
-    projections, not its convolutions, plus each layer's ``norm_w``) less
-    the embedding's padded rows."""
-    if cfg.family != "ssm":
+    """``param_count``'s count of the model: its matrices (an SSM's or a
+    hybrid's projections, not their convolutions; the SSM's also each
+    layer's ``norm_w``) less the embedding's padded rows."""
+    if cfg.ssm is None:
         return matrix_params(model, cfg)
     pad_rows = (cfg.padded_vocab - cfg.vocab_size) * cfg.d_model * (
         1 if cfg.tie_embeddings else 2)
+    norm_w = cfg.family == "ssm"
     return sum(p.numel() for n, p in model.named_parameters()
                if (p.dim() >= 2 and ".conv_" not in n)
-               or n.endswith("norm_w")) - pad_rows
+               or (norm_w and n.endswith("norm_w"))) - pad_rows
 
 
 def train_readings(name: str, summary: dict, cfg, batch: int, seq: int,
@@ -2025,6 +2063,311 @@ def vlm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
                      "launches": serve_launches},
            "launches": add_launches(train["launches"], serve_launches)}
     return out
+
+
+def hybrid_state_bytes(cfg, batch: int, max_len: int) -> int:
+    """The hybrid's decode state by formula: the SSM's ``L B ((d_conv - 1)
+    (d_inner + 2 G N) 2 + H N P 4)`` (bf16 convolution inputs, float32
+    SSD state) and, per application of the shared block, its ring of
+    ``min(window, max_len)`` slots ``2 B kv_len n_kv hd 2`` (+ ``pos``)."""
+    from repro_torch.models import hybrid, ssm as ssm_lib
+    from repro_torch.models import transformer as ttr
+    d_inner, H, G, N, P = ssm_lib.dims(cfg)
+    kv_len = ttr.cache_len(cfg, max_len)
+    return cfg.n_layers * batch * ((cfg.ssm.d_conv - 1)
+                                   * (d_inner + 2 * G * N) * 2
+                                   + H * N * P * 4) \
+        + hybrid.n_shared_applications(cfg) * (
+            2 * batch * kv_len * cfg.n_kv_heads * cfg.hd * 2 + kv_len * 4)
+
+
+def hybrid_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
+                steps: int = HYBRID_STEPS,
+                serve_batch: int = HYBRID_SERVE_BATCH,
+                prompt: int = HYBRID_PROMPT, new: int = HYBRID_NEW,
+                check: int = SERVE_CHECK, extra_args=()) -> dict:
+    """``zamba2_2_7b`` at full width and depth (54 Mamba2 layers, one shared
+    attention block applied after every 9): the launcher with its preset
+    (AdamW, microbatch 4, full remat), then ``launch.serve.main`` (greedy)
+    with a prompt of ``prompt`` tokens (the staged prompt kernels at 4096)
+    and ``new`` decode steps, every one past the 4096-token ring's wrap;
+    ``teacher_forced_check`` at float32 compute on the same parameters
+    (the bf16 one is a reading); the state's bytes against
+    ``hybrid_state_bytes`` at two lengths, and decode tok/s against its
+    HBM bound (the parameters as stored, read once, the SSM state read and
+    written, the rings read)."""
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.launch import train as launch
+    from repro_torch.models import hybrid
+    from repro_torch.models import transformer as ttr
+
+    reduced = "--reduced" in extra_args
+    cfg = get_reduced(HYBRID_ARCH) if reduced else get_config(HYBRID_ARCH)
+    tcfg = launch.train_preset(HYBRID_ARCH)
+    summary = run_launcher(
+        ["--arch", HYBRID_ARCH, "--batch", str(batch), "--seq", str(seq),
+         "--steps", str(steps), "--etl-backend", "cuda",
+         "--max-restarts", "0", *extra_args])
+    state = summary["state"]
+    if not isinstance(state.model, hybrid.Hybrid) or \
+            len(state.model.blocks) != cfg.n_layers:
+        raise AssertionError("hybrid_main: layers")
+    train = {"microbatch": tcfg.microbatch, "optimizer": tcfg.optimizer,
+             "remat": cfg.remat, "compute_dtype": cfg.compute_dtype,
+             "shared_applications": hybrid.n_shared_applications(cfg),
+             **train_readings("hybrid_main", summary, cfg, batch, seq,
+                              steps, expect)}
+    dev = next(state.model.parameters()).device
+    last = {k: v.to(dev) for k, v in summary["tap"]["batches"][-1].items()}
+    step = launch.make_train_step(launch.build_model(cfg).loss, tcfg)
+    train["profile_one_more_step"] = profile_step(lambda: step(state, last))
+    del summary, state, last, step
+    free_memory()
+    summary = run_serve(["--arch", HYBRID_ARCH, "--batch", str(serve_batch),
+                         "--prompt-len", str(prompt), "--max-new", str(new),
+                         *extra_args])
+    serve_launches = check_prompts("hybrid_main serve", summary, expect)
+    module = summary["module"]
+    # as ssm_main's: the bf16 recurrence drifts from the chunked forward
+    # over 54 layers (a reading); the check runs at float32 compute
+    tf = teacher_forced_check("hybrid_main", summary, check, strict=False)
+    with config_swapped(module, dataclasses.replace(
+            cfg, compute_dtype="float32")):
+        tf32 = teacher_forced_check("hybrid_main", summary, check,
+                                    greedy=False)
+    cache = tf["cache"]
+    state_bytes = tensor_bytes(cache)
+    lengths = {n: tensor_bytes(module.init_cache(serve_batch, n))
+               for n in (prompt + new, prompt // 4)}
+    for n, got in [(prompt + new, state_bytes), *lengths.items()]:
+        if got != hybrid_state_bytes(cfg, serve_batch, n):
+            raise AssertionError(f"hybrid_main: state {got} B at max_len "
+                                 f"{n}, want "
+                                 f"{hybrid_state_bytes(cfg, serve_batch, n)}")
+    ring = cache["shared_kv"]
+    kv_len = ttr.cache_len(cfg, prompt + new)
+    wrapped = int((ring["pos"][0] >= kv_len).sum())
+    if kv_len != cfg.sliding_window or wrapped != min(
+            kv_len, prompt + check - kv_len):
+        raise AssertionError(f"hybrid_main: ring of {kv_len}, {wrapped} "
+                             "slots past the wrap")
+    ring_bytes = tensor_bytes(ring)
+    ssm_bytes = state_bytes - ring_bytes
+    pbytes = param_bytes(module)
+    profile = profile_step(lambda: decode_once(summary["model"], module, tf))
+    return {"arch": HYBRID_ARCH, "reduced": reduced,
+            "layers": cfg.n_layers, "train": train,
+            "serve": {**serve_readings(summary, pbytes + 2 * ssm_bytes
+                                       + ring_bytes),
+                      "param_bytes": pbytes, "state_bytes": state_bytes,
+                      "ssm_state_bytes": ssm_bytes,
+                      "ring_bytes": ring_bytes,
+                      "state_formula_bytes_by_max_len": {
+                          str(n): hybrid_state_bytes(cfg, serve_batch, n)
+                          for n in (prompt + new, prompt // 4)},
+                      "ring_len": kv_len,
+                      "slots_rewritten_past_wrap": wrapped,
+                      "teacher_forced_bf16_reading": tf["check"],
+                      "teacher_forced_float32": tf32["check"],
+                      "launches": serve_launches,
+                      "profile_one_decode_step": profile},
+            "launches": add_launches(train["launches"], serve_launches)}
+
+
+def encdec_generate(model, module, frames, prompts, new: int,
+                    max_len: int) -> dict:
+    """Greedy serving of an enc-dec model (no launcher feeds its frames):
+    ``Model.prefill`` on the frames and prompts, then ``new`` decode
+    steps, positions on the host; the tokens, the phases' seconds and the
+    cache."""
+    import torch
+    from repro_torch.serving.decode import next_token
+    B, S = prompts.shape
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(module, {"frames": frames,
+                                               "tokens": prompts}, max_len)
+        tok = next_token(logits[:, -1])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = []
+        t0 = time.perf_counter()
+        for i in range(new):
+            out.append(tok)
+            logits, cache = model.decode_step(module, cache, tok, S + i)
+            tok = next_token(logits[:, -1])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    return {"tokens": torch.cat(out, 1), "prefill_s": prefill_s,
+            "decode_s": decode_s, "cache": cache, "next": tok,
+            "next_pos": S + new}
+
+
+def encdec_forced(model, module, frames, seq, S: int, n: int,
+                  tol: float) -> dict:
+    """``decode_train``'s logits at positions ``S - 1 .. S + n - 1`` (the
+    encoder run once) against prefill of ``S`` tokens and ``n`` decode
+    steps fed the same tokens: the largest difference within ``tol`` x
+    the forward's largest magnitude."""
+    import torch
+    with torch.inference_mode():
+        enc = module.encode(frames)
+        fwd = module.decode_train(enc, seq[:, :S + n])[:, S - 1:].float()
+        lg, cache = model.prefill(module, {"frames": frames,
+                                           "tokens": seq[:, :S]}, S + n)
+        dec = [lg[:, -1].float()]
+        for i in range(n):
+            lg, cache = model.decode_step(module, cache,
+                                          seq[:, S + i:S + i + 1], S + i)
+            dec.append(lg[:, -1].float())
+        dec = torch.stack(dec, 1)
+        largest = float(fwd.abs().max())
+        err = float((dec - fwd).abs().max())
+        differ = int((dec.argmax(-1) != fwd.argmax(-1)).sum())
+    return {"positions": [S, S + n], "max_abs_err": err, "largest": largest,
+            "tol": tol, "ok": err <= tol * largest,
+            "argmax_differing": differ, "tokens_total": dec.shape[0] * (n + 1)}
+
+
+def encdec_main(root: str, expect, batch: int = LM_BATCH,
+                seq: int = ENCDEC_SEQ, steps: int = ENCDEC_STEPS,
+                serve_batch: int = ENCDEC_SERVE_BATCH,
+                prompt: int = ENCDEC_PROMPT, new: int = ENCDEC_NEW,
+                check: int = SERVE_CHECK, reduced: bool = False) -> dict:
+    """``whisper_base`` at full width and depth (6 + 6 layers, 1500
+    frames).  Neither launcher can feed its frames (the reference's cannot
+    either): both are shown to refuse it, then ``build_model`` and
+    ``random_batch`` (``seq`` 448 decoder tokens and 1500 frames a row)
+    train it ``steps`` steps with the preset (AdamW, microbatch 1), and it
+    serves ``new`` greedy tokens from ``Model.prefill`` over prompts from
+    ``launch.serve.make_prompt_job`` on the cuda backend (the ETL still
+    feeds the path) and ``random_batch``'s frames.  Checks: finite losses
+    and gradient norms, the parameter count, the prompt job's launches and
+    batch, prefill + ``check`` decode steps against ``decode_train`` at
+    float32 compute within ``FORCED_F32_TOL`` (bf16: a reading), the self
+    and cross caches' bytes against their formulas; decode tok/s against
+    its HBM bound (the parameters, both caches read)."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.kernels import dataflow as df
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as launch
+    from repro_torch.models import api, encdec
+    from repro_torch.training.train_loop import TrainState
+
+    cfg = get_reduced(ENCDEC_ARCH) if reduced else get_config(ENCDEC_ARCH)
+    refused = {}
+    for name, fn in (("train", launch.main), ("serve", serve_launch.main)):
+        try:
+            fn(["--arch", ENCDEC_ARCH, *(["--reduced"] if reduced else [])])
+        except ValueError as e:
+            refused[name] = str(e)
+        else:
+            raise AssertionError(f"encdec_main: launch.{name} ran")
+    tcfg = launch.train_preset(ENCDEC_ARCH)
+    model = api.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    module = model.init(seed=0)
+    dev = next(module.parameters()).device
+    if not isinstance(module, encdec.EncDec) or \
+            counted_params(module, cfg) != cfg.param_count():
+        raise AssertionError("encdec_main: parameters")
+    state = TrainState.create(module, tcfg)
+    step = launch.make_train_step(model.loss, tcfg)
+    shape = ShapeCfg("encdec", seq, batch, "train")
+    batches = [api.random_batch(cfg, shape, seed=i, device=dev)
+               for i in range(steps + 1)]
+    metrics, ms = [], []
+    for b in batches[:steps]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append((loss, gnorm))
+    if not all(math.isfinite(x) for m in metrics for x in m):
+        raise AssertionError(f"encdec_main: losses / norms {metrics}")
+    profile = profile_step(lambda: step(state, batches[-1]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = sorted(ms[1:])[len(ms[1:]) // 2] if len(ms) > 1 else ms[0]
+    n = cfg.param_count()
+    tokens = batch * seq
+    train = {"microbatch": tcfg.microbatch, "optimizer": tcfg.optimizer,
+             "batch": batch, "seq": seq, "frames": cfg.enc_seq,
+             "steps": steps, "losses": [m[0] for m in metrics],
+             "grad_norms": [m[1] for m in metrics], "step_ms": ms,
+             "step_ms_median_2_on": med,
+             "tok_per_s_steps_2_on": tokens / (med / 1e3),
+             "peak_mem_gb": peak, "param_count": n,
+             # decoder tokens only: the encoder's 1500 frames a row are
+             # another 6 N_enc frames of work each, not counted here
+             "mfu_estimate_6NT_vs_dense_bf16_peak":
+                 6 * n * tokens / (med / 1e3) / BF16_PEAK_FLOPS,
+             "profile_one_more_step": profile}
+    del state, step, batches, profile
+    free_memory()
+
+    job = serve_launch.make_prompt_job(cfg, batch=serve_batch,
+                                       prompt_len=prompt, backend="cuda",
+                                       device=dev)
+    df.reset_launch_counts()
+    with job.batches() as it:
+        prompts = next(iter(it))["tokens"]
+    torch.cuda.synchronize()
+    serve_launches = check_prompts(
+        "encdec_main serve", {"prompts": prompts, "cfg": cfg,
+                              "launches": dict(df.LAUNCHES), "job": job,
+                              "etl": job.stats()}, expect)
+    frames = api.random_batch(cfg, ShapeCfg("encdec", prompt, serve_batch,
+                                            "prefill"), seed=7,
+                              device=dev)["frames"]
+    max_len = prompt + new
+    torch.cuda.reset_peak_memory_stats()
+    served = encdec_generate(model, module, frames, prompts, new, max_len)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    seq_all = torch.cat([prompts, served["tokens"].to(prompts.dtype)], 1)
+    bf16 = encdec_forced(model, module, frames, seq_all, prompt, check,
+                         SERVE_TOL)
+    with config_swapped(module, dataclasses.replace(
+            cfg, compute_dtype="float32")):
+        f32 = encdec_forced(model, module, frames, seq_all, prompt, check,
+                            FORCED_F32_TOL)
+    if not f32["ok"]:
+        raise AssertionError(f"encdec_main: decode vs forward {f32}")
+    cache = served["cache"]
+    L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    want = {"self": 2 * L * serve_batch * max_len * kv * hd * 2
+            + L * max_len * 4,
+            "cross": 2 * L * serve_batch * cfg.enc_seq * kv * hd * 2}
+    got = {k: tensor_bytes(cache[k]) for k in want}
+    if got != want:
+        raise AssertionError(f"encdec_main: cache bytes {got}, want {want}")
+    pbytes = param_bytes(module)
+    bound_ms = (pbytes + sum(got.values())) / HBM_BYTES_PER_S * 1e3
+    step_ms = served["decode_s"] / new * 1e3
+    profile = profile_step(lambda: decode_once(model, module, served))
+    return {"arch": ENCDEC_ARCH, "reduced": reduced,
+            "layers": [cfg.enc_layers, cfg.n_layers],
+            "launchers_refuse": refused, "train": train,
+            "serve": {"batch": serve_batch, "prompt_len": prompt,
+                      "max_new": new, "prefill_s": served["prefill_s"],
+                      "decode_s": served["decode_s"],
+                      "decode_tok_per_s": serve_batch * new
+                      / served["decode_s"],
+                      "decode_step_ms": step_ms,
+                      "decode_step_bound_ms": bound_ms,
+                      "decode_share_of_bound": bound_ms / step_ms,
+                      "param_bytes": pbytes, "cache_bytes": got,
+                      "peak_mem_gb": peak,
+                      "first_sequence":
+                          served["tokens"][0][:16].tolist(),
+                      "teacher_forced_bf16_reading": bf16,
+                      "teacher_forced_float32": f32,
+                      "launches": serve_launches,
+                      "profile_one_decode_step": profile},
+            "launches": serve_launches}
 
 
 def multitenant_main(expect, rows: int = 0,
@@ -2927,6 +3270,14 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     vlm = vlm_main(root, expect)
     emit({"phase": "vlm_main", **vlm})
 
+    # ---- the hybrid and enc-dec families ---------------------------------
+    free_memory()
+    hyb = hybrid_main(root, expect)
+    emit({"phase": "hybrid_main", **hyb})
+    free_memory()
+    ed = encdec_main(root, expect)
+    emit({"phase": "encdec_main", **ed})
+
     path_launches = {"group_dataflow": main["launches"]["group_dataflow"],
                      "fit_dataflow": main["fit_launches"]["fit_dataflow"],
                      "output_dataflow": solo_launches["output_dataflow"]}
@@ -2961,7 +3312,8 @@ def main(root: str = HERE, time_only: bool = False) -> int:
         for label, ph in (("lm_main", lm), ("moe_ckpt", moe_ck),
                           ("moe_main", moe), ("adafactor_main", af),
                           ("serve_main", srv), ("serve_moe", smoe),
-                          ("ssm_main", ssm_ph), ("vlm_main", vlm)):
+                          ("ssm_main", ssm_ph), ("vlm_main", vlm),
+                          ("hybrid_main", hyb), ("encdec_main", ed)):
             if ph["launches"].get(name):
                 out[-1][f"launches_{label}"] = ph["launches"][name]
     emit({"kernels": out})

@@ -18,6 +18,11 @@ token pipeline (SigridHash bounds unbounded ids into the model's vocab), so
 serving exercises the identical ETL contract, freshness, batching and
 packer layout, that the trainer consumes.
 
+Every decoder-only family serves (dense, MoE, VLM text, SSM, hybrid); an
+enc-dec model, whose prefill needs frames, is refused with a
+``ValueError`` before its prompt job starts (the reference's launcher
+cannot serve one either).
+
 ``--metrics-file PATH`` exports the run's counters in Prometheus text
 format for a node_exporter textfile collector.
 """
@@ -33,7 +38,7 @@ from repro_torch.core.pipeline import lm_token_pipeline
 from repro_torch.data.source import Source
 from repro_torch.etl_runtime import metrics as metrics_lib
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.launch.train import placer
+from repro_torch.launch.train import check_fed, placer
 from repro_torch.models.api import build_model
 from repro_torch.serving.decode import generate
 from repro_torch.session import EtlJob
@@ -83,6 +88,7 @@ def main(argv=None) -> dict:
     entry points), ``module``, ``job`` and ``max_len``."""
     args = build_parser().parse_args(argv)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    check_fed(cfg)
     dev = resolve_device(args.device)
     model = build_model(cfg)
     module = model.init(seed=0, device=dev)

@@ -20,14 +20,15 @@ the newest committed checkpoint under ``--ckpt-dir`` is restored if there is
 one (``resume_or_init``), and a retriable failure restarts the loop from it
 (``run_with_restarts``).
 
-Ported: the dense, MoE, VLM and SSM families on one device (``--mesh
-host``), with the presets' AdamW or Adafactor; ``fsdp`` and
-``seq_parallel`` are sharding choices, the identity on one device.  As the
-reference's launcher does, it feeds tokens and labels only, so a VLM
-trains on text alone.  ``--mesh pod`` / ``multipod`` raise
-``NotImplementedError`` (ROADMAP Queue A: distribution); so do the hybrid
-and enc-dec families (their own Queue A items).  Without ``--device`` and
-without a CUDA device the launcher raises.
+Every decoder-only family trains on one device (``--mesh host``): dense,
+MoE, VLM, SSM and hybrid, with the presets' AdamW or Adafactor; ``fsdp``
+and ``seq_parallel`` are sharding choices, the identity on one device.  As
+the reference's launcher does, it feeds tokens and labels only, so a VLM
+trains on text alone and an enc-dec model, which needs frames, is refused
+with a ``ValueError`` before any ETL job starts (the reference's launcher
+cannot run one either).  ``--mesh pod`` / ``multipod`` raise
+``NotImplementedError`` (ROADMAP Queue A: distribution).  Without
+``--device`` and without a CUDA device the launcher raises.
 """
 
 from __future__ import annotations
@@ -49,6 +50,16 @@ from repro_torch.training.fault import run_with_restarts
 from repro_torch.training.train_loop import (LoopConfig, TrainState,
                                              make_train_step, resume_or_init,
                                              train_loop)
+
+
+def check_fed(cfg) -> None:
+    """Raise for a family whose inputs the token pipeline does not make:
+    enc-dec trains and prefills on ``frames`` beside its tokens."""
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: the enc-dec family needs frames, which the LM "
+            "token pipeline does not make (it feeds tokens and labels); use "
+            "models.api.build_model with random_batch's frames instead")
 
 
 def placer(backend: str, device):
@@ -140,6 +151,7 @@ def main(argv=None) -> dict:
     ``trainer_utilization``, ``restarts``)."""
     args = build_parser().parse_args(argv)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    check_fed(cfg)
     tcfg = train_preset(args.arch)
     check_ported(tcfg)
     if args.mesh != "host":

@@ -3,11 +3,11 @@
 (``init_cache`` / ``prefill`` / ``decode_step``), ``input_specs`` per shape
 cell, ``cache_specs``, ``random_batch`` and ``params_from_jax``.
 
-Ported: the dense, MoE and VLM families (``models/transformer.py``) and
-the SSM family (``models/ssm.py``).  Hybrid and enc-dec raise
-``NotImplementedError`` naming their ROADMAP Queue A item.  As in the
-reference, a VLM serves text only: ``prefill`` takes the prompt's tokens
-and no patch embeddings.
+Every family of the zoo: dense, MoE and VLM (``models/transformer.py``),
+SSM (``models/ssm.py``), hybrid (``models/hybrid.py``) and enc-dec
+(``models/encdec.py``).  As in the reference, a VLM serves text only
+(``prefill`` takes the prompt's tokens and no patch embeddings), and an
+enc-dec model trains and prefills on stub ``frames`` beside its tokens.
 """
 
 from __future__ import annotations
@@ -20,9 +20,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCfg
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.models import ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 
-PORTED_FAMILIES = (*transformer.TRANSFORMER_FAMILIES, "ssm")
+# family -> (the module holding its ``init_cache``, its model class)
+FAMILIES = {**{f: (transformer, transformer.Transformer)
+               for f in transformer.TRANSFORMER_FAMILIES},
+            "ssm": (ssm, ssm.SSM), "hybrid": (hybrid, hybrid.Hybrid),
+            "encdec": (encdec, encdec.EncDec)}
 
 
 @dataclasses.dataclass
@@ -38,21 +42,26 @@ class Model:
     decode_step: Callable  # (module, cache, tokens, pos) -> (logits, cache)
 
 
-def _unported(cfg: ModelConfig):
-    transformer.not_ported(f"family {cfg.family!r}",
-                           transformer.FAMILY_ITEM.get(cfg.family, cfg.family))
+def _family(cfg: ModelConfig) -> tuple:
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return FAMILIES[cfg.family]
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeCfg) -> dict:
     """``{name: (shape, torch dtype)}`` of every model input of a shape
-    cell: tokens and labels; a VLM trains on ``n_patches`` float32 patch
+    cell: tokens and labels; an enc-dec model adds ``enc_seq`` float32
+    frame embeddings first; a VLM trains on ``n_patches`` float32 patch
     embeddings and ``max(S - n_patches, 1)`` text tokens; decode takes one
     token a row (the cache is ``cache_specs``'s)."""
     B, S = shape.global_batch, shape.seq_len
-    if cfg.family not in PORTED_FAMILIES:
-        _unported(cfg)
+    _family(cfg)
     if shape.kind == "decode":
         return {"tokens": ((B, 1), torch.int32)}
+    if cfg.family == "encdec":
+        return {"frames": ((B, cfg.enc_seq, cfg.d_model), torch.float32),
+                "tokens": ((B, S), torch.int32),
+                "labels": ((B, S), torch.int32)}
     if cfg.family == "vlm" and shape.kind == "train":
         text = max(S - cfg.n_patches, 1)
         return {"patch_embeds": ((B, cfg.n_patches, cfg.d_model),
@@ -64,26 +73,33 @@ def input_specs(cfg: ModelConfig, shape: ShapeCfg) -> dict:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family not in PORTED_FAMILIES:
-        _unported(cfg)
-    cls = ssm.SSM if cfg.family == "ssm" else transformer.Transformer
-    mod = ssm if cfg.family == "ssm" else transformer
+    mod, cls = _family(cfg)
+    fam = cfg.family
 
     def init(seed: int = 0, device=None):
         return cls(cfg, device=device, seed=seed)
 
     def forward(m, batch):
-        if cfg.family == "ssm":
+        if fam == "encdec":
+            return m(batch["frames"], batch["tokens"])
+        if fam in ("ssm", "hybrid"):
             return m(batch["tokens"])
         return m(batch["tokens"], batch.get("patch_embeds"))
 
+    def init_cache(b, max_len, device=None):
+        if fam == "encdec":
+            return encdec.init_cache(cfg, b, max_len, cfg.enc_seq,
+                                     device=device)
+        return mod.init_cache(cfg, b, max_len, device=device)
+
+    def prefill(m, batch, max_len):
+        if fam == "encdec":
+            return m.prefill(batch["frames"], batch["tokens"], max_len)
+        return m.prefill(batch["tokens"], max_len)
+
     return Model(cfg=cfg, init=init,
                  loss=lambda m, batch: m.loss_fn(batch),
-                 forward=forward,
-                 init_cache=lambda b, max_len, device=None: mod.init_cache(
-                     cfg, b, max_len, device=device),
-                 prefill=lambda m, batch, max_len: m.prefill(batch["tokens"],
-                                                             max_len),
+                 forward=forward, init_cache=init_cache, prefill=prefill,
                  decode_step=lambda m, cache, tokens, pos: m.decode_step(
                      cache, tokens, pos))
 
@@ -120,8 +136,8 @@ def random_batch(cfg: ModelConfig, shape: ShapeCfg, seed: int = 0,
 
 
 def params_from_jax(model: transformer.LM, tree) -> transformer.LM:
-    """Load the JAX package's parameter tree (numpy arrays: stacked
-    ``blocks/*`` and ``moe_blocks/*`` leaves of ``[L, ...]``, ``embed``
-    with its padded rows) into ``model`` (a ``Transformer`` or an ``SSM``)
-    in place; returns it."""
+    """Load the JAX package's parameter tree (numpy arrays: each layer
+    group's leaves stacked ``[L, ...]``, unstacked subtrees as they are,
+    ``embed`` with its padded rows) into ``model`` (an ``LM`` of any
+    family) in place; returns it."""
     return model.load_jax_tree(tree)

@@ -15,8 +15,11 @@ Conventions
 - KV caches (``cache_init``) are written in place at the decode position
   (a ring buffer modulo its length for sliding-window models): the caller
   keeps the cache it passed, as the reference's decode donates it.
-  Cross-attention (``kv_x=``) waits for the enc-dec family (ROADMAP
-  Queue A: enc-dec).
+- Cross-attention (``mha(..., kv_x=)``) projects K and V from ``kv_x``,
+  with no RoPE and no mask.  Sinusoidal positions come in the reference's
+  two forms, which differ in their last bits: ``sinusoidal_positions``
+  (numpy float64, cast to float32: training and prefill) and
+  ``sinusoidal_at`` (float32 arithmetic at given positions: decode).
 """
 
 from __future__ import annotations
@@ -211,30 +214,35 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal, window,
     return torch.cat(outs, dim=1)
 
 
-def mha(p, x, spec: AttnSpec, *, q_pos: Optional[torch.Tensor] = None,
+def mha(p, x, spec: AttnSpec, *, kv_x: Optional[torch.Tensor] = None,
+        q_pos: Optional[torch.Tensor] = None,
         cache: Optional[dict] = None, cache_pos: Optional[int] = None,
         ring: bool = False):
-    """Causal self-attention with GQA and an optional KV cache.
-    x: (B, Sq, D).
+    """Multi-head attention with GQA and an optional KV cache.
+    x: (B, Sq, D).  kv_x: the cross-attention source (B, Sk, D) or None
+    (self-attention, masked as ``spec`` says).
 
     ``cache`` (from ``cache_init``) is written in place at ``cache_pos`` (a
     host int; modulo the cache's length when ``ring``), and the queries
     attend over the whole cache, masked by its positions.  Ring writes
-    require Sq == 1 (decode) or a span that does not wrap.
+    require Sq == 1 (decode) or a span that does not wrap.  Cross-attention
+    has no RoPE, no mask and never the chunked path.
     """
     B, Sq, _ = x.shape
     h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     dt = x.dtype
+    src = x if kv_x is None else kv_x
+    Sk = src.shape[1]
     q = (x @ p["wq"].to(dt)).reshape(B, Sq, h, hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, Sq, kv, hd)
-    v = (x @ p["wv"].to(dt)).reshape(B, Sq, kv, hd)
+    k = (src @ p["wk"].to(dt)).reshape(B, Sk, kv, hd)
+    v = (src @ p["wv"].to(dt)).reshape(B, Sk, kv, hd)
     if spec.qk_norm:
         q = rmsnorm(q, p["q_norm"].to(dt), 1e-6)
         k = rmsnorm(k, p["k_norm"].to(dt), 1e-6)
     if q_pos is None:
         start = 0 if cache_pos is None else cache_pos
         q_pos = torch.arange(start, start + Sq, device=x.device)
-    if spec.rope_style != "none":
+    if spec.rope_style != "none" and kv_x is None:
         inv = rope_freqs(hd, spec.rope_theta, spec.rope_style, x.device)
         pos = torch.broadcast_to(q_pos, (B, Sq))
         q = apply_rope(q, pos, inv, spec.rope_style)
@@ -251,7 +259,7 @@ def mha(p, x, spec: AttnSpec, *, q_pos: Optional[torch.Tensor] = None,
         cache["pos"][slot:slot + Sq] = q_pos.to(torch.int32)
         k, v, k_pos = cache["k"], cache["v"], cache["pos"]
     else:
-        k_pos = torch.arange(Sq, device=x.device)
+        k_pos = torch.arange(Sk, device=x.device)
 
     # GQA: repeat kv heads to match q heads
     rep = h // kv
@@ -259,15 +267,16 @@ def mha(p, x, spec: AttnSpec, *, q_pos: Optional[torch.Tensor] = None,
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
 
-    if Sq > 1 and max(Sq, k.shape[1]) > FLASH_THRESHOLD:
+    if Sq > 1 and max(Sq, k.shape[1]) > FLASH_THRESHOLD and kv_x is None:
         # long-context path: chunked online-softmax attention (no S^2 scores)
         out = flash_attention(q, k, v, q_pos, k_pos, causal=spec.causal,
                               window=spec.sliding_window).to(dt)
         return out.reshape(B, Sq, h * hd) @ p["wo"].to(dt)
 
     scores = _scores(q, k, 1.0 / math.sqrt(hd))
-    scores = scores + _mask_from_positions(q_pos, k_pos, spec.causal,
-                                           spec.sliding_window)
+    if kv_x is None:  # self-attention mask
+        scores = scores + _mask_from_positions(q_pos, k_pos, spec.causal,
+                                               spec.sliding_window)
     probs = torch.softmax(scores, dim=-1).to(dt)
     del scores
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -375,3 +384,28 @@ def cross_entropy(logits, labels, *, ignore_id: int = -100,
     nll = lse - ll
     mask = (labels != ignore_id).to(torch.float32)
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def sinusoidal_positions(n, d) -> torch.Tensor:
+    """(n, d) float32 sinusoids of positions 0 .. n-1, computed in numpy
+    float64 and cast (training and prefill)."""
+    pos = np.arange(n)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    out = np.zeros((n, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out)
+
+
+def sinusoidal_at(positions: torch.Tensor, d) -> torch.Tensor:
+    """Sinusoids at integer ``positions`` (S,) -> (S, d), in float32
+    arithmetic on their device (decode)."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=positions.device)
+    ang = positions.to(torch.float32)[:, None] / torch.pow(
+        torch.tensor(10000.0, device=positions.device), 2 * i / d)
+    out = torch.zeros((positions.shape[0], d), dtype=torch.float32,
+                      device=positions.device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out

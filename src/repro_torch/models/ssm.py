@@ -285,15 +285,6 @@ class SSM(LM):
                 else block(x)
         return L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
 
-    def forward(self, tokens):
-        return L.lm_logits(self.hidden_states(tokens), self.head(),
-                           self.cfg.tie_embeddings)
-
-    def loss_fn(self, batch: dict):
-        return L.cross_entropy(self.forward(batch["tokens"]),
-                               batch["labels"],
-                               valid_vocab=self.cfg.vocab_size)
-
     # ---- serving --------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> dict:

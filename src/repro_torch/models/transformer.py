@@ -41,14 +41,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 
 
-def not_ported(what: str, item: str):
-    """Raise for a surface the port lacks, naming its ROADMAP Queue A item
-    by name."""
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A: "
-                              f"{item})")
-
-
-FAMILY_ITEM = {"hybrid": "hybrid", "encdec": "enc-dec"}
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 
 
@@ -153,9 +145,12 @@ def _dots_context():
 class LM(nn.Module):
     """What the LMs share: ``embed``, ``final_norm``, ``lm_head`` when
     untied, per-layer blocks in the groups ``LAYER_GROUPS`` (each block's
-    ``tree()`` its JAX subtree), and the JAX package's parameter layout."""
+    ``tree()`` its JAX subtree), unstacked subtrees ``UNSTACKED`` (a module
+    with ``tree()`` or a ``ParameterDict``: one JAX leaf per tensor), and
+    the JAX package's parameter layout."""
 
     LAYER_GROUPS: tuple = ("blocks",)
+    UNSTACKED: tuple = ()
 
     def head(self):
         return self.embed if self.cfg.tie_embeddings else self.lm_head
@@ -166,11 +161,21 @@ class LM(nn.Module):
         x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
         return L.lm_logits(x, self.head(), cfg.tie_embeddings)
 
+    def forward(self, tokens):
+        """tokens (B, S) -> logits, from ``hidden_states`` (final-normed)."""
+        return L.lm_logits(self.hidden_states(tokens), self.head(),
+                           self.cfg.tie_embeddings)
+
+    def loss_fn(self, batch: dict):
+        return L.cross_entropy(self.forward(batch["tokens"]),
+                               batch["labels"],
+                               valid_vocab=self.cfg.vocab_size)
+
     def jax_tree(self) -> dict:
-        """The parameters in the JAX package's tree: ``blocks/<path>`` and
-        ``moe_blocks/<path>`` are the lists of the layers' tensors for that
-        leaf (stack one for the ``[L, ...]`` leaf), every other leaf the
-        parameter itself."""
+        """The parameters in the JAX package's tree: a layer group's
+        ``<group>/<path>`` is the list of the layers' tensors for that leaf
+        (stack one for the ``[L, ...]`` leaf), every other leaf (an
+        ``UNSTACKED`` subtree's too) the parameter itself."""
         tree = {"embed": self.embed,
                 "final_norm": dict(self.final_norm.items())}
         if self.lm_head is not None:
@@ -179,12 +184,17 @@ class LM(nn.Module):
             layers = getattr(self, name)
             if len(layers):
                 tree[name] = _by_layer([b.tree() for b in layers])
+        for name in self.UNSTACKED:
+            sub = getattr(self, name)
+            tree[name] = sub.tree() if hasattr(sub, "tree") \
+                else dict(sub.items())
         return tree
 
     def param_leaves(self) -> list:
         """The JAX leaves as indices into ``list(self.parameters())``: an
-        int for a leaf that is one parameter, a list of per-layer indices
-        for a stacked one (the grouping Adafactor keys its state by)."""
+        int for a leaf that is one parameter (an unstacked subtree's
+        included), a list of per-layer indices for a stacked one (the
+        grouping Adafactor keys its state by)."""
         index = {id(p): i for i, p in enumerate(self.parameters())}
         return [[index[id(t)] for t in leaf] if isinstance(leaf, list)
                 else index[id(leaf)]
@@ -248,8 +258,6 @@ class Transformer(LM):
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
-        if cfg.family in FAMILY_ITEM:
-            not_ported(f"family {cfg.family!r}", FAMILY_ITEM[cfg.family])
         if cfg.family not in TRANSFORMER_FAMILIES or \
                 (cfg.family == "moe") != (cfg.moe is not None):
             raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
@@ -401,14 +409,14 @@ def loss_fn(model: Transformer, batch: dict):
 
 
 def state_to_jax_leaves(state) -> list:
-    """A train state (``model``: a ``Transformer``, ``opt``: AdamW ``{"m",
+    """A train state (``model``: an ``LM``, ``opt``: AdamW ``{"m",
     "v"}`` in ``model.parameters()`` order, or Adafactor ``{"f"}`` in JAX
     leaf order; ``step``) as the JAX package's ``TrainState(params, opt,
     step)`` leaves, in its flatten order: the parameters, then ``m``, then
     ``v`` (each in the parameter tree's sorted order) or, for Adafactor,
     each leaf's ``vc`` and ``vr`` (or ``v``), then ``step`` as an int32
-    scalar.  A ``blocks/*`` / ``moe_blocks/*`` leaf is the list of its
-    per-layer tensors (stack it, e.g. on the host, for the ``[L, ...]``
+    scalar.  A layer group's leaf (``blocks/*``, ``moe_blocks/*``, ...)
+    is the list of its per-layer tensors (stack it, e.g. on the host, for the ``[L, ...]``
     leaf); Adafactor's state is stored stacked."""
     def pick(group, leaf):
         if isinstance(leaf, list):

@@ -14,11 +14,11 @@ Layout (one directory per step)::
   stream), then writes in a background thread while training goes on.
 - Leaves follow the JAX package's flatten order: dict keys sorted, lists
   and tuples in order, ``None`` holds no leaf.  A train state whose model
-  is a ``DLRM``, a ``Transformer`` or an ``SSM`` is flattened as the JAX
+  is a ``DLRM`` or an LM of any family is flattened as the JAX
   package's ``TrainState(params, opt, step)``
   (``models/dlrm.state_to_jax_leaves``: ``w`` as ``[in, out]``;
-  ``models/transformer.state_to_jax_leaves``, for both LMs: each
-  ``blocks/*`` leaf the layers stacked ``[L, ...]``, on the host), so a
+  ``models/transformer.state_to_jax_leaves``, for every LM: each layer
+  group's leaf the layers stacked ``[L, ...]``, on the host), so a
   checkpoint written by either package restores in the other.
 """
 
@@ -34,13 +34,14 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import dlrm, ssm, transformer
+from repro_torch.models import dlrm, encdec, hybrid, ssm, transformer
 
 _COMMIT = "COMMITTED"
 
 
 _STATE_LAYOUTS = {dlrm.DLRM: dlrm, transformer.Transformer: transformer,
-                  ssm.SSM: transformer}
+                  ssm.SSM: transformer, hybrid.Hybrid: transformer,
+                  encdec.EncDec: transformer}
 
 
 def _is_train_state(tree) -> bool:
@@ -59,7 +60,7 @@ def _flatten(tree) -> tuple:
         if mod is None:
             raise NotImplementedError(
                 f"checkpointing a {kind} train state is not ported yet "
-                "(DLRM, Transformer and SSM are)")
+                "(DLRM and the LMs are)")
 
         def rebuild_state(arrays):
             return mod.load_jax_leaves(tree, arrays)

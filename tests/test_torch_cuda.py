@@ -8,7 +8,8 @@ program's byte copy and the edges of the redesigned stage, build and
 packer kernels; the LM trainer's forward and backward against the CPU,
 three tenants at once bit for bit, and exact launch counts under four
 launching threads; the MoE family and bfloat16-state optimizer steps
-against the CPU.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
+against the CPU; serving, and the hybrid and enc-dec families, against the
+CPU.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
 elsewhere (a CUDA kernel has no interpret mode).
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1060,3 +1061,75 @@ def test_serving_matches_the_cpu(card, arch):
         else:
             assert torch.equal(a, b.cpu())
     np.testing.assert_array_equal(t0, t1)
+
+
+@pytest.mark.parametrize("compute,rel", [("float32", 1e-4),
+                                         ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("arch", ["zamba2_2_7b", "whisper_base"])
+def test_hybrid_and_encdec_match_the_cpu(card, arch, compute, rel):
+    """The reduced hybrid (a 16-slot ring, the SSD chunk 32) and enc-dec
+    (32 frames) on the card against the CPU port from the same parameters
+    (TF32 off): logits within ``rel`` x the largest, the loss within rtol
+    ``rel / 10``, every gradient within ``rel`` in norm; then prefill (32
+    tokens for the hybrid, past its ring; 16 for the enc-dec) and 4 decode
+    steps: each step's logits within ``rel`` x the largest, every float
+    cache leaf within ``rel`` in norm and the positions bit-equal."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import api
+    cfg = dataclasses.replace(get_reduced(arch), compute_dtype=compute)
+    model = api.build_model(cfg)
+    S = 32 if arch == "zamba2_2_7b" else 16
+
+    def leaves(c):
+        return [x for _, v in sorted(c.items()) for x in
+                (leaves(v) if isinstance(v, dict) else [v])]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = model.init(seed=3, device="cpu")
+        gpu = model.init(seed=4, device=card)
+        gpu.load_jax_tree(_stack_tree(cpu.jax_tree()))
+        # the hybrid's forward runs whole SSD chunks past the first
+        batch = api.random_batch(cfg, ShapeCfg("t", 2 * S, 2, "train"),
+                                 seed=0, device="cpu")
+        out = []
+        for m, dev in ((cpu, "cpu"), (gpu, card)):
+            b = {k: v.to(dev) for k, v in batch.items()}
+            loss = model.loss(m, b)
+            loss.backward()
+            with torch.no_grad():
+                logits = model.forward(m, b).float().cpu()
+            pre = {k: (v[:, :S] if k == "tokens" else v)
+                   for k, v in b.items() if k != "labels"}
+            lg, cache = model.prefill(m, pre, S + 8)
+            steps = [lg.float().cpu()]
+            for pos in range(S, S + 4):
+                lg, cache = model.decode_step(
+                    m, cache, b["tokens"][:, pos:pos + 1], pos)
+                steps.append(lg.float().cpu())
+            out.append((float(loss.detach()), logits,
+                        [p.grad.float().cpu() for p in m.parameters()],
+                        steps, [x.cpu() for x in leaves(cache)]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l0, x0, g0, s0, c0), (l1, x1, g1, s1, c1) = out
+
+    def norm_close(a, b):
+        a, b = a.float(), b.float()
+        assert float(torch.linalg.vector_norm(a - b)) <= \
+            rel * float(torch.linalg.vector_norm(a))
+
+    assert abs(l1 - l0) <= rel / 10 * abs(l0)
+    for a, b in zip((x0, *s0), (x1, *s1)):
+        assert float((b - a).abs().max()) <= rel * float(a.abs().max())
+    for a, b in zip(g0, g1):
+        norm_close(a, b)
+    assert len(c0) == len(c1)
+    for a, b in zip(c0, c1):
+        if a.dtype.is_floating_point:
+            norm_close(a, b)
+        else:
+            assert torch.equal(a, b)

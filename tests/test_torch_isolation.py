@@ -101,17 +101,16 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
 
 
 def test_unported_options_raise():
-    from repro_torch.configs.registry import get_reduced
     from repro_torch.launch import train as launch
-    from repro_torch.models.api import build_model
     from repro_torch.training.grad import compressed_psum_mean
     tmpl = paper_pipeline("II", small_vocab=2048)
     src = Source.synth("I", rows=10, batch_size=10)
     job = EtlJob(tmpl, src, backend="cuda", device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
         job.executor()
-    with pytest.raises(NotImplementedError, match="Queue A: hybrid"):
-        build_model(get_reduced("zamba2_2_7b"))
+    with pytest.raises(ValueError, match="frames"):  # no launcher feeds them
+        launch.main(["--arch", "whisper_base", "--reduced", "--device",
+                     "cpu"])
     with pytest.raises(NotImplementedError, match="pod"):
         launch.main(["--arch", "llama3_2_3b", "--reduced", "--device", "cpu",
                      "--mesh", "pod"])

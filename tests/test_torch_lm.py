@@ -539,11 +539,12 @@ def test_launcher_feeds_the_pipelines_batches(monkeypatch):
     (["--arch", "llama3_405b", "--reduced", "--mesh", "multipod"],
      "multipod"),
     (["--arch", "mixtral_8x7b", "--reduced", "--mesh", "pod"], "pod"),
-    (["--arch", "zamba2_2_7b", "--reduced"], "Queue A: hybrid")])
+    (["--arch", "zamba2_2_7b", "--reduced", "--mesh", "pod"], "pod")])
 def test_launcher_raises_for_what_is_not_ported(argv, what):
-    """A mesh and the unported families raise; the Adafactor, fsdp and MoE
-    presets train (``tests/test_torch_moe.py``), and so do the VLM and the
-    SSM (``tests/test_torch_vlm.py``, ``tests/test_torch_ssm.py``)."""
+    """A mesh raises, whatever the family; the Adafactor, fsdp and MoE
+    presets train (``tests/test_torch_moe.py``), and so do the VLM, the
+    SSM and the hybrid (``tests/test_torch_vlm.py``,
+    ``tests/test_torch_ssm.py``, ``tests/test_torch_hybrid.py``)."""
     from repro_torch.launch import train as launch
     with pytest.raises(NotImplementedError, match=what):
         launch.main(argv + ["--device", "cpu", "--steps", "1"])
@@ -559,14 +560,17 @@ def test_int8_gradient_compression_raises_naming_item_3():
 @pytest.mark.parametrize("arch,item", [("zamba2_2_7b", "hybrid"),
                                        ("whisper_base", "enc-dec")])
 def test_other_families_raise_naming_their_item(arch, item):
-    """The unported families name their ROADMAP Queue A item by its name
-    (a renumbering of the queue leaves the message right)."""
+    """The families that once raised here (hybrid and enc-dec, ROADMAP
+    Queue A items of those names) now build through ``build_model`` into
+    their own module's class, while ``Transformer`` refuses their configs
+    as not a transformer's."""
     cfg = treg.get_reduced(arch)
-    for build in (api.build_model, lambda c: ttr.Transformer(c, device="cpu"),
-                  lambda c: api.input_specs(c, ShapeCfg("t", 8, 1, "train"))):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue A: {item}"):
-            build(cfg)
+    module = api.build_model(cfg).init(device="cpu")
+    assert type(module).__module__ == \
+        f"repro_torch.models.{item.replace('-', '')}"
+    assert "tokens" in api.input_specs(cfg, ShapeCfg("t", 8, 1, "train"))
+    with pytest.raises(ValueError, match="is not a transformer's"):
+        ttr.Transformer(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("seq", [64, 1024])

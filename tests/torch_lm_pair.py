@@ -18,9 +18,10 @@ from repro.models import api as rapi
 from repro_torch.configs import registry as treg
 from repro_torch.models import api
 
-# every arch of the ported families (dense, MoE, VLM, SSM)
+# every arch of the zoo (dense, MoE, VLM, SSM, hybrid, enc-dec)
 PORTED = ["llama3_2_3b", "chatglm3_6b", "qwen3_32b", "llama3_405b",
-          "mixtral_8x7b", "kimi_k2", "internvl2_2b", "mamba2_370m"]
+          "mixtral_8x7b", "kimi_k2", "internvl2_2b", "mamba2_370m",
+          "zamba2_2_7b", "whisper_base"]
 
 
 def cfgs(arch: str, **kw) -> tuple:
