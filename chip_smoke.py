@@ -267,11 +267,31 @@ Phases, one JSON line each; any failure exits non-zero:
                  steps against decode_train's logits at float32 compute
                  within 1e-4 x the largest (bf16 a reading).
 
+24. dist_main  — ``launch.train --mesh host`` under ``WORLD_SIZE`` on one
+                 spawned NCCL rank (the environment torchrun sets):
+                 mixtral_8x7b at full width, 1 of 32 layers, its preset
+                 (FSDP2 over a data mesh of 1, AdamW, microbatch 4),
+                 --batch 8 --seq 1024, 4 steps; the same cut run without a
+                 process group first, in this process: losses within
+                 LM_CHECK_RTOL["loss"]; every delivered batch the rank's
+                 rows of the plain compile's; step ms with and without the
+                 group, tok/s, peak GB, one profiled step (idle share, the
+                 NCCL kernels' share of busy, FSDP's annotated ranges).
+25. dist_ranks2 — the same on two spawned ranks sharing the card, gloo over
+                 CUDA tensors, at llama3_2_3b's full width, 2 of 28 layers,
+                 its preset (replicated parameters, one gradient all-reduce
+                 a step, microbatch 2; FSDP2 under gloo on CUDA tensors
+                 hangs, so FSDP across ranks runs on the CPU only), 4
+                 steps: each rank's rows, the global losses against one
+                 process's, and compressed_psum_mean over the first
+                 block's gradients bit-equal card vs CPU.
+
 Then the ``{"kernels": [...]}`` line (``launches_online_main``,
 ``launches_multitenant_main``, ``launches_lm_main``, ``launches_moe_ckpt``,
 ``launches_moe_main``, ``launches_adafactor_main``, ``launches_serve_main``,
 ``launches_serve_moe``, ``launches_ssm_main``, ``launches_vlm_main``,
-``launches_hybrid_main`` and ``launches_encdec_main`` beside the kernels
+``launches_hybrid_main``, ``launches_encdec_main``, ``launches_dist_main``
+and ``launches_dist_ranks2`` (both ranks) beside the kernels
 those phases ran), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.
 
@@ -371,6 +391,11 @@ ENCDEC_ARCH, ENCDEC_STEPS = "whisper_base", 4
 ENCDEC_SEQ = 448          # Whisper's decoder context
 ENCDEC_SERVE_BATCH, ENCDEC_PROMPT, ENCDEC_NEW = 8, 64, 128
 FORCED_F32_TOL = 1e-4     # float32 teacher-forced checks: the LM tests' bound
+# dist_main: mixtral_8x7b on one NCCL rank, 1 of 32 layers (FSDP2's
+# unsharded copy sits beside moe_main's 2-layer state)
+DIST_ARCH, DIST_LAYERS, DIST_STEPS = "mixtral_8x7b", 1, 4
+# dist_ranks2: llama3_2_3b on two gloo ranks sharing the card
+DIST2_ARCH, DIST2_LAYERS, DIST2_STEPS = "llama3_2_3b", 2, 4
 
 
 def pipeline_iii_dense_as(Pipeline, Schema, ops, Vocab, dtype):
@@ -795,8 +820,10 @@ def autotune_main(tmpl, state0, expect, n_batches: int = 32) -> dict:
 def profile_step(fn, top: int = 30) -> dict:
     """``fn()`` (one more train or decode step) under ``torch.profiler``
     (CPU and CUDA activities), synchronized: the wall time, the device's
-    busy time (the sum of the kernels' device time: the rest of the wall is
-    the device's idle share) and the ``top`` kernels and operators by self
+    busy time (the sum of the kernels' and copies' device time: the rest of
+    the wall is the device's idle share), the NCCL kernels' time, the
+    device time of each annotated range (FSDP's, gloo's: spans over
+    kernels counted already) and the ``top`` kernels and operators by self
     device time (an operator's is that of the kernels it launched itself).
     A profiler that records no device time returns that, not a reading."""
     import torch
@@ -819,7 +846,13 @@ def profile_step(fn, top: int = 30) -> dict:
             wall = (time.perf_counter() - t0) * 1e3
         events = prof.key_averages()
         cuda = torch.autograd.DeviceType.CUDA
-        kernels = [e for e in events if e.device_type == cuda]
+        # a range a library annotates (FSDP::*, gloo:*) shows on the device
+        # too, spanning kernels already counted: kept apart
+        host = {e.key for e in events if e.device_type != cuda}
+        kernels = [e for e in events if e.device_type == cuda
+                   and e.key not in host]
+        ranges = [e for e in events if e.device_type == cuda
+                  and e.key in host]
         ops = [e for e in events if e.device_type != cuda and dev(e) > 0]
         busy = sum(dev(e) for e in kernels)
     except Exception as e:  # a profiler without CUPTI access raises
@@ -832,10 +865,14 @@ def profile_step(fn, top: int = 30) -> dict:
         return [{"name": e.key[:120], "self_device_ms": dev(e),
                  "share_of_busy": dev(e) / busy, "calls": e.count}
                 for e in rows]
+    nccl = sum(dev(e) for e in kernels if "nccl" in e.key.lower())
     return {"wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1 - busy / wall),
-            "kernels": len(kernels), "top_kernels": table(kernels),
-            "top_ops": table(ops)}
+            "kernels": len(kernels), "nccl_kernel_ms": nccl,
+            "nccl_share_of_busy": nccl / busy,
+            "annotated_ranges_device_ms": {e.key[:80]: dev(e)
+                                           for e in ranges},
+            "top_kernels": table(kernels), "top_ops": table(ops)}
 
 
 class TappedPipeline:
@@ -925,7 +962,9 @@ def lm_launches(compiled, batches: int) -> dict:
 def run_launcher(argv: list, cfg=None, on_first=None) -> dict:
     """``repro_torch.launch.train.main(argv)`` in process, with the train
     step it builds wrapped (``make_train_step`` in the launcher's
-    namespace) to keep each delivered batch on the host, time each step
+    namespace, or ``shard_train_step`` under a process group; the step
+    itself is ``tap["step"]``) to keep each delivered batch on the host,
+    time each step
     (synchronized) and, before the first step, return ``on_first(state,
     batch, loss_fn)`` into ``tap["first"]``.  With ``cfg`` the launcher
     builds that config (``get_config`` and ``get_reduced`` in its namespace
@@ -937,11 +976,19 @@ def run_launcher(argv: list, cfg=None, on_first=None) -> dict:
     from repro_torch.kernels import dataflow as df
     from repro_torch.launch import train as launch
 
-    real = (launch.make_train_step, launch.get_config, launch.get_reduced)
+    real = (launch.make_train_step, launch.get_config, launch.get_reduced,
+            launch.shard_train_step)
     tap: dict = {"batches": [], "ms": [], "metrics": [], "first": None}
 
     def tapped(loss_fn, tc):
-        step = real[0](loss_fn, tc)
+        return tap_step(real[0](loss_fn, tc), loss_fn)
+
+    def tapped_sharded(loss_fn, *a, **kw):  # under WORLD_SIZE
+        step, state = real[3](loss_fn, *a, **kw)
+        return tap_step(step, loss_fn), state
+
+    def tap_step(step, loss_fn):
+        tap["step"] = step
 
         def run(state, b):
             tap["batches"].append({k: v.cpu() for k, v in b.items()})
@@ -957,6 +1004,7 @@ def run_launcher(argv: list, cfg=None, on_first=None) -> dict:
         return run
 
     launch.make_train_step = tapped
+    launch.shard_train_step = tapped_sharded
     if cfg is not None:
         launch.get_config = launch.get_reduced = lambda arch: cfg
     try:
@@ -969,7 +1017,8 @@ def run_launcher(argv: list, cfg=None, on_first=None) -> dict:
         summary["launches"] = dict(df.LAUNCHES)
         summary["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     finally:
-        launch.make_train_step, launch.get_config, launch.get_reduced = real
+        (launch.make_train_step, launch.get_config, launch.get_reduced,
+         launch.shard_train_step) = real
     summary["tap"] = tap
     return summary
 
@@ -2370,6 +2419,266 @@ def encdec_main(root: str, expect, batch: int = LM_BATCH,
             "launches": serve_launches}
 
 
+def free_port() -> int:
+    """A free TCP port on this host (the ranks' rendezvous)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def rank_entry(rank, world, backend, port, fn, args, q) -> None:
+    """One rank: the environment ``torchrun`` sets (every rank on card 0),
+    a gloo group joined here (an NCCL one is the launcher's to make, as
+    under ``torchrun``), ``fn(*args)``, and its result or traceback put on
+    ``q``."""
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        if backend == "gloo":
+            dist.init_process_group("gloo")
+        q.put((rank, "ok", fn(*args)))
+    except BaseException:  # reported, and the phase fails
+        q.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, backend: str, args: tuple,
+              timeout: float) -> list:
+    """``fn(*args)`` on ``world`` spawned ranks (``rank_entry``); their
+    results by rank.  Raises on a rank's error or after ``timeout``
+    seconds, and leaves no rank running."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=rank_entry,
+                         args=(r, world, backend, port, fn, args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got, errors = {}, {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) + len(errors) < world and time.monotonic() < deadline:
+            try:
+                r, status, out = q.get(timeout=1.0)
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+                continue
+            (got if status == "ok" else errors)[r] = out
+            if errors:  # the others would wait in a collective
+                deadline = min(deadline, time.monotonic() + 10)
+    finally:
+        for p in procs:
+            p.join(timeout=5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors or len(got) < world:
+        raise AssertionError(f"{fn.__name__}: ranks {sorted(got)} done of "
+                             f"{world}; " + "".join(
+                                 f"\n--- rank {r} ---\n{e}"
+                                 for r, e in sorted(errors.items())))
+    return [got[r] for r in range(world)]
+
+
+def launcher_readings(summary: dict, cfg, seq: int, n_micro: int) -> dict:
+    """What a dist phase reads from one rank's launcher run (on that
+    rank): losses, steps, the launches its ETL made and those its
+    lowering means, peak memory, one more step profiled; and every
+    delivered batch checked: the rank's rows (``put_packed``'s selection
+    at ``n_micro`` microbatches) of the plain compile's batch."""
+    import torch
+    from repro_torch.core.pipeline import lm_token_pipeline
+    from repro_torch.data.source import Source
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.etl_runtime.transfer import batch_sharding, put_packed
+
+    tap, state = summary["tap"], summary["state"]
+    batch = tap["batches"][0]["tokens"].shape[0]
+    transformed = summary["stats"].stages["transform"].items
+    mesh = shd.get_active_mesh()
+    full = batch * shd.data_degree(mesh)
+    plain = lm_token_pipeline(seq, cfg.vocab_size,
+                              batch_size=full).compile("cuda", device="cpu")
+    raws = Source.lm_events(seq, rows=full * (len(tap["batches"]) + 4),
+                            batch_size=full)
+    for i, (got, raw) in enumerate(zip(tap["batches"], raws)):
+        want = put_packed(plain(raw), batch_sharding(mesh),
+                          microbatches=n_micro)
+        for k, w in want.items():
+            if not torch.equal(got[k], w):
+                raise AssertionError(f"batch {i} {k}: not this rank's rows "
+                                     "of the plain compile")
+    last = {k: v.to(next(state.model.parameters()).device)
+            for k, v in tap["batches"][-1].items()}
+    steps, step = state.step, tap["step"]
+    profile = profile_step(lambda: step(state, last))
+    ms = sorted(tap["ms"][1:])
+    return {"losses": [m[0] for m in tap["metrics"]],
+            "grad_norms": [m[1] for m in tap["metrics"]],
+            "steps": steps, "step_ms": tap["ms"],
+            "step_ms_median_2_on": ms[len(ms) // 2] if ms else float("nan"),
+            "tok_per_s": summary["tok_per_s"],
+            "peak_mem_gb": summary["peak_mem_gb"],
+            "launches": summary["launches"],
+            "launches_want": lm_launches(summary["job"].compiled,
+                                         transformed),
+            "batches_checked": len(tap["batches"]),
+            "profile_one_more_step": {k: v for k, v in profile.items()
+                                      if k != "top_ops"}}
+
+
+def dist_main_rank(argv: list, cfg, seq: int, n_micro: int) -> dict:
+    """``dist_main``'s rank: the launcher under ``WORLD_SIZE`` (NCCL)."""
+    return launcher_readings(run_launcher(argv, cfg=cfg), cfg, seq, n_micro)
+
+
+def dist_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
+              steps: int = DIST_STEPS, layers: int = DIST_LAYERS,
+              extra_args=()) -> dict:
+    """``launch.train --mesh host`` on one spawned NCCL rank at
+    ``mixtral_8x7b``'s full width, ``layers`` of 32 (the preset: FSDP,
+    AdamW, microbatch 4): the launcher shards through ``shard_train_step``
+    (FSDP2 over a data mesh of 1) and places through ``EtlJob(mesh=)``.
+    The same cut run without a process group first, in this process: the
+    rank's losses within ``LM_CHECK_RTOL["loss"]`` of it.  Readings: step
+    ms at world 1 and without a group, tok/s, peak GB, one profiled step's
+    idle share and the NCCL kernels' share of its device time."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.launch import train as launch
+
+    reduced = "--reduced" in extra_args
+    base = get_reduced(DIST_ARCH) if reduced else get_config(DIST_ARCH)
+    cfg = dataclasses.replace(base, n_layers=layers)
+    tcfg = launch.train_preset(DIST_ARCH)
+    argv = ["--arch", DIST_ARCH, "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(steps), "--etl-backend", "cuda",
+            "--max-restarts", "0", "--mesh", "host", *extra_args]
+    alone = run_launcher(argv, cfg=cfg)
+    want = [m[0] for m in alone["tap"]["metrics"]]
+    ms = sorted(alone["tap"]["ms"][1:])
+    alone_ms = ms[len(ms) // 2] if ms else float("nan")
+    del alone
+    free_memory()
+    (rank,) = run_ranks(dist_main_rank, 1, "nccl",
+                        (argv, cfg, seq, tcfg.microbatch), timeout=600)
+    expect(rank["launches"], rank["launches_want"], "dist_main")
+    diff = [abs(a - b) / abs(b) for a, b in zip(rank["losses"], want)]
+    if len(rank["losses"]) != steps or max(diff) > LM_CHECK_RTOL["loss"]:
+        raise AssertionError(f"dist_main: losses {rank['losses']} vs "
+                             f"{want} without a process group")
+    return {"arch": DIST_ARCH, "reduced": reduced, "layers": layers,
+            "layers_full": base.n_layers, "world": 1, "backend": "nccl",
+            "fsdp": tcfg.fsdp, "microbatch": tcfg.microbatch,
+            "batch": batch, "seq": seq, "losses_no_group": want,
+            "loss_max_rel_diff": max(diff),
+            "step_ms_median_2_on_no_group": alone_ms, **rank}
+
+
+def dist_ranks2_rank(argv: list, cfg, seq: int, n_micro: int) -> dict:
+    """``dist_ranks2``'s rank: the launcher on a gloo world over CUDA
+    tensors; before the first step, ``compressed_psum_mean`` over this
+    rank's gradients of the first block (its own batch rows, no reduction)
+    on the card and on the CPU (the same group: gloo takes both)."""
+    import torch
+    from repro_torch.training.grad import (compressed_psum_mean, ef_init,
+                                           microbatched_value_and_grad)
+
+    def int8_check(state, b, loss_fn):
+        params = list(state.model.parameters())
+        first = {id(p) for p in state.model.blocks[0].parameters()}
+        idx = [i for i, p in enumerate(params) if id(p) in first]
+        _, grads = microbatched_value_and_grad(
+            loss_fn, n_micro, accum_dtype="float32")(state.model, b)
+        g = [grads[i] for i in idx]
+        del grads
+        card = compressed_psum_mean(g, ef_init(g))
+        cpu_in = [t.cpu() for t in g]
+        cpu = compressed_psum_mean(cpu_in, ef_init(cpu_in))
+        equal = all(torch.equal(a.cpu(), b) for x, y in zip(card, cpu)
+                    for a, b in zip(x, y))
+        return {"leaves": len(g), "elements": sum(t.numel() for t in g),
+                "bit_equal": equal,
+                "max_abs_diff_mean": max(float((a.cpu() - b).abs().max())
+                                         for a, b in zip(card[0], cpu[0]))}
+
+    summary = run_launcher(argv, cfg=cfg, on_first=int8_check)
+    out = launcher_readings(summary, cfg, seq, n_micro)
+    out["int8_mean_card_vs_cpu"] = summary["tap"]["first"]
+    return out
+
+
+def dist_ranks2(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
+                steps: int = DIST2_STEPS, layers: int = DIST2_LAYERS,
+                extra_args=()) -> dict:
+    """``launch.train --mesh host`` on two spawned ranks on the one card,
+    gloo over CUDA tensors, at ``llama3_2_3b``'s full width, ``layers``
+    of 28 (the preset: replicated parameters, one gradient all-reduce a
+    step, microbatch 2; FSDP2's all-gather hangs under gloo on CUDA
+    tensors, so FSDP across ranks runs on the CPU only).  The same cut run
+    without a process group first, in this process.  Checks: each rank's
+    batches its rows of the plain compile's (put_packed's selection), the
+    ranks' global losses within ``LM_CHECK_RTOL["loss"]`` of the run
+    without a group, and ``compressed_psum_mean`` over the first block's
+    gradients bit-equal card vs CPU."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.launch import train as launch
+
+    reduced = "--reduced" in extra_args
+    base = get_reduced(DIST2_ARCH) if reduced else get_config(DIST2_ARCH)
+    cfg = dataclasses.replace(base, n_layers=layers)
+    tcfg = launch.train_preset(DIST2_ARCH)
+    argv = ["--arch", DIST2_ARCH, "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(steps), "--etl-backend", "cuda",
+            "--max-restarts", "0", "--mesh", "host", *extra_args]
+    alone = run_launcher(argv, cfg=cfg)
+    want = [m[0] for m in alone["tap"]["metrics"]]
+    ms = sorted(alone["tap"]["ms"][1:])
+    alone_ms = ms[len(ms) // 2] if ms else float("nan")
+    del alone
+    free_memory()
+    ranks = run_ranks(dist_ranks2_rank, 2, "gloo",
+                      (argv, cfg, seq, tcfg.microbatch), timeout=600)
+    diff = 0.0
+    for r, out in enumerate(ranks):
+        expect(out["launches"], out["launches_want"], f"dist_ranks2 rank {r}")
+        if len(out["losses"]) != steps:
+            raise AssertionError(f"dist_ranks2: rank {r} ran "
+                                 f"{len(out['losses'])} steps")
+        diff = max([diff] + [abs(a - b) / abs(b)
+                             for a, b in zip(out["losses"], want)])
+        if not out["int8_mean_card_vs_cpu"]["bit_equal"]:
+            raise AssertionError(f"dist_ranks2: rank {r} int8 mean card vs "
+                                 f"CPU {out['int8_mean_card_vs_cpu']}")
+    if diff > LM_CHECK_RTOL["loss"]:
+        raise AssertionError(f"dist_ranks2: losses {ranks[0]['losses']} vs "
+                             f"{want} without a process group")
+    return {"arch": DIST2_ARCH, "reduced": reduced, "layers": layers,
+            "layers_full": base.n_layers, "world": 2, "backend": "gloo",
+            "fsdp": tcfg.fsdp, "microbatch": tcfg.microbatch,
+            "batch": batch, "seq": seq, "losses_no_group": want,
+            "loss_max_rel_diff": diff,
+            "step_ms_median_2_on_no_group": alone_ms,
+            "launches": add_launches(*(o["launches"] for o in ranks)),
+            "ranks": ranks}
+
+
 def multitenant_main(expect, rows: int = 0,
                      n_batches: int = MT_BATCHES) -> dict:
     """``PipelineManager(total_credits=8)`` with three tenants at B rows,
@@ -3278,6 +3587,14 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     ed = encdec_main(root, expect)
     emit({"phase": "encdec_main", **ed})
 
+    # ---- data-parallel distribution --------------------------------------
+    free_memory()
+    dist1 = dist_main(root, expect)
+    emit({"phase": "dist_main", **dist1})
+    free_memory()
+    dist2 = dist_ranks2(root, expect)
+    emit({"phase": "dist_ranks2", **dist2})
+
     path_launches = {"group_dataflow": main["launches"]["group_dataflow"],
                      "fit_dataflow": main["fit_launches"]["fit_dataflow"],
                      "output_dataflow": solo_launches["output_dataflow"]}
@@ -3313,7 +3630,8 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                           ("moe_main", moe), ("adafactor_main", af),
                           ("serve_main", srv), ("serve_moe", smoe),
                           ("ssm_main", ssm_ph), ("vlm_main", vlm),
-                          ("hybrid_main", hyb), ("encdec_main", ed)):
+                          ("hybrid_main", hyb), ("encdec_main", ed),
+                          ("dist_main", dist1), ("dist_ranks2", dist2)):
             if ph["launches"].get(name):
                 out[-1][f"launches_{label}"] = ph["launches"][name]
     emit({"kernels": out})

@@ -161,6 +161,6 @@ class TrainConfig:
     opt_state_dtype: str = "float32"  # bf16 halves optimizer HBM (405B/1T)
     accum_dtype: str = "float32"  # grad-accumulation dtype (bf16 at 405B/1T)
     microbatch: int = 0  # number of grad-accumulation chunks (0/1 = off)
-    grad_compression: str = "none"  # none | int8_ef (not ported yet)
-    fsdp: bool = False  # ZeRO-3; one device shards nothing (a mesh: ROADMAP Queue A: distribution)
+    grad_compression: str = "none"  # none | int8_ef (no train step reads it)
+    fsdp: bool = False  # ZeRO-3 over the data axes (training/train_loop.shard_train_step)
     max_grad_norm: float = 1.0

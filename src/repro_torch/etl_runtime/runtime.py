@@ -44,13 +44,14 @@ credits alone.  Resizes land in ``stats.credit_grows`` /
 ``stats.credit_shrinks``.  ``stage_queues()`` is what the global freshness
 shedder (``online/shed.py``) sweeps.
 
-Not ported yet (it raises ``NotImplementedError``): mesh / sharding
-placement.
+``mesh=`` / ``sharding=`` make the place stage keep this rank's rows of each
+batch (``transfer.put_packed``) unless a ``place`` hook is given.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import queue
 import threading
 import time
@@ -626,6 +627,9 @@ class StreamingExecutor:
         oldest-first shedding at the ready queue.
     credits : staging-buffer depth per queue (2 = double buffering).
     place : optional placement hook ``packed -> ready``.
+    sharding, mesh : without ``place``, place each batch with
+        ``transfer.put_packed`` on ``sharding`` (default: the row
+        sharding of ``mesh``'s data axes, ``transfer.batch_sharding``).
     read_timeout_s : straggler bound on the raw queue.
     adaptive_credits : deprecated spelling of the occupancy-rule credits
         controller (grow on starvation, shrink on idle-full, with
@@ -665,9 +669,6 @@ class StreamingExecutor:
                  length_key: Callable = default_length_key,
                  transform_service=None, lookahead=None,
                  clock: Optional[Clock] = None):
-        if mesh is not None or sharding is not None:
-            raise NotImplementedError("mesh/sharding placement is not "
-                                      "ported yet")
         self.pipeline = pipeline
         self.semantics = semantics or getattr(pipeline, "semantics", None)
         self.credits = max(1, credits)
@@ -676,7 +677,15 @@ class StreamingExecutor:
         self.lookahead = lookahead
         self.read_timeout_s = read_timeout_s
         self.clock = clock or SYSTEM_CLOCK
-        self.place = place or (lambda b: b)
+        if place is None:
+            if sharding is None and mesh is not None:
+                sharding = transfer_lib.batch_sharding(mesh)
+            if sharding is not None:
+                place = functools.partial(transfer_lib.put_packed,
+                                          sharding=sharding)
+            else:
+                place = lambda b: b
+        self.place = place
         self._source = source
         self._host_key_fn = None
         self._arrival_fn = None

@@ -14,9 +14,16 @@ one H100 the port gets as close as PyTorch allows:
   every delivered tensor is ``record_stream``-ed on the consumer's stream so
   the caching allocator never hands its memory back to the transform stream
   while the trainer may still read it.
+- ``batch_sharding`` / ``put_packed``: on a mesh, each rank runs the whole
+  ETL job (the same source and seed) and keeps its own rows of every batch,
+  so the ranks' rows together are exactly the global batch, with no
+  communication.  The place stage runs in the executor's thread: it slices,
+  and issues no collective.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -43,6 +50,59 @@ def to_device(cols: dict, device: torch.device) -> dict:
                              pin_memory=True)
         pinned.numpy()[...] = a
         out[k] = pinned.to(device, non_blocking=True)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class RowSharding:
+    """Row (batch-dim) placement over a mesh's data axes: this rank is
+    ``index`` of ``degree`` row shards."""
+
+    index: int
+    degree: int
+
+
+def batch_sharding(mesh, data_axes=("pod", "data")):
+    """Row-sharded (batch-dim) placement over the data axes of the
+    ``DeviceMesh`` ``mesh`` (None without one)."""
+    if mesh is None:
+        return None
+    axes = tuple(a for a in data_axes if a in mesh.mesh_dim_names)
+    index, degree = 0, 1
+    for a in axes:  # the outer axis first, as the reference's P(axes)
+        index = index * mesh.size(mesh.mesh_dim_names.index(a)) \
+            + mesh.get_local_rank(a)
+        degree *= mesh.size(mesh.mesh_dim_names.index(a))
+    return RowSharding(index, degree)
+
+
+def put_packed(batch: dict, sharding, microbatches: int = 1) -> dict:
+    """This rank's rows of every tensor (or array) of ``batch``: of ``B``
+    rows over ``dp`` shards, rank ``r`` keeps ``[r B/dp, (r+1) B/dp)``.
+    With ``microbatches = n`` it keeps, of each of the ``n`` contiguous
+    microbatches, its ``r``-th contiguous part (rows ``j B/n + r B/(n dp)
+    + [0, B/(n dp))``): split into ``n`` again, its chunks are the
+    reference's per-shard token groups of each microbatch (``models/moe``).
+    At ``n = 1`` both are the one block.  A row count ``n dp`` does not
+    divide raises ``ValueError``.  Without a sharding the batch is returned
+    as is."""
+    if sharding is None:
+        return batch
+    dp, r, n = sharding.degree, sharding.index, max(microbatches, 1)
+    out = {}
+    for k, v in batch.items():
+        if v.ndim == 0:
+            out[k] = v
+            continue
+        rows = v.shape[0]
+        if rows % (dp * n):
+            raise ValueError(f"batch[{k!r}] has {rows} rows, which "
+                             f"{n} microbatch(es) over {dp} data shards "
+                             "do not divide")
+        part = v.reshape((n, dp, rows // (n * dp)) + tuple(v.shape[1:]))[:, r]
+        part = part.reshape((rows // dp,) + tuple(v.shape[1:]))
+        out[k] = part.clone() if isinstance(part, torch.Tensor) \
+            else np.ascontiguousarray(part)
     return out
 
 

@@ -35,14 +35,3 @@ def train_preset(arch: str) -> TrainConfig:
     from repro_torch.configs.registry import canonical
     return _PRESETS[canonical(arch)]
 
-
-def check_ported(tcfg: TrainConfig) -> None:
-    """Raise for a preset that needs what the port lacks: int8 gradient
-    compression (``compressed_psum_mean``, ROADMAP Queue A: distribution).
-    Both optimizers are ported; ``fsdp`` is accepted, since on the one
-    device of ``--mesh host`` ZeRO-3 over one data shard shards nothing (a
-    mesh is distribution's)."""
-    if tcfg.grad_compression != "none":
-        raise NotImplementedError(
-            f"grad_compression {tcfg.grad_compression!r} is not ported yet "
-            "(ROADMAP Queue A: distribution)")

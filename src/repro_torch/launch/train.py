@@ -20,36 +20,54 @@ the newest committed checkpoint under ``--ckpt-dir`` is restored if there is
 one (``resume_or_init``), and a retriable failure restarts the loop from it
 (``run_with_restarts``).
 
-Every decoder-only family trains on one device (``--mesh host``): dense,
-MoE, VLM, SSM and hybrid, with the presets' AdamW or Adafactor; ``fsdp``
-and ``seq_parallel`` are sharding choices, the identity on one device.  As
-the reference's launcher does, it feeds tokens and labels only, so a VLM
-trains on text alone and an enc-dec model, which needs frames, is refused
-with a ``ValueError`` before any ETL job starts (the reference's launcher
-cannot run one either).  ``--mesh pod`` / ``multipod`` raise
-``NotImplementedError`` (ROADMAP Queue A: distribution).  Without
+Every decoder-only family trains: dense, MoE, VLM, SSM and hybrid, with the
+presets' AdamW or Adafactor.  As the reference's launcher does, it feeds
+tokens and labels only, so a VLM trains on text alone and an enc-dec model,
+which needs frames, is refused with a ``ValueError`` before any ETL job
+starts (the reference's launcher cannot run one either).  Without
 ``--device`` and without a CUDA device the launcher raises.
+
+``--mesh host`` is one process, with no process group, unless ``WORLD_SIZE``
+is set: then every rank of the world ``torchrun`` started (one a GPU,
+NCCL; gloo with ``--device cpu``) joins ``make_host_mesh()``, a ``(world,
+1)`` data-parallel mesh, runs the whole ETL job and keeps its rows of each
+batch (``EtlJob(mesh=)``), and trains through ``shard_train_step``: FSDP
+where the preset says ``fsdp``, replicated parameters otherwise::
+
+    torchrun --nproc_per_node 8 -m repro_torch.launch.train --mesh host \
+        --arch mixtral_8x7b --steps 8 --batch 8 --seq 1024
+
+Rank 0 prints; ``main`` returns the summary on every rank.  A failure on a
+rank is not retried there (the others would wait in a collective): it ends
+the process, and ``torchrun`` ends the rest.  ``--mesh pod`` / ``multipod``
+raise ``NotImplementedError``: they need the "model" axis (tensor and
+expert parallelism, ROADMAP Queue A item 6b).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import get_config, get_reduced
 from repro_torch.core.pipeline import lm_token_pipeline
 from repro_torch.data.source import Source
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.launch.presets import check_ported, train_preset
+from repro_torch.distributed import sharding as shd
+from repro_torch.etl_runtime.transfer import batch_sharding, put_packed
+from repro_torch.launch.mesh import init_process_group, make_host_mesh
+from repro_torch.launch.presets import train_preset
 from repro_torch.models.api import build_model
 from repro_torch.session import EtlJob
-from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training.fault import run_with_restarts
 from repro_torch.training.train_loop import (LoopConfig, TrainState,
                                              make_train_step, resume_or_init,
-                                             train_loop)
+                                             shard_train_step, train_loop)
 
 
 def check_fed(cfg) -> None:
@@ -76,7 +94,8 @@ def placer(backend: str, device):
 
 
 def make_job(cfg, batch, seq, steps, *, backend="cuda", device=None,
-             metrics_file="", embed_cache=None, autotune=None) -> EtlJob:
+             metrics_file="", embed_cache=None, autotune=None, mesh=None,
+             microbatches: int = 1) -> EtlJob:
     """Declarative ingest session: raw event logs -> token batches on the
     trainer's device.
 
@@ -86,11 +105,19 @@ def make_job(cfg, batch, seq, steps, *, backend="cuda", device=None,
     ``embed_cache`` (an ``EmbedCacheConfig``) adds the lookahead embedding
     prefetch stage — recommender pipelines whose batches carry a sparse
     index matrix; LM pipelines have no such key and must leave it unset.
+    On a ``mesh`` every rank runs the whole job and its place stage keeps
+    the rank's rows (``put_packed`` with ``microbatches``: the rows of its
+    token groups in each microbatch).
     """
     pipe = lm_token_pipeline(seq, cfg.vocab_size, batch_size=batch)
     src = Source.lm_events(seq, rows=batch * (steps + 4), batch_size=batch)
+    place = placer(backend, device)
+    if mesh is not None:
+        keep = functools.partial(put_packed, sharding=batch_sharding(mesh),
+                                 microbatches=microbatches)
+        place = keep if place is None else (lambda b, f=place: keep(f(b)))
     return EtlJob(pipe, src, backend=backend, device=device, credits=2,
-                  place=placer(backend, device), metrics_file=metrics_file,
+                  place=place, metrics_file=metrics_file,
                   embed_cache=embed_cache, autotune=autotune,
                   metrics_labels={"arch": cfg.name})
 
@@ -153,30 +180,52 @@ def main(argv=None) -> dict:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     check_fed(cfg)
     tcfg = train_preset(args.arch)
-    check_ported(tcfg)
     if args.mesh != "host":
-        raise NotImplementedError(f"--mesh {args.mesh} is not ported yet "
-                                  "(ROADMAP Queue A: distribution)")
+        raise NotImplementedError(
+            f"--mesh {args.mesh} needs the \"model\" axis (tensor and "
+            "expert parallelism), which is not ported yet (ROADMAP Queue A "
+            "item 6b); --mesh host is data parallel over the ranks")
+    mesh = None
+    if "WORLD_SIZE" in os.environ:
+        dev = init_process_group(args.device)
+        mesh = make_host_mesh(device=dev)
+        shd.set_active_mesh(mesh)
+    else:
+        dev = resolve_device(args.device)
+    rank0 = mesh is None or dist.get_rank() == 0
     model = build_model(cfg)
-    dev = resolve_device(args.device)
     summary: dict = {}
+
+    def say(*a):
+        if rank0:
+            print(*a, flush=True)
 
     def make_run():
         def run():
-            def make_state():
-                return TrainState.create(model.init(seed=0, device=dev), tcfg)
+            step_fn = None
 
-            latest = (ckpt_lib.latest_step(args.ckpt_dir)
-                      if args.ckpt_dir else None)
-            if latest is not None:
-                print(f"[train] resuming from step {latest}", flush=True)
+            def make_state():
+                nonlocal step_fn
+                state = TrainState.create(model.init(seed=0, device=dev),
+                                          tcfg)
+                if mesh is None:
+                    step_fn = make_train_step(model.loss, tcfg)
+                    return state
+                step_fn, state = shard_train_step(
+                    model.loss, tcfg, mesh, state, batch_rows=args.batch,
+                    fsdp=tcfg.fsdp,
+                    n_experts=cfg.moe.n_experts if cfg.moe else 0)
+                return state
+
             state = resume_or_init(make_state, args.ckpt_dir)
+            if state.step:
+                say(f"[train] resuming from step {state.step}")
             job = make_job(cfg, args.batch, args.seq, args.steps,
                            backend=args.etl_backend, device=dev,
                            metrics_file=args.metrics_file,
                            embed_cache=embed_cache_config(args),
-                           autotune=args.autotune or None)
-            step_fn = make_train_step(model.loss, tcfg)
+                           autotune=args.autotune or None, mesh=mesh,
+                           microbatches=max(tcfg.microbatch, 1))
             loop_cfg = LoopConfig(total_steps=args.steps,
                                   ckpt_dir=args.ckpt_dir,
                                   ckpt_every=args.ckpt_every,
@@ -185,22 +234,24 @@ def main(argv=None) -> dict:
             t0 = time.perf_counter()
             with job.batches() as batches:
                 final = train_loop(state, step_fn, batches, loop_cfg,
-                                   device=dev)
+                                   device=dev,
+                                   on_metrics=None if rank0 else
+                                   (lambda m: None))
             dt = time.perf_counter() - t0
             toks = args.steps * args.batch * args.seq
             stats = job.stats()
             util = stats.trainer_utilization(dt - stats.consumer_wait_s)
-            print(f"[train] done: {args.steps} steps, "
-                  f"{toks/dt:,.0f} tok/s, etl_producer_wait="
-                  f"{stats.producer_wait_s:.2f}s trainer_wait="
-                  f"{stats.consumer_wait_s:.2f}s util={util:.2%}", flush=True)
+            say(f"[train] done: {args.steps} steps, "
+                f"{toks/dt:,.0f} tok/s, etl_producer_wait="
+                f"{stats.producer_wait_s:.2f}s trainer_wait="
+                f"{stats.consumer_wait_s:.2f}s util={util:.2%}")
             for name, s in stats.stage_breakdown().items():
-                print(f"[train]   stage {name:9s} items={s['items']:<5d} "
-                      f"busy={s['busy_s']:.2f}s wait_in={s['wait_in_s']:.2f}s "
-                      f"wait_out={s['wait_out_s']:.2f}s "
-                      f"occ={s['occupancy']:.1%}", flush=True)
+                say(f"[train]   stage {name:9s} items={s['items']:<5d} "
+                    f"busy={s['busy_s']:.2f}s wait_in={s['wait_in_s']:.2f}s "
+                    f"wait_out={s['wait_out_s']:.2f}s "
+                    f"occ={s['occupancy']:.1%}")
             if args.metrics_file:
-                print(f"[train] metrics written to {args.metrics_file}")
+                say(f"[train] metrics written to {args.metrics_file}")
             summary.update(state=final, stats=stats, seconds=dt,
                            tok_per_s=toks / dt, trainer_utilization=util,
                            job=job)
@@ -208,7 +259,9 @@ def main(argv=None) -> dict:
 
         return run
 
-    restarts = run_with_restarts(make_run, max_restarts=args.max_restarts)
+    # one rank cannot restart alone: the others would wait in a collective
+    restarts = run_with_restarts(
+        make_run, max_restarts=args.max_restarts if mesh is None else 0)
     summary["restarts"] = restarts.restarts
     return summary
 

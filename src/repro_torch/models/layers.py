@@ -360,9 +360,29 @@ def lm_logits(x, emb_or_head, tied):
     return x @ emb_or_head.to(x.dtype)
 
 
+# the global count of unignored labels by which cross_entropy divides this
+# rank's sum (the data-parallel train step's ``label_count``)
+_LABEL_COUNT = None
+
+
+@contextlib.contextmanager
+def label_count(count):
+    """Within: ``cross_entropy`` divides its sum of per-token losses by
+    ``count`` (a float32 scalar tensor, the unignored labels of the whole
+    data-parallel batch) instead of its own count, so the ranks' losses
+    sum to the global mean."""
+    global _LABEL_COUNT
+    prev, _LABEL_COUNT = _LABEL_COUNT, count
+    try:
+        yield
+    finally:
+        _LABEL_COUNT = prev
+
+
 def cross_entropy(logits, labels, *, ignore_id: int = -100,
                   valid_vocab: int = 0):
-    """Token-level CE in f32; mean over non-ignored positions.
+    """Token-level CE in f32; mean over non-ignored positions (over all the
+    ranks' positions within ``label_count``).
 
     The reference picks the label's logit with a one-hot contraction, so a
     label outside ``[0, V)`` (V = the logits' width) matches no column: its
@@ -383,7 +403,8 @@ def cross_entropy(logits, labels, *, ignore_id: int = -100,
     ll = torch.where(in_range, picked, torch.zeros_like(picked))
     nll = lse - ll
     mask = (labels != ignore_id).to(torch.float32)
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum() if _LABEL_COUNT is None else _LABEL_COUNT
+    return (nll * mask).sum() / torch.clamp(count, min=1.0)
 
 
 def sinusoidal_positions(n, d) -> torch.Tensor:

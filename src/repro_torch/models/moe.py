@@ -12,9 +12,14 @@ Dispatch
 4. the experts' SwiGLU as batched matmuls over the stacked expert weights;
 5. weighted scatter-add back to token order (+ shared experts, Kimi style).
 
-One token group (the reference's ``_n_token_groups`` is the data-parallel
-degree of an active mesh; the port has no mesh), so the capacity is that
-of all the tokens one call sees: with microbatching, of one microbatch.
+Token groups (the reference's ``_n_token_groups``): with an active mesh of
+data degree dp (``distributed/sharding.set_active_mesh``), the N tokens of
+the global (micro)batch are G = dp contiguous groups when dp divides N, each
+with its own capacity, else one.  A rank whose activations are its row
+shard of the batch (``sharding.row_shards``, set by the data-parallel train
+step) holds exactly its own group when the rows were placed by
+``etl_runtime/transfer.put_packed``; a rank holding a replicated batch runs
+all G.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 
 
@@ -79,9 +85,8 @@ class MoE(nn.Module):
 
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:
-    """Slots per expert for ``n_tokens`` tokens in one group (the
-    reference's ``moe_apply`` rule with G = 1), rounded up to a multiple of
-    8."""
+    """Slots per expert for a group of ``n_tokens`` tokens (the reference's
+    ``moe_apply`` rule), rounded up to a multiple of 8."""
     e = cfg.moe
     cap = int(max(1, math.ceil(n_tokens * e.top_k / e.n_experts
                                * e.capacity_factor)))
@@ -161,13 +166,28 @@ def dispatch_ffn(p, xf, cfg: ModelConfig, cap: int):
         0, st, gathered * r["sw"][:, None].to(dt))
 
 
+def _n_token_groups(N: int) -> int:
+    """Dispatch group count of ``N`` global tokens = data-parallel degree
+    when it divides N."""
+    dp = shd.data_degree(shd.get_active_mesh())
+    return dp if dp > 1 and N % dp == 0 else 1
+
+
 def moe_apply(p, x, cfg: ModelConfig):
     """x: (B, S, D) -> (B, S, D)."""
     e = cfg.moe
     B, S, D = x.shape
     N = B * S
+    # a row shard of the batch is one of the G = dp groups of its N * dp
+    # global tokens; a whole batch has _n_token_groups(N)
+    G = 1 if shd.get_row_shards() > 1 else _n_token_groups(N)
     xf = x.reshape(N, D)
-    out = dispatch_ffn(p, xf, cfg, capacity(N, cfg))
+    cap = capacity(N // G, cfg)
+    if G == 1:
+        out = dispatch_ffn(p, xf, cfg, cap)
+    else:
+        out = torch.cat([dispatch_ffn(p, t, cfg, cap)
+                         for t in xf.reshape(G, N // G, D)])
     if e.n_shared_experts:
         out = out + L.mlp_apply(p["shared"], xf, "swiglu")
     return out.reshape(B, S, D)

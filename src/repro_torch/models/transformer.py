@@ -36,6 +36,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -386,7 +387,8 @@ def stacked(leaf) -> torch.Tensor:
 
 def copy_leaf(dst, src, path: str = "") -> None:
     """Copy ``src`` (array or tensor, stacked ``[L, ...]`` when ``dst`` is a
-    list of per-layer tensors) into ``dst`` in place."""
+    list of per-layer tensors) into ``dst`` in place (into a DTensor, this
+    rank's shard of it)."""
     if not isinstance(src, torch.Tensor):
         a = np.array(src)  # a JAX bfloat16 array is read from its bits
         src = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
@@ -400,6 +402,9 @@ def copy_leaf(dst, src, path: str = "") -> None:
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{path}: shape {tuple(src.shape)} != "
                          f"{tuple(dst.shape)}")
+    if hasattr(dst, "placements"):  # a DTensor keeps this rank's shard
+        dst.to_local().detach().copy_(shd.local_part(src, dst))
+        return
     dst.detach().copy_(src)
 
 

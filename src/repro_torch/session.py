@@ -35,8 +35,9 @@ The paper's training-aware ETL abstraction ends at the trainer, not at
   on the ``cuda`` backend, the compile-time ``row_tile`` and ``fuse``
   (recompiled with ``with_knobs``, state shared, and swapped into the
   running executor).
-
-Not ported yet (``NotImplementedError``): ``mesh=`` / ``sharding=``.
+- **data-parallel placement**: ``mesh=`` (a ``DeviceMesh``) or
+  ``sharding=`` keeps each rank's rows of every batch
+  (``etl_runtime/transfer.put_packed``): every rank runs the whole job.
 """
 
 from __future__ import annotations
@@ -72,9 +73,9 @@ class EtlJob:
     device : where the torch/cuda backends run; default CUDA.
     fit_source : Source for ``fit()`` when it differs from ``source``.
     freshness, ordering : per-job overrides of the pipeline's semantics.
-    credits, adaptive_credits, max_credits, read_timeout_s, place,
-    length_key, transform_service, clock : forwarded to the executor (see
-        ``StreamingExecutor``).  ``adaptive_credits=True`` is deprecated —
+    credits, adaptive_credits, max_credits, read_timeout_s, place, mesh,
+    sharding, length_key, transform_service, clock : forwarded to the
+        executor (see ``StreamingExecutor``).  ``adaptive_credits=True`` is deprecated —
         pass ``autotune=`` instead.
     autotune : ``True`` builds the measured-throughput
         ``PipelineController`` over the executor's runtime knobs; a

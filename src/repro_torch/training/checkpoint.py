@@ -20,6 +20,12 @@ Layout (one directory per step)::
   ``models/transformer.state_to_jax_leaves``, for every LM: each layer
   group's leaf the layers stacked ``[L, ...]``, on the host), so a
   checkpoint written by either package restores in the other.
+- Sharded states (``training/train_loop.shard_train_step``): a save gathers
+  each DTensor's whole array (a collective, so every rank saves, on the
+  trainer's thread; the writer thread issues none) and rank 0 alone writes
+  and commits.  A restore reads the whole arrays on every rank and keeps
+  each rank's shard of each DTensor leaf, whatever mesh wrote the files
+  (elastic: 1 -> N ranks, N -> 1, either package).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import dlrm, encdec, hybrid, ssm, transformer
 
@@ -56,7 +63,9 @@ def _flatten(tree) -> tuple:
     other leaf as a numpy array)."""
     if _is_train_state(tree):
         kind = type(tree.model).__name__
-        mod = _STATE_LAYOUTS.get(type(tree.model))
+        # FSDP's wrapped module is a subclass of the model's class
+        mod = next((_STATE_LAYOUTS[c] for c in type(tree.model).__mro__
+                    if c in _STATE_LAYOUTS), None)
         if mod is None:
             raise NotImplementedError(
                 f"checkpointing a {kind} train state is not ported yet "
@@ -103,6 +112,31 @@ def _join(parts: list, make: Callable, desc: str) -> tuple:
 # writes one (2-byte void records holding the bits; "bfloat16" in the
 # manifest) and read back from its bits
 _BF16_HOST = np.dtype("V2")
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints (rank 0 of a world)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _whole(leaf):
+    """A DTensor leaf gathered into its whole tensor (a collective); a list
+    leaf element by element; any other leaf as is."""
+    if isinstance(leaf, list):
+        return [_whole(t) for t in leaf]
+    if hasattr(leaf, "full_tensor"):
+        return leaf.detach().full_tensor()
+    return leaf
+
+
+def _snapshot(leaves: list, copy: bool) -> list:
+    """The host arrays of ``leaves`` on the writer; every rank takes part in
+    the gathers, the others keep nothing."""
+    out = []
+    for x in leaves:
+        x = _whole(x)
+        out.append(_to_host(x, copy=copy) if _writer() else None)
+    return out
 
 
 def _to_host(leaf, copy: bool) -> np.ndarray:
@@ -155,10 +189,13 @@ def _write(arrays: list, desc: str, ckpt_dir: str, step: int) -> str:
 
 
 def save(tree: Any, ckpt_dir: str, step: int) -> str:
-    """Blocking save. Returns the committed directory path."""
+    """Blocking save (every rank calls it; rank 0 writes).  Returns the
+    committed directory path."""
     leaves, _, desc = _flatten(tree)
-    return _write([_to_host(x, copy=False) for x in leaves], desc, ckpt_dir,
-                  step)
+    arrays = _snapshot(leaves, copy=False)
+    if _writer():
+        _write(arrays, desc, ckpt_dir, step)
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
 class AsyncCheckpointer:
@@ -172,7 +209,9 @@ class AsyncCheckpointer:
     def save_async(self, tree, ckpt_dir: str, step: int):
         self.wait()
         leaves, _, desc = _flatten(tree)
-        arrays = [_to_host(x, copy=True) for x in leaves]
+        arrays = _snapshot(leaves, copy=True)
+        if not _writer():
+            return
 
         def work():
             try:
@@ -203,11 +242,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, template: Any, step: Optional[int] = None) -> Any:
+def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
+            mesh=None) -> Any:
     """Restore into the structure of ``template`` (the newest committed step
     unless ``step`` is given).  A train state template is filled in place
-    and returned; elsewhere a tensor leaf comes back as a tensor on the
-    template leaf's device and any other leaf as a numpy array."""
+    and returned, each DTensor leaf with this rank's shard; elsewhere a
+    tensor leaf comes back as a tensor on the template leaf's device and
+    any other leaf as a numpy array.  ``mesh``: the ranks restoring
+    together; they wait for each other before picking the newest step."""
+    if mesh is not None:
+        dist.barrier()
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -233,7 +277,8 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None) -> Any:
 
 
 def prune(ckpt_dir: str, keep: int = 3):
-    """Delete all but the newest ``keep`` *committed* checkpoints.
+    """Delete all but the newest ``keep`` *committed* checkpoints (on the
+    writer, rank 0).
 
     Only committed directories count toward ``keep``: a ``step_*`` dir
     without the COMMITTED marker is crash garbage (the marker is written
@@ -241,7 +286,7 @@ def prune(ckpt_dir: str, keep: int = 3):
     visible as an uncommitted ``step_*``) and is deleted outright — it must
     not displace a committed checkpoint from the keep window.
     """
-    if not os.path.isdir(ckpt_dir):
+    if not os.path.isdir(ckpt_dir) or not _writer():
         return
     committed, garbage = [], []
     for d in os.listdir(ckpt_dir):

@@ -1,5 +1,5 @@
-"""Gradient machinery: microbatch accumulation, and the int8 quantizer of
-the JAX package's compressed all-reduce.
+"""Gradient machinery: microbatch accumulation, and the int8 compressed
+all-reduce mean with error feedback.
 
 Microbatching (grad accumulation) bounds activation memory: only one
 microbatch's activations live at a time.  The gradients of the microbatches
@@ -8,16 +8,20 @@ dtype is the parameters' own, so a step holds one set of gradients (at
 ``llama3_2_3b``'s full width a second and third gradient-sized buffer would
 not fit beside the AdamW state on one 80 GB card).
 
-``compressed_psum_mean`` (int8 all-reduce with error feedback) waits for
-distribution (ROADMAP Queue A: distribution) and raises; its error-feedback
-state, ``ef_init``, is here.
+int8 compression with error feedback: gradients are quantized to int8 with a
+per-tensor scale shared by the ranks before the data-parallel mean; the
+quantization residual is carried to the next step (EF-SGD).  As in the JAX
+package, no train step calls it (``TrainConfig.grad_compression`` is read
+by neither).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 
 def split_microbatches(batch: dict, n_micro: int) -> dict:
@@ -33,7 +37,10 @@ def split_microbatches(batch: dict, n_micro: int) -> dict:
 
 
 def microbatched_value_and_grad(loss_fn: Callable, n_micro: int,
-                                accum_dtype="float32") -> Callable:
+                                accum_dtype="float32", *,
+                                in_place: Optional[bool] = None,
+                                micro_context: Optional[Callable] = None
+                                ) -> Callable:
     """``loss_fn(model, batch) -> scalar``; returns ``fn(model, batch) ->
     (loss, grads)``, ``grads`` in ``model.parameters()`` order, both
     averaged over ``n_micro`` equal row chunks of the batch.
@@ -44,38 +51,49 @@ def microbatched_value_and_grad(loss_fn: Callable, n_micro: int,
     ``backward()`` adds into it in place; the returned gradients are those
     tensors, and ``.grad`` is cleared); otherwise one accumulator in
     ``accum_dtype`` holds it.  With ``n_micro <= 1`` it is one
-    ``torch.autograd.grad`` over the whole batch."""
-    if n_micro <= 1:
+    ``torch.autograd.grad`` over the whole batch.
+
+    ``in_place=True`` sums in ``.grad`` through ``backward()`` whatever the
+    dtypes, one microbatch or more (what FSDP's gradient hooks need).
+    ``micro_context(i)``, when given, is a context manager entered around
+    microbatch ``i``'s forward and backward."""
+    ctx = micro_context or (lambda i: contextlib.nullcontext())
+    if n_micro <= 1 and not in_place:
         def fn1(model, batch):
             params = list(model.parameters())
-            loss = loss_fn(model, batch)
-            return loss.detach(), list(torch.autograd.grad(loss, params))
+            with ctx(0):
+                loss = loss_fn(model, batch)
+                grads = list(torch.autograd.grad(loss, params))
+            return loss.detach(), grads
         return fn1
 
     acc_dtype = getattr(torch, accum_dtype) if isinstance(accum_dtype, str) \
         else accum_dtype
+    n_micro = max(n_micro, 1)
     inv = 1.0 / n_micro
 
     def fn(model, batch):
         params = list(model.parameters())
         micro = split_microbatches(batch, n_micro)
-        in_place = all(p.dtype == acc_dtype for p in params)
+        summed = in_place if in_place is not None else \
+            all(p.dtype == acc_dtype for p in params)
         for p in params:
             p.grad = None
-        acc = None if in_place else [torch.zeros_like(p, dtype=acc_dtype)
-                                     for p in params]
+        acc = None if summed else [torch.zeros_like(p, dtype=acc_dtype)
+                                   for p in params]
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=params[0].device)
         for i in range(n_micro):
-            loss = loss_fn(model, {k: v[i] for k, v in micro.items()})
-            if in_place:
-                loss.backward()
-            else:
-                for a, g in zip(acc, torch.autograd.grad(loss, params)):
-                    a.add_(g.to(acc_dtype))
+            with ctx(i):
+                loss = loss_fn(model, {k: v[i] for k, v in micro.items()})
+                if summed:
+                    loss.backward()
+                else:
+                    for a, g in zip(acc, torch.autograd.grad(loss, params)):
+                        a.add_(g.to(acc_dtype))
             loss_sum += loss.detach().to(torch.float32)
             del loss
-        if in_place:
+        if summed:
             acc = [p.grad for p in params]
             for p in params:
                 p.grad = None
@@ -115,8 +133,52 @@ def dequantize_int8(q, scale):
     return q.to(torch.float32) * scale
 
 
-def compressed_psum_mean(grads, ef_state, axis_name: str):
-    """Error-feedback int8 all-reduce mean: not ported yet."""
-    raise NotImplementedError(
-        "compressed_psum_mean is not ported yet (ROADMAP Queue A: "
-        "distribution, on torch.distributed)")
+def _group(group):
+    """A process group, or the group of the active mesh's dim so named."""
+    if isinstance(group, str):
+        from repro_torch.distributed.sharding import get_active_mesh
+        mesh = get_active_mesh()
+        if mesh is None:
+            raise ValueError(f"axis {group!r} names no dim: no active mesh")
+        return mesh.get_group(group)
+    return group
+
+
+def compressed_psum_mean(grads, ef_state, group=None):
+    """Error-feedback int8 all-reduce mean over ``group`` (a process group;
+    a mesh-dim name of the active mesh, like the reference's
+    ``axis_name``; None: the world).
+
+    Per rank: g' = g + residual; q = int8(g') on a scale shared by the
+    ranks (a float32 all-reduce MAX of amax first); residual' = g' -
+    deq(q); the int8 payload is summed as int32, then the mean is
+    dequantized.  Every division is a division (a scalar divisor on CUDA
+    would be a multiplication by its reciprocal).  ``grads`` / ``ef_state``
+    are tensors or matching dicts / lists / tuples of them; returns
+    ``(mean, new_ef)`` of that structure."""
+    group = _group(group)
+    if isinstance(grads, dict):
+        out = {k: compressed_psum_mean(grads[k], ef_state[k], group)
+               for k in grads}
+        return ({k: v[0] for k, v in out.items()},
+                {k: v[1] for k, v in out.items()})
+    if isinstance(grads, (list, tuple)):
+        out = [compressed_psum_mean(g, e, group)
+               for g, e in zip(grads, ef_state)]
+        return (type(grads)(o[0] for o in out),
+                type(grads)(o[1] for o in out))
+    g, ef = grads, ef_state
+    full = lambda v: torch.full((), v, dtype=torch.float32, device=g.device)
+    gf = g.to(torch.float32) + ef
+    # shared scale: every rank quantizes on the same grid, so the int32 sum
+    # is exact in the quantized domain
+    amax = torch.max(torch.abs(gf))
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(amax, min=1e-12) / full(127.0)
+    q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+    new_ef = gf - q.to(torch.float32) * scale
+    q_sum = q.to(torch.int32)
+    dist.all_reduce(q_sum, group=group)
+    n = full(float(dist.get_world_size(group)))
+    mean = q_sum.to(torch.float32) * scale / n
+    return mean.to(g.dtype), new_ef

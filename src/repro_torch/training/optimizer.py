@@ -20,12 +20,23 @@ with ``L >= 2`` is factored across its layers, and the update clipping's
 RMS is taken over the whole stacked leaf.  ``opt_init(..., leaves=)``
 takes the grouping (``Transformer.param_leaves``); without it every
 parameter is its own leaf (a DLRM's).
+
+Sharded parameters (FSDP's DTensors, each rank a ``Shard(d)`` of a 1-D
+data mesh) update term by term on the local shard.  Their state is sharded
+alike: AdamW's moments as the parameter; Adafactor's ``v`` as the parameter,
+``vr`` / ``vc`` on the dim they keep of it (replicated where it is the dim
+they average).  What spans the shards is one all-reduce each over the data
+group: the global norm's sums of squares, a factored row or column mean
+over the sharded dim, ``vr``'s mean when its own dim is sharded, and
+a leaf's ``sum(u^2)`` for the update clipping's RMS.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import TrainConfig
 
@@ -33,10 +44,41 @@ AF_EPS = 1e-30     # Adafactor's epsilon
 AF_CLIP = 1.0      # Adafactor's update clipping threshold (RMS)
 
 
+def _local(t):
+    """``(local tensor, shard dim or None, process group or None)`` of a
+    parameter, gradient or state tensor."""
+    if isinstance(t, DTensor):
+        (pl,) = t.placements
+        if isinstance(pl, Shard):
+            return t.to_local(), pl.dim, t.device_mesh.get_group()
+        return t.to_local(), None, None
+    return t, None, None
+
+
+def _all_sum(x, group):
+    """``x`` summed over ``group`` (in place; ``x`` when there is none)."""
+    if group is not None:
+        dist.all_reduce(x, group=group)
+    return x
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt(sum of squares) over every gradient, in float32 (a norm
-    reduction per tensor, so no gradient-sized square is materialized)."""
-    norms = [torch.linalg.vector_norm(g.to(torch.float32)) for g in grads]
+    reduction per tensor, so no gradient-sized square is materialized).  A
+    sharded gradient's square is summed over its shards (one all-reduce
+    for all of them)."""
+    norms, sharded, group = [], [], None
+    for g in grads:
+        loc, dim, grp = _local(g)
+        norms.append(torch.linalg.vector_norm(loc.to(torch.float32)))
+        if dim is not None:
+            sharded.append(len(norms) - 1)
+            group = grp
+    if sharded:
+        sq = _all_sum(torch.stack([norms[i] for i in sharded]).square(),
+                      group).sqrt()
+        for j, i in enumerate(sharded):
+            norms[i] = sq[j]
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -72,6 +114,7 @@ def _adamw(params, grads, state, step, scale, tcfg):
     c1 = _f32_pow_complement(b1, step + 1)
     c2 = _f32_pow_complement(b2, step + 1)
     for p, g, m, v in zip(params, grads, state["m"], state["v"]):
+        p, g, m, v = (_local(t)[0] for t in (p, g, m, v))
         g = _clipped(g, scale)
         # float32 moments: in place when stored in float32, else a copy
         m32, v32 = m.to(torch.float32), v.to(torch.float32)
@@ -107,39 +150,79 @@ def leaf_shape(leaf, params) -> tuple:
     return tuple(params[leaf].shape)
 
 
+def _leaf_shard(leaf, params):
+    """``(dim, mesh)`` of a leaf's shard in its stacked shape (a stacked
+    leaf's layer dim is never sharded), or ``(None, None)``."""
+    p = params[leaf[0] if isinstance(leaf, list) else leaf]
+    _, dim, _ = _local(p)
+    if dim is None:
+        return None, None
+    return dim + isinstance(leaf, list), p.device_mesh
+
+
+def _state_zeros(shape, dt, dev, dim, mesh):
+    """Zeros of a state tensor: a DTensor sharded on ``dim`` of ``mesh``
+    (replicated with ``dim`` None) when ``mesh`` is given."""
+    if mesh is None:
+        return torch.zeros(shape, dtype=dt, device=dev)
+    from torch.distributed.tensor import zeros
+    return zeros(shape, dtype=dt, device_mesh=mesh,
+                 placements=[Replicate() if dim is None else Shard(dim)])
+
+
 def adafactor_init(params, tcfg: TrainConfig, leaves=None) -> dict:
     """``{"f": [state per leaf], "leaves": leaves}``: ``{"vr", "vc"}`` for a
-    factored leaf, ``{"v"}`` otherwise, in the leaf's stacked shape."""
+    factored leaf, ``{"v"}`` otherwise, in the leaf's stacked shape (sharded
+    as the module docstring says when the parameters are)."""
     dt = getattr(torch, tcfg.opt_state_dtype)
     if leaves is None:
         leaves = list(range(len(params)))
-    dev = params[0].device if params else None
+    dev = _local(params[0])[0].device if params else None
     f = []
     for leaf in leaves:
         s = leaf_shape(leaf, params)
+        d, mesh = _leaf_shard(leaf, params)
+        k = len(s)
         if _factored(s):
-            f.append({"vr": torch.zeros(s[:-1], dtype=dt, device=dev),
-                      "vc": torch.zeros(s[:-2] + s[-1:], dtype=dt,
-                                        device=dev)})
+            vr_dim = d if d is not None and d < k - 1 else None
+            vc_dim = (k - 2 if d == k - 1 else
+                      d if d is not None and d < k - 2 else None)
+            f.append({"vr": _state_zeros(s[:-1], dt, dev, vr_dim, mesh),
+                      "vc": _state_zeros(s[:-2] + s[-1:], dt, dev, vc_dim,
+                                         mesh)})
         else:
-            f.append({"v": torch.zeros(s, dtype=dt, device=dev)})
+            f.append({"v": _state_zeros(s, dt, dev, d, mesh)})
     return {"f": f, "leaves": list(leaves)}
 
 
-def _af_stats(g, st, b2, omb2) -> dict:
-    """This step's float32 second-moment statistics of one part."""
+def _mean(x, dim, sharded, group):
+    """``x.mean(dim)``; over a dim sharded across ``group``, the all-reduced
+    sum over its global size."""
+    if not sharded:
+        return x.mean(dim)
+    return _all_sum(x.sum(dim), group) / (x.shape[dim] *
+                                          dist.get_world_size(group))
+
+
+def _af_stats(g, st, b2, omb2, d=None, group=None) -> dict:
+    """This step's float32 second-moment statistics of one part (``g``
+    sharded on ``d`` across ``group``, or whole)."""
     g2 = g.square().add_(AF_EPS)
     if "vr" in st:
-        return {"vr": st["vr"].to(torch.float32) * b2 + omb2 * g2.mean(-1),
-                "vc": st["vc"].to(torch.float32) * b2 + omb2 * g2.mean(-2)}
+        k = g.dim()
+        return {"vr": st["vr"].to(torch.float32) * b2
+                + omb2 * _mean(g2, -1, d == k - 1, group),
+                "vc": st["vc"].to(torch.float32) * b2
+                + omb2 * _mean(g2, -2, d == k - 2, group)}
     return {"v": st["v"].to(torch.float32) * b2 + omb2 * g2}
 
 
-def _af_u(g, stats) -> torch.Tensor:
+def _af_u(g, stats, d=None, group=None) -> torch.Tensor:
     """The unclipped update ``g / sqrt(second moment)`` in float32."""
     if "vr" in stats:
         vr, vc = stats["vr"], stats["vc"]
-        r = vr / torch.clamp(vr.mean(-1, keepdim=True), min=AF_EPS)
+        row_mean = _mean(vr, -1, d == g.dim() - 2, group).unsqueeze(-1)
+        r = vr / torch.clamp(row_mean, min=AF_EPS)
         u = r[..., :, None] * vc[..., None, :]
     else:
         u = stats["v"].clone()
@@ -150,34 +233,45 @@ def _adafactor(params, grads, state, step, scale, tcfg):
     b2 = _f32_pow_complement(step + 1, -0.8)  # the paper's schedule
     omb2 = float(np.float32(1.0) - np.float32(b2))
     lr, wd = tcfg.lr, tcfg.weight_decay
+    loc = lambda t: _local(t)[0]
     for leaf, st in zip(state["leaves"], state["f"]):
         # the parts of the leaf whose statistics are their own: (param,
-        # grad, state views, per-layer params to write back)
+        # grad, state views, per-layer params to write back), and the dim
+        # of a part its shard cuts
+        d, _ = _leaf_shard(leaf, params)
+        first = params[leaf[0] if isinstance(leaf, list) else leaf]
+        group = _local(first)[2]
+        st = {k: loc(v) for k, v in st.items()}
         if not isinstance(leaf, list):
-            units = [(params[leaf], grads[leaf], st, None)]
-        elif "vr" in st and params[leaf[0]].dim() == 1:
+            units = [(loc(params[leaf]), loc(grads[leaf]), st, None)]
+        elif "vr" in st and first.dim() == 1:
             # a stacked vector [L >= 2, d]: its factors span the layers
-            ps = [params[i] for i in leaf]
-            units = [(torch.stack(ps), torch.stack([grads[i] for i in leaf]),
-                      st, ps)]
+            ps = [loc(params[i]) for i in leaf]
+            units = [(torch.stack(ps),
+                      torch.stack([loc(grads[i]) for i in leaf]), st, ps)]
         else:
-            units = [(params[j], grads[j], {k: v[i] for k, v in st.items()},
-                      None) for i, j in enumerate(leaf)]
+            units = [(loc(params[j]), loc(grads[j]),
+                      {k: v[i] for k, v in st.items()}, None)
+                     for i, j in enumerate(leaf)]
+            d = None if d is None else d - 1
         # pass 1: the statistics and sum(u^2) over the whole leaf
         stats, total, n = [], None, 0
         for _, g, sv, _ in units:
             g = _clipped(g, scale)
-            s = _af_stats(g, sv, b2, omb2)
+            s = _af_stats(g, sv, b2, omb2, d, group)
             stats.append(s)
-            sq = _af_u(g, s).square_().sum()
+            sq = _af_u(g, s, d, group).square_().sum()
             total = sq if total is None else total + sq
             n += g.numel()
             del g
+        if group is not None:
+            total = _all_sum(total, group)
+            n *= dist.get_world_size(group)
         rms_u = torch.sqrt(total / n + AF_EPS)
         den = torch.clamp(rms_u / AF_CLIP, min=1.0)
         # pass 2: recompute u, clip it, apply it, store the statistics
         for (p, g, sv, back), s in zip(units, stats):
-            u = _af_u(_clipped(g, scale), s).div_(den)
+            u = _af_u(_clipped(g, scale), s, d, group).div_(den)
             u.mul_(lr).neg_().add_(p)      # p - lr u
             u.sub_(p * (lr * wd))          # - lr wd p
             if back is None:

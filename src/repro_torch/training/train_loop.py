@@ -1,17 +1,22 @@
-"""Train-step construction (with microbatching: ``training/grad.py``) and
-the checkpointed, watchdogged driver loop."""
+"""Train-step construction (with microbatching: ``training/grad.py``), its
+data-parallel form over a mesh (``shard_train_step``), and the
+checkpointed, watchdogged driver loop."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training import fault as fault_lib
 from repro_torch.training.grad import microbatched_value_and_grad
@@ -58,6 +63,147 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig) -> Callable:
         return state, {"loss": loss.to(torch.float32), "grad_norm": gnorm}
 
     return train_step
+
+
+def data_group(mesh):
+    """The process group of ``mesh``'s data axes (``("pod", "data")``
+    flattened into one dim where there is a pod axis) and its 1-D mesh."""
+    axes = shd.data_axes(mesh)
+    sub = mesh[axes[0]] if len(axes) == 1 else mesh[axes]._flatten("dp")
+    return sub.get_group(), sub
+
+
+def _fsdp_dims(model, sizes, n_experts) -> dict:
+    """``{id(param): dim}``: the dim of each parameter (per layer, for a
+    stacked leaf) that ``param_specs(..., fsdp=True)`` shards over the data
+    axes, or None where it replicates the leaf."""
+    tree = model.jax_tree()
+    specs = shd.param_specs(tree, sizes, fsdp=True, n_experts=n_experts)
+    dims = {}
+
+    def walk(t, s, path):
+        if isinstance(s, dict):
+            for k in s:
+                walk(t[k], s[k], f"{path}/{k}" if path else k)
+            return
+        d = shd.data_dim(s)
+        if isinstance(t, list):  # a stacked leaf: its layers are params
+            if d == 0:
+                raise NotImplementedError(
+                    f"{path}: FSDP shards the layer dim of this stacked "
+                    "leaf, which per-layer parameters cannot hold")
+            for q in t:
+                dims[id(q)] = None if d is None else d - 1
+        else:
+            dims[id(t)] = d
+    walk(tree, specs, "")
+    return dims
+
+
+def _fully_shard(model, dmesh, dims, reduce_dtype) -> list:
+    """FSDP2 over ``dmesh``: each block of the model's layer groups, then
+    the root; each parameter sharded on its ``dims`` entry, the ones it
+    lacks (None) left replicated (``ignored_params``).  Returns the FSDP
+    modules."""
+    from torch.distributed.fsdp import (FSDPModule, MixedPrecisionPolicy,
+                                        fully_shard,
+                                        register_fsdp_forward_method)
+    from torch.distributed.tensor import Shard
+
+    ignored = {p for p in model.parameters() if dims[id(p)] is None}
+    kw = dict(mesh=dmesh, mp_policy=MixedPrecisionPolicy(
+                  reduce_dtype=reduce_dtype),
+              shard_placement_fn=lambda p: Shard(dims[id(p)]))
+    for name in getattr(model, "LAYER_GROUPS", ()):
+        for block in getattr(model, name):
+            fully_shard(block, ignored_params=ignored & set(
+                block.parameters()), **kw)
+    fully_shard(model, ignored_params=ignored, **kw)
+    # the train step calls the loss, not forward: it unshards the root
+    register_fsdp_forward_method(model, "loss_fn")
+    return [m for m in model.modules() if isinstance(m, FSDPModule)]
+
+
+def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
+                     state: TrainState, *, batch_rows: int,
+                     fsdp: bool = False, n_experts: int = 0) -> tuple:
+    """The data-parallel train step of an LM (``loss_fn`` a
+    ``layers.cross_entropy`` over ``batch["labels"]``) over ``mesh``'s
+    data axes (the JAX package's ``jit_train_step`` on the data axes);
+    returns ``(step, state)``.  ``state`` must be fresh (step 0: restore
+    into the returned one).
+
+    ``batch_rows`` is the global batch's rows: when the data degree dp
+    divides it, each rank's batch is its rows (``put_packed``, with
+    ``microbatches=tcfg.microbatch``), else the whole batch, replicated as
+    the reference's ``batch_specs`` does.
+
+    - ``fsdp``: FSDP2 (ZeRO-3) shards each parameter, and so its gradient
+      and optimizer state, on the dim ``param_specs(..., fsdp=True)``
+      chooses; a leaf it replicates stays whole on every rank.  Gradients
+      are reduce-scattered once a step (not per microbatch), accumulated in
+      ``tcfg.accum_dtype``, then rounded to the parameter's dtype.
+    - otherwise every parameter is whole on every rank, and the gradients
+      are all-reduced once a step.
+    - The loss is the reference's mean over the global (micro)batch: each
+      rank divides its sum by the global count of unignored labels (one
+      all-reduce a step), and the ranks' gradients are summed.  The loss
+      reported is the global one; the gradient norm is global.
+    """
+    if state.step != 0:
+        raise ValueError("shard a fresh train state, then restore into it")
+    model = state.model
+    group, dmesh = data_group(mesh)
+    dp = dist.get_world_size(group)
+    sharded = batch_rows % dp == 0
+    n_micro = max(tcfg.microbatch, 1)
+    acc_dtype = getattr(torch, tcfg.accum_dtype)
+    fsdp_modules = []
+    if fsdp:
+        dims = _fsdp_dims(model, shd.axis_sizes(mesh), n_experts)
+        state.opt = None
+        fsdp_modules = _fully_shard(model, dmesh, dims, acc_dtype)
+        for m in fsdp_modules:  # the ranks' shares of the mean are summed;
+            # a replicated batch's equal gradients are averaged
+            m.set_gradient_divide_factor(1.0 if sharded else float(dp))
+            m.set_force_sum_reduction_for_comms(True)
+        state = TrainState.create(model, tcfg)
+    replicated = [i for i, p in enumerate(model.parameters())
+                  if not hasattr(p, "placements")]
+    counts = {}
+
+    @contextlib.contextmanager
+    def micro(i):
+        if fsdp_modules:  # one reduce-scatter, after the last microbatch
+            model.set_requires_gradient_sync(i == n_micro - 1)
+        with shd.row_shards(dp if sharded else 1), \
+                L.label_count(counts.get(i)):
+            yield
+
+    vg = microbatched_value_and_grad(
+        loss_fn, n_micro, accum_dtype=tcfg.accum_dtype,
+        in_place=True if fsdp_modules else None, micro_context=micro)
+
+    def train_step(state: TrainState, batch) -> tuple:
+        counts.clear()
+        if sharded:
+            labels = batch["labels"].reshape(n_micro, -1)
+            c = (labels != -100).to(torch.float32).sum(1)
+            dist.all_reduce(c, group=group)
+            counts.update(enumerate(c))
+        params = list(state.model.parameters())
+        loss, grads = vg(state.model, batch)
+        if sharded:
+            for i in replicated:
+                dist.all_reduce(grads[i], group=group)
+            dist.all_reduce(loss, group=group)
+        # (a replicated batch: every rank computed the whole gradient)
+        gnorm = opt_update(params, grads, state.opt, state.step, tcfg)
+        del grads
+        state.step += 1
+        return state, {"loss": loss.to(torch.float32), "grad_norm": gnorm}
+
+    return train_step, state
 
 
 @dataclasses.dataclass
@@ -151,6 +297,8 @@ def resume_or_init(make_state: Callable[[], TrainState],
     ``ckpt_dir`` restored into it (in place, on its device), or the fresh
     state when there is none."""
     state = make_state()
+    if dist.is_initialized():  # every rank sees the same commits
+        dist.barrier()
     step = ckpt_lib.latest_step(ckpt_dir) if ckpt_dir else None
     if step is None:
         return state

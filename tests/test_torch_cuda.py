@@ -9,7 +9,7 @@ packer kernels; the LM trainer's forward and backward against the CPU,
 three tenants at once bit for bit, and exact launch counts under four
 launching threads; the MoE family and bfloat16-state optimizer steps
 against the CPU; serving, and the hybrid and enc-dec families, against the
-CPU.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
+CPU; a data-parallel rank on NCCL against one on gloo on the CPU.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
 elsewhere (a CUDA kernel has no interpret mode).
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1133,3 +1133,21 @@ def test_hybrid_and_encdec_match_the_cpu(card, arch, compute, rel):
             norm_close(a, b)
         else:
             assert torch.equal(a, b)
+
+
+def test_distributed_on_the_card(card, tmp_path):
+    """One NCCL rank on the card against one gloo rank on the CPU:
+    ``compressed_psum_mean`` bit-equal, ``put_packed``'s rows equal, and
+    two FSDP steps (reduced llama3_2_3b, float32, microbatch 2) within
+    rtol 1e-4 (losses, gradient norms) and 1e-4 of each leaf's norm."""
+    import torch_dist as td
+    got = td.spawn(td.card_rank, 1, tmp_path, "cuda", backend="nccl")[0]
+    want = td.spawn(td.card_rank, 1, tmp_path, "cpu")[0]
+    for k in ("mean", "ef"):
+        for g, w in zip(got[k], want[k]):
+            np.testing.assert_array_equal(g, w)
+    for k, v in want["placed"].items():
+        np.testing.assert_array_equal(got["placed"][k], v)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
+    for g, w in zip(got["leaves"], want["leaves"]):
+        assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w)

@@ -1,0 +1,444 @@
+"""Data-parallel distribution of the port against the JAX package's.
+
+- (a) ``param_specs`` / ``cache_specs`` / ``batch_specs`` equal the
+  reference's leaf for leaf, for every arch at full width (the reference's
+  ``jax.eval_shape`` paths and shapes fed to both; ``AbstractMesh``es).
+- (b) ``compressed_psum_mean`` on 4 gloo ranks is bit-equal to the
+  reference's under ``jax.vmap(axis_name="d")`` over 4 ranks, for 5
+  error-feedback steps (the means and every rank's residuals).
+- (c) 3 data-parallel train steps on 4 gloo ranks against the reference's
+  ``jit_train_step`` on 4 host devices (a subprocess with
+  ``--xla_force_host_platform_device_count=4`` and an Auto-axes
+  ``jax.sharding.Mesh``), float32, within the LM float32 bounds: loss rtol
+  1e-5, grad norm rtol 1e-4, each parameter leaf within 1e-4 of its norm.
+- (d) ``EtlJob(mesh=)`` gives each of 4 ranks its rows bit-equal; a row
+  count 4 does not divide raises.
+- (e) elastic restores bit-equal: a one-process port checkpoint and a
+  reference one onto 4 FSDP ranks, and the 4 ranks' save back onto one.
+- (f) ``launch.train --mesh host`` on 2 ranks gives one process's losses;
+  a rank that raises at step 2 ends the world within the timeout.
+- (g) ``make_production_mesh`` on 4 ranks raises, naming 256.
+
+The ranks' side is ``tests/torch_dist.py`` (no JAX there).
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch_dist as td  # noqa: E402
+from jax.sharding import AbstractMesh  # noqa: E402
+from repro.configs import registry as rreg  # noqa: E402
+from repro.configs.base import TrainConfig as RTrainConfig  # noqa: E402
+from repro.distributed import sharding as rshd  # noqa: E402
+from repro.models import api as rapi  # noqa: E402
+from repro.training import checkpoint as rckpt  # noqa: E402
+from repro.training import grad as rgrad  # noqa: E402
+from repro.training import train_loop as rtl  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
+from repro_torch.core.pipeline import lm_token_pipeline  # noqa: E402
+from repro_torch.data.source import Source  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from repro_torch.session import EtlJob  # noqa: E402
+from repro_torch.training import checkpoint as ckpt  # noqa: E402
+from repro_torch.training import train_loop as ttl  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+WORLD = 4
+
+# ---------------------------------------------------------------------------
+# (a) the sharding rules at full width
+# ---------------------------------------------------------------------------
+
+MESHES = [((16, 16), ("data", "model")),
+          ((2, 16, 16), ("pod", "data", "model")),
+          ((4, 1), ("data", "model")), ((2, 2), ("data", "model")),
+          ((1, 1), ("data", "model"))]
+
+
+def _pstr(path) -> str:
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path)
+
+
+def _flat_specs(tree) -> dict:
+    leaves = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    return {_pstr(p): tuple(s) for p, s in leaves}
+
+
+@pytest.mark.parametrize("arch", rreg.ARCH_IDS)
+def test_specs_equal_the_references_at_full_width(arch):
+    cfg = rreg.get_config(arch)
+    model = rapi.build_model(cfg)
+    shapes = jax.eval_shape(lambda: model.init(jax.random.key(0)))
+    leaves = {_pstr(p): tuple(x.shape) for p, x in
+              jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    n_exp = cfg.moe.n_experts if cfg.moe else 0
+    # a decode cache and a batch of the model's own layouts
+    cache = {"blocks": {"k": (cfg.n_layers, 32, 4096, cfg.n_kv_heads, 128),
+                        "v": (cfg.n_layers, 32, 4096, cfg.n_kv_heads, 128),
+                        "pos": (cfg.n_layers, 4096)},
+             "ssm": {"ssm": (cfg.n_layers, 32, 64, 128, 64),
+                     "conv": (cfg.n_layers, 32, 3, 4096)}}
+    batch = {"tokens": (48, 1024), "labels": (48, 1024),
+             "frames": (6, 3000, 80)}
+    to_sds = lambda t: jax.tree_util.tree_map(
+        lambda s: jax.ShapeDtypeStruct(s, np.float32), t,
+        is_leaf=lambda x: isinstance(x, tuple))
+    for shape, names in MESHES:
+        am = AbstractMesh(shape, names)
+        sizes = dict(zip(names, shape))
+        for fsdp in (False, True):
+            for ne in sorted({0, n_exp}):
+                want = _flat_specs(rshd.param_specs(shapes, am, fsdp=fsdp,
+                                                    n_experts=ne))
+                got = shd.param_specs(leaves, sizes, fsdp=fsdp,
+                                      n_experts=ne)
+                assert {k: tuple(v) for k, v in got.items()} == want, \
+                    (shape, fsdp, ne)
+        want = _flat_specs(rshd.cache_specs(to_sds(cache), am))
+        got = shd.cache_specs(cache, sizes)
+        assert {f"{g}/{k}": tuple(v) for g, sub in got.items()
+                for k, v in sub.items()} == want
+        want = _flat_specs(rshd.batch_specs(to_sds(batch), am))
+        assert {k: tuple(v) for k, v in
+                shd.batch_specs(batch, sizes).items()} == want
+
+
+def test_placements_follow_the_spec():
+    from torch.distributed.tensor import Replicate, Shard
+
+    class Mesh:
+        mesh_dim_names = ("pod", "data", "model")
+    spec = shd.P(None, ("pod", "data"), "model")
+    assert shd.placements(spec, Mesh()) == (Shard(1), Shard(1), Shard(2))
+    assert shd.placements(shd.P(None, "data"), Mesh()) == (
+        Replicate(), Shard(1), Replicate())
+    assert shd.data_dim(spec) == 1 and shd.data_dim(shd.P(None)) is None
+
+
+# ---------------------------------------------------------------------------
+# the 4-rank runs, shared by (b) - (e) and (g)
+# ---------------------------------------------------------------------------
+
+def _port_state(seed: int, steps: int):
+    """A one-process port state of reduced llama3_2_3b after ``steps``
+    AdamW steps (nonzero moments)."""
+    cfg = td.lm_cfg("llama3_2_3b")
+    model = api.build_model(cfg)
+    tc = TrainConfig(fsdp=True)
+    state = ttl.TrainState.create(model.init(seed=seed, device="cpu"), tc)
+    step = ttl.make_train_step(model.loss, tc)
+    for i in range(steps):
+        b = td.lm_batch(cfg.vocab_size, 4, 16, 40 + i)
+        state, _ = step(state, {k: torch.from_numpy(v)
+                                for k, v in b.items()})
+    return state
+
+
+def _int8_inputs():
+    rng = np.random.default_rng(7)
+    return [{"a": rng.normal(size=(WORLD, 33, 7)).astype(np.float32)
+             * (10.0 ** s),
+             "bf16_b": rng.normal(size=(WORLD, 64)).astype(np.float32),
+             "zero": np.zeros((WORLD, 5), np.float32)} for s in range(5)]
+
+
+@pytest.fixture(scope="module")
+def misc_run(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("misc")
+    paths = {"int8": str(tmp / "int8.pkl"), "port_ckpt": str(tmp / "port"),
+             "ref_ckpt": str(tmp / "ref"), "saved_ckpt": str(tmp / "saved"),
+             "etl": {"batch": 8, "bad_batch": 6, "seq": 16, "vocab": 512}}
+    td.save(_int8_inputs(), paths["int8"])
+    state = _port_state(seed=3, steps=1)
+    ckpt.save(state, paths["port_ckpt"], 1)
+    rcfg = dataclasses.replace(rreg.get_reduced("llama3_2_3b"),
+                               compute_dtype="float32")
+    rparams = rapi.build_model(rcfg).init(jax.random.key(11))
+    rstate = rtl.TrainState.create(rparams, RTrainConfig(fsdp=True))
+    rckpt.save(dataclasses.replace(rstate, step=np.int32(9)),
+               paths["ref_ckpt"], 9)
+    out = td.spawn(td.misc, WORLD, tmp, paths, timeout=120)
+    return paths, out
+
+
+def test_int8_mean_is_bit_equal_to_the_references(misc_run):
+    _, out = misc_run
+    fn = jax.vmap(lambda g, e: rgrad.compressed_psum_mean(g, e, "d"),
+                  axis_name="d")
+    grads = _int8_inputs()
+    ef = jax.tree_util.tree_map(np.zeros_like, grads[0])
+    for s, g in enumerate(grads):
+        g = {k: jax.numpy.asarray(v, jax.numpy.bfloat16 if k == "bf16_b"
+                                  else jax.numpy.float32)
+             for k, v in g.items()}
+        mean, ef = fn(g, ef)
+        for r in range(WORLD):
+            got_mean, got_ef = out[r]["int8"][s]
+            for k in g:
+                np.testing.assert_array_equal(
+                    got_mean[k], np.asarray(mean[k][r], np.float32),
+                    err_msg=f"mean {k} step {s} rank {r}")
+                np.testing.assert_array_equal(
+                    got_ef[k], np.asarray(ef[k][r]),
+                    err_msg=f"residual {k} step {s} rank {r}")
+
+
+def _one_process_batches(batch: int, seq: int, vocab: int) -> list:
+    job = EtlJob(lm_token_pipeline(seq, vocab, batch_size=batch),
+                 Source.lm_events(seq, rows=batch * 3, batch_size=batch),
+                 backend="torch", device="cpu")
+    with job.batches() as batches:
+        return [{k: v.numpy() for k, v in b.items()} for b in batches]
+
+
+def test_etl_job_on_a_mesh_delivers_each_rank_its_rows(misc_run):
+    paths, out = misc_run
+    e = paths["etl"]
+    want = _one_process_batches(e["batch"], e["seq"], e["vocab"])
+    per = e["batch"] // WORLD
+    for r in range(WORLD):
+        got = out[r]["etl"][0]
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            for k in ("tokens", "labels"):
+                np.testing.assert_array_equal(g[k], w[k][r * per:
+                                                         (r + 1) * per])
+
+
+def test_etl_job_rows_the_world_does_not_divide_raise(misc_run):
+    _, out = misc_run
+    for r in range(WORLD):
+        assert "6 rows" in out[r]["etl"][1] and "4 data shards" in \
+            out[r]["etl"][1]
+
+
+def _manifest_arrays(d: str, step: int) -> list:
+    import json
+    root = os.path.join(d, f"step_{step:08d}")
+    with open(os.path.join(root, "manifest.json")) as fh:
+        index = json.load(fh)["index"]
+    return [np.load(os.path.join(root, e["file"])) for e in index]
+
+
+def _check_shards(arrays, ranks_leaves):
+    for i, full in enumerate(arrays[:-1]):  # the step is the last leaf
+        for r, leaves in enumerate(ranks_leaves):
+            got, dim = leaves[i]
+            want = full if dim is None else np.split(full, WORLD, dim)[r]
+            np.testing.assert_array_equal(got, want, err_msg=f"leaf {i}")
+
+
+def test_elastic_restore_one_to_four(misc_run):
+    paths, out = misc_run
+    arrays = _manifest_arrays(paths["port_ckpt"], 1)
+    steps = [o["port_1_to_n"][0] for o in out]
+    assert steps == [1] * WORLD
+    _check_shards(arrays, [o["port_1_to_n"][1] for o in out])
+    # FSDP sharded some leaves over the 4 ranks
+    assert any(d is not None for _, d in out[0]["port_1_to_n"][1])
+
+
+def test_elastic_restore_reference_one_to_port_four(misc_run):
+    paths, out = misc_run
+    arrays = _manifest_arrays(paths["ref_ckpt"], 9)
+    assert [o["ref_1_to_n"][0] for o in out] == [9] * WORLD
+    _check_shards(arrays, [o["ref_1_to_n"][1] for o in out])
+
+
+def test_elastic_restore_four_to_one(misc_run):
+    paths, _ = misc_run
+    assert ckpt.latest_step(paths["saved_ckpt"]) == 1
+    state = ckpt.restore(paths["saved_ckpt"], _port_state(seed=8, steps=0))
+    want = _port_state(seed=3, steps=1)  # what the 4 ranks restored
+    assert state.step == 1
+    from repro_torch.models.transformer import state_to_jax_leaves
+    for a, b in zip(state_to_jax_leaves(state)[:-1],
+                    state_to_jax_leaves(want)[:-1]):
+        a = torch.stack(a) if isinstance(a, list) else a
+        b = torch.stack(b) if isinstance(b, list) else b
+        assert torch.equal(a, b)
+
+
+def test_production_mesh_raises_on_another_world(misc_run):
+    _, out = misc_run
+    assert all("256" in o["production"] for o in out)
+
+
+# ---------------------------------------------------------------------------
+# (c) train-step parity against the reference's 4-device jit_train_step
+# ---------------------------------------------------------------------------
+
+# name: (arch, TrainConfig kwargs, rows, uneven labels, capacity factor)
+CASES = {
+    "llama_replicated_mb1": ("llama3_2_3b", dict(microbatch=1), 8, False,
+                             None),
+    "llama_replicated_mb2": ("llama3_2_3b", dict(microbatch=2), 8, False,
+                             None),
+    "llama_fsdp_mb1": ("llama3_2_3b", dict(fsdp=True, microbatch=1), 8,
+                       False, None),
+    "llama_fsdp_mb2": ("llama3_2_3b", dict(fsdp=True, microbatch=2), 8,
+                       False, None),
+    # -100 labels spread unevenly over the shards
+    "llama_fsdp_uneven": ("llama3_2_3b", dict(fsdp=True, microbatch=2), 8,
+                          True, None),
+    # the token groups: a capacity that binds, one group of 2 rows per
+    # rank per microbatch (the rows of rank r's groups are not its
+    # contiguous block)
+    "mixtral_fsdp_mb2": ("mixtral_8x7b", dict(fsdp=True, microbatch=2), 16,
+                         False, 0.5),
+    # llama3_405b's preset (FSDP, Adafactor) at float32 state and
+    # accumulation, microbatch 2
+    "llama405b_adafactor": ("llama3_405b", dict(
+        fsdp=True, optimizer="adafactor", microbatch=2), 8, False, None),
+    # 6 rows the 4 ranks do not divide: the batch is replicated, and the
+    # 96 tokens are 4 token groups on every rank
+    "mixtral_fsdp_replicated": ("mixtral_8x7b", dict(fsdp=True), 6, False,
+                                0.5),
+    # the data axes ("pod", "data") of a (2, 2, 1) mesh, flattened
+    "llama_fsdp_pod": ("llama3_2_3b", dict(fsdp=True, microbatch=2), 8,
+                       False, None),
+}
+POD = {"llama_fsdp_pod"}
+STEPS, SEQ = 3, 16
+
+_REFERENCE = """
+import dataclasses, pickle, sys
+import jax, numpy as np
+from jax.sharding import Mesh
+from repro.configs import registry as rreg
+from repro.configs.base import TrainConfig
+from repro.distributed import sharding as shd
+from repro.models import api
+from repro.training import train_loop as tl
+
+inputs = pickle.load(open(sys.argv[1], "rb"))
+out = {}
+for name, case in inputs.items():
+    devices = np.array(jax.devices())
+    mesh = (Mesh(devices.reshape(2, 2, 1), ("pod", "data", "model"))
+            if case["pod"] else Mesh(devices.reshape(4, 1), ("data", "model")))
+    shd.set_active_mesh(mesh)
+    cfg = dataclasses.replace(rreg.get_reduced(case["arch"]),
+                              compute_dtype="float32")
+    if case["capacity_factor"] is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=case["capacity_factor"]))
+    model = api.build_model(cfg)
+    tc = TrainConfig(**case["tcfg"])
+    params = jax.tree_util.tree_map(jax.numpy.asarray, case["params"])
+    state = tl.TrainState.create(params, tc)
+    b0 = case["batches"][0]
+    step, _ = tl.jit_train_step(
+        tl.make_train_step(model.loss, tc), mesh, jax.eval_shape(lambda: state),
+        {k: jax.ShapeDtypeStruct(v.shape, v.dtype) for k, v in b0.items()},
+        fsdp=tc.fsdp, n_experts=cfg.moe.n_experts if cfg.moe else 0)
+    losses, norms = [], []
+    with mesh:
+        for b in case["batches"]:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(state.params)]
+    out[name] = (losses, norms, leaves)
+pickle.dump(out, open(sys.argv[2], "wb"))
+"""
+
+
+@pytest.fixture(scope="module")
+def step_runs(tmp_path_factory):
+    """Both sides of every case, run side by side: the reference in a
+    4-device subprocess, the port on 4 gloo ranks."""
+    tmp = tmp_path_factory.mktemp("steps")
+    inputs = {}
+    for name, (arch, kw, rows, uneven, cf) in CASES.items():
+        rcfg = dataclasses.replace(rreg.get_reduced(arch),
+                                   compute_dtype="float32")
+        params = rapi.build_model(rcfg).init(jax.random.key(1))
+        kw = dict(kw, lr=3e-3)
+        inputs[name] = {
+            "arch": arch, "tcfg": kw, "capacity_factor": cf,
+            "pod": name in POD,
+            "params": jax.tree_util.tree_map(np.asarray, params),
+            "batches": [td.lm_batch(rcfg.vocab_size, rows, SEQ, 30 + i,
+                                    uneven) for i in range(STEPS)]}
+    td.save(inputs, tmp / "inputs.pkl")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    ref = subprocess.Popen(
+        [sys.executable, "-c", textwrap.dedent(_REFERENCE),
+         str(tmp / "inputs.pkl"), str(tmp / "ref.pkl")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        port = td.spawn(td.train_cases, WORLD, tmp, str(tmp / "inputs.pkl"),
+                        timeout=120)[0]
+        _, err = ref.communicate(timeout=120)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.communicate()
+    assert ref.returncode == 0, err[-3000:]
+    return td.load(tmp / "ref.pkl"), port
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_train_step_matches_the_references_on_4_ranks(step_runs, name):
+    ref, port = step_runs
+    (rl, rn, rleaves), (pl, pn, pleaves) = ref[name], port[name]
+    np.testing.assert_allclose(pl, rl, rtol=1e-5, err_msg="loss")
+    np.testing.assert_allclose(pn, rn, rtol=1e-4, err_msg="grad norm")
+    assert len(pleaves) == len(rleaves)
+    for i, (got, want) in enumerate(zip(pleaves, rleaves)):
+        err = np.linalg.norm(got - want)
+        assert err <= 1e-4 * np.linalg.norm(want), (i, err)
+
+
+# ---------------------------------------------------------------------------
+# (f) the launcher on 2 ranks
+# ---------------------------------------------------------------------------
+
+ARGV = ["--arch", "llama3_2_3b", "--reduced", "--device", "cpu",
+        "--steps", "3", "--batch", "8", "--seq", "32", "--mesh", "host"]
+
+
+def test_launcher_on_two_ranks_gives_one_processs_losses(tmp_path,
+                                                         monkeypatch):
+    from repro_torch.launch import train as launch
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    real = launch.make_train_step
+    losses = []
+
+    def tapped(loss_fn, tc):
+        step = real(loss_fn, tc)
+
+        def run(state, batch):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            return state, m
+        return run
+    monkeypatch.setattr(launch, "make_train_step", tapped)
+    assert launch.main(ARGV)["state"].step == 3
+    out = td.spawn(td.launcher, 2, tmp_path, ARGV, timeout=120)
+    for got, steps in out:
+        assert steps == 3
+        np.testing.assert_allclose(got, losses, rtol=1e-5)
+
+
+def test_a_failing_rank_ends_the_world(tmp_path):
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1 fails at step 2"):
+        td.spawn(td.launcher, 2, tmp_path, ARGV, 2, timeout=120, grace=10)
+    assert time.monotonic() - t0 < 120

@@ -289,8 +289,13 @@ def test_launchers_refuse_the_family(which, monkeypatch):
     between the batch and ``input_specs``); the port's raise a
     ``ValueError`` naming the frames before any ETL job starts."""
     import importlib
+
+    from repro.distributed import sharding as rshd
     ref = importlib.import_module(f"repro.launch.{which}")
     port = importlib.import_module(f"repro_torch.launch.{which}")
+    # the reference's launcher sets its process-wide mesh: restored after,
+    # so later tests in this process run the reference without one
+    monkeypatch.setattr(rshd, "_ACTIVE_MESH", rshd.get_active_mesh())
     argv = ["--arch", ARCH, "--reduced", "--batch", "2"]
     argv += ["--steps", "1", "--seq", "16"] if which == "train" else \
         ["--prompt-len", "8", "--max-new", "2"]

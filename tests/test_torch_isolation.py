@@ -40,6 +40,8 @@ sys.modules["jax"] = None
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
+assert {"repro_torch.distributed.sharding",
+        "repro_torch.launch.mesh"} <= set(names)
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -53,10 +55,11 @@ print(len(names))
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     # the online path's modules included (controller, checkpoint, fault,
-    # online.{bus,shed,service}, launch.online), and the LM side's
+    # online.{bus,shed,service}, launch.online), the LM side's
     # (multitenant, configs.*, models.{layers,transformer,api},
-    # training.grad, launch.{presets,train})
-    assert int(out.stdout.strip()) >= 61
+    # training.grad, launch.{presets,train}) and distribution's
+    # (distributed, distributed.sharding, launch.mesh)
+    assert int(out.stdout.strip()) >= 71
 
 
 @pytest.fixture
@@ -101,21 +104,33 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
 
 
 def test_unported_options_raise():
+    """``mesh=`` builds an executor whose place stage keeps this rank's
+    rows (one shard of one here); the launcher refuses an enc-dec arch
+    (no frames) and a mesh with a "model" axis."""
     from repro_torch.launch import train as launch
-    from repro_torch.training.grad import compressed_psum_mean
+
+    class OneRankMesh:
+        mesh_dim_names = ("data", "model")
+
+        def size(self, dim):
+            return 1
+
+        def get_local_rank(self, name):
+            return 0
+
     tmpl = paper_pipeline("II", small_vocab=2048)
     src = Source.synth("I", rows=10, batch_size=10)
-    job = EtlJob(tmpl, src, backend="cuda", device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError):
-        job.executor()
+    job = EtlJob(tmpl, src, backend="cuda", device="cpu", mesh=OneRankMesh())
+    job.fit()
+    with job.batches() as batches:
+        (batch,) = list(batches)
+    assert all(v.shape[0] == 10 for v in batch.values())
     with pytest.raises(ValueError, match="frames"):  # no launcher feeds them
         launch.main(["--arch", "whisper_base", "--reduced", "--device",
                      "cpu"])
-    with pytest.raises(NotImplementedError, match="pod"):
+    with pytest.raises(NotImplementedError, match='pod needs the "model"'):
         launch.main(["--arch", "llama3_2_3b", "--reduced", "--device", "cpu",
                      "--mesh", "pod"])
-    with pytest.raises(NotImplementedError, match="Queue A: distribution"):
-        compressed_psum_mean([torch.zeros(2)], [torch.zeros(2)], "dp")
 
 
 def test_adafactor_and_moe_run():

@@ -535,26 +535,38 @@ def test_launcher_feeds_the_pipelines_batches(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--arch", "llama3_2_3b", "--reduced", "--mesh", "pod"], "pod"),
+    (["--arch", "llama3_2_3b", "--reduced", "--mesh", "pod"],
+     'pod needs the "model" axis'),
     (["--arch", "llama3_405b", "--reduced", "--mesh", "multipod"],
-     "multipod"),
-    (["--arch", "mixtral_8x7b", "--reduced", "--mesh", "pod"], "pod"),
-    (["--arch", "zamba2_2_7b", "--reduced", "--mesh", "pod"], "pod")])
+     'multipod needs the "model" axis'),
+    (["--arch", "mixtral_8x7b", "--reduced", "--mesh", "pod"],
+     'pod needs the "model" axis'),
+    (["--arch", "zamba2_2_7b", "--reduced", "--mesh", "pod"],
+     'pod needs the "model" axis')])
 def test_launcher_raises_for_what_is_not_ported(argv, what):
-    """A mesh raises, whatever the family; the Adafactor, fsdp and MoE
-    presets train (``tests/test_torch_moe.py``), and so do the VLM, the
-    SSM and the hybrid (``tests/test_torch_vlm.py``,
+    """A mesh with a "model" axis raises, whatever the family (``--mesh
+    host`` is data parallel: ``tests/test_torch_distributed.py``); the
+    Adafactor, fsdp and MoE presets train (``tests/test_torch_moe.py``),
+    and so do the VLM, the SSM and the hybrid (``tests/test_torch_vlm.py``,
     ``tests/test_torch_ssm.py``, ``tests/test_torch_hybrid.py``)."""
     from repro_torch.launch import train as launch
     with pytest.raises(NotImplementedError, match=what):
         launch.main(argv + ["--device", "cpu", "--steps", "1"])
 
 
-def test_int8_gradient_compression_raises_naming_item_3():
-    with pytest.raises(NotImplementedError, match="Queue A: distribution"):
-        presets.check_ported(TrainConfig(grad_compression="int8_ef"))
-    for arch in treg.ARCH_IDS:  # every preset is accepted
-        presets.check_ported(presets.train_preset(arch))
+def test_int8_gradient_compression_raises_naming_item_3(monkeypatch):
+    """Every preset, and ``grad_compression="int8_ef"``, is accepted: the
+    launcher trains with it, which (as the reference's) no train step
+    reads."""
+    from repro_torch.launch import train as launch
+    for arch in treg.ARCH_IDS:
+        assert isinstance(presets.train_preset(arch), TrainConfig)
+    int8 = dataclasses.replace(presets.train_preset("llama3_2_3b"),
+                               grad_compression="int8_ef")
+    monkeypatch.setattr(launch, "train_preset", lambda arch: int8)
+    out = launch.main(["--arch", "llama3_2_3b", "--reduced", "--device",
+                       "cpu", "--steps", "1", "--batch", "2", "--seq", "16"])
+    assert out["state"].step == 1
 
 
 @pytest.mark.parametrize("arch,item", [("zamba2_2_7b", "hybrid"),

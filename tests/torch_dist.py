@@ -1,0 +1,342 @@
+"""Spawning a world of ``torch.distributed`` ranks for the tests, and the
+rank-side halves of ``tests/test_torch_distributed.py``.
+
+A world is at most 4 gloo processes on the CPU, joined through a file store
+under the test's temporary directory (never a fixed port: the suite runs
+with several workers side by side), each started with the ``torchrun``
+environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``).  ``spawn`` waits
+``timeout`` seconds at most for all of them, so a hang fails the test.
+Imports no JAX: the ranks import this module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import pickle
+import queue
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def _main(rank, world, store, backend, fn, args, q):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    torch.set_num_threads(1)
+    try:
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        out = fn(rank, world, *args)
+        q.put((rank, "ok", out))
+    except BaseException:  # reported to the parent, which fails the test
+        q.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn, world: int, tmp_path, *args, timeout: float = 120.0,
+          grace: float = 10.0, backend: str = "gloo") -> list:
+    """``fn(rank, world, *args)`` in ``world`` fresh processes (gloo; or
+    NCCL, a card a rank); returns their results by rank.  Raises ``RuntimeError`` with the failed ranks'
+    tracebacks when one fails (the others get ``grace`` seconds to finish,
+    as ``torchrun`` would end them), or when they have not all finished
+    within ``timeout`` seconds.  Every process is gone on return."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = os.path.join(str(tmp_path), f"store_{fn.__name__}_{backend}")
+    if os.path.exists(store):
+        os.remove(store)
+    procs = [ctx.Process(target=_main,
+                         args=(r, world, store, backend, fn, args, q),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    got, errors = {}, {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) + len(errors) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                break
+            try:
+                rank, status, out = q.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                if not any(p.is_alive() for p in procs) and q.empty():
+                    break  # a rank died without reporting
+                continue
+            if status == "ok":
+                got[rank] = out
+            else:
+                errors[rank] = out
+                deadline = min(deadline, time.monotonic() + grace)
+    finally:
+        for p in procs:
+            p.join(timeout=1)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+    if errors:
+        raise RuntimeError(f"{fn.__name__} failed:" + "".join(
+            f"\n--- rank {r} ---\n{e}" for r, e in sorted(errors.items())))
+    if len(got) < world:
+        raise RuntimeError(f"{fn.__name__}: {world - len(got)} rank(s) "
+                           f"did not finish (exit codes "
+                           f"{[p.exitcode for p in procs]}; {timeout} s)")
+    return [got[r] for r in range(world)]
+
+
+def save(obj, path) -> None:
+    with open(path, "wb") as fh:
+        pickle.dump(obj, fh)
+
+
+def load(path):
+    with open(path, "rb") as fh:  # written by this suite's own processes
+        return pickle.load(fh)
+
+
+# ---------------------------------------------------------------------------
+# shared builders (the reference side builds the same in its subprocess)
+# ---------------------------------------------------------------------------
+
+def lm_batch(vocab: int, rows: int, seq: int, seed: int,
+             uneven: bool = False) -> dict:
+    """Seeded tokens / labels; ``uneven`` sets -100 on a different number
+    of each row's labels (row i: i * 3 of them), so the data shards count
+    different numbers of labels."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (rows, seq)).astype(np.int32)
+    labels = rng.integers(0, vocab, (rows, seq)).astype(np.int32)
+    if uneven:
+        for i in range(rows):
+            labels[i, :min(3 * i, seq)] = -100
+    return {"tokens": tokens, "labels": labels}
+
+
+def lm_cfg(arch: str, capacity_factor=None):
+    """The port's reduced config of ``arch`` at float32 compute (the MoE
+    capacity factor replaced when given)."""
+    from repro_torch.configs import registry as treg
+    cfg = dataclasses.replace(treg.get_reduced(arch), compute_dtype="float32")
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    return cfg
+
+
+def whole_leaves(model) -> list:
+    """The model's JAX leaves as whole numpy arrays (DTensors gathered: a
+    collective, so every rank calls it)."""
+    from repro_torch.models.transformer import jax_leaves
+    from repro_torch.training.checkpoint import _whole
+    out = []
+    for _, leaf in jax_leaves(model.jax_tree()):
+        leaf = _whole(leaf)
+        t = torch.stack(leaf) if isinstance(leaf, list) else leaf
+        out.append(t.detach().cpu().numpy())
+    return out
+
+
+def train_cases(rank, world, inputs_path):
+    """Each case of ``inputs_path`` (``{name: {arch, tcfg, params,
+    batches, capacity_factor, pod}}``) on a ``(world, 1)`` mesh, or with
+    ``pod`` a ``(2, world / 2, 1)`` one: 3 data-parallel steps; returns
+    ``{name: (losses, grad norms, whole leaves)}``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.etl_runtime.transfer import batch_sharding, put_packed
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.training import train_loop as ttl
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    host = make_host_mesh(device="cpu")
+    out = {}
+    for name, case in load(inputs_path).items():
+        mesh = host
+        if case.get("pod"):  # ("pod", "data", "model") of (2, world / 2, 1)
+            mesh = init_device_mesh("cpu", (2, world // 2, 1),
+                                    mesh_dim_names=("pod", "data", "model"))
+        shd.set_active_mesh(mesh)
+        cfg = lm_cfg(case["arch"], case.get("capacity_factor"))
+        model = api.build_model(cfg)
+        module = api.params_from_jax(model.init(device="cpu"),
+                                     case["params"])
+        tc = TrainConfig(**case["tcfg"])
+        state = ttl.TrainState.create(module, tc)
+        rows = case["batches"][0]["tokens"].shape[0]
+        step, state = ttl.shard_train_step(
+            model.loss, tc, mesh, state, batch_rows=rows, fsdp=tc.fsdp,
+            n_experts=cfg.moe.n_experts if cfg.moe else 0)
+        sharding = batch_sharding(mesh) if rows % world == 0 else None
+        losses, norms = [], []
+        for b in case["batches"]:
+            b = put_packed({k: torch.from_numpy(v) for k, v in b.items()},
+                           sharding, microbatches=max(tc.microbatch, 1))
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out[name] = (losses, norms, whole_leaves(state.model))
+    return out if rank == 0 else None
+
+
+def local_leaves(state) -> list:
+    """``(local array, shard dim or None)`` of each checkpoint leaf of a
+    train state (a stacked leaf's shard dim in its ``[L, ...]`` shape)."""
+    from repro_torch.models.transformer import state_to_jax_leaves
+    out = []
+    for leaf in state_to_jax_leaves(state):
+        first = leaf[0] if isinstance(leaf, list) else leaf
+        dim = None
+        if hasattr(first, "placements") and first.placements[0].is_shard():
+            dim = first.placements[0].dim + isinstance(leaf, list)
+        loc = [t.to_local() if hasattr(t, "to_local") else t
+               for t in (leaf if isinstance(leaf, list) else [leaf])]
+        a = torch.stack(loc) if isinstance(leaf, list) else loc[0]
+        out.append((a.detach().cpu().numpy(), dim))
+    return out
+
+
+def misc(rank, world, paths: dict):
+    """On a ``(world, 1)`` mesh: the int8 mean over 5 error-feedback steps,
+    ``EtlJob(mesh=)``'s rows (and its error on rows the world does not
+    divide), elastic restores (a one-process port checkpoint, a reference
+    one, then a save from this world) and ``make_production_mesh``'s
+    error."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.pipeline import lm_token_pipeline
+    from repro_torch.data.source import Source
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models import api
+    from repro_torch.session import EtlJob
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import train_loop as ttl
+    from repro_torch.training.grad import compressed_psum_mean, ef_init
+
+    mesh = make_host_mesh(device="cpu")
+    out = {}
+    # int8 mean with error feedback: grads[step][name] is [world, ...]
+    grads = load(paths["int8"])
+    ef = ef_init({k: torch.from_numpy(v[rank]) for k, v in grads[0].items()})
+    out["int8"] = []
+    for g in grads:
+        mine = {k: torch.from_numpy(v[rank]).to(
+            torch.bfloat16 if k.startswith("bf16") else torch.float32)
+            for k, v in g.items()}
+        mean, ef = compressed_psum_mean(mine, ef, mesh.get_group("data"))
+        out["int8"].append(
+            ({k: v.float().numpy() for k, v in mean.items()},
+             {k: v.numpy() for k, v in ef.items()}))
+    # the ETL's rows
+    etl = paths["etl"]
+    rows = []
+    for batch in (etl["batch"], etl["bad_batch"]):
+        job = EtlJob(lm_token_pipeline(etl["seq"], etl["vocab"],
+                                       batch_size=batch),
+                     Source.lm_events(etl["seq"], rows=batch * 3,
+                                      batch_size=batch),
+                     backend="torch", device="cpu", mesh=mesh)
+        try:
+            with job.batches() as batches:
+                rows.append([{k: v.numpy() for k, v in b.items()}
+                             for b in batches])
+        except RuntimeError as e:  # the place stage's error, re-raised
+            rows.append(repr(e.__cause__))
+    out["etl"] = rows
+    # elastic restores into an FSDP-sharded state
+    cfg = lm_cfg("llama3_2_3b")
+    model = api.build_model(cfg)
+    tc = TrainConfig(fsdp=True)
+
+    def sharded():
+        state = ttl.TrainState.create(model.init(seed=5, device="cpu"), tc)
+        return ttl.shard_train_step(model.loss, tc, mesh, state,
+                                    batch_rows=world, fsdp=True)[1]
+    state = ckpt.restore(paths["port_ckpt"], sharded(), mesh=mesh)
+    out["port_1_to_n"] = (state.step, local_leaves(state))
+    ckpt.save(state, paths["saved_ckpt"], state.step)
+    state = ckpt.restore(paths["ref_ckpt"], sharded(), mesh=mesh)
+    out["ref_1_to_n"] = (state.step, local_leaves(state))
+    try:
+        make_production_mesh(device="cpu")
+        out["production"] = "built"
+    except ValueError as e:
+        out["production"] = str(e)
+    return out
+
+
+def launcher(rank, world, argv, fail_at=None):
+    """``launch.train.main(argv)`` on this rank with its step tapped: the
+    losses it reports, a step at a time; with ``fail_at`` the last rank
+    raises before that step."""
+    from repro_torch.launch import train as launch
+    real = launch.shard_train_step
+    losses = []
+
+    def tapped(*a, **kw):
+        step, state = real(*a, **kw)
+
+        def run(state, batch):
+            if fail_at is not None and rank == world - 1 \
+                    and state.step + 1 == fail_at:
+                raise RuntimeError(f"rank {rank} fails at step {fail_at}")
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            return state, m
+        return run, state
+
+    launch.shard_train_step = tapped
+    summary = launch.main(argv)
+    return losses, summary["state"].step
+
+
+def card_rank(rank, world, device: str):
+    """On one rank of ``device``: ``compressed_psum_mean`` of seeded
+    gradients, ``put_packed`` of a seeded batch (2 microbatches) and two
+    FSDP steps of reduced llama3_2_3b at float32 from the same parameters
+    (made on the CPU); returns them on the host."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.etl_runtime.transfer import batch_sharding, put_packed
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import api
+    from repro_torch.training import train_loop as ttl
+    from repro_torch.training.grad import compressed_psum_mean, ef_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    mesh = make_host_mesh(device=device)
+    shd.set_active_mesh(mesh)
+    rng = np.random.default_rng(5)
+    grads = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+             for s in ((300, 7), (1000,))]
+    mean, ef = compressed_psum_mean(grads, ef_init(grads))
+    cfg = lm_cfg("llama3_2_3b")
+    b = lm_batch(cfg.vocab_size, 8, 16, 3)
+    placed = put_packed({k: torch.from_numpy(v).to(dev) for k, v in b.items()},
+                        batch_sharding(mesh), microbatches=2)
+    model = api.build_model(cfg)
+    tc = TrainConfig(fsdp=True, microbatch=2, lr=3e-3)
+    state = ttl.TrainState.create(model.init(seed=0, device="cpu").to(dev),
+                                  tc)
+    step, state = ttl.shard_train_step(model.loss, tc, mesh, state,
+                                       batch_rows=8, fsdp=True)
+    losses = []
+    for i in range(2):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 lm_batch(cfg.vocab_size, 8, 16, 10 + i).items()}
+        state, m = step(state, put_packed(batch, batch_sharding(mesh), 2))
+        losses.append((float(m["loss"]), float(m["grad_norm"])))
+    return {"mean": [t.cpu().numpy() for t in mean],
+            "ef": [t.cpu().numpy() for t in ef],
+            "placed": {k: v.cpu().numpy() for k, v in placed.items()},
+            "losses": losses, "leaves": whole_leaves(state.model)}
