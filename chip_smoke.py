@@ -285,14 +285,36 @@ Phases, one JSON line each; any failure exits non-zero:
                  steps: each rank's rows, the global losses against one
                  process's, and compressed_psum_mean over the first
                  block's gradients bit-equal card vs CPU.
+26. tp_ranks2  — the "model" axis: two spawned ranks sharing the card, gloo
+                 over CUDA tensors, ``make_host_mesh(model_axis=2)`` (a
+                 (1, 2) mesh): ``launch.train --mesh host`` at
+                 llama3_2_3b's full width (12 of 24 heads, 4 of 8 kv heads,
+                 4096 of 8192 MLP columns, 64128 of 128256 tied vocabulary
+                 rows a rank), 2 of 28 layers, its preset (microbatch 2),
+                 --batch 8 --seq 1024, 4 steps; the same cut in this
+                 process first: losses within TP_LOSS_RTOL; every batch
+                 each rank's rows (the same on both); the leaves held whole
+                 bit-equal across the ranks; step ms, tok/s, peak GB a
+                 rank, the collectives' bytes a step, one profiled step's
+                 idle share.
+27. ep_ranks2  — the same at mixtral_8x7b's full width, 1 of 32 layers, 4
+                 of 8 experts a rank, its preset (FSDP2 over a data degree
+                 of 1, microbatch 4); the drop share of routed slots equal
+                 on both ranks and within MOE_FLIP_SHARE of one process's.
+28. dlrm_tp2   — DLRMConfig() (vocab 524288: 26 x 524288 x 128 float32
+                 tables, 262144 rows a rank) fed by main's ETL
+                 (EtlJob(mesh=), B 65536), 16 steps on the (1, 2) mesh
+                 against one process: losses within DLRM_TP_RTOL; rows/s,
+                 step ms, each rank's table bytes.
 
 Then the ``{"kernels": [...]}`` line (``launches_online_main``,
 ``launches_multitenant_main``, ``launches_lm_main``, ``launches_moe_ckpt``,
 ``launches_moe_main``, ``launches_adafactor_main``, ``launches_serve_main``,
 ``launches_serve_moe``, ``launches_ssm_main``, ``launches_vlm_main``,
-``launches_hybrid_main``, ``launches_encdec_main``, ``launches_dist_main``
-and ``launches_dist_ranks2`` (both ranks) beside the kernels
-those phases ran), the nvidia-smi line, and last the
+``launches_hybrid_main``, ``launches_encdec_main``, ``launches_dist_main``,
+``launches_dist_ranks2``, ``launches_tp_ranks2``, ``launches_ep_ranks2``
+and ``launches_dlrm_tp2`` (both ranks each) beside the kernels those
+phases ran), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.
 
     python3 chip_smoke.py --wrappers DIR
@@ -396,6 +418,17 @@ FORCED_F32_TOL = 1e-4     # float32 teacher-forced checks: the LM tests' bound
 DIST_ARCH, DIST_LAYERS, DIST_STEPS = "mixtral_8x7b", 1, 4
 # dist_ranks2: llama3_2_3b on two gloo ranks sharing the card
 DIST2_ARCH, DIST2_LAYERS, DIST2_STEPS = "llama3_2_3b", 2, 4
+# the "model" axis: two gloo ranks sharing the card on a (1, 2) mesh
+TP_ARCH, TP_LAYERS, TP_STEPS = "llama3_2_3b", 2, 4       # tp_ranks2
+EP_ARCH, EP_LAYERS, EP_STEPS = "mixtral_8x7b", 1, 4      # ep_ranks2
+DLRM_TP_STEPS, DLRM_TP_FIT = 16, 4                      # dlrm_tp2
+# two model ranks vs one process: bf16 compute sums the row-parallel
+# products' halves in another order.  DLRM is float32, but its column
+# halves and their summed input gradients round differently from the
+# whole products, and 16 Adam steps grow that: within 2e-7 over the first
+# 8 steps, 1.8e-5 by step 15 (NVIDIA H100 80GB HBM3, 700 W)
+TP_LOSS_RTOL, DLRM_TP_RTOL = 5e-3, 1e-4
+DLRM_TP_VOCAB = 524288    # DLRMConfig()'s: even, so the rows split
 
 
 def pipeline_iii_dense_as(Pipeline, Schema, ops, Vocab, dtype):
@@ -2679,6 +2712,305 @@ def dist_ranks2(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
             "ranks": ranks}
 
 
+@contextlib.contextmanager
+def counting_routes():
+    """Within: every MoE routing's kept and routed (token, expert) pairs,
+    summed on the device (``tally``)."""
+    from repro_torch.models import moe
+
+    real = moe.route
+    tally: dict = {"kept": 0, "routed": 0}
+
+    def counted(p, xf, cfg, cap):
+        r = real(p, xf, cfg, cap)
+        tally["kept"] = tally["kept"] + r["keep"].sum()
+        tally["routed"] += r["keep"].numel()
+        return r
+
+    moe.route = counted
+    try:
+        yield tally
+    finally:
+        moe.route = real
+
+
+def drop_share(tally: dict) -> float:
+    return 1.0 - float(tally["kept"]) / max(tally["routed"], 1)
+
+
+def leaf_digests(model) -> dict:
+    """``{name: sha256 of its bytes}`` of each parameter held whole on
+    this rank (no model shard; an FSDP parameter's local shard), and
+    ``{name: shape}`` of the model shards."""
+    import hashlib
+
+    import torch
+    from repro_torch.distributed import tensor_parallel as tp
+
+    whole, shards = {}, {}
+    for name, p in model.named_parameters():
+        if tp.shard_of(p)[0] is not None:
+            shards[name] = list(p.shape)
+            continue
+        t = (p.to_local() if hasattr(p, "to_local") else p).detach()
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        whole[name] = hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+    return {"whole": whole, "shards": shards}
+
+
+def traffic_per_step(steps: int) -> dict:
+    """The model axis' collectives since the last reset, per step: bytes
+    and calls of each kind."""
+    from repro_torch.distributed import tensor_parallel as tp
+    return {k: {"bytes": b / steps, "calls": n / steps}
+            for k, (b, n) in tp.TRAFFIC.items()}
+
+
+@contextlib.contextmanager
+def preset_with(tcfg):
+    """Within: the launcher trains with ``tcfg`` whatever the arch's
+    preset (None: the preset)."""
+    from repro_torch.launch import train as launch
+
+    real = launch.train_preset
+    if tcfg is not None:
+        launch.train_preset = lambda arch: tcfg
+    try:
+        yield
+    finally:
+        launch.train_preset = real
+
+
+def model_axis_rank(argv: list, cfg, seq: int, tcfg, steps: int) -> dict:
+    """``tp_ranks2`` / ``ep_ranks2``'s rank: the launcher under
+    ``WORLD_SIZE`` (gloo over CUDA tensors) on ``make_host_mesh
+    (model_axis=2)``, a (1, 2) mesh, training with ``tcfg``; its readings
+    (``launcher_readings``), the collectives' traffic a step, the MoE drop
+    share, and the digests of the leaves it holds whole."""
+    import torch
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch import train as launch
+
+    real = launch.make_host_mesh
+    launch.make_host_mesh = lambda device=None: real(model_axis=2,
+                                                     device=device)
+    tp.reset_traffic()
+    try:
+        with counting_routes() as tally, preset_with(tcfg):
+            summary = run_launcher(argv, cfg=cfg)
+    finally:
+        launch.make_host_mesh = real
+    traffic = traffic_per_step(steps)
+    digests = leaf_digests(summary["state"].model)
+    out = launcher_readings(summary, cfg, seq, tcfg.microbatch)
+    out.update(collectives_per_step=traffic, leaves=digests,
+               drop_share=drop_share(tally) if tally["routed"] else None,
+               device=torch.cuda.get_device_name(0))
+    return out
+
+
+def model_axis_phase(name: str, arch: str, layers: int, steps: int,
+                     expect, batch: int, seq: int, extra_args=(),
+                     fsdp=None) -> dict:
+    """Two ranks on the one card, gloo over CUDA tensors, a (1, 2) mesh:
+    ``launch.train --mesh host`` at ``arch``'s full width, ``layers`` deep,
+    its preset (``fsdp`` overrides the preset's), against the same cut in
+    this process without a group first: losses within ``TP_LOSS_RTOL``,
+    every batch each rank's rows of the plain compile (the same on both),
+    the leaves held whole bit-equal across the ranks, the ones whose spec
+    names "model" sharded on both, the drop share of an MoE equal on both."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.launch import train as launch
+
+    reduced = "--reduced" in extra_args
+    base = get_reduced(arch) if reduced else get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=layers)
+    tcfg = launch.train_preset(arch)
+    if fsdp is not None:
+        tcfg = dataclasses.replace(tcfg, fsdp=fsdp)
+    argv = ["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(steps), "--etl-backend", "cuda",
+            "--max-restarts", "0", "--mesh", "host", *extra_args]
+    with counting_routes() as tally, preset_with(tcfg):
+        alone = run_launcher(argv, cfg=cfg)
+    want = [m[0] for m in alone["tap"]["metrics"]]
+    ms = sorted(alone["tap"]["ms"][1:])
+    alone_ms = ms[len(ms) // 2] if ms else float("nan")
+    alone_peak = alone["peak_mem_gb"]
+    alone_drop = drop_share(tally) if tally["routed"] else None
+    del alone
+    free_memory()
+    ranks = run_ranks(model_axis_rank, 2, "gloo",
+                      (argv, cfg, seq, tcfg, steps), timeout=900)
+    diff = 0.0
+    for r, out in enumerate(ranks):
+        expect(out["launches"], out["launches_want"], f"{name} rank {r}")
+        if len(out["losses"]) != steps:
+            raise AssertionError(f"{name}: rank {r} ran "
+                                 f"{len(out['losses'])} steps")
+        diff = max([diff] + [abs(a - b) / abs(b)
+                             for a, b in zip(out["losses"], want)])
+    if diff > TP_LOSS_RTOL:
+        raise AssertionError(f"{name}: losses {ranks[0]['losses']} vs "
+                             f"{want} in one process")
+    a, b = ranks[0]["leaves"], ranks[1]["leaves"]
+    if a["whole"] != b["whole"] or not a["shards"] or \
+            a["shards"] != b["shards"]:
+        raise AssertionError(f"{name}: leaves held whole differ across the "
+                             f"ranks, or none is sharded: {a} {b}")
+    if ranks[0]["drop_share"] != ranks[1]["drop_share"]:
+        raise AssertionError(f"{name}: drop shares "
+                             f"{[o['drop_share'] for o in ranks]}")
+    if alone_drop is not None and \
+            abs(ranks[0]["drop_share"] - alone_drop) > MOE_FLIP_SHARE:
+        raise AssertionError(f"{name}: drop share {ranks[0]['drop_share']} "
+                             f"vs {alone_drop} in one process")
+    for out in ranks:
+        out["leaves"] = {"whole": len(out["leaves"]["whole"]),
+                         "sharded": out["leaves"]["shards"]}
+    return {"arch": arch, "reduced": reduced, "layers": layers,
+            "layers_full": base.n_layers, "world": 2, "mesh": [1, 2],
+            "backend": "gloo", "fsdp": tcfg.fsdp,
+            "microbatch": tcfg.microbatch, "batch": batch, "seq": seq,
+            "losses_one_process": want, "loss_max_rel_diff": diff,
+            "loss_rtol": TP_LOSS_RTOL,
+            "step_ms_median_2_on_one_process": alone_ms,
+            "peak_mem_gb_one_process": alone_peak,
+            "drop_share_one_process": alone_drop,
+            "leaves_whole_bit_equal_across_ranks": True,
+            "launches": add_launches(*(o["launches"] for o in ranks)),
+            "ranks": ranks}
+
+
+def dlrm_run(steps: int, n_fit: int, mesh=None) -> dict:
+    """``DLRMConfig()`` (vocab 524288) trained ``steps`` steps from main's
+    ETL (Pipeline III, B rows a batch, fitted on ``n_fit`` chunks), on
+    ``mesh`` through ``shard_train_step`` (``EtlJob(mesh=)``) or in one
+    process: losses, step ms, rows/s, table bytes, launches, peak GB."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.pipeline import paper_pipeline
+    from repro_torch.data.source import Source
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import dataflow as df
+    from repro_torch.models import dlrm
+    from repro_torch.session import EtlJob
+    from repro_torch.training import train_loop as ttl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = EtlJob(paper_pipeline("III", batch_size=B),
+                 Source.synth("I", rows=steps * B, batch_size=B, seed=11),
+                 backend="cuda", mesh=mesh,
+                 fit_source=Source.synth("I", rows=n_fit * B, batch_size=B))
+    df.reset_launch_counts()
+    job.fit()
+    fit_launches = dict(df.LAUNCHES)
+    cfg = dlrm.DLRMConfig(vocab_size=DLRM_TP_VOCAB)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tcfg = TrainConfig(lr=1e-3)
+    state = ttl.TrainState.create(dlrm.DLRM(cfg, generator=gen), tcfg)
+    if mesh is None:
+        step = ttl.make_train_step(dlrm.loss_fn, tcfg)
+    else:
+        step, state = ttl.shard_train_step(dlrm.loss_fn, tcfg, mesh, state,
+                                           batch_rows=B)
+    losses, ms = [], []
+
+    def timed(st, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return st, m
+
+    torch.cuda.reset_peak_memory_stats()
+    df.reset_launch_counts()
+    tp.reset_traffic()
+    t0 = time.perf_counter()
+    with job.batches() as ex:
+        state = ttl.train_loop(state, timed, ex,
+                               ttl.LoopConfig(total_steps=steps,
+                                              log_every=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if state.step != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"dlrm: {state.step} steps, losses {losses}")
+    tables = state.model.tables
+    out = {"losses": losses, "step_ms": ms,
+           "step_ms_median_2_on": sorted(ms[1:])[len(ms[1:]) // 2],
+           "rows_per_s": steps * B / wall, "wall_seconds": wall,
+           "table_bytes": tables.numel() * tables.element_size(),
+           "table_shape": list(tables.shape),
+           "fit_launches": fit_launches, "launches": dict(df.LAUNCHES),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "collectives_per_step": traffic_per_step(steps)}
+    if mesh is not None:
+        out["leaves"] = leaf_digests(state.model)
+        out["device"] = torch.cuda.get_device_name(0)
+    del state, job
+    torch.cuda.empty_cache()
+    return out
+
+
+def dlrm_tp2_rank(steps: int, n_fit: int) -> dict:
+    """``dlrm_tp2``'s rank: ``dlrm_run`` on ``make_host_mesh(model_axis=2)``
+    (the gloo world ``rank_entry`` joined)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(model_axis=2)
+    shd.set_active_mesh(mesh)
+    return dlrm_run(steps, n_fit, mesh=mesh)
+
+
+def dlrm_tp2(expect, steps: int = DLRM_TP_STEPS,
+             n_fit: int = DLRM_TP_FIT) -> dict:
+    """``DLRMConfig()`` on two ranks sharing the card (gloo over CUDA
+    tensors, a (1, 2) mesh): each rank's tables are its 262144 rows of
+    every feature, the MLPs' output features split where 2 divides them;
+    fed by main's ETL through ``EtlJob(mesh=)``; against one process on the
+    same config and batches: losses within ``DLRM_TP_RTOL``, the leaves
+    held whole bit-equal across the ranks."""
+    alone = dlrm_run(steps, n_fit)
+    free_memory()
+    ranks = run_ranks(dlrm_tp2_rank, 2, "gloo", (steps, n_fit),
+                      timeout=900)
+    want = alone["losses"]
+    diff = 0.0
+    for r, out in enumerate(ranks):
+        expect(out["fit_launches"], {"fit_dataflow": n_fit},
+               f"dlrm_tp2 rank {r} fit")
+        expect(out["launches"], {"group_dataflow": steps},
+               f"dlrm_tp2 rank {r} apply")
+        out["loss_rel_diff"] = [abs(a - b) / abs(b)
+                                for a, b in zip(out["losses"], want)]
+        diff = max([diff] + out["loss_rel_diff"])
+    if diff > DLRM_TP_RTOL:
+        raise AssertionError(f"dlrm_tp2: losses {ranks[0]['losses']} vs "
+                             f"{want} in one process")
+    a, b = ranks[0]["leaves"], ranks[1]["leaves"]
+    if a["whole"] != b["whole"] or "tables" not in a["shards"]:
+        raise AssertionError(f"dlrm_tp2: leaves {a} {b}")
+    for out in ranks:
+        out["leaves"] = {"whole": len(out["leaves"]["whole"]),
+                         "sharded": out["leaves"]["shards"]}
+    return {"vocab": DLRM_TP_VOCAB, "batch": B, "steps": steps, "world": 2,
+            "mesh": [1, 2], "backend": "gloo",
+            "losses_one_process": want, "loss_max_rel_diff": diff,
+            "loss_rtol": DLRM_TP_RTOL,
+            "one_process": {k: alone[k] for k in (
+                "step_ms_median_2_on", "rows_per_s", "table_bytes",
+                "peak_mem_gb")},
+            "leaves_whole_bit_equal_across_ranks": True,
+            "launches": add_launches(
+                *(add_launches(o["fit_launches"], o["launches"])
+                  for o in ranks)),
+            "ranks": ranks}
+
+
 def multitenant_main(expect, rows: int = 0,
                      n_batches: int = MT_BATCHES) -> dict:
     """``PipelineManager(total_credits=8)`` with three tenants at B rows,
@@ -3595,6 +3927,19 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     dist2 = dist_ranks2(root, expect)
     emit({"phase": "dist_ranks2", **dist2})
 
+    # ---- the "model" axis: tensor, expert and row parallelism ------------
+    free_memory()
+    tp2 = model_axis_phase("tp_ranks2", TP_ARCH, TP_LAYERS, TP_STEPS,
+                           expect, LM_BATCH, LM_SEQ)
+    emit({"phase": "tp_ranks2", **tp2})
+    free_memory()
+    ep2 = model_axis_phase("ep_ranks2", EP_ARCH, EP_LAYERS, EP_STEPS,
+                           expect, LM_BATCH, LM_SEQ)
+    emit({"phase": "ep_ranks2", **ep2})
+    free_memory()
+    dtp2 = dlrm_tp2(expect)
+    emit({"phase": "dlrm_tp2", **dtp2})
+
     path_launches = {"group_dataflow": main["launches"]["group_dataflow"],
                      "fit_dataflow": main["fit_launches"]["fit_dataflow"],
                      "output_dataflow": solo_launches["output_dataflow"]}
@@ -3631,7 +3976,9 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                           ("serve_main", srv), ("serve_moe", smoe),
                           ("ssm_main", ssm_ph), ("vlm_main", vlm),
                           ("hybrid_main", hyb), ("encdec_main", ed),
-                          ("dist_main", dist1), ("dist_ranks2", dist2)):
+                          ("dist_main", dist1), ("dist_ranks2", dist2),
+                          ("tp_ranks2", tp2), ("ep_ranks2", ep2),
+                          ("dlrm_tp2", dtp2)):
             if ph["launches"].get(name):
                 out[-1][f"launches_{label}"] = ph["launches"][name]
     emit({"kernels": out})

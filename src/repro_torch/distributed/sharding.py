@@ -20,10 +20,12 @@ list of its per-layer tensors, shaped ``[L, ...]``).  A spec is a
 tuple of axis names.  ``placements`` turns one into the DTensor placements
 of a ``DeviceMesh``.
 
-The reference's ``shard_hint`` (a sharding constraint on activations) has no
-counterpart: under data parallelism each rank's activations are its own rows
-of the batch already, so on the data axes the constraint is the identity.
-The "model" axis (tensor / expert parallelism) is not ported.
+The reference's ``shard_hint`` (a sharding constraint on activations) has
+no one counterpart: under data parallelism each rank's activations are its
+own rows of the batch already, so on the data axes the constraint is the
+identity; on the "model" axis the layers place their activations by
+explicit collectives (``distributed/tensor_parallel.py``), the parameters
+whose specs name "model" cut to each rank's slice.
 """
 
 from __future__ import annotations

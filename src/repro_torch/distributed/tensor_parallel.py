@@ -1,0 +1,291 @@
+"""The "model" mesh axis: tensor, sequence and expert parallelism by
+explicit collectives on plain local tensors (Megatron-LM's scheme; the JAX
+package gets the same placement from ``sharding.shard_hint`` and GSPMD).
+
+A parameter whose spec (``sharding.param_spec``) names ``"model"`` on a dim
+is held on each rank as its part of that dim (``torch.chunk`` order: rank
+r of m holds the r-th of m equal slices; ``shard_model``).  Each layer that
+reads one computes its part and meets the other model ranks of its data
+coordinate in the collectives below; the layers see from a parameter's
+shape whether it is sharded (``split``), and find the group in the active
+mesh (``active``).  FSDP on the data axes then shards the local tensors
+further, unchanged.
+
+The regions, as Megatron-LM names them (each an autograd function over
+the model group):
+
+- ``copy_in``: identity forward, all-reduce backward.  Every tensor that
+  is the same on all model ranks (replicated) and feeds a computation that
+  differs per rank passes through it, so its gradient, a partial sum on
+  each rank, is summed: the input of a column-parallel product, the combine
+  weights of an expert-parallel MoE layer, a norm's weight applied to a
+  rank's own heads or sequence shard.
+- ``reduce_out``: all-reduce forward, identity backward: the partial sums
+  of a row-parallel product (or a vocabulary- or expert-parallel lookup).
+- ``gather``: all-gather forward, slice backward: a sharded result that a
+  replicated computation consumes.
+- ``scatter``: slice forward, all-gather backward.
+- ``reduce_scatter``: reduce-scatter forward, all-gather backward (a
+  sequence-parallel block's output).
+
+A replicated tensor keeps the same gradient on every model rank, so a
+replicated parameter's gradient needs no reduction over the group and its
+value stays bit-equal across the ranks.  Only ``all_reduce``,
+``all_gather_single`` and ``reduce_scatter_single`` (the older
+``*_into_tensor`` / ``*_tensor`` names where those are missing) are used,
+on every backend alike: gloo carries all three on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding as shd
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """This rank's view of a mesh's "model" axis: its process group, its
+    index along the axis and the axis' size."""
+
+    group: object
+    rank: int
+    size: int
+
+
+def model_axis(mesh) -> Optional[ModelAxis]:
+    """The "model" axis of the ``DeviceMesh`` ``mesh``, or None (no mesh,
+    no such axis, or one of size 1)."""
+    if mesh is None or "model" not in getattr(mesh, "mesh_dim_names", ()):
+        return None
+    size = shd.axis_sizes(mesh)["model"]
+    if size == 1:
+        return None
+    return ModelAxis(mesh.get_group("model"), mesh.get_local_rank("model"),
+                     size)
+
+
+def active() -> Optional[ModelAxis]:
+    """The model axis of the active mesh (``sharding.set_active_mesh``)."""
+    return model_axis(shd.get_active_mesh())
+
+
+def split(local: int, whole: int) -> bool:
+    """Whether a dim of ``whole`` entries held as ``local`` is a model
+    shard; raises where there is no model axis to hold the rest."""
+    if local == whole:
+        return False
+    ax = active()
+    if ax is None or local * ax.size != whole:
+        raise ValueError(f"a dim of {whole} held as {local} entries: no "
+                         f"active model axis splits it so ({ax})")
+    return True
+
+
+# ---------------------------------------------------------------------------
+# the collectives (plain, no autograd)
+# ---------------------------------------------------------------------------
+
+# bytes and calls of each collective over the model axis since the last
+# reset_traffic() (the whole tensor: all-reduced, gathered, or before its
+# reduce-scatter)
+TRAFFIC = {"all_reduce": [0, 0], "all_gather": [0, 0],
+           "reduce_scatter": [0, 0]}
+
+
+def reset_traffic() -> None:
+    for v in TRAFFIC.values():
+        v[:] = [0, 0]
+
+
+def _count(kind: str, t) -> None:
+    TRAFFIC[kind][0] += t.numel() * t.element_size()
+    TRAFFIC[kind][1] += 1
+
+
+_gather_single = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def all_reduce(x, ax: ModelAxis, op=dist.ReduceOp.SUM):
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=op, group=ax.group)
+    _count("all_reduce", y)
+    return y
+
+
+def all_gather(x, dim: int, ax: ModelAxis):
+    """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((ax.size * x.shape[0],) + tuple(x.shape[1:]))
+    _gather_single(out, x, group=ax.group)
+    _count("all_gather", out)
+    return out.movedim(0, dim)
+
+
+def part(x, dim: int, ax: ModelAxis):
+    """This rank's slice of ``x`` along ``dim`` (``torch.chunk`` order)."""
+    n = x.shape[dim] // ax.size
+    return x.narrow(dim, ax.rank * n, n)
+
+
+def _reduce_scatter(x, dim: int, ax: ModelAxis):
+    """This rank's slice along ``dim`` of the ranks' ``x`` summed."""
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // ax.size,) + tuple(x.shape[1:]))
+    _reduce_scatter_single(out, x, group=ax.group)
+    _count("reduce_scatter", x)
+    return out.movedim(0, dim)
+
+
+# ---------------------------------------------------------------------------
+# the regions (autograd functions)
+# ---------------------------------------------------------------------------
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.ax), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax):
+        return all_reduce(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return all_gather(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return part(g, ctx.dim, ctx.ax).contiguous(), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return part(x, dim, ax).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.ax), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _reduce_scatter(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.ax), None, None
+
+
+def copy_in(x, ax: ModelAxis):
+    return _CopyIn.apply(x, ax)
+
+
+def reduce_out(x, ax: ModelAxis):
+    return _ReduceOut.apply(x, ax)
+
+
+def gather(x, dim: int, ax: ModelAxis):
+    return _Gather.apply(x, dim % x.dim(), ax)
+
+
+def scatter(x, dim: int, ax: ModelAxis):
+    return _Scatter.apply(x, dim % x.dim(), ax)
+
+
+def reduce_scatter(x, dim: int, ax: ModelAxis):
+    return _ReduceScatter.apply(x, dim % x.dim(), ax)
+
+
+def enter(x, ax: ModelAxis, seq_sharded: bool) -> tuple:
+    """A tensor-parallel region's input: ``(replicated, for_shards)``, the
+    whole-sequence activations for replicated use and the same through
+    ``copy_in`` for the rank's shards of the weights.  ``seq_sharded``: ``x``
+    is the rank's sequence shard (dim 1), gathered first."""
+    if seq_sharded:
+        x = gather(x, 1, ax)
+    return x, copy_in(x, ax)
+
+
+def leave(y, ax: ModelAxis, partial: bool, seq_sharded: bool):
+    """A region's output: ``partial`` sums are reduced (onto the rank's
+    sequence shard when ``seq_sharded``); a replicated ``y`` is sliced to
+    that shard, or kept."""
+    if partial:
+        return reduce_scatter(y, 1, ax) if seq_sharded else reduce_out(y, ax)
+    return scatter(y, 1, ax) if seq_sharded else y
+
+
+# ---------------------------------------------------------------------------
+# sharding a model
+# ---------------------------------------------------------------------------
+
+def model_dim(spec) -> Optional[int]:
+    """The dim of ``spec`` the "model" axis shards, or None."""
+    for d, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if "model" in names:
+            return d
+    return None
+
+
+@torch.no_grad()
+def shard_model(model, dims: dict, ax: ModelAxis) -> None:
+    """Keep, of each parameter named in ``dims`` (``{name: model dim}``, as
+    ``model.named_parameters()`` names them), this rank's slice along that
+    dim, in place (the parameter object stays), and record the dims on
+    ``model.model_shards``."""
+    params = dict(model.named_parameters())
+    for name, d in dims.items():
+        p = params[name]
+        p.data = part(p.data, d, ax).clone()
+    model.model_shards = (dict(dims), ax)
+    mark(model)
+
+
+def mark(model) -> None:
+    """Tag each sharded parameter of ``model`` (after any wrapping that
+    replaced the parameter objects) with ``tp_shard = (dim, ModelAxis)``,
+    which the optimizer and the checkpoint read."""
+    dims, ax = getattr(model, "model_shards", ({}, None))
+    for name, p in model.named_parameters():
+        if name in dims:
+            p.tp_shard = (dims[name], ax)
+
+
+def shard_of(p) -> tuple:
+    """``(model dim, ModelAxis)`` of a parameter, or ``(None, None)``."""
+    return getattr(p, "tp_shard", (None, None))
+
+
+def whole(t, dim: Optional[int], ax: Optional[ModelAxis]):
+    """``t`` gathered over the model axis along ``dim`` (a collective);
+    ``t`` itself where ``dim`` is None."""
+    if dim is None or ax is None:
+        return t
+    return all_gather(t.detach(), dim, ax)

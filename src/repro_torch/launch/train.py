@@ -37,11 +37,17 @@ where the preset says ``fsdp``, replicated parameters otherwise::
     torchrun --nproc_per_node 8 -m repro_torch.launch.train --mesh host \
         --arch mixtral_8x7b --steps 8 --batch 8 --seq 1024
 
+``--mesh pod`` / ``multipod`` build the production mesh
+(``make_production_mesh``: ``(16, 16)`` ``("data", "model")`` over 256
+ranks, ``(2, 16, 16)`` with a ``"pod"`` axis over 512; another world size
+raises its ``ValueError``): the "model" axis splits the dense, MoE and
+VLM families' parameters (tensor, sequence and expert parallelism, under
+FSDP on the data axes where the preset says ``fsdp``), and the model ranks
+of one data coordinate receive the same rows.
+
 Rank 0 prints; ``main`` returns the summary on every rank.  A failure on a
 rank is not retried there (the others would wait in a collective): it ends
-the process, and ``torchrun`` ends the rest.  ``--mesh pod`` / ``multipod``
-raise ``NotImplementedError``: they need the "model" axis (tensor and
-expert parallelism, ROADMAP Queue A item 6b).
+the process, and ``torchrun`` ends the rest.
 """
 
 from __future__ import annotations
@@ -60,7 +66,8 @@ from repro_torch.data.source import Source
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.distributed import sharding as shd
 from repro_torch.etl_runtime.transfer import batch_sharding, put_packed
-from repro_torch.launch.mesh import init_process_group, make_host_mesh
+from repro_torch.launch.mesh import (init_process_group, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.launch.presets import train_preset
 from repro_torch.models.api import build_model
 from repro_torch.session import EtlJob
@@ -180,13 +187,13 @@ def main(argv=None) -> dict:
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     check_fed(cfg)
     tcfg = train_preset(args.arch)
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} needs the \"model\" axis (tensor and "
-            "expert parallelism), which is not ported yet (ROADMAP Queue A "
-            "item 6b); --mesh host is data parallel over the ranks")
     mesh = None
-    if "WORLD_SIZE" in os.environ:
+    if args.mesh != "host":
+        dev = init_process_group(args.device)
+        mesh = make_production_mesh(multi_pod=args.mesh == "multipod",
+                                    device=dev)
+        shd.set_active_mesh(mesh)
+    elif "WORLD_SIZE" in os.environ:
         dev = init_process_group(args.device)
         mesh = make_host_mesh(device=dev)
         shd.set_active_mesh(mesh)

@@ -33,10 +33,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.embedding_bag import cached_embedding_lookup
+from repro_torch.models import layers as L
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,10 +109,24 @@ class DLRM(nn.Module):
     @staticmethod
     def _mlp(layers, x, *, final_linear: bool = True):
         for i, lin in enumerate(layers):
-            x = lin(x)
+            x = _linear(lin, x)
             if i < len(layers) - 1 or not final_linear:
                 x = torch.relu(x)
         return x
+
+    def _lookup(self, sparse):
+        """The (B, F, d) embeddings of ``sparse``: a table whose rows are
+        sharded over the model axis reads the ids in its rows (0
+        elsewhere), and the ranks' parts are summed."""
+        rows = self.tables.shape[1]
+        if not tp.split(rows, self.cfg.vocab_size):
+            return self.tables[self._feat, sparse]
+        ax = tp.active()
+        ids = sparse - ax.rank * rows
+        mine = (ids >= 0) & (ids < rows)
+        emb = self.tables[self._feat, ids.clamp(0, rows - 1)]
+        return tp.reduce_out(torch.where(mine[..., None], emb, torch.zeros(
+            (), dtype=emb.dtype, device=emb.device)), ax)
 
     def forward(self, batch: dict) -> torch.Tensor:
         """Logits (B,)."""
@@ -119,11 +136,15 @@ class DLRM(nn.Module):
         bot = self._mlp(self.bot_mlp, dense, final_linear=False)  # (B, d)
         n = cfg.n_sparse
         if "emb_cache" in batch:
+            if self.tables.shape[1] != cfg.vocab_size:
+                raise NotImplementedError(
+                    "the lookahead path on a table sharded over the model "
+                    "axis (ROADMAP Queue A item 6c)")
             emb = cached_embedding_lookup(
                 self.tables, batch["emb_cache"][:n], batch["emb_slot"][:, :n],
                 batch["emb_cold"][:, :n], sparse)
         else:
-            emb = self.tables[self._feat, sparse]
+            emb = self._lookup(sparse)
         emb = emb.to(bot.dtype)  # (B, F, d)
         z = torch.cat([bot[:, None, :], emb], dim=1)  # (B, F+1, d)
         inter = torch.bmm(z, z.transpose(1, 2))
@@ -132,13 +153,28 @@ class DLRM(nn.Module):
         return self._mlp(self.top_mlp, top_in)[:, 0]
 
 
+def _linear(lin: nn.Linear, x):
+    """``lin(x)``; with its output features sharded over the model axis
+    (the JAX ``w``'s ``(None, "model")``, dim 0 of ``lin.weight``), the
+    rank's columns from ``x`` through ``tp.copy_in`` and the bias' slice,
+    gathered for the next layer."""
+    if not tp.split(lin.weight.shape[0], lin.out_features):
+        return lin(x)
+    ax = tp.active()
+    y = F.linear(tp.copy_in(x, ax), lin.weight, tp.scatter(lin.bias, 0, ax))
+    return tp.gather(y, -1, ax)
+
+
 def loss_fn(model: DLRM, batch: dict) -> torch.Tensor:
-    """Numerically stable mean BCE with logits (the JAX package's form)."""
+    """Numerically stable mean BCE with logits (the JAX package's form);
+    within ``layers.label_count`` the sum over the count set there (the
+    rows of the whole data-parallel batch)."""
     logit = model(batch).to(torch.float32)
     y = batch["label"].to(torch.float32)
     per = (torch.clamp(logit, min=0) - logit * y
            + torch.log1p(torch.exp(-logit.abs())))
-    return per.mean()
+    count = L.global_label_count()
+    return per.mean() if count is None else per.sum() / count
 
 
 def predict(model: DLRM, batch: dict) -> torch.Tensor:
@@ -171,6 +207,43 @@ def _jax_leaf_order(model: DLRM) -> list:
             order += [(index[f"{name}.{i}.bias"], False),
                       (index[f"{name}.{i}.weight"], True)]
     return order
+
+
+def jax_named_leaves(model: DLRM) -> list:
+    """``(JAX path, JAX shape, parameter name, transposed)`` of each
+    parameter in the JAX package's flatten order (``bot_mlp/0/w`` is
+    ``bot_mlp.0.weight``, transposed)."""
+    named = list(model.named_parameters())
+    out = []
+    for i, tr in _jax_leaf_order(model):
+        name, p = named[i]
+        parts = name.split(".")
+        path = name if len(parts) == 1 else \
+            f"{parts[0]}/{parts[1]}/{'w' if tr else 'b'}"
+        out.append((path, tuple(p.shape)[::-1] if tr else tuple(p.shape),
+                    name, tr))
+    return out
+
+
+def state_model_dims(state) -> list:
+    """Beside each leaf of ``state_to_jax_leaves(state)``: ``(dim,
+    ModelAxis)`` of its model shard in the leaf's (JAX) layout, or
+    ``(None, None)``."""
+    from repro_torch.training.optimizer import factor_dims
+    params = list(state.model.parameters())
+    order = _jax_leaf_order(state.model)
+    mine = [tp.shard_of(params[i]) for i, _ in order]
+    flip = lambda d, tr: 1 - d if tr and d is not None else d
+    per = [(flip(d, tr), ax) for (_, tr), (d, ax) in zip(order, mine)]
+    dims = per * (1 if "f" in state.opt else 3)
+    for (i, tr), (d, ax) in zip(order, mine) if "f" in state.opt else ():
+        st = state.opt["f"][i]
+        if "v" in st:
+            dims.append((flip(d, tr), ax))
+            continue
+        fd = factor_dims(params[i].dim(), d)  # vr / vc are 1-D for a w
+        dims += [(fd[k], ax) for k in (("vr", "vc") if tr else ("vc", "vr"))]
+    return dims + [(None, None)]
 
 
 def state_to_jax_leaves(state) -> list:

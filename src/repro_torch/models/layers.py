@@ -32,7 +32,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.distributed import tensor_parallel as tp
 
 
 def truncated_normal(shape, dtype, scale, *, generator: torch.Generator,
@@ -217,7 +220,7 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal, window,
 def mha(p, x, spec: AttnSpec, *, kv_x: Optional[torch.Tensor] = None,
         q_pos: Optional[torch.Tensor] = None,
         cache: Optional[dict] = None, cache_pos: Optional[int] = None,
-        ring: bool = False):
+        ring: bool = False, seq_sharded: bool = False):
     """Multi-head attention with GQA and an optional KV cache.
     x: (B, Sq, D).  kv_x: the cross-attention source (B, Sk, D) or None
     (self-attention, masked as ``spec`` says).
@@ -227,9 +230,20 @@ def mha(p, x, spec: AttnSpec, *, kv_x: Optional[torch.Tensor] = None,
     attend over the whole cache, masked by its positions.  Ring writes
     require Sq == 1 (decode) or a span that does not wrap.  Cross-attention
     has no RoPE, no mask and never the chunked path.
+
+    With the projections sharded over the model axis (or ``seq_sharded``:
+    ``x`` is this rank's sequence shard), self-attention without a cache
+    runs ``_mha_model_parallel``.
     """
     B, Sq, _ = x.shape
     h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    if seq_sharded or p["wq"].shape[1] != h * hd:
+        if cache is not None or kv_x is not None:
+            raise NotImplementedError(
+                "attention with a cache or cross-attention over model-"
+                "sharded projections (serving on a model axis: ROADMAP "
+                "Queue A item 7)")
+        return _mha_model_parallel(p, x, spec, seq_sharded)
     dt = x.dtype
     src = x if kv_x is None else kv_x
     Sk = src.shape[1]
@@ -266,21 +280,97 @@ def mha(p, x, spec: AttnSpec, *, kv_x: Optional[torch.Tensor] = None,
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
+    out = _attend(q, k, v, q_pos, k_pos, spec, dt, self_attn=kv_x is None)
+    return out @ p["wo"].to(dt)
 
-    if Sq > 1 and max(Sq, k.shape[1]) > FLASH_THRESHOLD and kv_x is None:
+
+def _attend(q, k, v, q_pos, k_pos, spec: AttnSpec, dt, *, self_attn=True):
+    """Attention over per-q-head ``k`` / ``v`` (B, Sk, H, hd) -> (B, Sq,
+    H * hd) in ``dt``: the chunked path for long self-attention, else
+    whole scores (masked for self-attention)."""
+    B, Sq, H, hd = q.shape
+    if Sq > 1 and max(Sq, k.shape[1]) > FLASH_THRESHOLD and self_attn:
         # long-context path: chunked online-softmax attention (no S^2 scores)
         out = flash_attention(q, k, v, q_pos, k_pos, causal=spec.causal,
                               window=spec.sliding_window).to(dt)
-        return out.reshape(B, Sq, h * hd) @ p["wo"].to(dt)
-
+        return out.reshape(B, Sq, H * hd)
     scores = _scores(q, k, 1.0 / math.sqrt(hd))
-    if kv_x is None:  # self-attention mask
+    if self_attn:
         scores = scores + _mask_from_positions(q_pos, k_pos, spec.causal,
                                                spec.sliding_window)
     probs = torch.softmax(scores, dim=-1).to(dt)
     del scores
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return out.reshape(B, Sq, h * hd) @ p["wo"].to(dt)
+    return out.reshape(B, Sq, H * hd)
+
+
+def _qk_prep(t, norm_w, pos, spec: AttnSpec):
+    """qk-norm (``norm_w``, or none) then RoPE of q or k (B, S, heads,
+    hd) at ``pos`` (B, S)."""
+    if spec.qk_norm:
+        t = rmsnorm(t, norm_w.to(t.dtype), 1e-6)
+    if spec.rope_style != "none":
+        inv = rope_freqs(spec.head_dim, spec.rope_theta, spec.rope_style,
+                         t.device)
+        t = apply_rope(t, pos, inv, spec.rope_style)
+    return t
+
+
+def _mha_model_parallel(p, x, spec: AttnSpec, seq_sharded: bool):
+    """Self-attention (training: no cache) with ``wq`` / ``wk`` / ``wv``
+    column- and ``wo`` row-sharded over the model axis -> this rank's
+    output as ``tp.leave`` gives it.
+
+    Each rank attends with its ``h / m`` q heads when ``m`` divides the
+    heads; a k / v projection whose shard is not whole heads (or that is
+    whole) is gathered first, and each rank reads the kv heads its q heads
+    pair with.  Where q itself is not head-aligned, attention runs
+    replicated on the gathered projections and ``wo``'s input is scattered
+    back to the rank's rows."""
+    ax = tp.active()
+    h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    xr, xt = tp.enter(x, ax, seq_sharded)
+    if not tp.split(p["wq"].shape[1], h * hd):  # whole weights: replicated
+        return tp.leave(mha(p, xr, spec), ax, False, seq_sharded)
+    B, S, _ = xr.shape
+    dt = xr.dtype
+    m, r = ax.size, ax.rank
+    k_split = tp.split(p["wk"].shape[1], kv * hd)
+    pos = torch.arange(S, device=xr.device)
+    bpos = torch.broadcast_to(pos, (B, S))
+    q = xt @ p["wq"].to(dt)
+    k = (xt if k_split else xr) @ p["wk"].to(dt)
+    v = (xt if k_split else xr) @ p["wv"].to(dt)
+    kv_local = k_split and kv % m == 0
+    if not kv_local:  # every kv head, the same on each rank
+        if k_split:
+            k, v = tp.gather(k, -1, ax), tp.gather(v, -1, ax)
+        k = _qk_prep(k.reshape(B, S, kv, hd), p.get("k_norm"), bpos, spec)
+        v = v.reshape(B, S, kv, hd)
+    if h % m:  # q is not whole heads: attention runs replicated
+        q = tp.gather(q, -1, ax).reshape(B, S, h, hd)
+        q = _qk_prep(q, p.get("q_norm"), bpos, spec)
+        rep = h // kv
+        if rep > 1:
+            k = torch.repeat_interleave(k, rep, dim=2)
+            v = torch.repeat_interleave(v, rep, dim=2)
+        out = tp.scatter(_attend(q, k, v, pos, pos, spec, dt), -1, ax)
+        return tp.leave(out @ p["wo"].to(dt), ax, True, seq_sharded)
+    hl = h // m
+    norm = lambda w: None if w is None else tp.copy_in(w, ax)
+    q = _qk_prep(q.reshape(B, S, hl, hd), norm(p.get("q_norm")), bpos, spec)
+    if kv_local:
+        k = _qk_prep(k.reshape(B, S, kv // m, hd), norm(p.get("k_norm")),
+                     bpos, spec)
+        v = v.reshape(B, S, kv // m, hd)
+        first_kv = r * (kv // m)
+    else:  # each rank reads the replicated heads its own q heads need
+        k, v = tp.copy_in(k, ax), tp.copy_in(v, ax)
+        first_kv = 0
+    kv_idx = (r * hl + torch.arange(hl, device=xr.device)) // (h // kv) \
+        - first_kv
+    out = _attend(q, k[:, :, kv_idx], v[:, :, kv_idx], pos, pos, spec, dt)
+    return tp.leave(out @ p["wo"].to(dt), ax, True, seq_sharded)
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +420,15 @@ def true_float32(x: torch.Tensor):
         cuda.allow_tf32 = True
 
 
-def mlp_apply(p, x, kind):
+def mlp_apply(p, x, kind, width: int = 0, seq_sharded: bool = False):
+    """The MLP of ``x``.  ``width``: its hidden width, given where the
+    weights may be sharded over the model axis (column-parallel ``w1`` /
+    ``w3`` / ``wi`` / ``bi``, row-parallel ``w2`` / ``wo``; ``bo`` added
+    once, after the reduction); ``seq_sharded``: ``x`` is this rank's
+    sequence shard."""
+    if width and (seq_sharded or tp.split(
+            p["w1" if kind == "swiglu" else "wi"].shape[1], width)):
+        return _mlp_model_parallel(p, x, kind, width, seq_sharded)
     dt = x.dtype
     if kind == "swiglu":
         return (F.silu(x @ p["w1"].to(dt)) * (x @ p["w3"].to(dt))) \
@@ -338,6 +436,22 @@ def mlp_apply(p, x, kind):
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh") \
         @ p["wo"].to(dt) + p["bo"].to(dt)
+
+
+def _mlp_model_parallel(p, x, kind, width: int, seq_sharded: bool):
+    ax = tp.active()
+    xr, xt = tp.enter(x, ax, seq_sharded)
+    if not tp.split(p["w1" if kind == "swiglu" else "wi"].shape[1], width):
+        return tp.leave(mlp_apply(p, xr, kind), ax, False, seq_sharded)
+    dt = xr.dtype
+    if kind == "swiglu":
+        y = (F.silu(xt @ p["w1"].to(dt)) * (xt @ p["w3"].to(dt))) \
+            @ p["w2"].to(dt)
+        return tp.leave(y, ax, True, seq_sharded)
+    y = F.gelu(xt @ p["wi"].to(dt) + p["bi"].to(dt), approximate="tanh") \
+        @ p["wo"].to(dt)
+    bo = tp.copy_in(p["bo"], ax) if seq_sharded else p["bo"]
+    return tp.leave(y, ax, True, seq_sharded) + bo.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -350,8 +464,19 @@ def embed_init(vocab, d, dtype, *, generator: torch.Generator, device=None):
                             device=device)
 
 
-def embed_lookup(emb, tokens, compute_dtype):
-    return emb[tokens.long()].to(compute_dtype)
+def embed_lookup(emb, tokens, compute_dtype, vocab: int = 0):
+    """``emb[tokens]`` in ``compute_dtype``.  ``vocab``: the table's whole
+    rows, given where they may be sharded over the model axis: each rank
+    reads the ids in its rows (0 elsewhere), and the parts are summed."""
+    if not vocab or not tp.split(emb.shape[0], vocab):
+        return emb[tokens.long()].to(compute_dtype)
+    ax = tp.active()
+    rows = emb.shape[0]
+    ids = tokens.long() - ax.rank * rows
+    mine = (ids >= 0) & (ids < rows)
+    e = emb[ids.clamp(0, rows - 1)].to(compute_dtype)
+    return tp.reduce_out(torch.where(mine[..., None], e, torch.zeros(
+        (), dtype=e.dtype, device=e.device)), ax)
 
 
 def lm_logits(x, emb_or_head, tied):
@@ -401,10 +526,43 @@ def cross_entropy(logits, labels, *, ignore_id: int = -100,
     in_range = (lab >= 0) & (lab < V)
     picked = torch.gather(lf, -1, lab.clamp(0, V - 1)[..., None])[..., 0]
     ll = torch.where(in_range, picked, torch.zeros_like(picked))
-    nll = lse - ll
+    return _mean_nll(lse - ll, labels, ignore_id)
+
+
+def _mean_nll(nll, labels, ignore_id):
     mask = (labels != ignore_id).to(torch.float32)
     count = mask.sum() if _LABEL_COUNT is None else _LABEL_COUNT
     return (nll * mask).sum() / torch.clamp(count, min=1.0)
+
+
+def global_label_count():
+    """The count ``label_count`` set (None outside it)."""
+    return _LABEL_COUNT
+
+
+def vocab_parallel_cross_entropy(logits, labels, *, ignore_id: int = -100,
+                                 valid_vocab: int = 0):
+    """``cross_entropy`` of logits whose vocabulary (last) dim is sharded
+    over the model axis: ``logits`` are this rank's columns.  ``lse`` comes
+    from the all-reduced max and sum of exponentials, the label's logit
+    from the rank that holds it (none for a label outside ``[0, V)``, which
+    then contributes ``lse``, as in ``cross_entropy``)."""
+    ax = tp.active()
+    lf = logits.to(torch.float32)
+    cols = lf.shape[-1]
+    first = ax.rank * cols
+    ids = first + torch.arange(cols, device=lf.device)
+    if valid_vocab and valid_vocab < cols * ax.size:
+        lf = lf.masked_fill(ids >= valid_vocab, -1e9)
+    top = tp.all_reduce(lf.detach().amax(-1), ax, op=dist.ReduceOp.MAX)
+    lse = torch.log(tp.reduce_out(torch.exp(lf - top[..., None]).sum(-1),
+                                  ax)) + top
+    lab = labels.long() - first
+    mine = (lab >= 0) & (lab < cols)
+    picked = torch.gather(lf, -1, lab.clamp(0, cols - 1)[..., None])[..., 0]
+    ll = tp.reduce_out(torch.where(mine, picked, torch.zeros_like(picked)),
+                       ax)
+    return _mean_nll(lse - ll, labels, ignore_id)
 
 
 def sinusoidal_positions(n, d) -> torch.Tensor:

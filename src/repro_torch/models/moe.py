@@ -32,6 +32,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 
 
@@ -140,30 +141,46 @@ def route(p, xf, cfg: ModelConfig, cap: int) -> dict:
             "pos_in_e": pos_in_e, "keep": keep, "slot": slot}
 
 
-def dispatch_ffn(p, xf, cfg: ModelConfig, cap: int):
+def dispatch_ffn(p, xf, cfg: ModelConfig, cap: int, xt=None, ax=None):
     """Top-k dispatch, the experts' FFN and the combine for one token
-    group ``xf`` (N, D) -> (N, D)."""
+    group ``xf`` (N, D) -> (N, D).
+
+    With the experts sharded over the model axis ``ax`` (this rank's
+    ``E / m`` experts, or each expert's ``d_ff / m`` columns), the routing
+    is the replicated one of ``xf``, the experts read ``xt`` (``xf``
+    through ``tp.copy_in``) and the combine weights pass ``tp.copy_in``
+    too, and the result is this rank's partial sum: its experts' slots
+    only, or its columns' share of every slot."""
     e = cfg.moe
     N, D = xf.shape
     E = e.n_experts
     r = route(p, xf, cfg, cap)
-    slot, keep, st = r["slot"], r["keep"], r["st"]
+    slot, keep, st, sw = r["slot"], r["keep"], r["st"], r["sw"]
+    ex = p["experts"]
+    src, n_exp = xf, E
+    if ax is not None:
+        src, sw = xt, tp.copy_in(sw, ax)
+        n_exp = ex["w1"].shape[0]
+        if n_exp < E:  # expert-parallel: this rank's experts' slots
+            first = ax.rank * n_exp
+            keep = keep & (r["se"] >= first) & (r["se"] < first + n_exp)
+            slot = torch.where(keep, slot - first * cap,
+                               torch.full_like(slot, n_exp * cap))
 
-    disp = xf.new_zeros((E * cap + 1, D)).index_put((slot,), xf[st])
-    disp = disp[:E * cap].reshape(E, cap, D)
+    disp = src.new_zeros((n_exp * cap + 1, D)).index_put((slot,), src[st])
+    disp = disp[:n_exp * cap].reshape(n_exp, cap, D)
 
     dt = xf.dtype
-    ex = p["experts"]
     hgate = torch.bmm(disp, ex["w1"].to(dt))
     hlin = torch.bmm(disp, ex["w3"].to(dt))
     eout = torch.bmm(F.silu(hgate) * hlin, ex["w2"].to(dt))
 
-    eflat = eout.reshape(E * cap, D)
+    eflat = eout.reshape(n_exp * cap, D)
     gathered = torch.where(keep[:, None],
-                           eflat[torch.clamp(slot, max=E * cap - 1)],
+                           eflat[torch.clamp(slot, max=n_exp * cap - 1)],
                            torch.zeros((), dtype=dt, device=xf.device))
     return xf.new_zeros((N, D)).index_add(
-        0, st, gathered * r["sw"][:, None].to(dt))
+        0, st, gathered * sw[:, None].to(dt))
 
 
 def _n_token_groups(N: int) -> int:
@@ -173,9 +190,20 @@ def _n_token_groups(N: int) -> int:
     return dp if dp > 1 and N % dp == 0 else 1
 
 
-def moe_apply(p, x, cfg: ModelConfig):
-    """x: (B, S, D) -> (B, S, D)."""
+def moe_apply(p, x, cfg: ModelConfig, seq_sharded: bool = False):
+    """x: (B, S, D) -> (B, S, D).  On the model axis: the experts sharded
+    by expert (``"expert"``: E divisible by m) or within each expert
+    (``"model_in_expert"``), shared experts a tensor-parallel MLP, the
+    router replicated; ``seq_sharded``: ``x`` is this rank's sequence
+    shard (gathered first, the output reduce-scattered)."""
     e = cfg.moe
+    ex = p["experts"]
+    split = tp.split(ex["w1"].shape[0], e.n_experts) or \
+        tp.split(ex["w1"].shape[2], e.d_ff_expert)
+    ax = tp.active() if split or seq_sharded else None
+    xt = None
+    if ax is not None:
+        x, xt = tp.enter(x, ax, seq_sharded)
     B, S, D = x.shape
     N = B * S
     # a row shard of the batch is one of the G = dp groups of its N * dp
@@ -183,14 +211,20 @@ def moe_apply(p, x, cfg: ModelConfig):
     G = 1 if shd.get_row_shards() > 1 else _n_token_groups(N)
     xf = x.reshape(N, D)
     cap = capacity(N // G, cfg)
-    if G == 1:
-        out = dispatch_ffn(p, xf, cfg, cap)
-    else:
-        out = torch.cat([dispatch_ffn(p, t, cfg, cap)
-                         for t in xf.reshape(G, N // G, D)])
+    parts = xt.reshape(G, N // G, D) if split else [None] * G
+    out = torch.cat([dispatch_ffn(p, t, cfg, cap, xt=u,
+                                  ax=ax if split else None)
+                     for t, u in zip(xf.reshape(G, N // G, D), parts)])
+    shared = None
     if e.n_shared_experts:
-        out = out + L.mlp_apply(p["shared"], xf, "swiglu")
-    return out.reshape(B, S, D)
+        shared = L.mlp_apply(p["shared"], xf, "swiglu",
+                             width=e.n_shared_experts * e.d_ff_expert)
+    if ax is None:
+        return (out if shared is None else out + shared).reshape(B, S, D)
+    out = tp.leave(out.reshape(B, S, D), ax, split, seq_sharded)
+    if shared is not None:
+        out = out + tp.leave(shared.reshape(B, S, D), ax, False, seq_sharded)
+    return out
 
 
 def aux_load_balance_loss(p, x, cfg: ModelConfig):

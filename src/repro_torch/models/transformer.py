@@ -37,6 +37,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -80,17 +81,28 @@ class Block(nn.Module):
                                           generator=generator,
                                           device=device))
 
-    def forward(self, x, cache=None, pos=None):
+    def forward(self, x, cache=None, pos=None, seq_sharded: bool = False):
         """``cache`` / ``pos``: this layer's KV cache, written in place at
-        position ``pos`` (decode)."""
+        position ``pos`` (decode).  ``seq_sharded``: ``x`` is this rank's
+        sequence shard of the residual (sequence parallelism): the norms'
+        weights meet the model group in the backward (``tp.copy_in``), and
+        attention and the MLP gather their input and reduce-scatter their
+        output."""
         cfg = self.cfg
-        xn = L.norm_apply(x, self.ln1, cfg.norm, cfg.norm_eps)
+        ln1, ln2 = self.ln1, self.ln2
+        if seq_sharded:
+            ax = tp.active()
+            ln1, ln2 = ({k: tp.copy_in(v, ax) for k, v in n.items()}
+                        for n in (ln1, ln2))
+        xn = L.norm_apply(x, ln1, cfg.norm, cfg.norm_eps)
         x = x + L.mha(self.attn, xn, self.spec, cache=cache, cache_pos=pos,
-                      ring=bool(cfg.sliding_window))
-        y = L.norm_apply(x, self.ln2, cfg.norm, cfg.norm_eps)
+                      ring=bool(cfg.sliding_window), seq_sharded=seq_sharded)
+        y = L.norm_apply(x, ln2, cfg.norm, cfg.norm_eps)
         if self.moe_layer:
-            return x + moe_lib.moe_apply(self.moe, y, cfg)
-        return x + L.mlp_apply(self.mlp, y, cfg.mlp)
+            return x + moe_lib.moe_apply(self.moe, y, cfg,
+                                         seq_sharded=seq_sharded)
+        return x + L.mlp_apply(self.mlp, y, cfg.mlp, width=cfg.d_ff,
+                               seq_sharded=seq_sharded)
 
     def tail_kv(self, tail_x, tail_pos, cache: dict) -> None:
         """Fill this layer's ``cache`` with the K / V of the layer inputs
@@ -284,47 +296,81 @@ class Transformer(LM):
 
     # ---- forward ---------------------------------------------------------
 
-    def _run_block(self, block: Block, x):
+    def _run_block(self, block: Block, x, seq_sharded: bool = False):
         remat = self.cfg.remat
+        kw = {"seq_sharded": True} if seq_sharded else {}
         if remat == "none" or not torch.is_grad_enabled():
-            return block(x)
+            return block(x, **kw)
         if remat == "full":
-            return ckpt.checkpoint(block, x, use_reentrant=False)
+            return ckpt.checkpoint(block, x, use_reentrant=False, **kw)
         if remat == "dots":
             return ckpt.checkpoint(block, x, use_reentrant=False,
-                                   context_fn=_dots_context)
+                                   context_fn=_dots_context, **kw)
         raise ValueError(f"unknown remat policy {remat!r}")
 
     def _groups(self):
         return (("blocks", self.blocks), ("moe_blocks", self.moe_blocks))
 
+    def _hidden(self, tokens, prefix_embeds=None) -> tuple:
+        """``(x, seq_sharded)``: the final-normed hidden states, this
+        rank's sequence shard of them under sequence parallelism (the
+        config's ``seq_parallel``, on a model axis that divides the
+        sequence)."""
+        cfg = self.cfg
+        x = L.embed_lookup(self.embed, tokens, cfg.cdtype(),
+                           vocab=cfg.padded_vocab)
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        ax = tp.active()
+        sp = bool(cfg.seq_parallel and getattr(self, "model_shards", None)
+                  and x.shape[1] % ax.size == 0)
+        norm = self.final_norm
+        if sp:
+            x = tp.scatter(x, 1, ax)
+            norm = {k: tp.copy_in(v, ax) for k, v in norm.items()}
+        for block in (*self.blocks, *self.moe_blocks):
+            x = self._run_block(block, x, sp)
+        return L.norm_apply(x, norm, cfg.norm, cfg.norm_eps), sp
+
     def hidden_states(self, tokens, prefix_embeds=None):
         """tokens: (B, S) int [; prefix_embeds: (B, P, D), the VLM's patch
         embeddings, placed before the text] -> the final-normed hidden
         states."""
+        x, sp = self._hidden(tokens, prefix_embeds)
+        return tp.gather(x, 1, tp.active()) if sp else x
+
+    def _logits(self, tokens, prefix_embeds=None) -> tuple:
+        """``(logits, vocab_sharded)``: this rank's vocabulary columns of
+        the logits where the head is sharded over the model axis."""
         cfg = self.cfg
-        x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
-        if prefix_embeds is not None:
-            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-        for block in (*self.blocks, *self.moe_blocks):
-            x = self._run_block(block, x)
-        return L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
+        x, sp = self._hidden(tokens, prefix_embeds)
+        head = self.head()
+        rows = head.shape[0 if cfg.tie_embeddings else 1]
+        if not sp and not tp.split(rows, cfg.padded_vocab):
+            return L.lm_logits(x, head, cfg.tie_embeddings), False
+        xr, xt = tp.enter(x, tp.active(), sp)
+        if rows == cfg.padded_vocab:
+            return L.lm_logits(xr, head, cfg.tie_embeddings), False
+        return L.lm_logits(xt, head, cfg.tie_embeddings), True
 
     def forward(self, tokens, prefix_embeds=None):
-        return L.lm_logits(self.hidden_states(tokens, prefix_embeds),
-                           self.head(), self.cfg.tie_embeddings)
+        logits, sharded = self._logits(tokens, prefix_embeds)
+        return tp.gather(logits, -1, tp.active()) if sharded else logits
 
     def loss_fn(self, batch: dict):
         prefix = batch.get("patch_embeds")
-        logits = self.forward(batch["tokens"], prefix)
+        logits, sharded = self._logits(batch["tokens"], prefix)
         if prefix is not None:
             logits = logits[:, prefix.shape[1]:]  # loss on text positions
-        return L.cross_entropy(logits, batch["labels"],
-                               valid_vocab=self.cfg.vocab_size)
+        ce = L.vocab_parallel_cross_entropy if sharded else L.cross_entropy
+        return ce(logits, batch["labels"], valid_vocab=self.cfg.vocab_size)
 
     # ---- serving --------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> dict:
+        if getattr(self, "model_shards", None):
+            raise NotImplementedError(
+                "serving a model-sharded LM (ROADMAP Queue A item 7)")
         return init_cache(self.cfg, batch, max_len, self.embed.device)
 
     @torch.no_grad()
@@ -388,7 +434,8 @@ def stacked(leaf) -> torch.Tensor:
 def copy_leaf(dst, src, path: str = "") -> None:
     """Copy ``src`` (array or tensor, stacked ``[L, ...]`` when ``dst`` is a
     list of per-layer tensors) into ``dst`` in place (into a DTensor, this
-    rank's shard of it)."""
+    rank's shard of it; into a parameter sharded over the model axis, its
+    slice of a whole ``src``)."""
     if not isinstance(src, torch.Tensor):
         a = np.array(src)  # a JAX bfloat16 array is read from its bits
         src = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
@@ -399,6 +446,9 @@ def copy_leaf(dst, src, path: str = "") -> None:
         for i, d in enumerate(dst):
             copy_leaf(d, src[i], f"{path}[{i}]")
         return
+    dim, ax = tp.shard_of(dst)
+    if dim is not None and src.shape[dim] == dst.shape[dim] * ax.size:
+        src = tp.part(src, dim, ax)  # a model shard keeps its slice
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{path}: shape {tuple(src.shape)} != "
                          f"{tuple(dst.shape)}")
@@ -437,6 +487,25 @@ def state_to_jax_leaves(state) -> list:
         leaves += [st[k] for k in sorted(st)]
     leaves.append(torch.tensor(state.step, dtype=torch.int32))
     return leaves
+
+
+def state_model_dims(state) -> list:
+    """Beside each leaf of ``state_to_jax_leaves(state)``: ``(dim,
+    ModelAxis)`` of its model shard (``dim`` in the coordinates of the
+    leaf's tensors: per layer for a list leaf, stacked for Adafactor's
+    state), or ``(None, None)``."""
+    from repro_torch.training.optimizer import factor_dims
+    params = list(state.model.parameters())
+    order = state.model.param_leaves()
+    per = [tp.shard_of(params[leaf[0] if isinstance(leaf, list) else leaf])
+           for leaf in order]
+    dims = per * (1 if "f" in state.opt else 3)
+    for leaf, (d, ax), st in zip(order, per, state.opt.get("f", ())):
+        k = params[leaf[0] if isinstance(leaf, list) else leaf].dim()
+        stacked = isinstance(leaf, list)
+        fd = factor_dims(k + stacked, None if d is None else d + stacked)
+        dims += [(fd[key], ax) for key in sorted(st)]
+    return dims + [(None, None)]
 
 
 @torch.no_grad()

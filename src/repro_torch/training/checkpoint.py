@@ -21,11 +21,14 @@ Layout (one directory per step)::
   group's leaf the layers stacked ``[L, ...]``, on the host), so a
   checkpoint written by either package restores in the other.
 - Sharded states (``training/train_loop.shard_train_step``): a save gathers
-  each DTensor's whole array (a collective, so every rank saves, on the
-  trainer's thread; the writer thread issues none) and rank 0 alone writes
-  and commits.  A restore reads the whole arrays on every rank and keeps
-  each rank's shard of each DTensor leaf, whatever mesh wrote the files
-  (elastic: 1 -> N ranks, N -> 1, either package).
+  each leaf's whole array over both axes, the DTensor's data shards and
+  then the model shards (``state_model_dims``; collectives, so every rank
+  saves, on the trainer's thread; the writer thread issues none), and
+  rank 0 alone writes and commits.  A restore reads the whole arrays on
+  every rank and keeps each rank's slice of each model-sharded leaf and
+  its shard of each DTensor leaf, whatever ``(data, model)`` mesh wrote
+  the files (elastic: 1 -> N ranks, N -> 1, one mesh shape to another,
+  either package).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import dlrm, encdec, hybrid, ssm, transformer
 
 _COMMIT = "COMMITTED"
@@ -73,8 +77,10 @@ def _flatten(tree) -> tuple:
 
         def rebuild_state(arrays):
             return mod.load_jax_leaves(tree, arrays)
-        return mod.state_to_jax_leaves(tree), rebuild_state, \
-            f"TrainState({kind})"
+        leaves = [leaf if d is None else _ModelShard(leaf, d, ax)
+                  for leaf, (d, ax) in zip(mod.state_to_jax_leaves(tree),
+                                           mod.state_model_dims(tree))]
+        return leaves, rebuild_state, f"TrainState({kind})"
     if isinstance(tree, dict):
         keys = sorted(tree)
         parts = [_flatten(tree[k]) for k in keys]
@@ -119,14 +125,48 @@ def _writer() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+class _ModelShard:
+    """A train state's leaf sharded over the model axis: its tensor (or
+    per-layer list), the dim of each tensor the shard cuts, and the
+    axis."""
+
+    def __init__(self, leaf, dim: int, ax):
+        self.leaf, self.dim, self.ax = leaf, dim, ax
+
+    @property
+    def shape(self) -> tuple:
+        """The whole leaf's shape (a list leaf's stacked)."""
+        first = self.leaf[0] if isinstance(self.leaf, list) else self.leaf
+        shape = list(first.shape)
+        shape[self.dim] *= self.ax.size
+        if isinstance(self.leaf, list):
+            shape.insert(0, len(self.leaf))
+        return tuple(shape)
+
+    def part(self, whole):
+        """This rank's slice of a whole (stacked) array of the leaf."""
+        d = self.dim + isinstance(self.leaf, list)
+        n = whole.shape[d] // self.ax.size
+        index = [slice(None)] * whole.ndim
+        index[d] = slice(self.ax.rank * n, (self.ax.rank + 1) * n)
+        return whole[tuple(index)]
+
+
 def _whole(leaf):
-    """A DTensor leaf gathered into its whole tensor (a collective); a list
-    leaf element by element; any other leaf as is."""
+    """A DTensor leaf gathered into its whole tensor, then a model shard
+    (a ``_ModelShard``, or a parameter ``tensor_parallel.shard_model``
+    tagged) over the model axis (collectives); a list leaf element by
+    element; any other leaf as is."""
+    if isinstance(leaf, _ModelShard):
+        one = lambda t: tp.whole(_whole(t), leaf.dim, leaf.ax)
+        return [one(t) for t in leaf.leaf] if isinstance(leaf.leaf, list) \
+            else one(leaf.leaf)
     if isinstance(leaf, list):
         return [_whole(t) for t in leaf]
+    dim, ax = tp.shard_of(leaf)
     if hasattr(leaf, "full_tensor"):
-        return leaf.detach().full_tensor()
-    return leaf
+        leaf = leaf.detach().full_tensor()
+    return tp.whole(leaf, dim, ax)
 
 
 def _snapshot(leaves: list, copy: bool) -> list:
@@ -268,11 +308,13 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
             f"{len(leaves_t)} — structure mismatch")
     arrays = [_from_host(np.load(os.path.join(d, e["file"])), e["dtype"])
               for e in manifest["index"]]
-    for a, t in zip(arrays, leaves_t):
+    for i, (a, t) in enumerate(zip(arrays, leaves_t)):
         shape = ((len(t),) + tuple(t[0].shape) if isinstance(t, list)
                  else tuple(t.shape) if hasattr(t, "shape") else np.shape(t))
         if tuple(a.shape) != shape:
             raise ValueError(f"leaf shape {a.shape} != template {shape}")
+        if isinstance(t, _ModelShard):  # this rank's slice
+            arrays[i] = t.part(a)
     return rebuild(arrays)
 
 

@@ -28,7 +28,10 @@ alike: AdamW's moments as the parameter; Adafactor's ``v`` as the parameter,
 they average).  What spans the shards is one all-reduce each over the data
 group: the global norm's sums of squares, a factored row or column mean
 over the sharded dim, ``vr``'s mean when its own dim is sharded, and
-a leaf's ``sum(u^2)`` for the update clipping's RMS.
+a leaf's ``sum(u^2)`` for the update clipping's RMS.  A parameter sharded
+over the model axis (a plain local tensor tagged ``tp_shard``, under or
+without FSDP) is one more such shard, its sums taken over the model group
+as well.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.distributed import tensor_parallel as tp
 
 AF_EPS = 1e-30     # Adafactor's epsilon
 AF_CLIP = 1.0      # Adafactor's update clipping threshold (RMS)
@@ -62,23 +66,35 @@ def _all_sum(x, group):
     return x
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, params=None) -> torch.Tensor:
     """sqrt(sum of squares) over every gradient, in float32 (a norm
     reduction per tensor, so no gradient-sized square is materialized).  A
-    sharded gradient's square is summed over its shards (one all-reduce
-    for all of them)."""
-    norms, sharded, group = [], [], None
-    for g in grads:
-        loc, dim, grp = _local(g)
+    sharded gradient's square is summed over its shards: over the data
+    group for an FSDP shard, over the model group for a model shard of its
+    parameter in ``params`` (``tp.shard_of``), over both for a leaf that
+    is both (one all-reduce a group for all such leaves); a replicated
+    leaf counts once."""
+    norms, kinds, groups = [], [], [None, None]
+    for i, g in enumerate(grads):
+        loc, dim, dgrp = _local(g)
+        mdim, ax = tp.shard_of(params[i]) if params is not None \
+            else (None, None)
         norms.append(torch.linalg.vector_norm(loc.to(torch.float32)))
+        kinds.append((dim is not None, mdim is not None))
         if dim is not None:
-            sharded.append(len(norms) - 1)
-            group = grp
-    if sharded:
-        sq = _all_sum(torch.stack([norms[i] for i in sharded]).square(),
-                      group).sqrt()
-        for j, i in enumerate(sharded):
-            norms[i] = sq[j]
+            groups[0] = dgrp
+        if mdim is not None:
+            groups[1] = ax.group
+    for kind in ((True, False), (False, True), (True, True)):
+        idx = [i for i, k in enumerate(kinds) if k == kind]
+        if not idx:
+            continue
+        sq = torch.stack([norms[i] for i in idx]).square()
+        for on, grp in zip(kind, groups):
+            if on:
+                sq = _all_sum(sq, grp)
+        for j, i in enumerate(idx):
+            norms[i] = sq[j].sqrt()
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
@@ -195,33 +211,47 @@ def adafactor_init(params, tcfg: TrainConfig, leaves=None) -> dict:
     return {"f": f, "leaves": list(leaves)}
 
 
-def _mean(x, dim, sharded, group):
-    """``x.mean(dim)``; over a dim sharded across ``group``, the all-reduced
-    sum over its global size."""
-    if not sharded:
+def factor_dims(k: int, d) -> dict:
+    """The dim of each Adafactor state tensor (``v``, ``vr``, ``vc``) of
+    a ``k``-dim leaf sharded on ``d`` (None: whole) that its shard cuts,
+    or None where the state is whole: the dim a factor averages over is
+    gone from it."""
+    if d is None:
+        return {"v": None, "vr": None, "vc": None}
+    return {"v": d, "vr": d if d < k - 1 else None,
+            "vc": k - 2 if d == k - 1 else d if d < k - 2 else None}
+
+
+def _mean(x, dim, group):
+    """``x.mean(dim)``; over a dim sharded across ``group`` (None: whole),
+    the all-reduced sum over its global size."""
+    if group is None:
         return x.mean(dim)
     return _all_sum(x.sum(dim), group) / (x.shape[dim] *
                                           dist.get_world_size(group))
 
 
-def _af_stats(g, st, b2, omb2, d=None, group=None) -> dict:
+def _af_stats(g, st, b2, omb2, shards=None) -> dict:
     """This step's float32 second-moment statistics of one part (``g``
-    sharded on ``d`` across ``group``, or whole)."""
+    sharded on each dim of ``shards``, ``{dim: group}``, across its
+    group)."""
+    shards = shards or {}
     g2 = g.square().add_(AF_EPS)
     if "vr" in st:
         k = g.dim()
         return {"vr": st["vr"].to(torch.float32) * b2
-                + omb2 * _mean(g2, -1, d == k - 1, group),
+                + omb2 * _mean(g2, -1, shards.get(k - 1)),
                 "vc": st["vc"].to(torch.float32) * b2
-                + omb2 * _mean(g2, -2, d == k - 2, group)}
+                + omb2 * _mean(g2, -2, shards.get(k - 2))}
     return {"v": st["v"].to(torch.float32) * b2 + omb2 * g2}
 
 
-def _af_u(g, stats, d=None, group=None) -> torch.Tensor:
+def _af_u(g, stats, shards=None) -> torch.Tensor:
     """The unclipped update ``g / sqrt(second moment)`` in float32."""
+    shards = shards or {}
     if "vr" in stats:
         vr, vc = stats["vr"], stats["vc"]
-        row_mean = _mean(vr, -1, d == g.dim() - 2, group).unsqueeze(-1)
+        row_mean = _mean(vr, -1, shards.get(g.dim() - 2)).unsqueeze(-1)
         r = vr / torch.clamp(row_mean, min=AF_EPS)
         u = r[..., :, None] * vc[..., None, :]
     else:
@@ -236,11 +266,14 @@ def _adafactor(params, grads, state, step, scale, tcfg):
     loc = lambda t: _local(t)[0]
     for leaf, st in zip(state["leaves"], state["f"]):
         # the parts of the leaf whose statistics are their own: (param,
-        # grad, state views, per-layer params to write back), and the dim
-        # of a part its shard cuts
+        # grad, state views, per-layer params to write back), and the dims
+        # of a part its shards cut, each with its group (data, model)
         d, _ = _leaf_shard(leaf, params)
         first = params[leaf[0] if isinstance(leaf, list) else leaf]
-        group = _local(first)[2]
+        md, ax = tp.shard_of(first)
+        shards = {} if d is None else {d: _local(first)[2]}
+        if md is not None:
+            shards[md + isinstance(leaf, list)] = ax.group
         st = {k: loc(v) for k, v in st.items()}
         if not isinstance(leaf, list):
             units = [(loc(params[leaf]), loc(grads[leaf]), st, None)]
@@ -253,25 +286,25 @@ def _adafactor(params, grads, state, step, scale, tcfg):
             units = [(loc(params[j]), loc(grads[j]),
                       {k: v[i] for k, v in st.items()}, None)
                      for i, j in enumerate(leaf)]
-            d = None if d is None else d - 1
+            shards = {k - 1: grp for k, grp in shards.items()}
         # pass 1: the statistics and sum(u^2) over the whole leaf
         stats, total, n = [], None, 0
         for _, g, sv, _ in units:
             g = _clipped(g, scale)
-            s = _af_stats(g, sv, b2, omb2, d, group)
+            s = _af_stats(g, sv, b2, omb2, shards)
             stats.append(s)
-            sq = _af_u(g, s, d, group).square_().sum()
+            sq = _af_u(g, s, shards).square_().sum()
             total = sq if total is None else total + sq
             n += g.numel()
             del g
-        if group is not None:
-            total = _all_sum(total, group)
-            n *= dist.get_world_size(group)
+        for grp in shards.values():
+            total = _all_sum(total, grp)
+            n *= dist.get_world_size(grp)
         rms_u = torch.sqrt(total / n + AF_EPS)
         den = torch.clamp(rms_u / AF_CLIP, min=1.0)
         # pass 2: recompute u, clip it, apply it, store the statistics
         for (p, g, sv, back), s in zip(units, stats):
-            u = _af_u(_clipped(g, scale), s, d, group).div_(den)
+            u = _af_u(_clipped(g, scale), s, shards).div_(den)
             u.mul_(lr).neg_().add_(p)      # p - lr u
             u.sub_(p * (lr * wd))          # - lr wd p
             if back is None:
@@ -306,7 +339,7 @@ def opt_update(params, grads, state: dict, step: int,
     """Clip ``grads`` to ``max_grad_norm`` (global norm), then one
     optimizer step in place on ``params`` and ``state``.  Returns the
     pre-clip global norm."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, params)
     scale = None
     if tcfg.max_grad_norm:
         scale = torch.clamp(tcfg.max_grad_norm / torch.clamp(gnorm, min=1e-9),

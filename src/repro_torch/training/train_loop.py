@@ -1,5 +1,5 @@
 """Train-step construction (with microbatching: ``training/grad.py``), its
-data-parallel form over a mesh (``shard_train_step``), and the
+form over a ``(data, model)`` mesh (``shard_train_step``), and the
 checkpointed, watchdogged driver loop."""
 
 from __future__ import annotations
@@ -15,7 +15,9 @@ from torch import nn
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import dlrm, transformer
 from repro_torch.models import layers as L
 from repro_torch.training import checkpoint as ckpt_lib
 from repro_torch.training import fault as fault_lib
@@ -73,30 +75,46 @@ def data_group(mesh):
     return sub.get_group(), sub
 
 
-def _fsdp_dims(model, sizes, n_experts) -> dict:
-    """``{id(param): dim}``: the dim of each parameter (per layer, for a
-    stacked leaf) that ``param_specs(..., fsdp=True)`` shards over the data
-    axes, or None where it replicates the leaf."""
-    tree = model.jax_tree()
-    specs = shd.param_specs(tree, sizes, fsdp=True, n_experts=n_experts)
-    dims = {}
+def _named_leaves(model) -> list:
+    """``(JAX path, JAX shape, [parameter names], kind)`` of each JAX leaf
+    of an LM or a DLRM: ``kind`` is ``"stacked"`` (a layer group's leaf,
+    one parameter a layer), ``"transposed"`` (a DLRM ``w``) or
+    ``"plain"``."""
+    if isinstance(model, dlrm.DLRM):
+        return [(path, shape, [name], "transposed" if tr else "plain")
+                for path, shape, name, tr in dlrm.jax_named_leaves(model)]
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = []
+    for path, leaf in transformer.jax_leaves(model.jax_tree()):
+        if isinstance(leaf, list):
+            out.append((path, shd.leaf_shape(leaf),
+                        [names[id(t)] for t in leaf], "stacked"))
+        else:
+            out.append((path, tuple(leaf.shape), [names[id(leaf)]],
+                        "plain"))
+    return out
 
-    def walk(t, s, path):
-        if isinstance(s, dict):
-            for k in s:
-                walk(t[k], s[k], f"{path}/{k}" if path else k)
-            return
-        d = shd.data_dim(s)
-        if isinstance(t, list):  # a stacked leaf: its layers are params
-            if d == 0:
+
+def _shard_dims(model, sizes, *, fsdp: bool, n_experts: int) -> dict:
+    """``{parameter name: (model dim, data dim)}``: the dim of each
+    parameter (per layer, for a stacked leaf) that ``param_specs`` shards
+    over the "model" axis and, with ``fsdp``, over the data axes (None
+    where it does not)."""
+    dims = {}
+    for path, shape, names, kind in _named_leaves(model):
+        spec = shd.param_spec(path, shape, sizes, fsdp=fsdp,
+                              n_experts=n_experts)
+        md, dd = tp.model_dim(spec), shd.data_dim(spec)
+        if kind == "stacked":
+            if dd == 0:
                 raise NotImplementedError(
                     f"{path}: FSDP shards the layer dim of this stacked "
                     "leaf, which per-layer parameters cannot hold")
-            for q in t:
-                dims[id(q)] = None if d is None else d - 1
-        else:
-            dims[id(t)] = d
-    walk(tree, specs, "")
+            md, dd = (None if d is None else d - 1 for d in (md, dd))
+        elif kind == "transposed":
+            md, dd = (None if d is None else 1 - d for d in (md, dd))
+        for n in names:
+            dims[n] = (md, dd)
     return dims
 
 
@@ -119,54 +137,79 @@ def _fully_shard(model, dmesh, dims, reduce_dtype) -> list:
             fully_shard(block, ignored_params=ignored & set(
                 block.parameters()), **kw)
     fully_shard(model, ignored_params=ignored, **kw)
-    # the train step calls the loss, not forward: it unshards the root
-    register_fsdp_forward_method(model, "loss_fn")
+    if hasattr(model, "loss_fn"):
+        # an LM's train step calls the loss, not forward: it unshards the
+        # root
+        register_fsdp_forward_method(model, "loss_fn")
     return [m for m in model.modules() if isinstance(m, FSDPModule)]
 
 
 def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
                      state: TrainState, *, batch_rows: int,
                      fsdp: bool = False, n_experts: int = 0) -> tuple:
-    """The data-parallel train step of an LM (``loss_fn`` a
-    ``layers.cross_entropy`` over ``batch["labels"]``) over ``mesh``'s
-    data axes (the JAX package's ``jit_train_step`` on the data axes);
-    returns ``(step, state)``.  ``state`` must be fresh (step 0: restore
-    into the returned one).
+    """The train step of an LM (``loss_fn`` a cross-entropy over
+    ``batch["labels"]``) or a DLRM (``dlrm.loss_fn``, the mean BCE over
+    ``batch["label"]``) over ``mesh`` (the JAX package's
+    ``jit_train_step``); returns ``(step, state)``.  ``state`` must be
+    fresh (step 0: restore into the returned one).  ``mesh`` becomes the
+    active mesh.
 
-    ``batch_rows`` is the global batch's rows: when the data degree dp
-    divides it, each rank's batch is its rows (``put_packed``, with
-    ``microbatches=tcfg.microbatch``), else the whole batch, replicated as
-    the reference's ``batch_specs`` does.
-
-    - ``fsdp``: FSDP2 (ZeRO-3) shards each parameter, and so its gradient
-      and optimizer state, on the dim ``param_specs(..., fsdp=True)``
-      chooses; a leaf it replicates stays whole on every rank.  Gradients
-      are reduce-scattered once a step (not per microbatch), accumulated in
+    - The "model" axis: every parameter whose spec (``param_specs``) names
+      it is cut to this rank's slice (``tensor_parallel.shard_model``), and
+      the layers meet the other model ranks in explicit collectives
+      (tensor, sequence and expert parallelism; the dense, MoE and VLM
+      families and DLRM: another family on a model axis > 1 raises).
+    - ``batch_rows`` is the global batch's rows: when the data degree dp
+      divides it, each rank's batch is its rows (``put_packed``, with
+      ``microbatches=tcfg.microbatch``; the model ranks of one data
+      coordinate hold the same rows), else the whole batch, replicated as
+      the reference's ``batch_specs`` does.
+    - ``fsdp``: FSDP2 (ZeRO-3) over the data axes shards each (local)
+      parameter, and so its gradient and optimizer state, on the dim
+      ``param_specs(..., fsdp=True)`` chooses; a leaf it replicates stays
+      whole on every rank of the data group.  Gradients are
+      reduce-scattered once a step (not per microbatch), accumulated in
       ``tcfg.accum_dtype``, then rounded to the parameter's dtype.
-    - otherwise every parameter is whole on every rank, and the gradients
-      are all-reduced once a step.
-    - The loss is the reference's mean over the global (micro)batch: each
-      rank divides its sum by the global count of unignored labels (one
-      all-reduce a step), and the ranks' gradients are summed.  The loss
-      reported is the global one; the gradient norm is global.
+    - otherwise the data group's gradients are all-reduced once a step.
+    - The loss is the reference's mean over the global (micro)batch: on
+      more than one data rank each divides its sum by the global count of
+      unignored labels (of rows, for a DLRM; one all-reduce a step), and
+      the data ranks' gradients are summed.  The loss reported is the global one; the
+      gradient norm is global over both axes.
     """
     if state.step != 0:
         raise ValueError("shard a fresh train state, then restore into it")
     model = state.model
+    shd.set_active_mesh(mesh)
+    ax = tp.model_axis(mesh)
+    if ax is not None and not isinstance(model, dlrm.DLRM) and \
+            model.cfg.family not in transformer.TRANSFORMER_FAMILIES:
+        raise NotImplementedError(
+            f"{model.cfg.name}: the {model.cfg.family} family on a model "
+            f"axis of {ax.size} (its projections split by heads and groups; "
+            "ROADMAP Queue A item 6c)")
     group, dmesh = data_group(mesh)
     dp = dist.get_world_size(group)
     sharded = batch_rows % dp == 0
     n_micro = max(tcfg.microbatch, 1)
     acc_dtype = getattr(torch, tcfg.accum_dtype)
+    dims = _shard_dims(model, shd.axis_sizes(mesh), fsdp=fsdp,
+                       n_experts=n_experts)
     fsdp_modules = []
-    if fsdp:
-        dims = _fsdp_dims(model, shd.axis_sizes(mesh), n_experts)
+    if ax is not None or fsdp:
         state.opt = None
-        fsdp_modules = _fully_shard(model, dmesh, dims, acc_dtype)
+    if ax is not None:
+        tp.shard_model(model, {n: md for n, (md, _) in dims.items()
+                               if md is not None}, ax)
+    if fsdp:
+        by_id = {id(p): dims[n][1] for n, p in model.named_parameters()}
+        fsdp_modules = _fully_shard(model, dmesh, by_id, acc_dtype)
         for m in fsdp_modules:  # the ranks' shares of the mean are summed;
             # a replicated batch's equal gradients are averaged
             m.set_gradient_divide_factor(1.0 if sharded else float(dp))
             m.set_force_sum_reduction_for_comms(True)
+        tp.mark(model)  # FSDP's parameters are new objects
+    if state.opt is None:
         state = TrainState.create(model, tcfg)
     replicated = [i for i, p in enumerate(model.parameters())
                   if not hasattr(p, "placements")]
@@ -186,14 +229,19 @@ def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
 
     def train_step(state: TrainState, batch) -> tuple:
         counts.clear()
-        if sharded:
-            labels = batch["labels"].reshape(n_micro, -1)
-            c = (labels != -100).to(torch.float32).sum(1)
+        if sharded and dp > 1:
+            if "labels" in batch:
+                labels = batch["labels"].reshape(n_micro, -1)
+                c = (labels != -100).to(torch.float32).sum(1)
+            else:  # every row counts
+                c = torch.full((n_micro,), batch["label"].shape[0] / n_micro,
+                               dtype=torch.float32,
+                               device=batch["label"].device)
             dist.all_reduce(c, group=group)
             counts.update(enumerate(c))
         params = list(state.model.parameters())
         loss, grads = vg(state.model, batch)
-        if sharded:
+        if sharded and dp > 1:
             for i in replicated:
                 dist.all_reduce(grads[i], group=group)
             dist.all_reduce(loss, group=group)

@@ -106,7 +106,7 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
 def test_unported_options_raise():
     """``mesh=`` builds an executor whose place stage keeps this rank's
     rows (one shard of one here); the launcher refuses an enc-dec arch
-    (no frames) and a mesh with a "model" axis."""
+    (no frames) and the production mesh without a world of its ranks."""
     from repro_torch.launch import train as launch
 
     class OneRankMesh:
@@ -128,7 +128,7 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="frames"):  # no launcher feeds them
         launch.main(["--arch", "whisper_base", "--reduced", "--device",
                      "cpu"])
-    with pytest.raises(NotImplementedError, match='pod needs the "model"'):
+    with pytest.raises(RuntimeError, match="no process group"):
         launch.main(["--arch", "llama3_2_3b", "--reduced", "--device", "cpu",
                      "--mesh", "pod"])
 

@@ -536,21 +536,25 @@ def test_launcher_feeds_the_pipelines_batches(monkeypatch):
 
 @pytest.mark.parametrize("argv,what", [
     (["--arch", "llama3_2_3b", "--reduced", "--mesh", "pod"],
-     'pod needs the "model" axis'),
+     "no process group"),
     (["--arch", "llama3_405b", "--reduced", "--mesh", "multipod"],
-     'multipod needs the "model" axis'),
+     "no process group"),
     (["--arch", "mixtral_8x7b", "--reduced", "--mesh", "pod"],
-     'pod needs the "model" axis'),
+     "no process group"),
     (["--arch", "zamba2_2_7b", "--reduced", "--mesh", "pod"],
-     'pod needs the "model" axis')])
+     "no process group")])
 def test_launcher_raises_for_what_is_not_ported(argv, what):
-    """A mesh with a "model" axis raises, whatever the family (``--mesh
-    host`` is data parallel: ``tests/test_torch_distributed.py``); the
-    Adafactor, fsdp and MoE presets train (``tests/test_torch_moe.py``),
-    and so do the VLM, the SSM and the hybrid (``tests/test_torch_vlm.py``,
+    """``--mesh pod`` / ``multipod`` build the production mesh, whose 256 /
+    512 ranks one process without a world does not have, whatever the
+    family (on 4 ranks the mesh's ``ValueError``, and a family the model
+    axis does not cover raises in ``shard_train_step``:
+    ``tests/test_torch_tensor_parallel.py``; ``--mesh host`` is data
+    parallel: ``tests/test_torch_distributed.py``); the Adafactor, fsdp and
+    MoE presets train (``tests/test_torch_moe.py``), and so do the VLM, the
+    SSM and the hybrid (``tests/test_torch_vlm.py``,
     ``tests/test_torch_ssm.py``, ``tests/test_torch_hybrid.py``)."""
     from repro_torch.launch import train as launch
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(RuntimeError, match=what):
         launch.main(argv + ["--device", "cpu", "--steps", "1"])
 
 

@@ -340,3 +340,217 @@ def card_rank(rank, world, device: str):
             "ef": [t.cpu().numpy() for t in ef],
             "placed": {k: v.cpu().numpy() for k, v in placed.items()},
             "losses": losses, "leaves": whole_leaves(state.model)}
+
+
+# ---------------------------------------------------------------------------
+# the "model" axis (tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+DLRM_SMALL = dict(vocab_size=1000, d_emb=16, bot_mlp=(32, 16),
+                  top_mlp=(32, 16, 1))
+
+
+def dlrm_batch(rows: int, seed: int) -> dict:
+    """A seeded DLRM batch: dense (rows, 16), sparse (rows, 32) ids in
+    ``[0, DLRM_SMALL vocab)``, 0 / 1 labels."""
+    rng = np.random.default_rng(seed)
+    return {"dense": rng.normal(size=(rows, 16)).astype(np.float32),
+            "sparse": rng.integers(0, DLRM_SMALL["vocab_size"],
+                                   (rows, 32)).astype(np.int32),
+            "label": rng.integers(0, 2, (rows,)).astype(np.float32)}
+
+
+def tp_cfg(arch: str, over: dict):
+    """``lm_cfg(arch)`` with the fields of ``over`` replaced (``"moe"``: a
+    dict of the MoE config's fields)."""
+    cfg = lm_cfg(arch)
+    over = dict(over)
+    if "moe" in over:
+        over["moe"] = dataclasses.replace(cfg.moe, **over["moe"])
+    return dataclasses.replace(cfg, **over)
+
+
+def tp_model(case: dict):
+    """``(module, loss_fn, n_experts)`` of a case (``arch`` an LM's or
+    ``"dlrm"``; ``over``: config fields replaced), its parameters the
+    reference's ``params``."""
+    from repro_torch.models import api, dlrm
+    if case["arch"] == "dlrm":
+        model = dlrm.DLRM(dlrm.DLRMConfig(**DLRM_SMALL), device="cpu")
+        model.load_state_dict(dlrm.params_from_jax(case["params"]))
+        return model, dlrm.loss_fn, 0
+    cfg = tp_cfg(case["arch"], case.get("over", {}))
+    model = api.build_model(cfg)
+    module = api.params_from_jax(model.init(device="cpu"), case["params"])
+    return module, model.loss, cfg.moe.n_experts if cfg.moe else 0
+
+
+def jax_order(model) -> list:
+    """``(JAX path, tensors, transposed)`` of each JAX leaf of an LM or a
+    DLRM, in the JAX flatten order (a stacked leaf's tensors per layer)."""
+    from repro_torch.models import dlrm
+    from repro_torch.models.transformer import jax_leaves
+    if isinstance(model, dlrm.DLRM):
+        params = dict(model.named_parameters())
+        return [(path, [params[name]], tr)
+                for path, _, name, tr in dlrm.jax_named_leaves(model)]
+    return [(path, leaf if isinstance(leaf, list) else [leaf], False)
+            for path, leaf in jax_leaves(model.jax_tree())]
+
+
+def tp_whole_leaves(model) -> list:
+    """The JAX leaves as whole numpy arrays, gathered over both axes (a
+    collective: every rank calls it)."""
+    from repro_torch.training.checkpoint import _whole
+    out = []
+    for path, ts, tr in jax_order(model):
+        ws = [_whole(t).detach() for t in ts]
+        a = torch.stack(ws) if path.startswith(("blocks", "moe_blocks")) \
+            else ws[0]
+        out.append((a.t() if tr else a).cpu().numpy())
+    return out
+
+
+def tp_local_shapes(model) -> dict:
+    """``{JAX path: this rank's local shape}`` (a stacked leaf's layers
+    first, a DLRM ``w`` in the JAX ``[in, out]`` layout)."""
+    out = {}
+    for path, ts, tr in jax_order(model):
+        loc = ts[0].to_local() if hasattr(ts[0], "to_local") else ts[0]
+        shape = tuple(loc.shape)[::-1] if tr else tuple(loc.shape)
+        if path.startswith(("blocks", "moe_blocks")):
+            shape = (len(ts),) + shape
+        out[path] = shape
+    return out
+
+
+def tp_cases(rank, world, inputs_path, ckpt_dir):
+    """Each case of ``inputs_path`` (``{name: {arch, over, tcfg, params,
+    batches, mesh}}``) on its ``(data, model)`` mesh: 3 steps; returns
+    ``{name: (losses, grad norms, whole leaves, local shapes)}`` (the
+    leaves on rank 0 only).  The case named ``"ckpt"`` in the inputs' key
+    ``"_ckpt"`` saves its state after the last step into ``ckpt_dir``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.etl_runtime.transfer import batch_sharding, put_packed
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import train_loop as ttl
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    inputs = load(inputs_path)
+    out = {}
+    for name, case in inputs["cases"].items():
+        mesh = init_device_mesh("cpu", case["mesh"],
+                                mesh_dim_names=("data", "model"))
+        module, loss_fn, n_exp = tp_model(case)
+        tc = TrainConfig(**case["tcfg"])
+        state = ttl.TrainState.create(module, tc)
+        rows = next(iter(case["batches"][0].values())).shape[0]
+        step, state = ttl.shard_train_step(
+            loss_fn, tc, mesh, state, batch_rows=rows, fsdp=tc.fsdp,
+            n_experts=n_exp)
+        losses, norms = [], []
+        for b in case["batches"]:
+            b = put_packed({k: torch.from_numpy(v) for k, v in b.items()},
+                           batch_sharding(mesh),
+                           microbatches=max(tc.microbatch, 1))
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        leaves = tp_whole_leaves(state.model)
+        out[name] = (losses, norms, leaves if rank == 0 else None,
+                     tp_local_shapes(state.model))
+        if name == inputs["ckpt"]:
+            ckpt.save(state, ckpt_dir, state.step)
+    return out
+
+
+def tp_local_leaves(state) -> list:
+    """``(local array, model dim, data dim)`` of each checkpoint leaf of a
+    sharded train state (dims in the leaf's stacked layout, None where
+    whole)."""
+    from repro_torch.training.checkpoint import _flatten, _ModelShard
+    out = []
+    for leaf in _flatten(state)[0]:
+        md = None
+        if isinstance(leaf, _ModelShard):
+            md = leaf.dim + isinstance(leaf.leaf, list)
+            leaf = leaf.leaf
+        ts = leaf if isinstance(leaf, list) else [leaf]
+        dd = None
+        if hasattr(ts[0], "placements") and ts[0].placements[0].is_shard():
+            dd = ts[0].placements[0].dim + isinstance(leaf, list)
+        loc = [t.to_local() if hasattr(t, "to_local") else t for t in ts]
+        a = torch.stack(loc) if isinstance(leaf, list) else loc[0]
+        out.append((a.detach().cpu().numpy().copy(), md, dd))
+    return out
+
+
+def tp_misc(rank, world, paths: dict):
+    """On 4 ranks: the (2, 2) checkpoint restored onto (1, 4), then the
+    reference's parameters loaded into that state (``params_from_jax``
+    into model shards under FSDP); a reference checkpoint restored onto
+    (2, 2) FSDP and saved back; ``EtlJob(mesh=)``'s
+    rows on (2, 2); the SSM, hybrid and enc-dec families refused on (1, 4);
+    ``launch.train --mesh pod``'s error."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.pipeline import lm_token_pipeline
+    from repro_torch.data.source import Source
+    from repro_torch.launch import train as launch
+    from repro_torch.models import api
+    from repro_torch.session import EtlJob
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import train_loop as ttl
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    def mesh(shape):
+        return init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+
+    def sharded(shape, tc):
+        cfg = lm_cfg("llama3_2_3b")
+        model = api.build_model(cfg)
+        state = ttl.TrainState.create(model.init(seed=5, device="cpu"), tc)
+        m = mesh(shape)
+        return ttl.shard_train_step(model.loss, tc, m, state, batch_rows=8,
+                                    fsdp=tc.fsdp)[1], m
+
+    out = {}
+    tc = TrainConfig(**paths["tcfg"])
+    state, m = sharded((1, 4), tc)
+    state = ckpt.restore(paths["port_ckpt"], state, mesh=m)
+    out["port_22_to_14"] = (state.step, tp_local_leaves(state))
+    api.params_from_jax(state.model, paths["ref_params"])
+    out["params_from_jax_14"] = tp_whole_leaves(state.model)
+    state, m = sharded((2, 2), TrainConfig(fsdp=True))
+    state = ckpt.restore(paths["ref_ckpt"], state, mesh=m)
+    out["ref_to_22"] = (state.step, tp_local_leaves(state))
+    ckpt.save(state, paths["saved_ckpt"], state.step)
+    # the ETL's rows on (2, 2)
+    e = paths["etl"]
+    job = EtlJob(lm_token_pipeline(e["seq"], e["vocab"],
+                                   batch_size=e["batch"]),
+                 Source.lm_events(e["seq"], rows=e["batch"] * 3,
+                                  batch_size=e["batch"]),
+                 backend="torch", device="cpu", mesh=mesh((2, 2)))
+    with job.batches() as batches:
+        out["etl"] = [{k: v.numpy() for k, v in b.items()} for b in batches]
+    # the families the model axis does not cover yet
+    out["refused"] = {}
+    for arch in ("mamba2_370m", "zamba2_2_7b", "whisper_base"):
+        model = api.build_model(lm_cfg(arch))
+        state = ttl.TrainState.create(model.init(device="cpu"), TrainConfig())
+        try:
+            ttl.shard_train_step(model.loss, TrainConfig(), mesh((1, 4)),
+                                 state, batch_rows=8)
+            out["refused"][arch] = "ran"
+        except NotImplementedError as err:
+            out["refused"][arch] = str(err)
+    try:
+        launch.main(["--arch", "llama3_2_3b", "--reduced", "--device", "cpu",
+                     "--steps", "1", "--mesh", "pod"])
+        out["pod"] = "ran"
+    except ValueError as err:
+        out["pod"] = str(err)
+    return out
