@@ -219,7 +219,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  otherwise).  At 4064 tokens the prompt pipeline lowers to
                  the staged kernels (one fused_stage, two packers).  On
                  running out of memory it reruns at --batch 2 and says so.
-20. ssm_main    — mamba2_370m at full width and depth (48 layers): the
+20. ssm_main    — mamba2_370m at full width, 16 of 48 layers: the
                  launcher with its preset (AdamW, microbatch 4), --batch 8
                  --seq 1024 --steps 8 (lm_main's checks and readings), then
                  launch.serve.main at serve_main's sizes: the state's bytes
@@ -228,7 +228,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  the state read and written), one profiled train step and
                  one profiled decode step, and the teacher-forced check at
                  float32 compute on the same parameters (at bf16 the
-                 recurrence drifts from the chunked forward over 48 layers:
+                 recurrence drifts from the chunked forward over depth:
                  recorded, not asserted).
 21. vlm_main    — internvl2_2b at full width and depth (24 layers): the
                  launcher (text only, as the reference's launcher feeds it),
@@ -239,9 +239,9 @@ Phases, one JSON line each; any failure exits non-zero:
                  launch.serve.main --batch 4 --prompt-len 256 --max-new 32
                  (text only: the reference's prefill takes no patches) with
                  the teacher-forced check.
-22. hybrid_main — zamba2_2_7b at full width and depth (54 Mamba2 layers,
-                 one shared attention block applied after every 9, window
-                 4096): the launcher with its preset (AdamW, microbatch 4,
+22. hybrid_main — zamba2_2_7b at full width, 18 of 54 Mamba2 layers
+                 (one shared attention block applied after every 9: two
+                 applications; window 4096): the launcher with its preset (AdamW, microbatch 4,
                  full remat), --batch 8 --seq 1024 --steps 4 (two output
                  launches a batch), one profiled step; then
                  launch.serve.main --batch 4 --prompt-len 4096 --max-new
@@ -303,18 +303,46 @@ Phases, one JSON line each; any failure exits non-zero:
                  on both ranks and within MOE_FLIP_SHARE of one process's.
 28. dlrm_tp2   — DLRMConfig() (vocab 524288: 26 x 524288 x 128 float32
                  tables, 262144 rows a rank) fed by main's ETL
-                 (EtlJob(mesh=), B 65536), 16 steps on the (1, 2) mesh
+                 (EtlJob(mesh=), B 65536), 8 steps on the (1, 2) mesh
                  against one process: losses within DLRM_TP_RTOL; rows/s,
                  step ms, each rank's table bytes.
+29. dlrm_la_tp2 — the same ranks then run lookahead_main's path on their
+                 table shards: EtlJob(mesh=, embed_cache=) plans each
+                 rank's rows after place, each rank's EmbedCache holds the
+                 rows in its range (zero elsewhere), one stacked
+                 embedding_bag_cached launch a step on its shard, the
+                 lookups' parts summed; 16 steps against one process's
+                 lookahead path: losses within DLRM_TP_RTOL, the cache's
+                 counters (so the hit rate) equal on both ranks, 16
+                 embedding_bag_cached launches a rank, one profiled step.
+                 The parity phase holds the kernel on that shape too
+                 (``stacked_half_table``: rank 1's half of the tables,
+                 cold ids shifted into it, the rest outside).
+30. ssm_tp2    — tp_ranks2's method at mamba2_370m's full width (16 of 32
+                 heads of 64 and 64 of 128 state entries a rank), 8 of 48
+                 layers, its preset (microbatch 4), --batch 8 --seq 1024,
+                 4 steps.
+31. hybrid_tp2 — the same at zamba2_2_7b's full width, 18 of 54 layers
+                 (two applications of the shared block), its preset,
+                 --seq 512.
+32. encdec_tp2 — whisper_base at full width and depth (1,500 stub frames)
+                 on the (1, 2) mesh: the decoder's tokens from the LM token
+                 pipeline (448 a row), the frames from random_batch (no
+                 launcher feeds frames), shard_train_step, 4 steps against
+                 one process: losses within TP_LOSS_RTOL, the leaves held
+                 whole bit-equal across the ranks.
 
-Then the ``{"kernels": [...]}`` line (``launches_online_main``,
+Every phase line carries ``elapsed_s``, the seconds since the script
+started.  Then the ``{"kernels": [...]}`` line (``launches_online_main``,
 ``launches_multitenant_main``, ``launches_lm_main``, ``launches_moe_ckpt``,
 ``launches_moe_main``, ``launches_adafactor_main``, ``launches_serve_main``,
 ``launches_serve_moe``, ``launches_ssm_main``, ``launches_vlm_main``,
 ``launches_hybrid_main``, ``launches_encdec_main``, ``launches_dist_main``,
-``launches_dist_ranks2``, ``launches_tp_ranks2``, ``launches_ep_ranks2``
-and ``launches_dlrm_tp2`` (both ranks each) beside the kernels those
-phases ran), the nvidia-smi line, and last the
+``launches_dist_ranks2``, ``launches_tp_ranks2``, ``launches_ep_ranks2``,
+``launches_dlrm_tp2``, ``launches_dlrm_la_tp2``, ``launches_ssm_tp2``,
+``launches_hybrid_tp2`` and ``launches_encdec_tp2`` (both ranks each;
+``launches_<phase>_per_rank`` beside the ``*_tp2`` phases') beside the
+kernels those phases ran), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.
 
     python3 chip_smoke.py --wrappers DIR
@@ -370,7 +398,8 @@ DISTINCT_ROWS = 16384            # 425,984 distinct ids under capacity 524288
 CRITEO_VOCAB = 65536             # per-feature vocabularies of criteo*_group
 BYTE_COPY_COLS, BYTE_COPY_ROWS = 1023, 4096  # 2-row tiles, planes off 4 B
 # instances that never stand for a kernel in the kernels line
-EXTRA = ("criteo26_group", "criteo4_group", "criteo4_group:wide",
+EXTRA = ("stacked_half_table", "criteo26_group", "criteo4_group",
+         "criteo4_group:wide",
          "out:float16", "bag:bfloat16", "fill_only", "pack:26x1",
          "pack:128x1")
 ONLINE_STALENESS_S = 0.5  # online_main's shedder: event age at delivery
@@ -409,6 +438,11 @@ HYBRID_ARCH, HYBRID_STEPS = "zamba2_2_7b", 4
 # 4096 + 128 = 33 SSD chunks of 128 (the teacher-forced forward runs whole
 # chunks); every decode step is past the 4096-token window
 HYBRID_SERVE_BATCH, HYBRID_PROMPT, HYBRID_NEW = 4, 4096, 128
+# the script's time limit (1,200 s; 1,018 s with ssm_main and hybrid_main
+# cut, dlrm_tp2 at 16 steps and hybrid_tp2 at seq 1,024): ssm_main and
+# hybrid_main train and serve a depth cut (at full depth they took 146 s
+# and 179 s), the hybrid keeping two applications of its shared block
+SSM_MAIN_LAYERS, HYBRID_MAIN_LAYERS = 16, 18
 ENCDEC_ARCH, ENCDEC_STEPS = "whisper_base", 4
 ENCDEC_SEQ = 448          # Whisper's decoder context
 ENCDEC_SERVE_BATCH, ENCDEC_PROMPT, ENCDEC_NEW = 8, 64, 128
@@ -421,7 +455,14 @@ DIST2_ARCH, DIST2_LAYERS, DIST2_STEPS = "llama3_2_3b", 2, 4
 # the "model" axis: two gloo ranks sharing the card on a (1, 2) mesh
 TP_ARCH, TP_LAYERS, TP_STEPS = "llama3_2_3b", 2, 4       # tp_ranks2
 EP_ARCH, EP_LAYERS, EP_STEPS = "mixtral_8x7b", 1, 4      # ep_ranks2
-DLRM_TP_STEPS, DLRM_TP_FIT = 16, 4                      # dlrm_tp2
+DLRM_TP_STEPS, DLRM_TP_FIT = 8, 4                       # dlrm_tp2
+DLRM_LA_TP_STEPS = 16                                   # dlrm_la_tp2
+# the model axis for the SSM, hybrid and enc-dec families: mamba2_370m at
+# 8 of 48 layers, zamba2_2_7b at 18 of 54 (two applications of the shared
+# block), whisper_base whole
+SSM_TP_LAYERS, SSM_TP_STEPS = 8, 4                      # ssm_tp2
+HYBRID_TP_LAYERS, HYBRID_TP_STEPS, HYBRID_TP_SEQ = 18, 4, 512  # hybrid_tp2
+ENCDEC_TP_STEPS = 4                                     # encdec_tp2
 # two model ranks vs one process: bf16 compute sums the row-parallel
 # products' halves in another order.  DLRM is float32, but its column
 # halves and their summed input gradients round differently from the
@@ -2001,8 +2042,8 @@ def add_launches(*counts) -> dict:
 def ssm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
              steps: int = LM_STEPS, prompt: int = SERVE_PROMPT,
              new: int = SERVE_NEW, check: int = SERVE_CHECK,
-             extra_args=()) -> dict:
-    """``mamba2_370m`` at full width and depth (48 layers): the launcher
+             extra_args=(), layers: int = SSM_MAIN_LAYERS) -> dict:
+    """``mamba2_370m`` at full width, ``layers`` of 48 deep: the launcher
     with its preset (AdamW, microbatch 4), then ``launch.serve.main``
     (greedy) with ``teacher_forced_check`` at float32 compute on the same
     parameters (the bf16 one is a reading); the decode state's bytes
@@ -2014,12 +2055,13 @@ def ssm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
     from repro_torch.models import ssm as ssm_lib
 
     reduced = "--reduced" in extra_args
-    cfg = get_reduced(SSM_ARCH) if reduced else get_config(SSM_ARCH)
+    base = get_reduced(SSM_ARCH) if reduced else get_config(SSM_ARCH)
+    cfg = dataclasses.replace(base, n_layers=min(layers, base.n_layers))
     tcfg = launch.train_preset(SSM_ARCH)
     summary = run_launcher(
         ["--arch", SSM_ARCH, "--batch", str(batch), "--seq", str(seq),
          "--steps", str(steps), "--etl-backend", "cuda",
-         "--max-restarts", "0", *extra_args])
+         "--max-restarts", "0", *extra_args], cfg=cfg)
     state = summary["state"]
     if len(state.model.blocks) != cfg.n_layers:
         raise AssertionError("ssm_main: layers")
@@ -2034,7 +2076,7 @@ def ssm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
     free_memory()
     summary = run_serve(["--arch", SSM_ARCH, "--batch", str(batch),
                          "--prompt-len", str(prompt), "--max-new", str(new),
-                         *extra_args])
+                         *extra_args], cfg=cfg)
     serve_launches = check_prompts("ssm_main serve", summary, expect)
     module = summary["module"]
     # bf16 decode drifts from the chunked forward with depth and steps (a
@@ -2059,7 +2101,7 @@ def ssm_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
     pbytes = param_bytes(module)
     profile = profile_step(lambda: decode_once(summary["model"], module, tf))
     out = {"arch": SSM_ARCH, "reduced": reduced, "layers": cfg.n_layers,
-           "train": train,
+           "layers_full": base.n_layers, "train": train,
            "serve": {**serve_readings(summary, pbytes + 2 * state_bytes),
                      "param_bytes": pbytes, "state_bytes": state_bytes,
                      "state_formula_bytes": formula,
@@ -2167,9 +2209,11 @@ def hybrid_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
                 steps: int = HYBRID_STEPS,
                 serve_batch: int = HYBRID_SERVE_BATCH,
                 prompt: int = HYBRID_PROMPT, new: int = HYBRID_NEW,
-                check: int = SERVE_CHECK, extra_args=()) -> dict:
-    """``zamba2_2_7b`` at full width and depth (54 Mamba2 layers, one shared
-    attention block applied after every 9): the launcher with its preset
+                check: int = SERVE_CHECK, extra_args=(),
+                layers: int = HYBRID_MAIN_LAYERS) -> dict:
+    """``zamba2_2_7b`` at full width, ``layers`` of its 54 Mamba2 layers
+    (one shared attention block applied after every 9): the launcher with
+    its preset
     (AdamW, microbatch 4, full remat), then ``launch.serve.main`` (greedy)
     with a prompt of ``prompt`` tokens (the staged prompt kernels at 4096)
     and ``new`` decode steps, every one past the 4096-token ring's wrap;
@@ -2184,12 +2228,13 @@ def hybrid_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
     from repro_torch.models import transformer as ttr
 
     reduced = "--reduced" in extra_args
-    cfg = get_reduced(HYBRID_ARCH) if reduced else get_config(HYBRID_ARCH)
+    base = get_reduced(HYBRID_ARCH) if reduced else get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(base, n_layers=min(layers, base.n_layers))
     tcfg = launch.train_preset(HYBRID_ARCH)
     summary = run_launcher(
         ["--arch", HYBRID_ARCH, "--batch", str(batch), "--seq", str(seq),
          "--steps", str(steps), "--etl-backend", "cuda",
-         "--max-restarts", "0", *extra_args])
+         "--max-restarts", "0", *extra_args], cfg=cfg)
     state = summary["state"]
     if not isinstance(state.model, hybrid.Hybrid) or \
             len(state.model.blocks) != cfg.n_layers:
@@ -2207,7 +2252,7 @@ def hybrid_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
     free_memory()
     summary = run_serve(["--arch", HYBRID_ARCH, "--batch", str(serve_batch),
                          "--prompt-len", str(prompt), "--max-new", str(new),
-                         *extra_args])
+                         *extra_args], cfg=cfg)
     serve_launches = check_prompts("hybrid_main serve", summary, expect)
     module = summary["module"]
     # as ssm_main's: the bf16 recurrence drifts from the chunked forward
@@ -2238,7 +2283,8 @@ def hybrid_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
     pbytes = param_bytes(module)
     profile = profile_step(lambda: decode_once(summary["model"], module, tf))
     return {"arch": HYBRID_ARCH, "reduced": reduced,
-            "layers": cfg.n_layers, "train": train,
+            "layers": cfg.n_layers, "layers_full": base.n_layers,
+            "train": train,
             "serve": {**serve_readings(summary, pbytes + 2 * ssm_bytes
                                        + ring_bytes),
                       "param_bytes": pbytes, "state_bytes": state_bytes,
@@ -2884,16 +2930,30 @@ def model_axis_phase(name: str, arch: str, layers: int, steps: int,
             "ranks": ranks}
 
 
-def dlrm_run(steps: int, n_fit: int, mesh=None) -> dict:
+def dlrm_la_config():
+    """lookahead_main's cache: 4096 resident and 2048 staging rows a
+    feature, a window of 4 batches, refreshed each batch (exact under
+    training)."""
+    from repro_torch.etl_runtime import lookahead as la
+    return la.EmbedCacheConfig(rows=4096, window=4, stage_max=2048,
+                               tables=tuple(range(26)), refresh=True,
+                               row_bytes=4 * 128)
+
+
+def dlrm_run(steps: int, n_fit: int, mesh=None, cache_cfg=None) -> dict:
     """``DLRMConfig()`` (vocab 524288) trained ``steps`` steps from main's
     ETL (Pipeline III, B rows a batch, fitted on ``n_fit`` chunks), on
     ``mesh`` through ``shard_train_step`` (``EtlJob(mesh=)``) or in one
-    process: losses, step ms, rows/s, table bytes, launches, peak GB."""
+    process, through the lookahead cache when ``cache_cfg`` is given (the
+    executor plans each rank's rows after place; an ``EmbedCache`` on each
+    rank holds its table rows): losses, step ms, rows/s, table bytes,
+    launches, peak GB, the cache's counters and one profiled step."""
     import torch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.pipeline import paper_pipeline
     from repro_torch.data.source import Source
     from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.etl_runtime import lookahead as la
     from repro_torch.kernels import dataflow as df
     from repro_torch.models import dlrm
     from repro_torch.session import EtlJob
@@ -2902,7 +2962,7 @@ def dlrm_run(steps: int, n_fit: int, mesh=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     job = EtlJob(paper_pipeline("III", batch_size=B),
                  Source.synth("I", rows=steps * B, batch_size=B, seed=11),
-                 backend="cuda", mesh=mesh,
+                 backend="cuda", mesh=mesh, embed_cache=cache_cfg,
                  fit_source=Source.synth("I", rows=n_fit * B, batch_size=B))
     df.reset_launch_counts()
     job.fit()
@@ -2916,7 +2976,10 @@ def dlrm_run(steps: int, n_fit: int, mesh=None) -> dict:
     else:
         step, state = ttl.shard_train_step(dlrm.loss_fn, tcfg, mesh, state,
                                            batch_rows=B)
+    cache = None if cache_cfg is None else la.EmbedCache(
+        cache_cfg, cfg.n_sparse, cfg.d_emb)
     losses, ms = [], []
+    last: dict = {}
 
     def timed(st, batch):
         torch.cuda.synchronize()
@@ -2924,6 +2987,7 @@ def dlrm_run(steps: int, n_fit: int, mesh=None) -> dict:
         st, m = step(st, batch)
         losses.append(float(m["loss"]))
         ms.append((time.perf_counter() - t0) * 1e3)
+        last["batch"] = batch
         return st, m
 
     torch.cuda.reset_peak_memory_stats()
@@ -2933,9 +2997,12 @@ def dlrm_run(steps: int, n_fit: int, mesh=None) -> dict:
     with job.batches() as ex:
         state = ttl.train_loop(state, timed, ex,
                                ttl.LoopConfig(total_steps=steps,
-                                              log_every=0))
+                                              log_every=0),
+                               embed_cache=cache)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = dict(df.LAUNCHES)
+    traffic = traffic_per_step(steps)
     if state.step != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"dlrm: {state.step} steps, losses {losses}")
     tables = state.model.tables
@@ -2944,56 +3011,63 @@ def dlrm_run(steps: int, n_fit: int, mesh=None) -> dict:
            "rows_per_s": steps * B / wall, "wall_seconds": wall,
            "table_bytes": tables.numel() * tables.element_size(),
            "table_shape": list(tables.shape),
-           "fit_launches": fit_launches, "launches": dict(df.LAUNCHES),
+           "fit_launches": fit_launches, "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "collectives_per_step": traffic_per_step(steps)}
+           "collectives_per_step": traffic}
+    if cache_cfg is not None:
+        stats = job.stats()
+        out["cache"] = stats.cache.as_dict()
+        out["lookahead_share_of_wall"] = \
+            stats.stages["lookahead"].busy_s / wall
+        # one more step on the last batch (its plan applied already)
+        out["profile_one_more_step"] = {
+            k: v for k, v in profile_step(
+                lambda: step(state, last["batch"])).items()
+            if k != "top_ops"}
     if mesh is not None:
         out["leaves"] = leaf_digests(state.model)
         out["device"] = torch.cuda.get_device_name(0)
-    del state, job
+    del state, job, cache, last
     torch.cuda.empty_cache()
     return out
 
 
-def dlrm_tp2_rank(steps: int, n_fit: int) -> dict:
-    """``dlrm_tp2``'s rank: ``dlrm_run`` on ``make_host_mesh(model_axis=2)``
-    (the gloo world ``rank_entry`` joined)."""
+def dlrm_tp2_rank(steps: int, n_fit: int, la_steps: int) -> dict:
+    """``dlrm_tp2`` / ``dlrm_la_tp2``'s rank: ``dlrm_run`` on
+    ``make_host_mesh(model_axis=2)`` (the gloo world ``rank_entry``
+    joined), uncached, then ``la_steps`` steps through the lookahead
+    cache."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh(model_axis=2)
     shd.set_active_mesh(mesh)
-    return dlrm_run(steps, n_fit, mesh=mesh)
+    return {"plain": dlrm_run(steps, n_fit, mesh=mesh),
+            "lookahead": dlrm_run(la_steps, n_fit, mesh=mesh,
+                                  cache_cfg=dlrm_la_config())}
 
 
-def dlrm_tp2(expect, steps: int = DLRM_TP_STEPS,
-             n_fit: int = DLRM_TP_FIT) -> dict:
-    """``DLRMConfig()`` on two ranks sharing the card (gloo over CUDA
-    tensors, a (1, 2) mesh): each rank's tables are its 262144 rows of
-    every feature, the MLPs' output features split where 2 divides them;
-    fed by main's ETL through ``EtlJob(mesh=)``; against one process on the
-    same config and batches: losses within ``DLRM_TP_RTOL``, the leaves
-    held whole bit-equal across the ranks."""
-    alone = dlrm_run(steps, n_fit)
-    free_memory()
-    ranks = run_ranks(dlrm_tp2_rank, 2, "gloo", (steps, n_fit),
-                      timeout=900)
+def dlrm_ranks_phase(name: str, expect, alone: dict, ranks: list,
+                     steps: int, n_fit: int, apply: dict) -> dict:
+    """One DLRM model-axis phase's checks: each rank's launches (the fit's
+    and ``apply``, the training run's), losses within ``DLRM_TP_RTOL`` of
+    ``alone``'s (one process), the leaves held whole bit-equal across the
+    ranks and the tables sharded."""
     want = alone["losses"]
     diff = 0.0
     for r, out in enumerate(ranks):
         expect(out["fit_launches"], {"fit_dataflow": n_fit},
-               f"dlrm_tp2 rank {r} fit")
-        expect(out["launches"], {"group_dataflow": steps},
-               f"dlrm_tp2 rank {r} apply")
+               f"{name} rank {r} fit")
+        expect(out["launches"], apply, f"{name} rank {r} apply")
         out["loss_rel_diff"] = [abs(a - b) / abs(b)
                                 for a, b in zip(out["losses"], want)]
         diff = max([diff] + out["loss_rel_diff"])
-    if diff > DLRM_TP_RTOL:
-        raise AssertionError(f"dlrm_tp2: losses {ranks[0]['losses']} vs "
+    if diff > DLRM_TP_RTOL or len(ranks[0]["losses"]) != steps:
+        raise AssertionError(f"{name}: losses {ranks[0]['losses']} vs "
                              f"{want} in one process")
     a, b = ranks[0]["leaves"], ranks[1]["leaves"]
     if a["whole"] != b["whole"] or "tables" not in a["shards"]:
-        raise AssertionError(f"dlrm_tp2: leaves {a} {b}")
+        raise AssertionError(f"{name}: leaves {a} {b}")
     for out in ranks:
         out["leaves"] = {"whole": len(out["leaves"]["whole"]),
                          "sharded": out["leaves"]["shards"]}
@@ -3003,11 +3077,175 @@ def dlrm_tp2(expect, steps: int = DLRM_TP_STEPS,
             "loss_rtol": DLRM_TP_RTOL,
             "one_process": {k: alone[k] for k in (
                 "step_ms_median_2_on", "rows_per_s", "table_bytes",
-                "peak_mem_gb")},
+                "peak_mem_gb") + (("cache",) if "cache" in alone else ())},
             "leaves_whole_bit_equal_across_ranks": True,
             "launches": add_launches(
                 *(add_launches(o["fit_launches"], o["launches"])
                   for o in ranks)),
+            "launches_per_rank": [add_launches(o["fit_launches"],
+                                               o["launches"])
+                                  for o in ranks],
+            "ranks": ranks}
+
+
+def dlrm_tp2(expect, steps: int = DLRM_TP_STEPS,
+             n_fit: int = DLRM_TP_FIT,
+             la_steps: int = DLRM_LA_TP_STEPS) -> tuple:
+    """``DLRMConfig()`` on two ranks sharing the card (gloo over CUDA
+    tensors, a (1, 2) mesh): each rank's tables are its 262144 rows of
+    every feature, the MLPs' output features split where 2 divides them;
+    fed by main's ETL through ``EtlJob(mesh=)``; against one process on the
+    same config and batches: losses within ``DLRM_TP_RTOL``, the leaves
+    held whole bit-equal across the ranks.  Then ``dlrm_la_tp2`` in the
+    same ranks: the lookahead path (``dlrm_la_config``, each rank's cache
+    holding its rows, one stacked ``embedding_bag_cached`` launch a step on
+    its table shard), against one process's lookahead path, the cache's
+    counters (the plans) equal on both ranks.  Returns both phases."""
+    alone = dlrm_run(steps, n_fit)
+    free_memory()
+    alone_la = dlrm_run(la_steps, n_fit, cache_cfg=dlrm_la_config())
+    free_memory()
+    ranks = run_ranks(dlrm_tp2_rank, 2, "gloo", (steps, n_fit, la_steps),
+                      timeout=900)
+    plain = dlrm_ranks_phase("dlrm_tp2", expect, alone,
+                             [o["plain"] for o in ranks], steps, n_fit,
+                             {"group_dataflow": steps})
+    la_ranks = [o["lookahead"] for o in ranks]
+    look = dlrm_ranks_phase("dlrm_la_tp2", expect, alone_la, la_ranks,
+                            la_steps, n_fit,
+                            {"group_dataflow": la_steps,
+                             "embedding_bag_cached": la_steps})
+    if la_ranks[0]["cache"] != la_ranks[1]["cache"] or \
+            min(la_ranks[0]["cache"][k] for k in (
+                "hits", "staged", "overflow_cold")) <= 0:
+        raise AssertionError(f"dlrm_la_tp2: the ranks' caches "
+                             f"{[o['cache'] for o in la_ranks]}")
+    look["hit_rate_equal_across_ranks"] = True
+    look["cache_config"] = dataclasses.asdict(dlrm_la_config())
+    return plain, look
+
+
+def encdec_run(steps: int, batch: int, seq: int, mesh=None,
+               reduced: bool = False) -> dict:
+    """``whisper_base`` (its preset: AdamW, microbatch 1) trained ``steps``
+    steps, on ``mesh`` through ``shard_train_step`` or in one process: the
+    decoder's tokens and labels (``seq`` a row) from the LM token pipeline
+    on the cuda backend (``launch.train.make_job``), the encoder's frames
+    from ``random_batch`` (no launcher feeds frames).  Losses, gradient
+    norms, step ms, peak GB, the ETL's launches and those its lowering
+    means, the model axis's collectives a step, one more step profiled,
+    and (on a mesh) the digests of the leaves held whole."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import dataflow as df
+    from repro_torch.launch import train as launch
+    from repro_torch.models import api
+    from repro_torch.training import train_loop as ttl
+
+    cfg = get_reduced(ENCDEC_ARCH) if reduced else get_config(ENCDEC_ARCH)
+    tcfg = launch.train_preset(ENCDEC_ARCH)
+    model = api.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    module = model.init(seed=0)
+    dev = next(module.parameters()).device
+    state = ttl.TrainState.create(module, tcfg)
+    if mesh is None:
+        step = ttl.make_train_step(model.loss, tcfg)
+    else:
+        step, state = ttl.shard_train_step(model.loss, tcfg, mesh, state,
+                                           batch_rows=batch)
+    shape = ShapeCfg("encdec", seq, batch, "train")
+    job = launch.make_job(cfg, batch, seq, steps + 1, backend="cuda",
+                          device=dev)
+    df.reset_launch_counts()
+    with job.batches() as ex:
+        batches = [dict({k: v.clone() for k, v in b.items()},
+                        frames=api.random_batch(cfg, shape, seed=i,
+                                                device=dev)["frames"])
+                   for i, b in zip(range(steps + 1), ex)]
+    launches = dict(df.LAUNCHES)
+    want = lm_launches(job.compiled, job.stats().stages["transform"].items)
+    tp.reset_traffic()
+    losses, norms, ms = [], [], []
+    for b in batches[:steps]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    traffic = traffic_per_step(steps)
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"encdec: losses {losses}, norms {norms}")
+    profile = profile_step(lambda: step(state, batches[-1]))
+    out = {"losses": losses, "grad_norms": norms, "step_ms": ms,
+           "step_ms_median_2_on": sorted(ms[1:])[len(ms[1:]) // 2],
+           "tok_per_s": steps * batch * seq / (sum(ms) / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "collectives_per_step": traffic,
+           "profile_one_more_step": {k: v for k, v in profile.items()
+                                     if k != "top_ops"},
+           "launches": launches, "launches_want": want}
+    if mesh is not None:
+        out["leaves"] = leaf_digests(state.model)
+        out["device"] = torch.cuda.get_device_name(0)
+    del state, module, batches, job
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_tp2_rank(steps: int, batch: int, seq: int,
+                    reduced: bool) -> dict:
+    """``encdec_tp2``'s rank: ``encdec_run`` on
+    ``make_host_mesh(model_axis=2)``."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(model_axis=2)
+    shd.set_active_mesh(mesh)
+    return encdec_run(steps, batch, seq, mesh=mesh, reduced=reduced)
+
+
+def encdec_tp2(expect, steps: int = ENCDEC_TP_STEPS, batch: int = LM_BATCH,
+               seq: int = ENCDEC_SEQ, reduced: bool = False) -> dict:
+    """``whisper_base`` at full width and depth (1,500 frames) on two ranks
+    sharing the card (gloo over CUDA tensors, a (1, 2) mesh: 4 of 8 heads
+    of every self- and cross-attention, 1,024 of 2,048 MLP columns, 26,112
+    of 52,224 tied vocabulary rows a rank; the encoder's output enters each
+    cross-attention through ``copy_in``), against the same run in one
+    process: losses within ``TP_LOSS_RTOL``, the leaves held whole
+    bit-equal across the ranks."""
+    alone = encdec_run(steps, batch, seq, reduced=reduced)
+    free_memory()
+    ranks = run_ranks(encdec_tp2_rank, 2, "gloo",
+                      (steps, batch, seq, reduced), timeout=600)
+    diff = max(abs(a - b) / abs(b) for out in ranks
+               for a, b in zip(out["losses"], alone["losses"]))
+    if diff > TP_LOSS_RTOL or len(ranks[0]["losses"]) != steps:
+        raise AssertionError(f"encdec_tp2: losses {ranks[0]['losses']} vs "
+                             f"{alone['losses']} in one process")
+    a, b = ranks[0]["leaves"], ranks[1]["leaves"]
+    if a["whole"] != b["whole"] or not a["shards"] or \
+            a["shards"] != b["shards"]:
+        raise AssertionError(f"encdec_tp2: leaves held whole differ across "
+                             f"the ranks, or none is sharded: {a} {b}")
+    expect(alone["launches"], alone["launches_want"], "encdec_tp2 alone")
+    for r, out in enumerate(ranks):
+        expect(out["launches"], out["launches_want"], f"encdec_tp2 rank {r}")
+    for out in ranks:
+        out["leaves"] = {"whole": len(out["leaves"]["whole"]),
+                         "sharded": out["leaves"]["shards"]}
+    return {"arch": ENCDEC_ARCH, "reduced": reduced, "world": 2,
+            "mesh": [1, 2], "backend": "gloo", "batch": batch, "seq": seq,
+            "losses_one_process": alone["losses"],
+            "loss_max_rel_diff": diff, "loss_rtol": TP_LOSS_RTOL,
+            "one_process": {k: alone[k] for k in (
+                "step_ms_median_2_on", "peak_mem_gb", "tok_per_s")},
+            "leaves_whole_bit_equal_across_ranks": True,
+            "launches": add_launches(*(o["launches"] for o in ranks)),
+            "launches_per_rank": [o["launches"] for o in ranks],
             "ranks": ranks}
 
 
@@ -3219,7 +3457,12 @@ def multitenant_main(expect, rows: int = 0,
                 solo["aggregate_rows_per_s"]}
 
 
+_START = time.monotonic()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.monotonic() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -3506,6 +3749,12 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     all_tables = torch.randn(26, DLRM_VOCAB, dim, generator=gen, device="cuda")
     planned = la.EmbedCache(la_cfg, 26, dim).advance(all_tables,
                                                      plan.as_payload())
+    half_tables = all_tables[:, DLRM_TP_VOCAB // 2:DLRM_TP_VOCAB].contiguous()
+    outside = int(((plan.slot < 0) & (plan.cold >= 0)
+                   & (plan.cold < DLRM_TP_VOCAB // 2)).sum())
+    if outside <= 0:
+        raise AssertionError("stacked_half_table: no cold id outside the "
+                             "half")
     # the feature with the most table fall-through: every branch runs
     feat = int(np.argmax(((plan.slot < 0) & (plan.cold >= 0)).sum(axis=0)))
     bag_plan = {"feature": feat,
@@ -3544,7 +3793,12 @@ def main(root: str = HERE, time_only: bool = False) -> int:
           planned["emb_slot"][:, feat:feat + 1],
           planned["emb_cold"][:, feat:feat + 1])),
         ("embedding_bag_cached", "cache_only_staged",
-         kops.embedding_bag_cached, (table, staged_cache, staged_slot))]
+         kops.embedding_bag_cached, (table, staged_cache, staged_slot)),
+        # dlrm_la_tp2's shape: rank 1's half of a 524288-row table, its
+        # cold ids shifted into its rows (the other half's fall outside)
+        ("embedding_bag_cached", "stacked_half_table", stacked,
+         (half_tables, planned["emb_cache"], planned["emb_slot"],
+          planned["emb_cold"] - DLRM_TP_VOCAB // 2))]
     if time_only:
         look_args = (all_tables, planned["emb_cache"], planned["emb_slot"],
                      planned["emb_cold"], host_sparse[:, :26].long().to("cuda"))
@@ -3652,7 +3906,7 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     parity_launches = dict(df.LAUNCHES)
     del (table, staged_cache, staged_slot, ids, all_tables, planned,
          cached_out, uncached_out, chosen, st_args, st_got, tabs, cache_,
-         slot_, cold_)
+         slot_, cold_, half_tables)
     torch.cuda.empty_cache()
     for k in df.LAUNCHES:
         if k not in kernels:
@@ -3937,8 +4191,22 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                            expect, LM_BATCH, LM_SEQ)
     emit({"phase": "ep_ranks2", **ep2})
     free_memory()
-    dtp2 = dlrm_tp2(expect)
+    dtp2, dla2 = dlrm_tp2(expect)
     emit({"phase": "dlrm_tp2", **dtp2})
+    emit({"phase": "dlrm_la_tp2", **dla2})
+
+    # ---- the model axis for the SSM, hybrid and enc-dec families --------
+    free_memory()
+    stp2 = model_axis_phase("ssm_tp2", SSM_ARCH, SSM_TP_LAYERS,
+                            SSM_TP_STEPS, expect, LM_BATCH, LM_SEQ)
+    emit({"phase": "ssm_tp2", **stp2})
+    free_memory()
+    htp2 = model_axis_phase("hybrid_tp2", HYBRID_ARCH, HYBRID_TP_LAYERS,
+                            HYBRID_TP_STEPS, expect, LM_BATCH, HYBRID_TP_SEQ)
+    emit({"phase": "hybrid_tp2", **htp2})
+    free_memory()
+    etp2 = encdec_tp2(expect)
+    emit({"phase": "encdec_tp2", **etp2})
 
     path_launches = {"group_dataflow": main["launches"]["group_dataflow"],
                      "fit_dataflow": main["fit_launches"]["fit_dataflow"],
@@ -3978,9 +4246,16 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                           ("hybrid_main", hyb), ("encdec_main", ed),
                           ("dist_main", dist1), ("dist_ranks2", dist2),
                           ("tp_ranks2", tp2), ("ep_ranks2", ep2),
-                          ("dlrm_tp2", dtp2)):
+                          ("dlrm_tp2", dtp2), ("dlrm_la_tp2", dla2),
+                          ("ssm_tp2", stp2), ("hybrid_tp2", htp2),
+                          ("encdec_tp2", etp2)):
             if ph["launches"].get(name):
                 out[-1][f"launches_{label}"] = ph["launches"][name]
+            per_rank = [c.get(name, 0) for c in ph.get(
+                "launches_per_rank",
+                [o["launches"] for o in ph.get("ranks", ())])]
+            if label.endswith("_tp2") and any(per_rank):
+                out[-1][f"launches_{label}_per_rank"] = per_rank
     emit({"kernels": out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

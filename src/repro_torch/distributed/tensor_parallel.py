@@ -24,6 +24,9 @@ the model group):
   of a row-parallel product (or a vocabulary- or expert-parallel lookup).
 - ``gather``: all-gather forward, slice backward: a sharded result that a
   replicated computation consumes.
+- ``gather_to_shards``: all-gather forward, reduce-scatter backward: a
+  sharded result that every rank's shard of a computation reads whole
+  (the SSM's B and C, split on the state dim, read by each rank's heads).
 - ``scatter``: slice forward, all-gather backward.
 - ``reduce_scatter``: reduce-scatter forward, all-gather backward (a
   sequence-parallel block's output).
@@ -180,6 +183,17 @@ class _Gather(torch.autograd.Function):
         return part(g, ctx.dim, ctx.ax).contiguous(), None, None
 
 
+class _GatherToShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return all_gather(x, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.ax), None, None
+
+
 class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, ax):
@@ -214,8 +228,13 @@ def gather(x, dim: int, ax: ModelAxis):
     return _Gather.apply(x, dim % x.dim(), ax)
 
 
+def gather_to_shards(x, dim: int, ax: ModelAxis):
+    return _GatherToShards.apply(x, dim % x.dim(), ax)
+
+
 def scatter(x, dim: int, ax: ModelAxis):
     return _Scatter.apply(x, dim % x.dim(), ax)
+
 
 
 def reduce_scatter(x, dim: int, ax: ModelAxis):

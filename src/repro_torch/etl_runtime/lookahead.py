@@ -54,6 +54,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.etl_runtime import transfer as transfer_lib
 from repro_torch.etl_runtime.clock import SYSTEM_CLOCK
 from repro_torch.kernels.backend import resolve_device
@@ -433,6 +434,12 @@ class EmbedCache:
     package returns a new array): a batch's ``emb_cache`` is valid until
     the next ``advance``.  Batches carrying plans must be advanced in
     delivery order — the planner's host mirror assumes every admit executes.
+
+    On a table row-sharded over the model axis ``tables`` is this rank's
+    rows (``[T, vocab / m, dim]``): each rank's ``ext`` holds the rows in
+    its range and zero in every other slot (``_apply``), and the model
+    ranks of one data coordinate, which receive the same rows, apply the
+    same plan.
     """
 
     def __init__(self, cfg: EmbedCacheConfig, n_tables: int, dim: int, *,
@@ -462,23 +469,41 @@ class EmbedCache:
 
     def _apply(self, tables: torch.Tensor, admit_slots: np.ndarray,
                admit_rows: np.ndarray, stage_rows: np.ndarray) -> None:
+        """The plan's admits and staging from ``tables``: the whole stacked
+        tables, or this rank's rows of them where they are sharded over the
+        model axis (``tp.shard_of`` names dim 1): then only the rows in the
+        rank's range are copied, and every other admitted or staged slot is
+        zeroed, so the ranks' caches sum to the whole cache."""
         n_t, n_ext, dim = self.ext.shape
         vocab = tables.shape[1]
+        d, ax = tp.shard_of(tables)
+        first = ax.rank * vocab if d == 1 else 0
         t_of, j = np.nonzero(admit_slots >= 0)
-        ids = {"admit_src": t_of * vocab + np.clip(admit_rows[t_of, j], 0,
-                                                   None),
+        # a -1 row reads (global) row 0, as the reference's clip(r, 0) does
+        admit = np.clip(admit_rows[t_of, j], 0, None) - first
+        stage = np.clip(stage_rows, 0, None).reshape(-1) - first
+        stage_t = np.repeat(np.arange(n_t), stage_rows.shape[1])
+        ids = {"admit_src": t_of * vocab + np.clip(admit, 0, vocab - 1),
                "admit_dst": t_of * n_ext + admit_slots[t_of, j],
-               "stage_src": (np.arange(n_t)[:, None] * vocab
-                             + np.clip(stage_rows, 0, None)).reshape(-1)}
+               "stage_src": stage_t * vocab + np.clip(stage, 0, vocab - 1)}
+        for k, r in (("admit_out", admit), ("stage_out", stage)):
+            out = np.flatnonzero((r < 0) | (r >= vocab))
+            if len(out):  # rows another rank holds
+                ids[k] = out
         ids = transfer_lib.to_device(
             {k: v.astype(np.int64) for k, v in ids.items()}, self.ext.device)
         with torch.no_grad():
             flat = tables.detach().reshape(-1, dim)
+
+            def rows(src, out):
+                vals = flat.index_select(0, ids[src])
+                return vals.index_fill_(0, ids[out], 0) if out in ids \
+                    else vals
             if len(t_of):
                 self.ext.view(-1, dim).index_copy_(
-                    0, ids["admit_dst"], flat.index_select(0, ids["admit_src"]))
-            self.ext[:, self.cfg.rows:, :] = flat.index_select(
-                0, ids["stage_src"]).view(n_t, -1, dim)
+                    0, ids["admit_dst"], rows("admit_src", "admit_out"))
+            self.ext[:, self.cfg.rows:, :] = rows(
+                "stage_src", "stage_out").view(n_t, -1, dim)
 
     def advance(self, tables: torch.Tensor, batch: dict) -> dict:
         if PLAN_KEYS[0] not in batch:

@@ -22,7 +22,9 @@ package, so the Prometheus export (``etl_runtime/metrics.py``) is too.
 - **order** (``OrderingPolicy.bucket_by_length`` only) buffers up to
   ``reorder_window`` packed batches and emits them by ascending length key.
 - **place** applies an optional placement hook (identity by default: the
-  batch is already on the trainer's device).
+  batch is already on the trainer's device).  A CUDA payload's hook runs on
+  the place thread's stream after the transform's event, and an event
+  recorded after the hook replaces it.
 - **lookahead** (``lookahead=EmbedCacheConfig(...)`` only) windows W placed
   batches, plans the embedding cache's admits and staging on the host, and
   annotates each delivered batch with its plan (``etl_runtime/lookahead.py``).
@@ -773,7 +775,18 @@ class StreamingExecutor:
             return replace(env, payload=payload, event=event)
 
         def place_fn(env: _Envelope) -> _Envelope:
-            return replace(env, payload=self.place(env.payload))
+            if env.event is None:
+                return replace(env, payload=self.place(env.payload))
+            # the hook reads what the transform stream wrote (put_packed
+            # copies a rank's rows): it runs on this thread's stream after
+            # the transform's event, and the stages after it wait on an
+            # event recorded after the hook
+            with torch.cuda.device(device):
+                payload = self.place(transfer_lib.receive(env.payload,
+                                                          env.event))
+                event = torch.cuda.Event()
+                event.record()
+            return replace(env, payload=payload, event=event)
 
         self._stages = [
             _Stage(self.stats.stages["transform"], transform_fn,

@@ -15,7 +15,9 @@ all features resolve through one launch of the two-level
 ``embedding_bag_cached`` kernel, hot rows from the cache and cold rows from
 the table, written as the ``(B, F, d)`` embeddings, and the backward
 scatter-adds into the tables at the original ids, so the gradient is the
-uncached one bit for bit.
+uncached one bit for bit.  On a "model" mesh axis the tables are
+row-sharded (rank r holds rows ``[r V/m, (r+1) V/m)`` of every feature)
+and both lookups sum the ranks' parts.
 
 ``params_from_jax`` maps the JAX package's parameter pytree (as numpy
 arrays) to this module's ``state_dict``: JAX's ``x @ w`` stores ``w`` as
@@ -128,6 +130,22 @@ class DLRM(nn.Module):
         return tp.reduce_out(torch.where(mine[..., None], emb, torch.zeros(
             (), dtype=emb.dtype, device=emb.device)), ax)
 
+    def _cached_lookup(self, cache, slot, cold, sparse):
+        """The lookahead path's (B, F, d) embeddings.  On a table whose rows
+        are sharded over the model axis, each rank's cache holds the rows
+        in its range (zero elsewhere, ``EmbedCache``), its cold ids and the
+        gradient's ids are shifted into its rows (an id outside them reads
+        zero and takes no gradient), and the ranks' parts are summed: one
+        rank contributes each (b, f)'s row, so the sum is exact."""
+        rows = self.tables.shape[1]
+        if not tp.split(rows, self.cfg.vocab_size):
+            return cached_embedding_lookup(self.tables, cache, slot, cold,
+                                           sparse)
+        ax = tp.active()
+        first = ax.rank * rows
+        return tp.reduce_out(cached_embedding_lookup(
+            self.tables, cache, slot, cold - first, sparse - first), ax)
+
     def forward(self, batch: dict) -> torch.Tensor:
         """Logits (B,)."""
         cfg = self.cfg
@@ -136,13 +154,9 @@ class DLRM(nn.Module):
         bot = self._mlp(self.bot_mlp, dense, final_linear=False)  # (B, d)
         n = cfg.n_sparse
         if "emb_cache" in batch:
-            if self.tables.shape[1] != cfg.vocab_size:
-                raise NotImplementedError(
-                    "the lookahead path on a table sharded over the model "
-                    "axis (ROADMAP Queue A item 6c)")
-            emb = cached_embedding_lookup(
-                self.tables, batch["emb_cache"][:n], batch["emb_slot"][:, :n],
-                batch["emb_cold"][:, :n], sparse)
+            emb = self._cached_lookup(batch["emb_cache"][:n],
+                                      batch["emb_slot"][:, :n],
+                                      batch["emb_cold"][:, :n], sparse)
         else:
             emb = self._lookup(sparse)
         emb = emb.to(bot.dtype)  # (B, F, d)

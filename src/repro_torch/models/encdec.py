@@ -12,7 +12,11 @@ the output head.
 Parameters (JAX names): ``embed`` ``[padded_vocab, d]``, ``enc_blocks[i]``
 (``ln1``, ``ln2``, ``attn``, ``mlp``), ``dec_blocks[i]`` (``ln1``,
 ``ln_x``, ``ln2``, ``attn``, ``xattn``, ``mlp``), ``enc_norm`` (an
-unstacked subtree) and ``final_norm``.  Serving: ``prefill`` encodes the
+unstacked subtree) and ``final_norm``.  On a "model" mesh axis the
+attention projections and MLPs split by heads and hidden units (the
+cross-attention's ``wk`` / ``wv`` on the encoder's output, which enters
+each layer through ``tp.copy_in``), the tied head by vocabulary rows; the
+LayerNorms stay replicated.  Serving: ``prefill`` encodes the
 frames, projects every decoder layer's cross K / V once (``cross``
 ``[L, B, T_enc, n_kv, hd]``) and writes the prompt into the self-attention
 cache (``self``: ``cache_init``'s tensors stacked over the layers) from
@@ -29,6 +33,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import LM, _params, layer_cache
@@ -72,7 +77,8 @@ class EncBlock(nn.Module):
     def forward(self, x):
         cfg = self.cfg
         x = x + L.mha(self.attn, _norm(cfg, x, self.ln1), enc_spec(cfg))
-        return x + L.mlp_apply(self.mlp, _norm(cfg, x, self.ln2), cfg.mlp)
+        return x + L.mlp_apply(self.mlp, _norm(cfg, x, self.ln2), cfg.mlp,
+                               width=cfg.d_ff)
 
     def tree(self) -> dict:
         return {k: dict(getattr(self, k).items())
@@ -110,7 +116,8 @@ class DecBlock(nn.Module):
             x = x + cross_from_cache(cfg, self.xattn, xn, cross_cache)
         else:
             x = x + L.mha(self.xattn, xn, cross_spec(cfg), kv_x=enc_out)
-        return x + L.mlp_apply(self.mlp, _norm(cfg, x, self.ln2), cfg.mlp)
+        return x + L.mlp_apply(self.mlp, _norm(cfg, x, self.ln2), cfg.mlp,
+                               width=cfg.d_ff)
 
     def tree(self) -> dict:
         return {k: dict(getattr(self, k).items())
@@ -186,24 +193,30 @@ class EncDec(LM):
             x = self._run(block, x)
         return _norm(self.cfg, x, self.enc_norm)
 
-    def decode_train(self, enc_out, tokens):
-        x = L.embed_lookup(self.embed, tokens, self.cfg.cdtype())
+    def _decoded(self, enc_out, tokens):
+        """The decoder's final-normed hidden states."""
+        x = L.embed_lookup(self.embed, tokens, self.cfg.cdtype(),
+                           vocab=self.cfg.padded_vocab)
         x = x + _positions(tokens.shape[1], x)
         for block in self.dec_blocks:
             x = self._run(block, x, enc_out)
-        return self.logits(x)
+        return _norm(self.cfg, x, self.final_norm)
+
+    def decode_train(self, enc_out, tokens):
+        logits, sharded = self.head_logits(self._decoded(enc_out, tokens))
+        return tp.gather(logits, -1, tp.active()) if sharded else logits
 
     def forward(self, frames, tokens):
         return self.decode_train(self.encode(frames), tokens)
 
     def loss_fn(self, batch: dict):
-        return L.cross_entropy(self.forward(batch["frames"], batch["tokens"]),
-                               batch["labels"],
-                               valid_vocab=self.cfg.vocab_size)
+        return self.loss_of(self._decoded(self.encode(batch["frames"]),
+                                          batch["tokens"]), batch["labels"])
 
     # ---- serving --------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int, enc_len: int) -> dict:
+        self.refuse_sharded_serving()
         return init_cache(self.cfg, batch, max_len, enc_len,
                           self.embed.device)
 

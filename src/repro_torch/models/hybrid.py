@@ -9,6 +9,10 @@ own KV cache.  The shared block attends with the config's sliding window
 (``cfg.sliding_window``; 0 = full), so its cache is a ring bounded by the
 window while the SSM state is O(1).
 
+On a "model" mesh axis the Mamba layers split as ``models/ssm.py`` says
+and the shared block as every transformer block does (its gradient still
+sums over the applications); the untied head is vocabulary-parallel.
+
 In the JAX tree ``shared_attn`` is an unstacked subtree (``LM.UNSTACKED``):
 one leaf per tensor of the block, after ``blocks/*`` in sorted order.  The
 decode state is the reference's layout: the SSM's ``conv`` / ``ssm``
@@ -79,7 +83,8 @@ class Hybrid(LM):
         ``remat == "full"`` each Mamba block and each application of the
         shared block is recomputed in the backward on its own."""
         cfg = self.cfg
-        x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
+        x = L.embed_lookup(self.embed, tokens, cfg.cdtype(),
+                           vocab=cfg.padded_vocab)
         remat = cfg.remat == "full" and torch.is_grad_enabled()
 
         def run(f, x):
@@ -95,6 +100,7 @@ class Hybrid(LM):
     # ---- serving --------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> dict:
+        self.refuse_sharded_serving()
         return init_cache(self.cfg, batch, max_len, self.embed.device)
 
     @torch.no_grad()

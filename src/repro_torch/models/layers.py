@@ -232,18 +232,17 @@ def mha(p, x, spec: AttnSpec, *, kv_x: Optional[torch.Tensor] = None,
     has no RoPE, no mask and never the chunked path.
 
     With the projections sharded over the model axis (or ``seq_sharded``:
-    ``x`` is this rank's sequence shard), self-attention without a cache
-    runs ``_mha_model_parallel``.
+    ``x`` is this rank's sequence shard), attention without a cache runs
+    ``_mha_model_parallel``.
     """
     B, Sq, _ = x.shape
     h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     if seq_sharded or p["wq"].shape[1] != h * hd:
-        if cache is not None or kv_x is not None:
+        if cache is not None:
             raise NotImplementedError(
-                "attention with a cache or cross-attention over model-"
-                "sharded projections (serving on a model axis: ROADMAP "
-                "Queue A item 7)")
-        return _mha_model_parallel(p, x, spec, seq_sharded)
+                "attention with a cache over model-sharded projections "
+                "(serving on a model axis: ROADMAP Queue A item 7)")
+        return _mha_model_parallel(p, x, spec, seq_sharded, kv_x)
     dt = x.dtype
     src = x if kv_x is None else kv_x
     Sk = src.shape[1]
@@ -316,10 +315,13 @@ def _qk_prep(t, norm_w, pos, spec: AttnSpec):
     return t
 
 
-def _mha_model_parallel(p, x, spec: AttnSpec, seq_sharded: bool):
-    """Self-attention (training: no cache) with ``wq`` / ``wk`` / ``wv``
+def _mha_model_parallel(p, x, spec: AttnSpec, seq_sharded: bool,
+                        kv_x: Optional[torch.Tensor] = None):
+    """Attention (training: no cache) with ``wq`` / ``wk`` / ``wv``
     column- and ``wo`` row-sharded over the model axis -> this rank's
-    output as ``tp.leave`` gives it.
+    output as ``tp.leave`` gives it.  ``kv_x``: the cross-attention source
+    (replicated; it enters through ``tp.copy_in`` where the rank's shards
+    of ``wk`` / ``wv`` read it), else self-attention.
 
     Each rank attends with its ``h / m`` q heads when ``m`` divides the
     heads; a k / v projection whose shard is not whole heads (or that is
@@ -331,22 +333,31 @@ def _mha_model_parallel(p, x, spec: AttnSpec, seq_sharded: bool):
     h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     xr, xt = tp.enter(x, ax, seq_sharded)
     if not tp.split(p["wq"].shape[1], h * hd):  # whole weights: replicated
-        return tp.leave(mha(p, xr, spec), ax, False, seq_sharded)
+        return tp.leave(mha(p, xr, spec, kv_x=kv_x), ax, False, seq_sharded)
+    if kv_x is None:
+        sr, st = xr, xt
+    else:  # cross-attention: no RoPE, no mask
+        sr, st = kv_x, tp.copy_in(kv_x, ax)
+        spec = dataclasses.replace(spec, rope_style="none")
     B, S, _ = xr.shape
+    Sk = sr.shape[1]
     dt = xr.dtype
     m, r = ax.size, ax.rank
     k_split = tp.split(p["wk"].shape[1], kv * hd)
     pos = torch.arange(S, device=xr.device)
     bpos = torch.broadcast_to(pos, (B, S))
+    k_pos = torch.arange(Sk, device=xr.device)
+    bk_pos = torch.broadcast_to(k_pos, (B, Sk))
     q = xt @ p["wq"].to(dt)
-    k = (xt if k_split else xr) @ p["wk"].to(dt)
-    v = (xt if k_split else xr) @ p["wv"].to(dt)
+    k = (st if k_split else sr) @ p["wk"].to(dt)
+    v = (st if k_split else sr) @ p["wv"].to(dt)
     kv_local = k_split and kv % m == 0
     if not kv_local:  # every kv head, the same on each rank
         if k_split:
             k, v = tp.gather(k, -1, ax), tp.gather(v, -1, ax)
-        k = _qk_prep(k.reshape(B, S, kv, hd), p.get("k_norm"), bpos, spec)
-        v = v.reshape(B, S, kv, hd)
+        k = _qk_prep(k.reshape(B, Sk, kv, hd), p.get("k_norm"), bk_pos, spec)
+        v = v.reshape(B, Sk, kv, hd)
+    self_attn = kv_x is None
     if h % m:  # q is not whole heads: attention runs replicated
         q = tp.gather(q, -1, ax).reshape(B, S, h, hd)
         q = _qk_prep(q, p.get("q_norm"), bpos, spec)
@@ -354,22 +365,24 @@ def _mha_model_parallel(p, x, spec: AttnSpec, seq_sharded: bool):
         if rep > 1:
             k = torch.repeat_interleave(k, rep, dim=2)
             v = torch.repeat_interleave(v, rep, dim=2)
-        out = tp.scatter(_attend(q, k, v, pos, pos, spec, dt), -1, ax)
+        out = tp.scatter(_attend(q, k, v, pos, k_pos, spec, dt,
+                                 self_attn=self_attn), -1, ax)
         return tp.leave(out @ p["wo"].to(dt), ax, True, seq_sharded)
     hl = h // m
     norm = lambda w: None if w is None else tp.copy_in(w, ax)
     q = _qk_prep(q.reshape(B, S, hl, hd), norm(p.get("q_norm")), bpos, spec)
     if kv_local:
-        k = _qk_prep(k.reshape(B, S, kv // m, hd), norm(p.get("k_norm")),
-                     bpos, spec)
-        v = v.reshape(B, S, kv // m, hd)
+        k = _qk_prep(k.reshape(B, Sk, kv // m, hd), norm(p.get("k_norm")),
+                     bk_pos, spec)
+        v = v.reshape(B, Sk, kv // m, hd)
         first_kv = r * (kv // m)
     else:  # each rank reads the replicated heads its own q heads need
         k, v = tp.copy_in(k, ax), tp.copy_in(v, ax)
         first_kv = 0
     kv_idx = (r * hl + torch.arange(hl, device=xr.device)) // (h // kv) \
         - first_kv
-    out = _attend(q, k[:, :, kv_idx], v[:, :, kv_idx], pos, pos, spec, dt)
+    out = _attend(q, k[:, :, kv_idx], v[:, :, kv_idx], pos, k_pos, spec, dt,
+                  self_attn=self_attn)
     return tp.leave(out @ p["wo"].to(dt), ax, True, seq_sharded)
 
 

@@ -10,6 +10,15 @@ the card (``layers.true_float32``).
 Head layout: d_inner = expand * d_model split into H heads of P = head_dim;
 B / C projections are per group (G groups broadcast over heads).
 
+On a "model" mesh axis of m (``distributed/tensor_parallel.py``) each rank
+holds H/m heads of ``z_proj`` / ``x_proj`` / ``dt_proj`` and their
+convolution, ``norm_w`` and ``out_proj``'s rows, and G*N/m state entries of
+``b_proj`` / ``c_proj`` and their convolutions (the reference's rules
+split B and C on the state dim, not on heads); ``A_log``, ``D`` and
+``dt_bias`` are replicated (``_mixer_model_parallel``).  Sequence
+parallelism (``seq_parallel``) is not ported for this family: no SSM
+config sets it, and on a model axis it raises ``NotImplementedError``.
+
 The model (``SSM``) holds ``embed``, per-layer blocks (``ln`` and
 ``mixer``), ``final_norm`` and ``lm_head`` when untied, in the JAX
 package's tree (``jax_tree`` / ``load_jax_tree``, shared with the
@@ -29,6 +38,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import LM, _params
@@ -171,9 +181,17 @@ def _projections(p, x, conv_state):
 
 def mixer_apply(p, x, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
                 return_state=False):
-    """Full-sequence mixer. x: (B,S,D). Returns y [, (conv_state, ssm_state)]."""
+    """Full-sequence mixer. x: (B,S,D). Returns y [, (conv_state, ssm_state)].
+    With the projections sharded over the model axis it runs
+    ``_mixer_model_parallel`` (training only: no states in or out)."""
     d_inner, H, G, N, P = dims(cfg)
     p = L.cast_tree_except(p, x.dtype, FLOAT32_KEYS)
+    if p["x_proj"].shape[1] != d_inner or p["b_proj"].shape[1] != G * N:
+        if conv_state is not None or ssm_state is not None or return_state:
+            raise NotImplementedError(
+                "the SSM's states over model-sharded projections (serving "
+                "on a model axis: ROADMAP Queue A item 7)")
+        return _mixer_model_parallel(p, x, cfg)
     z, xr, Braw, Craw, dtraw, new_conv = _projections(p, x, conv_state)
 
     Bsz, S, _ = x.shape
@@ -195,6 +213,80 @@ def mixer_apply(p, x, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
     if return_state:
         return out, (new_conv, final)
     return out
+
+
+def _rmsnorm_split(x, w, eps, whole: int, ax):
+    """``layers.rmsnorm`` of ``x`` whose last dim is this rank's slice of
+    ``whole`` channels (``w`` its slice of the weight): the sum of squares
+    is summed over the model ranks, forward and backward."""
+    xf = x.to(torch.float32)
+    # summed forward; each rank's slice reads the sum, so its gradient is
+    # summed too (reduce-out, then copy-in)
+    ss = tp.copy_in(tp.reduce_out(torch.sum(xf * xf, dim=-1, keepdim=True),
+                                  ax), ax)
+    y = xf * torch.rsqrt(ss / whole + eps)
+    return (y * w.to(torch.float32)).to(x.dtype)
+
+
+def _mixer_model_parallel(p, x, cfg: ModelConfig):
+    """The training mixer with its projections sharded over the model axis
+    (x: (B, S, D), replicated) -> the output, replicated.
+
+    Each rank runs its H/m heads: z, x and dt from its columns (input
+    through ``tp.copy_in``), its heads' slices of the replicated ``A_log``,
+    ``D`` and ``dt_bias`` (through ``tp.copy_in``: each rank's gradient is
+    its heads' part).  B and C are convolved on the rank's own state
+    entries, then gathered whole (``tp.gather_to_shards``: every rank's
+    heads read every entry, so the backward sums the ranks' gradients
+    before each keeps its slice); each rank's heads read their groups.  The
+    gated RMSNorm over the whole d_inner sums its squares over the ranks,
+    and ``out_proj`` is row-parallel (``tp.reduce_out``).  Heads or state
+    entries that do not split over the ranks raise."""
+    d_inner, H, G, N, P = dims(cfg)
+    ax = tp.active()
+    m, r = ax.size, ax.rank
+    if not (tp.split(p["x_proj"].shape[1], d_inner)
+            and tp.split(p["dt_proj"].shape[1], H)
+            and tp.split(p["b_proj"].shape[1], G * N)):
+        raise NotImplementedError(
+            f"{cfg.name}: the SSM on a model axis of {m} needs its {H} heads "
+            f"of {P} and its {G * N} state entries split over the ranks "
+            f"(x_proj {tuple(p['x_proj'].shape)}, dt_proj "
+            f"{tuple(p['dt_proj'].shape)}, b_proj "
+            f"{tuple(p['b_proj'].shape)})")
+    if cfg.seq_parallel:
+        raise NotImplementedError(
+            f"{cfg.name}: sequence parallelism of the SSM on a model axis")
+    _, xt = tp.enter(x, ax, False)
+    z = xt @ p["z_proj"]
+    xs, _ = _causal_conv(xt @ p["x_proj"], p["conv_wx"], p["conv_bx"])
+    dtraw = xt @ p["dt_proj"]
+
+    def bc(w, conv_w, conv_b):  # (B, S, G * N), whole on every rank
+        raw, _ = _causal_conv(xt @ w, conv_w, conv_b)
+        return tp.gather_to_shards(raw, -1, ax)
+
+    Bsz, S, _ = x.shape
+    hl = H // m
+    heads = slice(r * hl, (r + 1) * hl)
+    groups = (r * hl + torch.arange(hl, device=x.device)) // (H // G)
+
+    def per_head(raw):  # this rank's heads' B or C, (B, S, hl, N) f32
+        return raw.reshape(Bsz, S, G, N).to(torch.float32)[:, :, groups]
+
+    def mine(v):  # this rank's heads of a replicated per-head parameter
+        return tp.copy_in(v, ax)[heads]
+
+    Bh = per_head(bc(p["b_proj"], p["conv_wb"], p["conv_bb"]))
+    Ch = per_head(bc(p["c_proj"], p["conv_wc"], p["conv_bc"]))
+    xh = xs.reshape(Bsz, S, hl, P).to(torch.float32)
+    dt = F.softplus(dtraw.to(torch.float32) + mine(p["dt_bias"]))
+    A = -torch.exp(mine(p["A_log"]))
+    y, _ = _ssd_chunked(xh, dt, A, Bh, Ch, cfg.ssm.chunk)
+    y = y + xh * mine(p["D"])[None, None, :, None]
+    y = y.reshape(Bsz, S, hl * P).to(x.dtype)
+    y = _rmsnorm_split(y * F.silu(z), p["norm_w"], cfg.norm_eps, d_inner, ax)
+    return tp.reduce_out(y @ p["out_proj"], ax)
 
 
 def mixer_decode(p, x, cfg: ModelConfig, conv_state, ssm_state):
@@ -278,7 +370,8 @@ class SSM(LM):
 
     def hidden_states(self, tokens):
         cfg = self.cfg
-        x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
+        x = L.embed_lookup(self.embed, tokens, cfg.cdtype(),
+                           vocab=cfg.padded_vocab)
         remat = cfg.remat == "full" and torch.is_grad_enabled()
         for block in self.blocks:
             x = ckpt.checkpoint(block, x, use_reentrant=False) if remat \
@@ -288,6 +381,7 @@ class SSM(LM):
     # ---- serving --------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> dict:
+        self.refuse_sharded_serving()
         return init_cache(self.cfg, batch, max_len, self.embed.device)
 
     @torch.no_grad()

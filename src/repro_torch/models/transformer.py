@@ -174,15 +174,43 @@ class LM(nn.Module):
         x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
         return L.lm_logits(x, self.head(), cfg.tie_embeddings)
 
+    def head_logits(self, x, seq_sharded: bool = False) -> tuple:
+        """``(logits, vocab_sharded)`` of the final-normed ``x`` (this
+        rank's sequence shard when ``seq_sharded``): this rank's vocabulary
+        columns where the head is sharded over the model axis."""
+        cfg = self.cfg
+        head = self.head()
+        rows = head.shape[0 if cfg.tie_embeddings else 1]
+        if not seq_sharded and not tp.split(rows, cfg.padded_vocab):
+            return L.lm_logits(x, head, cfg.tie_embeddings), False
+        xr, xt = tp.enter(x, tp.active(), seq_sharded)
+        if rows == cfg.padded_vocab:
+            return L.lm_logits(xr, head, cfg.tie_embeddings), False
+        return L.lm_logits(xt, head, cfg.tie_embeddings), True
+
+    def loss_of(self, x, labels, seq_sharded: bool = False):
+        """The cross-entropy of the head's logits of ``x`` (as
+        ``head_logits`` takes it) against ``labels``."""
+        logits, sharded = self.head_logits(x, seq_sharded)
+        ce = L.vocab_parallel_cross_entropy if sharded else L.cross_entropy
+        return ce(logits, labels, valid_vocab=self.cfg.vocab_size)
+
     def forward(self, tokens):
         """tokens (B, S) -> logits, from ``hidden_states`` (final-normed)."""
-        return L.lm_logits(self.hidden_states(tokens), self.head(),
-                           self.cfg.tie_embeddings)
+        logits, sharded = self.head_logits(self.hidden_states(tokens))
+        return tp.gather(logits, -1, tp.active()) if sharded else logits
 
     def loss_fn(self, batch: dict):
-        return L.cross_entropy(self.forward(batch["tokens"]),
-                               batch["labels"],
-                               valid_vocab=self.cfg.vocab_size)
+        return self.loss_of(self.hidden_states(batch["tokens"]),
+                            batch["labels"])
+
+    def refuse_sharded_serving(self) -> None:
+        """Raise for a model sharded over the model axis: serving on a mesh
+        is not ported."""
+        if getattr(self, "model_shards", None):
+            raise NotImplementedError(
+                f"serving a model-sharded {self.cfg.family} LM (ROADMAP "
+                "Queue A item 7)")
 
     def jax_tree(self) -> dict:
         """The parameters in the JAX package's tree: a layer group's
@@ -342,16 +370,7 @@ class Transformer(LM):
     def _logits(self, tokens, prefix_embeds=None) -> tuple:
         """``(logits, vocab_sharded)``: this rank's vocabulary columns of
         the logits where the head is sharded over the model axis."""
-        cfg = self.cfg
-        x, sp = self._hidden(tokens, prefix_embeds)
-        head = self.head()
-        rows = head.shape[0 if cfg.tie_embeddings else 1]
-        if not sp and not tp.split(rows, cfg.padded_vocab):
-            return L.lm_logits(x, head, cfg.tie_embeddings), False
-        xr, xt = tp.enter(x, tp.active(), sp)
-        if rows == cfg.padded_vocab:
-            return L.lm_logits(xr, head, cfg.tie_embeddings), False
-        return L.lm_logits(xt, head, cfg.tie_embeddings), True
+        return self.head_logits(*self._hidden(tokens, prefix_embeds))
 
     def forward(self, tokens, prefix_embeds=None):
         logits, sharded = self._logits(tokens, prefix_embeds)
@@ -368,9 +387,7 @@ class Transformer(LM):
     # ---- serving --------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        if getattr(self, "model_shards", None):
-            raise NotImplementedError(
-                "serving a model-sharded LM (ROADMAP Queue A item 7)")
+        self.refuse_sharded_serving()
         return init_cache(self.cfg, batch, max_len, self.embed.device)
 
     @torch.no_grad()

@@ -157,8 +157,8 @@ def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
     - The "model" axis: every parameter whose spec (``param_specs``) names
       it is cut to this rank's slice (``tensor_parallel.shard_model``), and
       the layers meet the other model ranks in explicit collectives
-      (tensor, sequence and expert parallelism; the dense, MoE and VLM
-      families and DLRM: another family on a model axis > 1 raises).
+      (tensor, sequence and expert parallelism; every LM family and
+      DLRM, its lookahead path included).
     - ``batch_rows`` is the global batch's rows: when the data degree dp
       divides it, each rank's batch is its rows (``put_packed``, with
       ``microbatches=tcfg.microbatch``; the model ranks of one data
@@ -182,12 +182,6 @@ def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
     model = state.model
     shd.set_active_mesh(mesh)
     ax = tp.model_axis(mesh)
-    if ax is not None and not isinstance(model, dlrm.DLRM) and \
-            model.cfg.family not in transformer.TRANSFORMER_FAMILIES:
-        raise NotImplementedError(
-            f"{model.cfg.name}: the {model.cfg.family} family on a model "
-            f"axis of {ax.size} (its projections split by heads and groups; "
-            "ROADMAP Queue A item 6c)")
     group, dmesh = data_group(mesh)
     dp = dist.get_world_size(group)
     sharded = batch_rows % dp == 0

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain versions on the card (the dataflow
 kernels, the staged lowering's four and the two embedding bags), cached ==
 uncached bags bit for bit, the cached lookup's deterministic backward, and
-the stream handoff of the executor and the group kernel under incremental
-refits; the wide program struct (26 per-feature
+the stream handoff of the executor (a place hook after the transform
+stream's event too) and the group kernel under incremental refits; the wide program struct (26 per-feature
 vocabularies in one group), every output dtype, 16-bit bags, the tile
 program's byte copy and the edges of the redesigned stage, build and
 packer kernels; the LM trainer's forward and backward against the CPU,
@@ -343,6 +343,44 @@ def test_executor_stream_handoff_matches_direct_apply(card):
     direct = [job.apply(raw) for raw in Source.synth(
         "I", rows=4 * 512, batch_size=512, seed=4)]
     assert len(delivered) == len(direct) == 4
+    for a, b in zip(delivered, direct):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
+class _SlowTransform:
+    """A compiled pipeline whose transform first holds its stream for
+    ~0.1 s (``torch.cuda._sleep``), so a consumer that does not wait on the
+    transform's event reads its output before the kernel writes it."""
+
+    def __init__(self, inner):
+        self.inner, self.device = inner, inner.device
+
+    def __call__(self, raw):
+        torch.cuda._sleep(200_000_000)
+        return self.inner(raw)
+
+
+def test_place_hook_runs_after_the_transform_stream(card):
+    """A place hook that copies the batch (``put_packed`` on a mesh does)
+    reads what the transform stream wrote: the executor's place stage
+    waits on the transform's event first, so the copies equal a direct
+    apply."""
+    from repro_torch.etl_runtime.runtime import StreamingExecutor
+    tmpl = paper_pipeline("III", batch_size=512, **tp.SMALL)
+    job = EtlJob(tmpl, Source.synth("I", rows=512, batch_size=512),
+                 backend="cuda", device=card,
+                 fit_source=Source.synth("I", rows=2000, batch_size=1000))
+    job.fit()
+    ex = StreamingExecutor(
+        _SlowTransform(job.compiled),
+        Source.synth("I", rows=3 * 512, batch_size=512, seed=4),
+        place=lambda b: {k: v.clone() for k, v in b.items()})
+    with ex:
+        delivered = [{k: v.clone() for k, v in b.items()} for b in ex]
+    direct = [job.apply(raw) for raw in Source.synth(
+        "I", rows=3 * 512, batch_size=512, seed=4)]
+    assert len(delivered) == len(direct) == 3
     for a, b in zip(delivered, direct):
         for k in a:
             assert torch.equal(a[k], b[k]), k

@@ -19,9 +19,13 @@
   and onto one process, a reference file onto (2, 2), and that world's
   save read back by the reference, bit-equal; ``params_from_jax`` into a
   model-sharded FSDP state.
-- (d) the model ranks of one data coordinate receive the same rows; the
-  SSM, hybrid and enc-dec families raise on a model axis; ``launch.train
-  --mesh pod`` on 4 ranks raises the mesh's error naming 256 ranks.
+- (d) the model ranks of one data coordinate receive the same rows; a
+  model-sharded SSM, hybrid or enc-dec refuses to serve (``init_cache``);
+  ``launch.train --mesh pod`` on 4 ranks raises the mesh's error naming
+  256 ranks, for the SSM too.
+
+The SSM, hybrid and enc-dec families and DLRM's lookahead path on the
+model axis are ``tests/test_torch_tensor_parallel_families.py``.
 
 The ranks' side is ``tests/torch_dist.py`` (no JAX there).
 """
@@ -215,7 +219,7 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("name", list(CASES))
 def test_train_step_matches_the_references_on_its_mesh(runs, name):
     rl, rn, rleaves = runs["ref"][name]
-    pl, pn, pleaves, _ = runs["port"][0][name]
+    pl, pn, pleaves = runs["port"][0][name][:3]
     np.testing.assert_allclose(pl, rl, rtol=1e-5, err_msg="loss")
     np.testing.assert_allclose(pn, rn, rtol=1e-4, err_msg="grad norm")
     assert len(pleaves) == len(rleaves)
@@ -232,15 +236,17 @@ def test_train_step_matches_the_references_on_its_mesh(runs, name):
 # (b) local shapes against the reference's specs
 # ---------------------------------------------------------------------------
 
-def _ref_shard_shapes(arch, over, sizes: dict, fsdp: bool) -> dict:
-    """``{path: shard shape}`` of the reference's ``param_specs`` on an
-    ``AbstractMesh`` of ``sizes``."""
+def _ref_specs(arch, over, sizes: dict, fsdp: bool,
+               published: bool = False) -> tuple:
+    """``(AbstractMesh of sizes, [(path, shape struct, spec)])`` of the
+    reference's ``param_specs`` (``published``: the arch's published
+    config, else its reduced one)."""
     if arch == "dlrm":
         cfg = rdlrm.DLRMConfig(**td.DLRM_SMALL)
         shapes = jax.eval_shape(lambda: rdlrm.init(jax.random.key(0), cfg))
         n_exp = 0
     else:
-        cfg = _ref_cfg(arch, over)
+        cfg = rreg.get_config(arch) if published else _ref_cfg(arch, over)
         shapes = jax.eval_shape(
             lambda: rapi.build_model(cfg).init(jax.random.key(0)))
         n_exp = cfg.moe.n_experts if cfg.moe else 0
@@ -249,9 +255,26 @@ def _ref_shard_shapes(arch, over, sizes: dict, fsdp: bool) -> dict:
     flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
     spec_leaves = jax.tree_util.tree_leaves(
         specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
-    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
-                     for k in p): NamedSharding(am, s).shard_shape(x.shape)
-            for (p, x), s in zip(flat, spec_leaves)}
+    return am, [("/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                          for k in p), x, s)
+                for (p, x), s in zip(flat, spec_leaves)]
+
+
+def _ref_shard_shapes(arch, over, sizes: dict, fsdp: bool,
+                      published: bool = False) -> dict:
+    """``{path: shard shape}`` of the reference's ``param_specs`` on an
+    ``AbstractMesh`` of ``sizes``."""
+    am, leaves = _ref_specs(arch, over, sizes, fsdp, published)
+    return {path: NamedSharding(am, s).shard_shape(x.shape)
+            for path, x, s in leaves}
+
+
+def _ref_data_dims(arch, sizes: dict, fsdp: bool) -> dict:
+    """``{path: the dim the reference shards over "data", or None}`` at
+    the arch's published config."""
+    _, leaves = _ref_specs(arch, {}, sizes, fsdp, published=True)
+    return {path: next((d for d, e in enumerate(s) if e == "data"), None)
+            for path, _, s in leaves}
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -268,16 +291,46 @@ def test_each_ranks_leaves_are_the_reference_specs_shards(runs, name):
     assert split
 
 
+# the SSM, hybrid and enc-dec at their published configs (built on the meta
+# device), the others reduced
+PUBLISHED = ("mamba2_370m", "zamba2_2_7b", "whisper_base")
+
+
+def _published_on_meta(arch, monkeypatch):
+    """``arch``'s published config, built on the meta device (its
+    initialisers draw from a CPU generator: meta has none)."""
+    from repro_torch.configs import registry as treg
+    real = torch.Generator
+    monkeypatch.setattr(torch, "Generator", lambda device=None: real(
+        device="cpu") if str(device) == "meta" else real(device=device))
+    cfg = treg.get_config(arch)
+    return cfg, api.build_model(cfg).init(device="meta")
+
+
 @pytest.mark.parametrize("arch", ["llama3_2_3b", "llama3_405b",
                                   "mixtral_8x7b", "kimi_k2", "internvl2_2b",
-                                  "dlrm"])
+                                  "dlrm", *PUBLISHED])
 @pytest.mark.parametrize("fsdp", [False, True])
-def test_local_shapes_at_the_production_sizes(arch, fsdp):
+def test_local_shapes_at_the_production_sizes(arch, fsdp, monkeypatch):
     sizes = {"data": 16, "model": 16}
+    want = _ref_shard_shapes(arch, {}, sizes, fsdp,
+                             published=arch in PUBLISHED)
     if arch == "dlrm":
         from repro_torch.models import dlrm
         model = dlrm.DLRM(dlrm.DLRMConfig(**td.DLRM_SMALL), device="cpu")
         n_exp = 0
+    elif arch in PUBLISHED:
+        cfg, model = _published_on_meta(arch, monkeypatch)
+        n_exp = 0
+        layer_dim = [k for k, v in _ref_data_dims(arch, sizes, fsdp).items()
+                     if v == 0 and k.startswith(("blocks", "enc_blocks",
+                                                 "dec_blocks"))]
+        if layer_dim:  # FSDP would shard the layer dim: refused
+            assert fsdp and arch == "mamba2_370m", layer_dim
+            assert "blocks/mixer/A_log" in layer_dim
+            with pytest.raises(NotImplementedError, match="layer dim"):
+                ttl._shard_dims(model, sizes, fsdp=fsdp, n_experts=0)
+            return
     else:
         cfg = td.lm_cfg(arch)
         model = api.build_model(cfg).init(device="cpu")
@@ -292,10 +345,10 @@ def test_local_shapes_at_the_production_sizes(arch, fsdp):
             if d is not None:
                 shape[d] //= n
         shape = shape[::-1] if tr else shape
-        if path.startswith(("blocks", "moe_blocks")):
+        if td.stacked(model, path):
             shape = [len(ts)] + shape
         got[path] = tuple(shape)
-    assert got == _ref_shard_shapes(arch, {}, sizes, fsdp)
+    assert got == want
 
 
 # ---------------------------------------------------------------------------
@@ -401,12 +454,21 @@ def test_model_ranks_of_one_data_coordinate_receive_the_same_rows(runs):
 
 @pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2_7b",
                                   "whisper_base"])
-def test_families_without_the_model_axis_raise(runs, arch):
+def test_model_sharded_families_refuse_to_serve(runs, arch):
+    family = {"mamba2_370m": "ssm", "zamba2_2_7b": "hybrid",
+              "whisper_base": "encdec"}[arch]
     for m in runs["misc"]:
-        assert "6c" in m["refused"][arch] and "model axis of 4" in \
-            m["refused"][arch]
+        msg = m["refused"][arch]
+        assert f"model-sharded {family} LM" in msg and "item 7" in msg, msg
 
 
 def test_launcher_pod_mesh_on_four_ranks_raises(runs):
     for m in runs["misc"]:
-        assert "256" in m["pod"] and "the world has 4" in m["pod"]
+        msg = m["pod_llama3_2_3b"]
+        assert "256" in msg and "the world has 4" in msg
+
+
+def test_launcher_pod_mesh_raises_for_the_ssm_too(runs):
+    for m in runs["misc"]:
+        msg = m["pod_mamba2_370m"]
+        assert "256" in msg and "the world has 4" in msg

@@ -398,6 +398,11 @@ def jax_order(model) -> list:
             for path, leaf in jax_leaves(model.jax_tree())]
 
 
+def stacked(model, path: str) -> bool:
+    """Whether the JAX leaf at ``path`` stacks a layer group's layers."""
+    return path.split("/")[0] in getattr(model, "LAYER_GROUPS", ())
+
+
 def tp_whole_leaves(model) -> list:
     """The JAX leaves as whole numpy arrays, gathered over both axes (a
     collective: every rank calls it)."""
@@ -405,8 +410,7 @@ def tp_whole_leaves(model) -> list:
     out = []
     for path, ts, tr in jax_order(model):
         ws = [_whole(t).detach() for t in ts]
-        a = torch.stack(ws) if path.startswith(("blocks", "moe_blocks")) \
-            else ws[0]
+        a = torch.stack(ws) if stacked(model, path) else ws[0]
         out.append((a.t() if tr else a).cpu().numpy())
     return out
 
@@ -418,19 +422,67 @@ def tp_local_shapes(model) -> dict:
     for path, ts, tr in jax_order(model):
         loc = ts[0].to_local() if hasattr(ts[0], "to_local") else ts[0]
         shape = tuple(loc.shape)[::-1] if tr else tuple(loc.shape)
-        if path.startswith(("blocks", "moe_blocks")):
+        if stacked(model, path):
             shape = (len(ts),) + shape
         out[path] = shape
     return out
 
 
+def lookahead_plans(batches: list, cache_cfg, n_tables: int) -> tuple:
+    """The lookahead plans (``PLAN_KEYS`` payloads) of ``batches`` in
+    delivery order, from ``LookaheadPlanner`` over each batch's first
+    ``n_tables`` sparse columns (numpy), as the executor's lookahead stage
+    makes them; and the planner, drained."""
+    from repro_torch.etl_runtime.lookahead import LookaheadPlanner
+    planner = LookaheadPlanner(cache_cfg, n_tables)
+    plans = []
+    for b in batches:
+        planner.push(np.asarray(b["sparse"])[:, :n_tables].astype(np.int64))
+        if planner.window_depth() >= cache_cfg.window:
+            plans.append(planner.pop_plan()[1].as_payload())
+    while planner.window_depth():
+        plans.append(planner.pop_plan()[1].as_payload())
+    return plans, planner
+
+
+def foreign_rows_zero(cache, planner, last_plan: dict, tables) -> tuple:
+    """``(zero, foreign)``: whether every slot of ``cache.ext`` that holds
+    a row outside this rank's rows of ``tables`` (the resident slots by the
+    planner's map, the staging slots by ``last_plan``; a ``-1`` stage row is
+    row 0) is zero, and how many such slots there are."""
+    from repro_torch.distributed import tensor_parallel as tp
+    d, ax = tp.shard_of(tables)
+    vocab = tables.shape[1]
+    first = ax.rank * vocab if d == 1 else 0
+    rows = cache.cfg.rows
+    zero, foreign = True, 0
+    for t in range(cache.n_tables):
+        held = np.concatenate([planner._row_of[t],
+                               np.maximum(last_plan["emb_stage_rows"][t], 0)])
+        for s, g in enumerate(held):
+            if s < rows and g < 0:
+                continue  # a free resident slot
+            if not first <= g < first + vocab:
+                foreign += 1
+                zero &= bool((cache.ext[t, s] == 0).all())
+    return zero, foreign
+
+
 def tp_cases(rank, world, inputs_path, ckpt_dir):
     """Each case of ``inputs_path`` (``{name: {arch, over, tcfg, params,
-    batches, mesh}}``) on its ``(data, model)`` mesh: 3 steps; returns
-    ``{name: (losses, grad norms, whole leaves, local shapes)}`` (the
-    leaves on rank 0 only).  The case named ``"ckpt"`` in the inputs' key
-    ``"_ckpt"`` saves its state after the last step into ``ckpt_dir``."""
+    batches, mesh}}``; ``embed_cache``: an ``EmbedCacheConfig``'s fields,
+    DLRM's lookahead path) on its ``(data, model)`` mesh: 3 steps; returns
+    ``{name: (losses, grad norms, whole leaves, local shapes, extra)}``
+    (the leaves on rank 0 only).  The lookahead path plans on this rank's
+    rows, as the executor's stage after place does, and threads an
+    ``EmbedCache`` against the current tables; ``extra`` holds a digest of
+    the plans, the cache's counters and ``foreign_rows_zero``.  The case
+    named in the inputs' key ``"ckpt"`` saves its state after the last step
+    into ``ckpt_dir``."""
+    import hashlib
+
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.etl_runtime.lookahead import EmbedCache, EmbedCacheConfig
     from repro_torch.etl_runtime.transfer import batch_sharding, put_packed
     from repro_torch.training import checkpoint as ckpt
     from repro_torch.training import train_loop as ttl
@@ -449,17 +501,34 @@ def tp_cases(rank, world, inputs_path, ckpt_dir):
         step, state = ttl.shard_train_step(
             loss_fn, tc, mesh, state, batch_rows=rows, fsdp=tc.fsdp,
             n_experts=n_exp)
+        batches = [put_packed({k: torch.from_numpy(v) for k, v in b.items()},
+                              batch_sharding(mesh),
+                              microbatches=max(tc.microbatch, 1))
+                   for b in case["batches"]]
+        extra = {}
+        if case.get("embed_cache"):
+            cc = EmbedCacheConfig(**case["embed_cache"])
+            n = module.cfg.n_sparse
+            plans, planner = lookahead_plans(batches, cc, n)
+            cache = EmbedCache(cc, n, module.cfg.d_emb, device="cpu")
+            batches = [dict(b, **p) for b, p in zip(batches, plans)]
+            extra["plan_digest"] = hashlib.sha256(b"".join(
+                np.ascontiguousarray(p[k]).tobytes()
+                for p in plans for k in sorted(p))).hexdigest()
+            extra["cache_stats"] = planner.stats.as_dict()
         losses, norms = [], []
-        for b in case["batches"]:
-            b = put_packed({k: torch.from_numpy(v) for k, v in b.items()},
-                           batch_sharding(mesh),
-                           microbatches=max(tc.microbatch, 1))
+        for b in batches:
+            if case.get("embed_cache"):
+                b = cache.advance(state.model.tables, b)
             state, m = step(state, b)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
+        if case.get("embed_cache"):
+            extra["foreign_zero"] = foreign_rows_zero(
+                cache, planner, plans[-1], state.model.tables)
         leaves = tp_whole_leaves(state.model)
         out[name] = (losses, norms, leaves if rank == 0 else None,
-                     tp_local_shapes(state.model))
+                     tp_local_shapes(state.model), extra)
         if name == inputs["ckpt"]:
             ckpt.save(state, ckpt_dir, state.step)
     return out
@@ -536,21 +605,70 @@ def tp_misc(rank, world, paths: dict):
                  backend="torch", device="cpu", mesh=mesh((2, 2)))
     with job.batches() as batches:
         out["etl"] = [{k: v.numpy() for k, v in b.items()} for b in batches]
-    # the families the model axis does not cover yet
+    # serving a model-sharded SSM, hybrid or enc-dec
     out["refused"] = {}
     for arch in ("mamba2_370m", "zamba2_2_7b", "whisper_base"):
-        model = api.build_model(lm_cfg(arch))
+        cfg = lm_cfg(arch)
+        model = api.build_model(cfg)
         state = ttl.TrainState.create(model.init(device="cpu"), TrainConfig())
+        state = ttl.shard_train_step(model.loss, TrainConfig(), mesh((1, 4)),
+                                     state, batch_rows=8)[1]
+        args = (2, 16, cfg.enc_seq) if cfg.family == "encdec" else (2, 16)
         try:
-            ttl.shard_train_step(model.loss, TrainConfig(), mesh((1, 4)),
-                                 state, batch_rows=8)
-            out["refused"][arch] = "ran"
+            state.model.init_cache(*args)
+            out["refused"][arch] = "served"
         except NotImplementedError as err:
             out["refused"][arch] = str(err)
-    try:
-        launch.main(["--arch", "llama3_2_3b", "--reduced", "--device", "cpu",
-                     "--steps", "1", "--mesh", "pod"])
-        out["pod"] = "ran"
-    except ValueError as err:
-        out["pod"] = str(err)
+    for arch in ("llama3_2_3b", "mamba2_370m"):
+        try:
+            launch.main(["--arch", arch, "--reduced", "--device", "cpu",
+                         "--steps", "1", "--mesh", "pod"])
+            out[f"pod_{arch}"] = "ran"
+        except ValueError as err:
+            out[f"pod_{arch}"] = str(err)
+    return out
+
+
+def tp_family_misc(rank, world, paths: dict):
+    """On 4 ranks: the (2, 2) ``mamba_tp22`` checkpoint restored onto a
+    (1, 4) state; ``EtlJob(mesh=, embed_cache=)`` on (2, 2): each rank's
+    delivered rows and lookahead plans (the stage runs after place)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.pipeline import paper_pipeline
+    from repro_torch.data.source import Source
+    from repro_torch.etl_runtime.lookahead import PLAN_KEYS, EmbedCacheConfig
+    from repro_torch.models import api
+    from repro_torch.session import EtlJob
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import train_loop as ttl
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    def mesh(shape):
+        return init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+
+    out = {}
+    cfg = lm_cfg(paths["arch"])
+    model = api.build_model(cfg)
+    tc = TrainConfig(**paths["tcfg"])
+    m = mesh((1, 4))
+    state = ttl.TrainState.create(model.init(seed=5, device="cpu"), tc)
+    state = ttl.shard_train_step(model.loss, tc, m, state, batch_rows=8,
+                                 fsdp=tc.fsdp)[1]
+    state = ckpt.restore(paths["port_ckpt"], state, mesh=m)
+    out["ckpt_22_to_14"] = (state.step, tp_local_leaves(state))
+    e = paths["etl"]
+    job = EtlJob(paper_pipeline("II", small_vocab=e["vocab"],
+                                batch_size=e["batch"]),
+                 Source.synth("I", rows=e["batch"] * e["batches"],
+                              batch_size=e["batch"], seed=2),
+                 backend="cuda", device="cpu", mesh=mesh((2, 2)),
+                 fit_source=Source.synth("I", rows=1000, batch_size=500,
+                                         seed=1),
+                 embed_cache=EmbedCacheConfig(**e["cache"]))
+    job.fit()
+    with job.batches() as batches:
+        out["etl"] = [{k: np.asarray(b[k]) for k in ("sparse",) + PLAN_KEYS}
+                      for b in batches]
     return out
