@@ -311,9 +311,9 @@ Phases, one JSON line each; any failure exits non-zero:
                  rank's rows after place, each rank's EmbedCache holds the
                  rows in its range (zero elsewhere), one stacked
                  embedding_bag_cached launch a step on its shard, the
-                 lookups' parts summed; 16 steps against one process's
+                 lookups' parts summed; 8 steps against one process's
                  lookahead path: losses within DLRM_TP_RTOL, the cache's
-                 counters (so the hit rate) equal on both ranks, 16
+                 counters (so the hit rate) equal on both ranks, 8
                  embedding_bag_cached launches a rank, one profiled step.
                  The parity phase holds the kernel on that shape too
                  (``stacked_half_table``: rank 1's half of the tables,
@@ -331,6 +331,21 @@ Phases, one JSON line each; any failure exits non-zero:
                  launcher feeds frames), shard_train_step, 4 steps against
                  one process: losses within TP_LOSS_RTOL, the leaves held
                  whole bit-equal across the ranks.
+
+The five model-axis phases (tp_ranks2, ep_ranks2, ssm_tp2, hybrid_tp2,
+encdec_tp2) then serve their cut on the same ranks (``axis_serve``): a
+module from seed 0 sharded for serving (``shard_for_serving``: the KV
+caches split by kv head, the SSM's states by head and channel), bf16
+compute, the prompts from the LM token pipeline on the card (batch 8,
+prompt 256; whisper's frames from random_batch), prefill and 32 decode
+steps fed one process's greedy tokens, its MoE routing pinned to that
+process's choices: the logits within SERVE_TOL x the largest of one
+process's, the ranks' own greedy tokens identical on both and equal to one
+process's wherever its top-2 margin exceeds that bound.  Each phase's
+``serve`` holds prefill ms, decode step ms (one process's beside each
+rank's) and each rank's HBM bound (its parameters as stored plus its
+cache shard over HBM_BYTES_PER_S) and its share; the prompt jobs' dataflow
+launches count in the phase's ``launches``.
 
 Every phase line carries ``elapsed_s``, the seconds since the script
 started.  Then the ``{"kernels": [...]}`` line (``launches_online_main``,
@@ -367,6 +382,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -456,13 +472,17 @@ DIST2_ARCH, DIST2_LAYERS, DIST2_STEPS = "llama3_2_3b", 2, 4
 TP_ARCH, TP_LAYERS, TP_STEPS = "llama3_2_3b", 2, 4       # tp_ranks2
 EP_ARCH, EP_LAYERS, EP_STEPS = "mixtral_8x7b", 1, 4      # ep_ranks2
 DLRM_TP_STEPS, DLRM_TP_FIT = 8, 4                       # dlrm_tp2
-DLRM_LA_TP_STEPS = 16                                   # dlrm_la_tp2
+DLRM_LA_TP_STEPS = 8   # dlrm_la_tp2 (16 before the serving checks came)
 # the model axis for the SSM, hybrid and enc-dec families: mamba2_370m at
 # 8 of 48 layers, zamba2_2_7b at 18 of 54 (two applications of the shared
 # block), whisper_base whole
 SSM_TP_LAYERS, SSM_TP_STEPS = 8, 4                      # ssm_tp2
 HYBRID_TP_LAYERS, HYBRID_TP_STEPS, HYBRID_TP_SEQ = 18, 4, 512  # hybrid_tp2
 ENCDEC_TP_STEPS = 4                                     # encdec_tp2
+# serving on the model axis inside the *_tp2 / *_ranks2 phases' ranks: the
+# prompts from the LM token pipeline, greedy, bf16 compute
+AXIS_SERVE_BATCH, AXIS_SERVE_PROMPT, AXIS_SERVE_NEW = 8, 256, 32
+AXIS_F32_NEW = 8          # the SSM families' float32 serving check's steps
 # two model ranks vs one process: bf16 compute sums the row-parallel
 # products' halves in another order.  DLRM is float32, but its column
 # halves and their summed input gradients round differently from the
@@ -2827,12 +2847,233 @@ def preset_with(tcfg):
         launch.train_preset = real
 
 
-def model_axis_rank(argv: list, cfg, seq: int, tcfg, steps: int) -> dict:
+def axis_serve(cfg, batch: int = AXIS_SERVE_BATCH,
+               prompt: int = AXIS_SERVE_PROMPT, new: int = AXIS_SERVE_NEW,
+               forced: dict = None, compute_dtype: str = None,
+               tol: float = SERVE_TOL, strict: bool = True) -> dict:
+    """Serve one prompt batch at ``cfg``: the prompts from the LM token
+    pipeline (``launch.serve.make_prompt_job`` on the cuda backend; an
+    enc-dec model's frames from ``random_batch``), a module from seed 0,
+    sharded for serving (``tensor_parallel.shard_for_serving``) where the
+    active mesh has a model axis, prefill and ``new`` decode steps, each
+    timed to a synchronize.
+
+    Without ``forced`` (one process) the steps are greedy; the readings
+    carry ``forced``: the tokens fed, the last-token logits (on the host)
+    and each MoE routing's expert choices.  With ``forced`` (another run's,
+    e.g. one process's) the steps are fed its tokens and the routing takes
+    its choices (a bf16 router input that differs in its last bits may
+    pick another expert near a tie, which moves a token's logits by far
+    more than the tolerance): the logits within ``tol`` x the largest of
+    ``forced``'s, this run's own greedy tokens equal to ``forced``'s
+    wherever its top-2 margin exceeds that bound, and the rows whose own
+    choice differs within ``MOE_FLIP_SHARE`` (with ``strict=False`` a
+    reading, nothing asserted).  ``compute_dtype`` replaces the config's.
+    Readings:
+    prefill ms, decode step ms (median), the step's HBM bound (this
+    process's parameters as stored plus its cache, read once) and its
+    share, the prompt job's launches and those its lowering means."""
+    import torch
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.kernels import dataflow as df
+    from repro_torch.launch.serve import make_prompt_job
+    from repro_torch.models import api
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving.decode import next_token
+
+    if compute_dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    model = api.build_model(cfg)
+    module = model.init(seed=0)
+    dev = next(module.parameters()).device
+    mesh = shd.get_active_mesh()
+    if tp.model_axis(mesh) is not None:
+        tp.shard_for_serving(module, mesh)
+    df.reset_launch_counts()
+    job = make_prompt_job(cfg, batch=batch, prompt_len=prompt,
+                          backend="cuda", device=dev)
+    with job.batches() as ex:
+        inputs = {"tokens": next(iter(ex))["tokens"].clone()}
+    launches = dict(df.LAUNCHES)
+    want = lm_launches(job.compiled, job.stats().stages["transform"].items)
+    if cfg.family == "encdec":
+        inputs["frames"] = api.random_batch(
+            cfg, ShapeCfg("serve", prompt, batch, "prefill"), seed=0,
+            device=dev)["frames"]
+    real_top_k = moe_lib.top_k
+    pins = list(forced["choices"]) if forced else []
+    choices, flips = [], []
+
+    def record(probs, k):
+        vals, idx = real_top_k(probs, k)
+        choices.append(idx.cpu())
+        return vals, idx
+
+    def pinned(probs, k):
+        _, own = real_top_k(probs, k)
+        idx = pins.pop(0).to(own.device)
+        flips.append(int((own != idx).any(-1).sum()))
+        return probs.gather(-1, idx), idx
+
+    logits, tokens, step_ms = [], [], []
+    moe_lib.top_k = pinned if forced else record
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.prefill(module, inputs, prompt + new)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            logits.append(lg[:, -1])
+            for i in range(new):
+                tokens.append(next_token(lg[:, -1]))
+                fed = forced["tokens"][:, i:i + 1].to(dev) if forced \
+                    else tokens[-1]
+                t0 = time.perf_counter()
+                lg, cache = model.decode_step(module, cache, fed, prompt + i)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(lg[:, -1])
+    finally:
+        moe_lib.top_k = real_top_k
+    if pins:
+        raise AssertionError(f"{cfg.name}: {len(pins)} expert choices unused")
+    logits = torch.stack(logits, 1)
+    tokens = torch.cat(tokens, 1)
+    step = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    bound_bytes = param_bytes(module) + tensor_bytes(cache)
+    bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+    out = {"batch": batch, "prompt_len": prompt, "new": new,
+           "compute_dtype": cfg.compute_dtype,
+           "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+           "decode_step_ms_median_2_on": step,
+           "param_bytes": param_bytes(module),
+           "cache_bytes": tensor_bytes(cache),
+           "decode_step_bound_ms": bound_ms,
+           "decode_share_of_bound": bound_ms / step,
+           "tokens": tokens.cpu().tolist(),
+           "launches": launches, "launches_want": want}
+    if not forced:
+        out["forced"] = {"tokens": tokens.cpu(), "logits": logits.cpu(),
+                         "choices": choices}
+        return out
+    with torch.inference_mode():
+        got, ref = logits.float(), forced["logits"].to(dev).float()
+        largest = float(ref.abs().max())
+        err = (got - ref).abs().amax(dim=(0, 2))  # per position
+        top2 = torch.topk(ref[:, :new], 2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > tol * largest
+        wrong = sure & (tokens != forced["tokens"].to(dev))
+    out["teacher_forced"] = {
+        "max_abs_err": float(err.max()), "largest": largest,
+        "tol": tol, "asserted": strict,
+        "max_abs_err_by_position": [float(e) for e in err],
+        "tokens_checked": int(sure.sum()), "tokens_total": sure.numel(),
+        "tokens_differing": int(wrong.sum())}
+    if flips:
+        rows = sum(int(c.shape[0]) for c in forced["choices"])
+        out["routing_pinned"] = {"rows": rows,
+                                 "own_choice_differs": sum(flips),
+                                 "bound_share": MOE_FLIP_SHARE}
+        if strict and sum(flips) > MOE_FLIP_SHARE * rows:
+            raise AssertionError(f"{cfg.name}: routing "
+                                 f"{out['routing_pinned']}")
+    if strict and (not float(err.max()) <= tol * largest
+                   or int(wrong.sum())):
+        raise AssertionError(f"{cfg.name}: served on the model axis vs one "
+                             f"process {out['teacher_forced']}")
+    return out
+
+
+def serving_runs(cfg, serve_kw: dict) -> list:
+    """A phase's ``axis_serve`` runs (keywords each): bf16 compute within
+    ``SERVE_TOL``.  The SSM and hybrid families' bf16 recurrence drifts
+    with depth between two orders of the row-parallel sums (zamba2's 18
+    layers on an H100: 4.4 % of the largest logit against a bound of 3 %;
+    mamba2's 8: 2.3 %), as ssm_main's and
+    hybrid_main's decode does from their forward: that run is a reading,
+    and a float32 run of ``AXIS_F32_NEW`` steps on the same parameters is
+    held to ``FORCED_F32_TOL``, as their check is."""
+    if cfg.ssm is None:
+        return [dict(serve_kw)]
+    return [dict(serve_kw, strict=False),
+            dict(serve_kw, compute_dtype="float32", tol=FORCED_F32_TOL,
+                 new=min(serve_kw.get("new", AXIS_SERVE_NEW), AXIS_F32_NEW))]
+
+
+def axis_serve_alone(cfg, tmp: str, runs: list) -> tuple:
+    """Each of ``runs`` (``serving_runs``) through ``axis_serve`` in this
+    process (no model axis), its ``forced`` saved under ``tmp`` for the
+    ranks: ``(readings, [(path, keywords)])``."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+
+    shd.set_active_mesh(None)
+    readings, paths = [], []
+    for i, kw in enumerate(runs):
+        out = axis_serve(cfg, **kw)
+        path = os.path.join(tmp, f"serve_{i}.pt")
+        torch.save(out.pop("forced"), path)
+        readings.append(out)
+        paths.append((path, kw))
+        free_memory()
+    return readings, paths
+
+
+def axis_serve_check(name: str, alone: list, ranks: list, expect) -> list:
+    """The serving readings of one process and of the ranks, run by run:
+    the ranks' greedy tokens identical, every run's prompt launches those
+    its lowering means; the readings side by side."""
+    out = []
+    for i, one in enumerate(alone):
+        serves = [r["serve"][i] for r in ranks]
+        if any(s["tokens"] != serves[0]["tokens"] for s in serves):
+            raise AssertionError(f"{name}: the ranks chose different tokens")
+        expect(one.pop("launches"), one.pop("launches_want"),
+               f"{name} serve alone")
+        for s in serves:
+            s.pop("tokens")
+        one.pop("tokens")
+        out.append({"compute_dtype": one["compute_dtype"],
+                    "one_process": one, "ranks": serves,
+                    "tokens_identical_across_ranks": True,
+                    "decode_step_ms_vs_one_process": [
+                        s["decode_step_ms_median_2_on"]
+                        / one["decode_step_ms_median_2_on"]
+                        for s in serves]})
+    for r in ranks:
+        del r["serve"]
+    return out
+
+
+def serve_on_rank(out: dict, cfg, runs: list) -> dict:
+    """``axis_serve`` on this rank fed each one-process run of ``runs``
+    (``[(path, keywords)]``, ``axis_serve_alone``'s); the readings go to
+    ``out["serve"]``, the prompt launches into ``out``'s."""
+    import torch
+
+    out["serve"] = []
+    for path, kw in runs:
+        free_memory()
+        serve = axis_serve(cfg, forced=torch.load(path), **kw)
+        out["launches"] = add_launches(out["launches"],
+                                       serve.pop("launches"))
+        out["launches_want"] = add_launches(out["launches_want"],
+                                            serve.pop("launches_want"))
+        out["serve"].append(serve)
+    return out
+
+
+def model_axis_rank(argv: list, cfg, seq: int, tcfg, steps: int,
+                    serve_runs: list) -> dict:
     """``tp_ranks2`` / ``ep_ranks2``'s rank: the launcher under
     ``WORLD_SIZE`` (gloo over CUDA tensors) on ``make_host_mesh
     (model_axis=2)``, a (1, 2) mesh, training with ``tcfg``; its readings
     (``launcher_readings``), the collectives' traffic a step, the MoE drop
-    share, and the digests of the leaves it holds whole."""
+    share, and the digests of the leaves it holds whole; then serving on
+    the mesh (``serve_on_rank``)."""
     import torch
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch import train as launch
@@ -2852,19 +3093,22 @@ def model_axis_rank(argv: list, cfg, seq: int, tcfg, steps: int) -> dict:
     out.update(collectives_per_step=traffic, leaves=digests,
                drop_share=drop_share(tally) if tally["routed"] else None,
                device=torch.cuda.get_device_name(0))
-    return out
+    del summary
+    return serve_on_rank(out, cfg, serve_runs)
 
 
 def model_axis_phase(name: str, arch: str, layers: int, steps: int,
                      expect, batch: int, seq: int, extra_args=(),
-                     fsdp=None) -> dict:
+                     fsdp=None, serve_kw=None) -> dict:
     """Two ranks on the one card, gloo over CUDA tensors, a (1, 2) mesh:
     ``launch.train --mesh host`` at ``arch``'s full width, ``layers`` deep,
     its preset (``fsdp`` overrides the preset's), against the same cut in
     this process without a group first: losses within ``TP_LOSS_RTOL``,
     every batch each rank's rows of the plain compile (the same on both),
     the leaves held whole bit-equal across the ranks, the ones whose spec
-    names "model" sharded on both, the drop share of an MoE equal on both."""
+    names "model" sharded on both, the drop share of an MoE equal on both.
+    Then the same cut serves on the mesh against one process
+    (``axis_serve``; ``serve_kw`` its sizes)."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config, get_reduced
@@ -2888,8 +3132,12 @@ def model_axis_phase(name: str, arch: str, layers: int, steps: int,
     alone_drop = drop_share(tally) if tally["routed"] else None
     del alone
     free_memory()
-    ranks = run_ranks(model_axis_rank, 2, "gloo",
-                      (argv, cfg, seq, tcfg, steps), timeout=900)
+    with tempfile.TemporaryDirectory() as tmp:
+        served, runs = axis_serve_alone(cfg, tmp,
+                                        serving_runs(cfg, serve_kw or {}))
+        ranks = run_ranks(model_axis_rank, 2, "gloo",
+                          (argv, cfg, seq, tcfg, steps, runs), timeout=900)
+    serve = axis_serve_check(name, served, ranks, expect)
     diff = 0.0
     for r, out in enumerate(ranks):
         expect(out["launches"], out["launches_want"], f"{name} rank {r}")
@@ -2927,7 +3175,7 @@ def model_axis_phase(name: str, arch: str, layers: int, steps: int,
             "drop_share_one_process": alone_drop,
             "leaves_whole_bit_equal_across_ranks": True,
             "launches": add_launches(*(o["launches"] for o in ranks)),
-            "ranks": ranks}
+            "serve": serve, "ranks": ranks}
 
 
 def dlrm_la_config():
@@ -3196,31 +3444,44 @@ def encdec_run(steps: int, batch: int, seq: int, mesh=None,
     return out
 
 
-def encdec_tp2_rank(steps: int, batch: int, seq: int,
-                    reduced: bool) -> dict:
+def encdec_tp2_rank(steps: int, batch: int, seq: int, reduced: bool,
+                    serve_runs: list) -> dict:
     """``encdec_tp2``'s rank: ``encdec_run`` on
-    ``make_host_mesh(model_axis=2)``."""
+    ``make_host_mesh(model_axis=2)``, then serving on it
+    (``serve_on_rank``)."""
+    from repro_torch.configs.registry import get_config, get_reduced
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh(model_axis=2)
     shd.set_active_mesh(mesh)
-    return encdec_run(steps, batch, seq, mesh=mesh, reduced=reduced)
+    out = encdec_run(steps, batch, seq, mesh=mesh, reduced=reduced)
+    cfg = get_reduced(ENCDEC_ARCH) if reduced else get_config(ENCDEC_ARCH)
+    return serve_on_rank(out, cfg, serve_runs)
 
 
 def encdec_tp2(expect, steps: int = ENCDEC_TP_STEPS, batch: int = LM_BATCH,
-               seq: int = ENCDEC_SEQ, reduced: bool = False) -> dict:
+               seq: int = ENCDEC_SEQ, reduced: bool = False,
+               serve_kw=None) -> dict:
     """``whisper_base`` at full width and depth (1,500 frames) on two ranks
     sharing the card (gloo over CUDA tensors, a (1, 2) mesh: 4 of 8 heads
     of every self- and cross-attention, 1,024 of 2,048 MLP columns, 26,112
     of 52,224 tied vocabulary rows a rank; the encoder's output enters each
     cross-attention through ``copy_in``), against the same run in one
     process: losses within ``TP_LOSS_RTOL``, the leaves held whole
-    bit-equal across the ranks."""
+    bit-equal across the ranks.  Then serving on the mesh against one
+    process (``axis_serve``; ``serve_kw`` its sizes)."""
+    from repro_torch.configs.registry import get_config, get_reduced
+
     alone = encdec_run(steps, batch, seq, reduced=reduced)
     free_memory()
-    ranks = run_ranks(encdec_tp2_rank, 2, "gloo",
-                      (steps, batch, seq, reduced), timeout=600)
+    cfg = get_reduced(ENCDEC_ARCH) if reduced else get_config(ENCDEC_ARCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        served, runs = axis_serve_alone(cfg, tmp,
+                                        serving_runs(cfg, serve_kw or {}))
+        ranks = run_ranks(encdec_tp2_rank, 2, "gloo",
+                          (steps, batch, seq, reduced, runs), timeout=600)
+    serve = axis_serve_check("encdec_tp2", served, ranks, expect)
     diff = max(abs(a - b) / abs(b) for out in ranks
                for a, b in zip(out["losses"], alone["losses"]))
     if diff > TP_LOSS_RTOL or len(ranks[0]["losses"]) != steps:
@@ -3246,7 +3507,7 @@ def encdec_tp2(expect, steps: int = ENCDEC_TP_STEPS, batch: int = LM_BATCH,
             "leaves_whole_bit_equal_across_ranks": True,
             "launches": add_launches(*(o["launches"] for o in ranks)),
             "launches_per_rank": [o["launches"] for o in ranks],
-            "ranks": ranks}
+            "serve": serve, "ranks": ranks}
 
 
 def multitenant_main(expect, rows: int = 0,

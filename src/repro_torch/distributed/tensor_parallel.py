@@ -9,7 +9,9 @@ reads one computes its part and meets the other model ranks of its data
 coordinate in the collectives below; the layers see from a parameter's
 shape whether it is sharded (``split``), and find the group in the active
 mesh (``active``).  FSDP on the data axes then shards the local tensors
-further, unchanged.
+further, unchanged.  For serving, ``shard_for_serving`` cuts a model the
+same way (no FSDP), and each decode cache is allocated as this rank's
+shard of it (``local_cache``, the layout of ``sharding.cache_specs``).
 
 The regions, as Megatron-LM names them (each an autograd function over
 the model group):
@@ -300,6 +302,56 @@ def mark(model) -> None:
 def shard_of(p) -> tuple:
     """``(model dim, ModelAxis)`` of a parameter, or ``(None, None)``."""
     return getattr(p, "tp_shard", (None, None))
+
+
+@torch.no_grad()
+def shard_for_serving(model, mesh, *, fsdp: bool = False):
+    """Shard ``model`` (an LM) over the "model" axis of ``mesh`` for
+    serving, in place, as the reference's serving cells place parameters
+    (``param_specs(..., fsdp=False)``: each spec's model dim cut to this
+    rank's slice, everything else whole on every rank; no optimizer
+    state), and make ``mesh`` the active one.  Its ``prefill`` and
+    ``decode_step`` then take this rank's rows (a data degree dp > 1: its
+    row shard of a batch dp divides, as ``batch_specs`` places it) and keep
+    this rank's shard of each cache (``sharding.cache_specs``).  Returns
+    ``model``.  ``fsdp`` (the cells' weight-gathered serving, weights also
+    sharded over the data axes) raises."""
+    if fsdp:
+        raise NotImplementedError(
+            "weight-gathered serving (parameters also sharded over the data "
+            "axes, the serving cells' serve_fsdp): ROADMAP Queue A item 8")
+    from repro_torch.training.train_loop import _shard_dims
+    shd.set_active_mesh(mesh)
+    ax = model_axis(mesh)
+    if ax is None:
+        return model
+    moe = getattr(model.cfg, "moe", None)
+    dims = _shard_dims(model, shd.axis_sizes(mesh), fsdp=False,
+                       n_experts=moe.n_experts if moe else 0)
+    shard_model(model, {n: md for n, (md, _) in dims.items()
+                        if md is not None}, ax)
+    return model
+
+
+def local_cache(cache: dict, ax: ModelAxis, device) -> dict:
+    """This rank's shard of the decode cache ``cache`` (nested dicts of
+    tensors, e.g. on the meta device: only shapes and dtypes are read), as
+    ``sharding.cache_specs`` splits it over a model axis ``ax`` (the rows
+    are the caller's), newly allocated on ``device``: zeros, and -1 (an
+    empty slot) in each ``pos``."""
+    specs = shd.cache_specs(cache, {"model": ax.size})
+
+    def alloc(c, spec, key):
+        if isinstance(c, dict):
+            return {k: alloc(c[k], spec[k], k) for k in c}
+        shape = list(c.shape)
+        d = model_dim(spec)
+        if d is not None:
+            shape[d] //= ax.size
+        return torch.full(shape, -1 if key == "pos" else 0, dtype=c.dtype,
+                          device=device)
+
+    return alloc(cache, specs, "")
 
 
 def whole(t, dim: Optional[int], ax: Optional[ModelAxis]):

@@ -16,8 +16,9 @@ unstacked subtree) and ``final_norm``.  On a "model" mesh axis the
 attention projections and MLPs split by heads and hidden units (the
 cross-attention's ``wk`` / ``wv`` on the encoder's output, which enters
 each layer through ``tp.copy_in``), the tied head by vocabulary rows; the
-LayerNorms stay replicated.  Serving: ``prefill`` encodes the
-frames, projects every decoder layer's cross K / V once (``cross``
+LayerNorms stay replicated (a sharded module serves with this rank's
+shard of each cache, ``sharding.cache_specs``).  Serving: ``prefill``
+encodes the frames, projects every decoder layer's cross K / V once (``cross``
 ``[L, B, T_enc, n_kv, hd]``) and writes the prompt into the self-attention
 cache (``self``: ``cache_init``'s tensors stacked over the layers) from
 position 0; ``decode_step`` writes one position a layer in place.
@@ -104,16 +105,17 @@ class DecBlock(nn.Module):
                                       **kw))
 
     def forward(self, x, enc_out=None, self_cache=None, cross_cache=None,
-                pos=None):
+                pos=None, ax=None):
         """Training: ``enc_out`` (B, T_enc, D).  Serving: ``self_cache``
         written in place at ``pos`` and ``cross_cache`` (``{"k", "v"}``
-        projected from the encoder's output)."""
+        projected from the encoder's output; with the model axis ``ax``
+        of a sharded module, this rank's shard)."""
         cfg = self.cfg
         x = x + L.mha(self.attn, _norm(cfg, x, self.ln1), dec_spec(cfg),
                       cache=self_cache, cache_pos=pos)
         xn = _norm(cfg, x, self.ln_x)
         if cross_cache is not None:
-            x = x + cross_from_cache(cfg, self.xattn, xn, cross_cache)
+            x = x + cross_from_cache(cfg, self.xattn, xn, cross_cache, ax)
         else:
             x = x + L.mha(self.xattn, xn, cross_spec(cfg), kv_x=enc_out)
         return x + L.mlp_apply(self.mlp, _norm(cfg, x, self.ln2), cfg.mlp,
@@ -124,15 +126,25 @@ class DecBlock(nn.Module):
                 for k in ("ln1", "ln_x", "ln2", "attn", "xattn", "mlp")}
 
 
-def cross_from_cache(cfg: ModelConfig, p, x, cc: dict):
+def cross_from_cache(cfg: ModelConfig, p, x, cc: dict, ax=None):
     """Cross-attention against precomputed encoder K / V: float32 scores
     over sqrt(hd) (the reference divides here; ``mha`` multiplies by the
-    reciprocal), probabilities cast back before they meet ``v``."""
+    reciprocal), probabilities cast back before they meet ``v``.
+
+    On a model axis ``ax`` (a sharded module), ``cc`` is this rank's
+    shard: its kv heads, which its own q heads read (``wo``'s partial sums
+    all-reduced); or every kv head over its span of the encoder positions
+    (or all of them), which every q head reads (``layers.softmax_split``)
+    before the rank keeps its heads' rows for ``wo``."""
     spec = cross_spec(cfg)
     B, Sq, _ = x.shape
     h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, Sq, h, hd)
+    q = x @ p["wq"].to(dt)
+    by_span = ax is not None and cc["k"].shape[2] == kv
+    if by_span:
+        q = L.whole_heads(q, h * hd, ax)
+    q = q.reshape(B, Sq, -1, hd)
     k, v = cc["k"], cc["v"]
     rep = h // kv
     if rep > 1:
@@ -140,9 +152,17 @@ def cross_from_cache(cfg: ModelConfig, p, x, cc: dict):
         v = torch.repeat_interleave(v, rep, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) / math.sqrt(hd)
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, Sq, h * hd)
-    return out @ p["wo"].to(dt)
+    if by_span:
+        out = L.softmax_split(scores, v, dt, ax)
+        if not tp.split(p["wo"].shape[0], h * hd):
+            return out @ p["wo"].to(dt)
+        out = tp.part(out, -1, ax)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(
+            B, Sq, -1)
+    y = out @ p["wo"].to(dt)
+    return y if ax is None else tp.all_reduce(y, ax)
 
 
 def _positions(n: int, like: torch.Tensor):
@@ -179,11 +199,6 @@ class EncDec(LM):
             return ckpt.checkpoint(block, *args, use_reentrant=False)
         return block(*args)
 
-    def logits(self, x):
-        """The final norm, then the tied head."""
-        return L.lm_logits(_norm(self.cfg, x, self.final_norm), self.embed,
-                           True)
-
     def encode(self, frames):
         """frames: (B, T_enc, D) precomputed frame embeddings (the frontend
         stub), cast to the compute dtype, plus sinusoidal positions."""
@@ -195,8 +210,7 @@ class EncDec(LM):
 
     def _decoded(self, enc_out, tokens):
         """The decoder's final-normed hidden states."""
-        x = L.embed_lookup(self.embed, tokens, self.cfg.cdtype(),
-                           vocab=self.cfg.padded_vocab)
+        x = self.embed_tokens(tokens)
         x = x + _positions(tokens.shape[1], x)
         for block in self.dec_blocks:
             x = self._run(block, x, enc_out)
@@ -216,33 +230,41 @@ class EncDec(LM):
     # ---- serving --------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int, enc_len: int) -> dict:
-        self.refuse_sharded_serving()
         return init_cache(self.cfg, batch, max_len, enc_len,
-                          self.embed.device)
+                          self.embed.device, self.serving_axis())
 
     @torch.no_grad()
     def prefill(self, frames, tokens, max_len: int) -> tuple:
         """Encode the frames, project each decoder layer's cross K / V,
         then run the prompt (B, S) through the decoder from position 0.
-        Returns (last-token logits (B, 1, V), cache)."""
+        Returns (last-token logits (B, 1, V), cache).  On a model-sharded
+        module each rank keeps its shard of the cross K / V: its kv heads,
+        or every head over its span of the encoder positions."""
         cfg = self.cfg
+        ax = self.serving_axis()
         enc_out = self.encode(frames)
         B, Te, _ = enc_out.shape
         cache = self.init_cache(B, max_len, Te)
         kv, hd = cfg.n_kv_heads, cfg.hd
+        cross = cache["cross"]
+        span = cross["k"].shape[2]
+        first = ax.rank * span if span != Te else 0
         for i, block in enumerate(self.dec_blocks):
             for name in ("k", "v"):
                 w = block.xattn["w" + name]
                 # the reference's product promotes to the wider dtype
                 dt = torch.promote_types(enc_out.dtype, w.dtype)
-                cache["cross"][name][i] = (enc_out.to(dt) @ w.to(dt)).reshape(
-                    B, Te, kv, hd)
-        x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
+                t = enc_out.to(dt) @ w.to(dt)
+                if cross[name].shape[3] == kv:  # every kv head here
+                    t = L.whole_heads(t, kv * hd, ax)[:, first:first + span]
+                cross[name][i] = t.reshape(B, span, -1, hd)
+        x = self.embed_tokens(tokens)
         x = x + _positions(tokens.shape[1], x)
         for i, block in enumerate(self.dec_blocks):
             x = block(x, self_cache=layer_cache(cache, "self", i),
-                      cross_cache=layer_cache(cache, "cross", i), pos=0)
-        return self.logits(x[:, -1:]), cache
+                      cross_cache=layer_cache(cache, "cross", i), pos=0,
+                      ax=ax)
+        return self.final_logits(x[:, -1:]), cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens, pos: int) -> tuple:
@@ -250,21 +272,26 @@ class EncDec(LM):
         layer's self K / V into ``cache`` in place; returns (logits (B, 1,
         V), cache)."""
         cfg, pos = self.cfg, int(pos)
-        x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
+        x = self.embed_tokens(tokens)
         at = torch.arange(pos, pos + 1, device=x.device)
         x = x + L.sinusoidal_at(at, cfg.d_model).to(x.dtype)
         for i, block in enumerate(self.dec_blocks):
             x = block(x, self_cache=layer_cache(cache, "self", i),
-                      cross_cache=layer_cache(cache, "cross", i), pos=pos)
-        return self.logits(x), cache
+                      cross_cache=layer_cache(cache, "cross", i), pos=pos,
+                      ax=self.serving_axis())
+        return self.final_logits(x), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int,
-               device=None) -> dict:
+               device=None, ax=None) -> dict:
     """``self``: one ``max_len`` KV cache a decoder layer, stacked;
     ``cross``: the encoder's K / V for each decoder layer, zeros until
-    ``prefill`` fills them.  All in the compute dtype (``pos`` int32)."""
+    ``prefill`` fills them.  All in the compute dtype (``pos`` int32).  With
+    a model axis ``ax``, this rank's shard (``tensor_parallel.local_cache``)."""
     dev = resolve_device(device)
+    if ax is not None:
+        return tp.local_cache(init_cache(cfg, batch, max_len, enc_len,
+                                         "meta"), ax, dev)
     one = L.cache_init(batch, max_len, cfg.n_kv_heads, cfg.hd, cfg.cdtype(),
                        device=dev)
     shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.hd)

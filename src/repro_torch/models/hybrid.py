@@ -11,7 +11,10 @@ window while the SSM state is O(1).
 
 On a "model" mesh axis the Mamba layers split as ``models/ssm.py`` says
 and the shared block as every transformer block does (its gradient still
-sums over the applications); the untied head is vocabulary-parallel.
+sums over the applications); the untied head is vocabulary-parallel.  A
+model-sharded module serves with this rank's shard of each state: the
+SSM's heads and channels, and ``shared_kv`` by kv head, or by sequence
+where the kv heads do not split (``sharding.cache_specs``).
 
 In the JAX tree ``shared_attn`` is an unstacked subtree (``LM.UNSTACKED``):
 one leaf per tensor of the block, after ``blocks/*`` in sorted order.  The
@@ -31,6 +34,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
@@ -83,8 +87,7 @@ class Hybrid(LM):
         ``remat == "full"`` each Mamba block and each application of the
         shared block is recomputed in the backward on its own."""
         cfg = self.cfg
-        x = L.embed_lookup(self.embed, tokens, cfg.cdtype(),
-                           vocab=cfg.padded_vocab)
+        x = self.embed_tokens(tokens)
         remat = cfg.remat == "full" and torch.is_grad_enabled()
 
         def run(f, x):
@@ -100,8 +103,8 @@ class Hybrid(LM):
     # ---- serving --------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        self.refuse_sharded_serving()
-        return init_cache(self.cfg, batch, max_len, self.embed.device)
+        return init_cache(self.cfg, batch, max_len, self.embed.device,
+                          self.serving_axis())
 
     @torch.no_grad()
     def prefill(self, tokens, max_len: int) -> tuple:
@@ -113,8 +116,7 @@ class Hybrid(LM):
         B, S = tokens.shape
         cache = self.init_cache(B, max_len)
         T = min(S, cache_len(cfg, max_len))
-        tail_pos = torch.arange(S - T, S, device=self.embed.device)
-        x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
+        x = self.embed_tokens(tokens)
         for g, layers in self._groups():
             for i in layers:
                 block = self.blocks[i]
@@ -122,7 +124,7 @@ class Hybrid(LM):
                                                 cfg, return_state=True)
                 x = x + y
                 ssm._store(cache, i, conv, st)
-            self.shared_attn.tail_kv(x[:, S - T:], tail_pos,
+            self.shared_attn.tail_kv(x[:, S - T:], S - T,
                                      layer_cache(cache, "shared_kv", g))
             x = self.shared_attn(x)
         return self.final_logits(x[:, -1:]), cache
@@ -134,7 +136,7 @@ class Hybrid(LM):
         windowed).  Updates ``cache`` in place; returns (logits (B, 1, V),
         cache)."""
         cfg, pos = self.cfg, int(pos)
-        x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
+        x = self.embed_tokens(tokens)
         for g, layers in self._groups():
             for i in layers:
                 block = self.blocks[i]
@@ -149,10 +151,14 @@ class Hybrid(LM):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> dict:
+               device=None, ax=None) -> dict:
     """The SSM's O(1) state (``ssm.init_cache``) and ``shared_kv``: one KV
-    cache of ``min(window, max_len)`` slots per application, stacked."""
+    cache of ``min(window, max_len)`` slots per application, stacked; with a
+    model axis ``ax``, this rank's shard (``tensor_parallel.local_cache``)."""
     dev = resolve_device(device)
+    if ax is not None:
+        return tp.local_cache(init_cache(cfg, batch, max_len, "meta"), ax,
+                              dev)
     cache = ssm.init_cache(cfg, batch, max_len, device=dev)
     n_app = n_shared_applications(cfg)
     one = L.cache_init(batch, cache_len(cfg, max_len), cfg.n_kv_heads,

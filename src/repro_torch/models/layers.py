@@ -14,7 +14,8 @@ Conventions
   cast back to the compute dtype before they meet ``v``.
 - KV caches (``cache_init``) are written in place at the decode position
   (a ring buffer modulo its length for sliding-window models): the caller
-  keeps the cache it passed, as the reference's decode donates it.
+  keeps the cache it passed, as the reference's decode donates it.  On the
+  model axis a cache is this rank's shard (``_mha_cached``).
 - Cross-attention (``mha(..., kv_x=)``) projects K and V from ``kv_x``,
   with no RoPE and no mask.  Sinusoidal positions come in the reference's
   two forms, which differ in their last bits: ``sinusoidal_positions``
@@ -225,11 +226,11 @@ def mha(p, x, spec: AttnSpec, *, kv_x: Optional[torch.Tensor] = None,
     x: (B, Sq, D).  kv_x: the cross-attention source (B, Sk, D) or None
     (self-attention, masked as ``spec`` says).
 
-    ``cache`` (from ``cache_init``) is written in place at ``cache_pos`` (a
-    host int; modulo the cache's length when ``ring``), and the queries
-    attend over the whole cache, masked by its positions.  Ring writes
-    require Sq == 1 (decode) or a span that does not wrap.  Cross-attention
-    has no RoPE, no mask and never the chunked path.
+    ``cache`` (from ``cache_init``, or this rank's shard of one on the
+    model axis) makes it ``_mha_cached``: self-attention written in place
+    at ``cache_pos`` (a host int; modulo the cache's length when ``ring``)
+    that attends over the whole cache.  Cross-attention has no RoPE, no
+    mask and never the chunked path.
 
     With the projections sharded over the model axis (or ``seq_sharded``:
     ``x`` is this rank's sequence shard), attention without a cache runs
@@ -237,11 +238,12 @@ def mha(p, x, spec: AttnSpec, *, kv_x: Optional[torch.Tensor] = None,
     """
     B, Sq, _ = x.shape
     h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    if cache is not None:
+        if seq_sharded or kv_x is not None or q_pos is not None:
+            raise ValueError("a KV cache serves self-attention over whole "
+                             "sequences at its own positions")
+        return _mha_cached(p, x, spec, cache, cache_pos, ring)
     if seq_sharded or p["wq"].shape[1] != h * hd:
-        if cache is not None:
-            raise NotImplementedError(
-                "attention with a cache over model-sharded projections "
-                "(serving on a model axis: ROADMAP Queue A item 7)")
         return _mha_model_parallel(p, x, spec, seq_sharded, kv_x)
     dt = x.dtype
     src = x if kv_x is None else kv_x
@@ -253,26 +255,13 @@ def mha(p, x, spec: AttnSpec, *, kv_x: Optional[torch.Tensor] = None,
         q = rmsnorm(q, p["q_norm"].to(dt), 1e-6)
         k = rmsnorm(k, p["k_norm"].to(dt), 1e-6)
     if q_pos is None:
-        start = 0 if cache_pos is None else cache_pos
-        q_pos = torch.arange(start, start + Sq, device=x.device)
+        q_pos = torch.arange(Sq, device=x.device)
     if spec.rope_style != "none" and kv_x is None:
         inv = rope_freqs(hd, spec.rope_theta, spec.rope_style, x.device)
         pos = torch.broadcast_to(q_pos, (B, Sq))
         q = apply_rope(q, pos, inv, spec.rope_style)
         k = apply_rope(k, pos, inv, spec.rope_style)
-
-    if cache is not None:
-        length = cache["k"].shape[1]
-        slot = cache_pos % length if ring else cache_pos
-        # the reference's dynamic_update_slice clamps a span that would run
-        # past the end
-        slot = max(0, min(slot, length - Sq))
-        cache["k"][:, slot:slot + Sq] = k.to(cache["k"].dtype)
-        cache["v"][:, slot:slot + Sq] = v.to(cache["v"].dtype)
-        cache["pos"][slot:slot + Sq] = q_pos.to(torch.int32)
-        k, v, k_pos = cache["k"], cache["v"], cache["pos"]
-    else:
-        k_pos = torch.arange(Sk, device=x.device)
+    k_pos = torch.arange(Sk, device=x.device)
 
     # GQA: repeat kv heads to match q heads
     rep = h // kv
@@ -281,6 +270,34 @@ def mha(p, x, spec: AttnSpec, *, kv_x: Optional[torch.Tensor] = None,
         v = torch.repeat_interleave(v, rep, dim=2)
     out = _attend(q, k, v, q_pos, k_pos, spec, dt, self_attn=kv_x is None)
     return out @ p["wo"].to(dt)
+
+
+def cache_slot(cache: dict, cache_pos: int, n: int, ring: bool) -> int:
+    """The first of the whole cache's slots that ``n`` tokens from
+    position ``cache_pos`` take (modulo its length when ``ring``); the
+    reference's ``dynamic_update_slice`` clamps a span that would run past
+    the end."""
+    length = cache["pos"].shape[-1]
+    slot = cache_pos % length if ring else cache_pos
+    return max(0, min(slot, length - n))
+
+
+def write_kv(cache: dict, k, v, slot: int, positions) -> None:
+    """Write ``k`` / ``v`` (B, T, heads, hd) into the whole cache's slots
+    ``slot .. slot + T`` (they must not wrap) and ``positions`` (T,) into
+    its ``pos``.  On a cache split by sequence over the model axis
+    (its ``k`` shorter than its ``pos``) this rank keeps the slots in its
+    span only; ``pos`` is whole on every rank."""
+    T = k.shape[1]
+    n = cache["k"].shape[1]
+    cache["pos"][slot:slot + T] = positions.to(torch.int32)
+    lo = tp.active().rank * n if n != cache["pos"].shape[0] else 0
+    a, b = max(slot, lo), min(slot + T, lo + n)
+    if a < b:
+        cache["k"][:, a - lo:b - lo] = k[:, a - slot:b - slot].to(
+            cache["k"].dtype)
+        cache["v"][:, a - lo:b - lo] = v[:, a - slot:b - slot].to(
+            cache["v"].dtype)
 
 
 def _attend(q, k, v, q_pos, k_pos, spec: AttnSpec, dt, *, self_attn=True):
@@ -384,6 +401,86 @@ def _mha_model_parallel(p, x, spec: AttnSpec, seq_sharded: bool,
     out = _attend(q, k[:, :, kv_idx], v[:, :, kv_idx], pos, k_pos, spec, dt,
                   self_attn=self_attn)
     return tp.leave(out @ p["wo"].to(dt), ax, True, seq_sharded)
+
+
+def whole_heads(t, width: int, ax):
+    """A projection's output (..., width / m on each rank, or whole) whole
+    on every rank (serving: no autograd)."""
+    return tp.all_gather(t, -1, ax) if tp.split(t.shape[-1], width) else t
+
+
+def softmax_split(s, v, dt, ax):
+    """``softmax(s) @ v`` -> (B, Sq, H * hd) in ``dt``, where the keys
+    (``s``: float32 scores (B, H, Sq, Sk_local); ``v``: (B, Sk_local, H,
+    hd), per q head) are this rank's span of the positions
+    (flash-decoding): the model ranks' max, sums of exponentials and
+    weighted values are all-reduced in float32.  Ranks that hold the same
+    keys give the same result (every sum counts them m times)."""
+    B, H, Sq, _ = s.shape
+    top = tp.all_reduce(s.amax(-1), ax, op=dist.ReduceOp.MAX)
+    e = torch.exp(s - top[..., None])
+    den = tp.all_reduce(e.sum(-1), ax)  # (B, H, Sq)
+    num = tp.all_reduce(torch.einsum("bhqk,bkhd->bqhd", e,
+                                     v.to(torch.float32)), ax)
+    out = num / den.transpose(1, 2)[..., None]
+    return out.to(dt).reshape(B, Sq, H * v.shape[-1])
+
+
+def _mha_cached(p, x, spec: AttnSpec, cache: dict, cache_pos: int,
+                ring: bool):
+    """Self-attention with a KV cache (serving): ``x`` (B, Sq, D) at
+    positions ``cache_pos ..``, written into ``cache`` at the slot
+    ``cache_slot`` gives (a span that does not wrap), then attending over
+    the whole cache, masked by its positions.
+
+    On the model axis ``wq`` / ``wk`` / ``wv`` are column- and ``wo``
+    row-sharded, and ``cache`` is this rank's shard as
+    ``sharding.cache_specs`` lays it out:
+
+    - split by kv head: each rank projects, writes and attends with its
+      own q heads and the kv heads they pair with;
+    - split by sequence (the kv heads do not split): every rank gathers
+      the whole q, k and v of the new tokens, writes the slots in its
+      span, and attends over its positions with every q head
+      (``softmax_split``); it keeps its heads' rows of the result for
+      ``wo``;
+    - whole on every rank (neither splits): as by sequence, but each rank
+      attends over the whole cache.
+
+    ``wo``'s partial sums are then all-reduced over the model ranks."""
+    ax = tp.active()
+    B, Sq, _ = x.shape
+    h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    dt = x.dtype
+    q_pos = torch.arange(cache_pos, cache_pos + Sq, device=x.device)
+    bpos = torch.broadcast_to(q_pos, (B, Sq))
+    slot = cache_slot(cache, cache_pos, Sq, ring)
+    q, k, v = (x @ p[w].to(dt) for w in ("wq", "wk", "wv"))
+    by_head = cache["k"].shape[2] != kv
+    if not by_head:
+        q, k, v = (whole_heads(t, n * hd, ax) for t, n in
+                   ((q, h), (k, kv), (v, kv)))
+    q = _qk_prep(q.reshape(B, Sq, -1, hd), p.get("q_norm"), bpos, spec)
+    k = _qk_prep(k.reshape(B, Sq, -1, hd), p.get("k_norm"), bpos, spec)
+    write_kv(cache, k, v.reshape(B, Sq, -1, hd), slot, q_pos)
+    kc, vc, k_pos = cache["k"], cache["v"], cache["pos"]
+    rep = h // kv
+    if rep > 1:
+        kc = torch.repeat_interleave(kc, rep, dim=2)
+        vc = torch.repeat_interleave(vc, rep, dim=2)
+    n = kc.shape[1]
+    if not by_head and n != k_pos.shape[0]:  # this rank's span of slots
+        s = _scores(q, kc, 1.0 / math.sqrt(hd)) + _mask_from_positions(
+            q_pos, k_pos[ax.rank * n:(ax.rank + 1) * n], spec.causal,
+            spec.sliding_window)
+        out = softmax_split(s, vc, dt, ax)
+    else:
+        out = _attend(q, kc, vc, q_pos, k_pos, spec, dt)
+    if not tp.split(p["wo"].shape[0], h * hd):
+        return out @ p["wo"].to(dt)
+    if not by_head:
+        out = tp.part(out, -1, ax)
+    return tp.all_reduce(out @ p["wo"].to(dt), ax)
 
 
 # ---------------------------------------------------------------------------

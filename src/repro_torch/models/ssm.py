@@ -18,6 +18,9 @@ split B and C on the state dim, not on heads); ``A_log``, ``D`` and
 ``dt_bias`` are replicated (``_mixer_model_parallel``).  Sequence
 parallelism (``seq_parallel``) is not ported for this family: no SSM
 config sets it, and on a model axis it raises ``NotImplementedError``.
+A model-sharded module serves with this rank's shard of the decode state
+(``sharding.cache_specs``): the SSD state of its heads, the convolutions'
+states of its channels.
 
 The model (``SSM``) holds ``embed``, per-layer blocks (``ln`` and
 ``mixer``), ``final_norm`` and ``lm_head`` when untied, in the JAX
@@ -179,19 +182,24 @@ def _projections(p, x, conv_state):
                                                  "c": ncc}
 
 
+def _sharded(p, cfg: ModelConfig) -> bool:
+    """Whether the mixer's projections are sharded over the model axis."""
+    d_inner, _, G, N, _ = dims(cfg)
+    return p["x_proj"].shape[1] != d_inner or p["b_proj"].shape[1] != G * N
+
+
 def mixer_apply(p, x, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
                 return_state=False):
     """Full-sequence mixer. x: (B,S,D). Returns y [, (conv_state, ssm_state)].
     With the projections sharded over the model axis it runs
-    ``_mixer_model_parallel`` (training only: no states in or out)."""
+    ``_mixer_model_parallel`` (the states are then this rank's heads and
+    channels)."""
     d_inner, H, G, N, P = dims(cfg)
     p = L.cast_tree_except(p, x.dtype, FLOAT32_KEYS)
-    if p["x_proj"].shape[1] != d_inner or p["b_proj"].shape[1] != G * N:
-        if conv_state is not None or ssm_state is not None or return_state:
-            raise NotImplementedError(
-                "the SSM's states over model-sharded projections (serving "
-                "on a model axis: ROADMAP Queue A item 7)")
-        return _mixer_model_parallel(p, x, cfg)
+    if _sharded(p, cfg):
+        return _mixer_model_parallel(p, x, cfg, conv_state=conv_state,
+                                     ssm_state=ssm_state,
+                                     return_state=return_state)
     z, xr, Braw, Craw, dtraw, new_conv = _projections(p, x, conv_state)
 
     Bsz, S, _ = x.shape
@@ -228,9 +236,13 @@ def _rmsnorm_split(x, w, eps, whole: int, ax):
     return (y * w.to(torch.float32)).to(x.dtype)
 
 
-def _mixer_model_parallel(p, x, cfg: ModelConfig):
-    """The training mixer with its projections sharded over the model axis
-    (x: (B, S, D), replicated) -> the output, replicated.
+def _mixer_model_parallel(p, x, cfg: ModelConfig, *, conv_state=None,
+                          ssm_state=None, return_state=False):
+    """The mixer with its projections sharded over the model axis (x: (B,
+    S, D), replicated) -> the output, replicated [, (conv_state,
+    ssm_state)]: this rank's channels of the three convolutions' states
+    (``x`` its heads', ``b`` / ``c`` its state entries') and its heads of
+    the SSD state, in and out.
 
     Each rank runs its H/m heads: z, x and dt from its columns (input
     through ``tp.copy_in``), its heads' slices of the replicated ``A_log``,
@@ -258,12 +270,16 @@ def _mixer_model_parallel(p, x, cfg: ModelConfig):
         raise NotImplementedError(
             f"{cfg.name}: sequence parallelism of the SSM on a model axis")
     _, xt = tp.enter(x, ax, False)
+    cs = conv_state or {}
+    new_conv = {}
     z = xt @ p["z_proj"]
-    xs, _ = _causal_conv(xt @ p["x_proj"], p["conv_wx"], p["conv_bx"])
+    xs, new_conv["x"] = _causal_conv(xt @ p["x_proj"], p["conv_wx"],
+                                     p["conv_bx"], state=cs.get("x"))
     dtraw = xt @ p["dt_proj"]
 
-    def bc(w, conv_w, conv_b):  # (B, S, G * N), whole on every rank
-        raw, _ = _causal_conv(xt @ w, conv_w, conv_b)
+    def bc(key, w, conv_w, conv_b):  # (B, S, G * N), whole on every rank
+        raw, new_conv[key] = _causal_conv(xt @ w, conv_w, conv_b,
+                                          state=cs.get(key))
         return tp.gather_to_shards(raw, -1, ax)
 
     Bsz, S, _ = x.shape
@@ -277,42 +293,57 @@ def _mixer_model_parallel(p, x, cfg: ModelConfig):
     def mine(v):  # this rank's heads of a replicated per-head parameter
         return tp.copy_in(v, ax)[heads]
 
-    Bh = per_head(bc(p["b_proj"], p["conv_wb"], p["conv_bb"]))
-    Ch = per_head(bc(p["c_proj"], p["conv_wc"], p["conv_bc"]))
+    Bh = per_head(bc("b", p["b_proj"], p["conv_wb"], p["conv_bb"]))
+    Ch = per_head(bc("c", p["c_proj"], p["conv_wc"], p["conv_bc"]))
     xh = xs.reshape(Bsz, S, hl, P).to(torch.float32)
     dt = F.softplus(dtraw.to(torch.float32) + mine(p["dt_bias"]))
     A = -torch.exp(mine(p["A_log"]))
-    y, _ = _ssd_chunked(xh, dt, A, Bh, Ch, cfg.ssm.chunk)
+    y, final = _ssd_chunked(xh, dt, A, Bh, Ch, cfg.ssm.chunk,
+                            init_state=ssm_state)
     y = y + xh * mine(p["D"])[None, None, :, None]
     y = y.reshape(Bsz, S, hl * P).to(x.dtype)
     y = _rmsnorm_split(y * F.silu(z), p["norm_w"], cfg.norm_eps, d_inner, ax)
-    return tp.reduce_out(y @ p["out_proj"], ax)
+    out = tp.reduce_out(y @ p["out_proj"], ax)
+    return (out, (new_conv, final)) if return_state else out
 
 
 def mixer_decode(p, x, cfg: ModelConfig, conv_state, ssm_state):
-    """One-token recurrence. x: (B,1,D). Returns (y, (conv_state, ssm_state))."""
+    """One-token recurrence. x: (B,1,D). Returns (y, (conv_state, ssm_state)).
+    With the projections sharded over the model axis each rank steps its
+    heads (their slices of ``A_log``, ``D`` and ``dt_bias``) and its
+    convolutions' channels, reads B and C whole (gathered), and meets the
+    other ranks in the gated norm's sum of squares and ``out_proj``'s
+    partial sums; the states are this rank's, as in ``mixer_apply``."""
     d_inner, H, G, N, P = dims(cfg)
     p = L.cast_tree_except(p, x.dtype, FLOAT32_KEYS)
+    ax = tp.active() if _sharded(p, cfg) else None
     z, xr, Braw, Craw, dtraw, new_conv = _projections(p, x, conv_state)
+    if ax is not None:
+        Braw, Craw = (tp.all_gather(t, -1, ax) for t in (Braw, Craw))
 
     Bsz = x.shape[0]
-    xh = xr.reshape(Bsz, H, P).to(torch.float32)
-    Bh = torch.repeat_interleave(Braw.reshape(Bsz, G, N), H // G,
-                                 dim=1).to(torch.float32)
-    Ch = torch.repeat_interleave(Craw.reshape(Bsz, G, N), H // G,
-                                 dim=1).to(torch.float32)
-    dt = F.softplus(dtraw.to(torch.float32)[:, 0, :] + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    hl = xr.shape[-1] // P  # this rank's heads
+    first = ax.rank * hl if ax is not None else 0
+    heads = slice(first, first + hl)
+    groups = (first + torch.arange(hl, device=x.device)) // (H // G)
+    xh = xr.reshape(Bsz, hl, P).to(torch.float32)
+    Bh = Braw.reshape(Bsz, G, N)[:, groups].to(torch.float32)
+    Ch = Craw.reshape(Bsz, G, N)[:, groups].to(torch.float32)
+    dt = F.softplus(dtraw.to(torch.float32)[:, 0, :] + p["dt_bias"][heads])
+    A = -torch.exp(p["A_log"][heads])
     dA = torch.exp(dt * A)  # (B,H)
     # state update: S = S*dA + dt * B x^T
     upd = dt[..., None, None] * Bh[..., :, None] * xh[..., None, :]
     new_state = ssm_state * dA[..., None, None] + upd
     with L.true_float32(xh):
         y = torch.einsum("bhn,bhnp->bhp", Ch, new_state)
-    y = y + xh * p["D"][None, :, None]
-    y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
-    y = L.rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"], (new_conv, new_state)
+    y = y + xh * p["D"][heads][None, :, None]
+    y = y.reshape(Bsz, 1, hl * P).to(x.dtype)
+    if ax is None:
+        y = L.rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+        return y @ p["out_proj"], (new_conv, new_state)
+    y = _rmsnorm_split(y * F.silu(z), p["norm_w"], cfg.norm_eps, d_inner, ax)
+    return tp.all_reduce(y @ p["out_proj"], ax), (new_conv, new_state)
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +401,7 @@ class SSM(LM):
 
     def hidden_states(self, tokens):
         cfg = self.cfg
-        x = L.embed_lookup(self.embed, tokens, cfg.cdtype(),
-                           vocab=cfg.padded_vocab)
+        x = self.embed_tokens(tokens)
         remat = cfg.remat == "full" and torch.is_grad_enabled()
         for block in self.blocks:
             x = ckpt.checkpoint(block, x, use_reentrant=False) if remat \
@@ -381,15 +411,16 @@ class SSM(LM):
     # ---- serving --------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        self.refuse_sharded_serving()
-        return init_cache(self.cfg, batch, max_len, self.embed.device)
+        return init_cache(self.cfg, batch, max_len, self.embed.device,
+                          self.serving_axis())
 
     @torch.no_grad()
     def prefill(self, tokens, max_len: int) -> tuple:
         """Chunked-SSD prefill; returns (last-token logits, decode-ready
-        state)."""
+        state; on a model-sharded module this rank's heads and
+        channels)."""
         cache = self.init_cache(tokens.shape[0], max_len)
-        x = L.embed_lookup(self.embed, tokens, self.cfg.cdtype())
+        x = self.embed_tokens(tokens)
         for i, block in enumerate(self.blocks):
             y, (conv, ssm) = mixer_apply(block.mixer, block._normed(x),
                                          self.cfg, return_state=True)
@@ -401,7 +432,7 @@ class SSM(LM):
     def decode_step(self, cache: dict, tokens, pos=None) -> tuple:
         """tokens: (B, 1); the recurrence is position-free.  Updates
         ``cache`` in place; returns (logits (B, 1, V), cache)."""
-        x = L.embed_lookup(self.embed, tokens, self.cfg.cdtype())
+        x = self.embed_tokens(tokens)
         for i, block in enumerate(self.blocks):
             conv = {k: v[i] for k, v in cache["conv"].items()}
             y, (nconv, nssm) = mixer_decode(block.mixer, block._normed(x),
@@ -418,11 +449,15 @@ def _store(cache: dict, i: int, conv: dict, ssm) -> None:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> dict:
+               device=None, ax=None) -> dict:
     """The O(1) decode state (``max_len`` is unused): the last d_conv - 1
-    inputs of each convolution and the SSD state, stacked over layers."""
-    del max_len
+    inputs of each convolution and the SSD state, stacked over layers; with
+    a model axis ``ax``, this rank's shard (``tensor_parallel.local_cache``:
+    its heads and channels)."""
     dev = resolve_device(device)
+    if ax is not None:
+        return tp.local_cache(init_cache(cfg, batch, max_len, "meta"), ax,
+                              dev)
     d_inner, H, G, N, P = dims(cfg)
     Lr, k = cfg.n_layers, cfg.ssm.d_conv - 1
 

@@ -104,28 +104,36 @@ class Block(nn.Module):
         return x + L.mlp_apply(self.mlp, y, cfg.mlp, width=cfg.d_ff,
                                seq_sharded=seq_sharded)
 
-    def tail_kv(self, tail_x, tail_pos, cache: dict) -> None:
+    def tail_kv(self, tail_x, start: int, cache: dict) -> None:
         """Fill this layer's ``cache`` with the K / V of the layer inputs
-        ``tail_x`` (B, T, D) at the contiguous positions ``tail_pos`` (T <=
+        ``tail_x`` (B, T, D) at the positions ``start .. start + T`` (T <=
         the cache's length), each in slot ``position % length`` (the ring
-        layout; every other slot stays empty)."""
+        layout; every other slot stays empty).  On the model axis the
+        cache is this rank's shard (``layers._mha_cached``): its kv heads'
+        K / V, or every head's in the slots of its span."""
         cfg, spec = self.cfg, self.spec
         B, T, _ = tail_x.shape
         kv, hd, dt = spec.n_kv_heads, spec.head_dim, tail_x.dtype
         y = L.norm_apply(tail_x, self.ln1, cfg.norm, cfg.norm_eps)
-        k = (y @ self.attn["wk"].to(dt)).reshape(B, T, kv, hd)
-        v = (y @ self.attn["wv"].to(dt)).reshape(B, T, kv, hd)
+        k = y @ self.attn["wk"].to(dt)
+        v = y @ self.attn["wv"].to(dt)
+        if cache["k"].shape[2] == kv:  # every kv head on this rank
+            k, v = (L.whole_heads(t, kv * hd, tp.active()) for t in (k, v))
+        k, v = k.reshape(B, T, -1, hd), v.reshape(B, T, -1, hd)
         if spec.qk_norm:
             k = L.rmsnorm(k, self.attn["k_norm"].to(dt), 1e-6)
+        tail_pos = torch.arange(start, start + T, device=tail_x.device)
         if spec.rope_style != "none":
             inv = L.rope_freqs(hd, spec.rope_theta, spec.rope_style,
                                tail_x.device)
             k = L.apply_rope(k, torch.broadcast_to(tail_pos, (B, T)), inv,
                              spec.rope_style)
-        slots = tail_pos % cache["k"].shape[1]
-        cache["k"][:, slots] = k.to(cache["k"].dtype)
-        cache["v"][:, slots] = v.to(cache["v"].dtype)
-        cache["pos"][slots] = tail_pos.to(torch.int32)
+        length = cache["pos"].shape[0]
+        first = start % length  # the ring wraps at most once
+        n = min(T, length - first)
+        L.write_kv(cache, k[:, :n], v[:, :n], first, tail_pos[:n])
+        if n < T:
+            L.write_kv(cache, k[:, n:], v[:, n:], 0, tail_pos[n:])
 
     def tree(self) -> dict:
         """This layer's parameters in the JAX block's tree."""
@@ -169,10 +177,26 @@ class LM(nn.Module):
         return self.embed if self.cfg.tie_embeddings else self.lm_head
 
     def final_logits(self, x):
-        """The final norm, then the head."""
+        """The final norm, then the head: whole vocabulary rows (gathered
+        where the head is sharded over the model axis)."""
         cfg = self.cfg
         x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
-        return L.lm_logits(x, self.head(), cfg.tie_embeddings)
+        logits, sharded = self.head_logits(x)
+        return tp.all_gather(logits, -1, tp.active()) if sharded else logits
+
+    def serving_axis(self):
+        """The model axis this module's parameters are sharded over
+        (``tensor_parallel.shard_model``), or None: a sharded module's
+        caches are this rank's shards."""
+        shards = getattr(self, "model_shards", None)
+        return shards[1] if shards else None
+
+    def embed_tokens(self, tokens):
+        """``tokens``' embeddings in the compute dtype (vocabulary-parallel
+        where the table is sharded)."""
+        cfg = self.cfg
+        return L.embed_lookup(self.embed, tokens, cfg.cdtype(),
+                              vocab=cfg.padded_vocab)
 
     def head_logits(self, x, seq_sharded: bool = False) -> tuple:
         """``(logits, vocab_sharded)`` of the final-normed ``x`` (this
@@ -203,14 +227,6 @@ class LM(nn.Module):
     def loss_fn(self, batch: dict):
         return self.loss_of(self.hidden_states(batch["tokens"]),
                             batch["labels"])
-
-    def refuse_sharded_serving(self) -> None:
-        """Raise for a model sharded over the model axis: serving on a mesh
-        is not ported."""
-        if getattr(self, "model_shards", None):
-            raise NotImplementedError(
-                f"serving a model-sharded {self.cfg.family} LM (ROADMAP "
-                "Queue A item 7)")
 
     def jax_tree(self) -> dict:
         """The parameters in the JAX package's tree: a layer group's
@@ -266,10 +282,14 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> dict:
+               device=None, ax=None) -> dict:
     """``{"blocks": ..., "moe_blocks": ...}`` (the groups the model has),
-    each ``cache_init``'s tensors stacked over the group's layers."""
+    each ``cache_init``'s tensors stacked over the group's layers; with a
+    model axis ``ax``, this rank's shard (``tensor_parallel.local_cache``)."""
     dev = resolve_device(device)
+    if ax is not None:
+        return tp.local_cache(init_cache(cfg, batch, max_len, "meta"), ax,
+                              dev)
     length = cache_len(cfg, max_len)
     n_dense = cfg.moe.first_dense_layers if cfg.moe else cfg.n_layers
     cache = {}
@@ -345,8 +365,7 @@ class Transformer(LM):
         config's ``seq_parallel``, on a model axis that divides the
         sequence)."""
         cfg = self.cfg
-        x = L.embed_lookup(self.embed, tokens, cfg.cdtype(),
-                           vocab=cfg.padded_vocab)
+        x = self.embed_tokens(tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         ax = tp.active()
@@ -387,8 +406,14 @@ class Transformer(LM):
     # ---- serving --------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        self.refuse_sharded_serving()
-        return init_cache(self.cfg, batch, max_len, self.embed.device)
+        return init_cache(self.cfg, batch, max_len, self.embed.device,
+                          self.serving_axis())
+
+    def _rows(self):
+        """Within: on a data degree dp > 1 the caller's rows are this
+        rank's row shard of the batch, so an MoE layer routes them as one
+        of the reference's dp token groups (prefill and decode alike)."""
+        return shd.row_shards(shd.data_degree(shd.get_active_mesh()))
 
     @torch.no_grad()
     def prefill(self, tokens, max_len: int) -> tuple:
@@ -396,30 +421,34 @@ class Transformer(LM):
         V), cache).  The logits come from the cache-free forward (with the
         sliding-window mask where configured); each layer's cache is filled
         from its input's last ``min(S, cache length)`` tokens, so a
-        sliding-window model keeps only its window (ring layout)."""
+        sliding-window model keeps only its window (ring layout).  On a
+        model-sharded module ``tokens`` are this rank's rows and the cache
+        its shard; the logits are whole."""
         cfg = self.cfg
         B, S = tokens.shape
         cache = self.init_cache(B, max_len)
         T = min(S, cache_len(cfg, max_len))
-        tail_pos = torch.arange(S - T, S, device=self.embed.device)
-        x = L.embed_lookup(self.embed, tokens, cfg.cdtype())
-        for group, layers in self._groups():
-            for i, block in enumerate(layers):
-                block.tail_kv(x[:, S - T:], tail_pos,
-                              layer_cache(cache, group, i))
-                x = block(x)
+        with self._rows():
+            x = self.embed_tokens(tokens)
+            for group, layers in self._groups():
+                for i, block in enumerate(layers):
+                    block.tail_kv(x[:, S - T:], S - T,
+                                  layer_cache(cache, group, i))
+                    x = block(x)
         return self.final_logits(x[:, -1:]), cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens, pos: int) -> tuple:
         """tokens: (B, 1) int at position ``pos`` (a host int).  Writes each
         layer's K / V into ``cache`` in place; returns (logits (B, 1, V),
-        cache).  An MoE layer routes the B tokens as one group."""
+        cache).  An MoE layer routes the B tokens as one group (on a data
+        degree dp > 1, one of dp)."""
         pos = int(pos)
-        x = L.embed_lookup(self.embed, tokens, self.cfg.cdtype())
-        for group, layers in self._groups():
-            for i, block in enumerate(layers):
-                x = block(x, layer_cache(cache, group, i), pos)
+        with self._rows():
+            x = self.embed_tokens(tokens)
+            for group, layers in self._groups():
+                for i, block in enumerate(layers):
+                    x = block(x, layer_cache(cache, group, i), pos)
         return self.final_logits(x), cache
 
 

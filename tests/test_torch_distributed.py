@@ -10,7 +10,10 @@
   ``jit_train_step`` on 4 host devices (a subprocess with
   ``--xla_force_host_platform_device_count=4`` and an Auto-axes
   ``jax.sharding.Mesh``), float32, within the LM float32 bounds: loss rtol
-  1e-5, grad norm rtol 1e-4, each parameter leaf within 1e-4 of its norm.
+  1e-5, grad norm rtol 1e-4, each parameter leaf within 1e-4 of its norm;
+  a failure names each check that failed (a leaf by its JAX path) and its
+  worst relative error.  ``llama_fsdp_mb2`` runs a second time on each
+  side, bit-equal to its first run.
 - (d) ``EtlJob(mesh=)`` gives each of 4 ranks its rows bit-equal; a row
   count 4 does not divide raises.
 - (e) elastic restores bit-equal: a one-process port checkpoint and a
@@ -313,7 +316,14 @@ CASES = {
                        False, None),
 }
 POD = {"llama_fsdp_pod"}
+# run twice on each side: every run of the suite shows whether a side
+# gives the same bits for the same inputs
+REPEAT = "llama_fsdp_mb2"
 STEPS, SEQ = 3, 16
+# seconds a side may take: alone on an 8-core CPU the port's takes ~20 s
+# and the reference's ~60 s, but beside five other test workers the
+# reference's passed 120 s, which ended the fixture before any comparison
+STEP_TIMEOUT = 300
 
 _REFERENCE = """
 import dataclasses, pickle, sys
@@ -326,7 +336,7 @@ from repro.models import api
 from repro.training import train_loop as tl
 
 inputs = pickle.load(open(sys.argv[1], "rb"))
-out = {}
+out, steps = {}, {}
 for name, case in inputs.items():
     devices = np.array(jax.devices())
     mesh = (Mesh(devices.reshape(2, 2, 1), ("pod", "data", "model"))
@@ -342,18 +352,24 @@ for name, case in inputs.items():
     params = jax.tree_util.tree_map(jax.numpy.asarray, case["params"])
     state = tl.TrainState.create(params, tc)
     b0 = case["batches"][0]
-    step, _ = tl.jit_train_step(
-        tl.make_train_step(model.loss, tc), mesh, jax.eval_shape(lambda: state),
-        {k: jax.ShapeDtypeStruct(v.shape, v.dtype) for k, v in b0.items()},
-        fsdp=tc.fsdp, n_experts=cfg.moe.n_experts if cfg.moe else 0)
+    key = name.split(":")[0]  # a repeated case runs its compiled step again
+    if key not in steps:
+        steps[key] = tl.jit_train_step(
+            tl.make_train_step(model.loss, tc), mesh,
+            jax.eval_shape(lambda: state),
+            {k: jax.ShapeDtypeStruct(v.shape, v.dtype) for k, v in b0.items()},
+            fsdp=tc.fsdp, n_experts=cfg.moe.n_experts if cfg.moe else 0)[0]
+    step = steps[key]
     losses, norms = [], []
     with mesh:
         for b in case["batches"]:
             state, m = step(state, b)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
-    leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(state.params)]
-    out[name] = (losses, norms, leaves)
+    flat = jax.tree_util.tree_flatten_with_path(state.params)[0]
+    leaves = [np.asarray(x) for _, x in flat]
+    paths = [jax.tree_util.keystr(p) for p, _ in flat]
+    out[name] = (losses, norms, leaves, paths)
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
@@ -361,7 +377,8 @@ pickle.dump(out, open(sys.argv[2], "wb"))
 @pytest.fixture(scope="module")
 def step_runs(tmp_path_factory):
     """Both sides of every case, run side by side: the reference in a
-    4-device subprocess, the port on 4 gloo ranks."""
+    4-device subprocess, the port on 4 gloo ranks; each side runs
+    ``REPEAT`` a second time last (as ``REPEAT + ":repeat"``)."""
     tmp = tmp_path_factory.mktemp("steps")
     inputs = {}
     for name, (arch, kw, rows, uneven, cf) in CASES.items():
@@ -375,6 +392,7 @@ def step_runs(tmp_path_factory):
             "params": jax.tree_util.tree_map(np.asarray, params),
             "batches": [td.lm_batch(rcfg.vocab_size, rows, SEQ, 30 + i,
                                     uneven) for i in range(STEPS)]}
+    inputs[REPEAT + ":repeat"] = inputs[REPEAT]
     td.save(inputs, tmp / "inputs.pkl")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
@@ -384,8 +402,8 @@ def step_runs(tmp_path_factory):
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         port = td.spawn(td.train_cases, WORLD, tmp, str(tmp / "inputs.pkl"),
-                        timeout=120)[0]
-        _, err = ref.communicate(timeout=120)
+                        timeout=STEP_TIMEOUT)[0]
+        _, err = ref.communicate(timeout=STEP_TIMEOUT)
     finally:
         if ref.poll() is None:
             ref.kill()
@@ -394,16 +412,54 @@ def step_runs(tmp_path_factory):
     return td.load(tmp / "ref.pkl"), port
 
 
+def _worst_rel(got, want) -> float:
+    """The largest ``|got - want| / |want|`` over paired values (0 where
+    both are 0, inf where only ``want`` is)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err, scale = np.abs(got - want), np.abs(want)
+    rel = np.where(scale > 0, err / np.where(scale > 0, scale, 1.0),
+                   np.where(err > 0, np.inf, 0.0))
+    return float(rel.max())
+
+
+def _leaf_rel(got, want) -> float:
+    """``||got - want|| / ||want||`` (0 where both are 0)."""
+    err, scale = np.linalg.norm(got - want), np.linalg.norm(want)
+    return float(err / scale) if scale > 0 else (0.0 if err == 0 else
+                                                  float("inf"))
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_train_step_matches_the_references_on_4_ranks(step_runs, name):
     ref, port = step_runs
-    (rl, rn, rleaves), (pl, pn, pleaves) = ref[name], port[name]
-    np.testing.assert_allclose(pl, rl, rtol=1e-5, err_msg="loss")
-    np.testing.assert_allclose(pn, rn, rtol=1e-4, err_msg="grad norm")
+    (rl, rn, rleaves, paths), (pl, pn, pleaves) = ref[name], port[name]
     assert len(pleaves) == len(rleaves)
-    for i, (got, want) in enumerate(zip(pleaves, rleaves)):
-        err = np.linalg.norm(got - want)
-        assert err <= 1e-4 * np.linalg.norm(want), (i, err)
+    checks = [("loss", _worst_rel(pl, rl), 1e-5),
+              ("grad norm", _worst_rel(pn, rn), 1e-4)]
+    checks += [(f"leaf {i} {paths[i]}", _leaf_rel(got, want), 1e-4)
+               for i, (got, want) in enumerate(zip(pleaves, rleaves))]
+    failed = [f"{what}: worst relative error {err:.3e} > {bound:.0e}"
+              for what, err, bound in checks if not err <= bound]
+    assert not failed, f"{name}: " + "; ".join(failed)
+
+
+@pytest.mark.parametrize("side", ["port", "reference"])
+def test_a_repeated_case_is_bit_equal_on_each_side(step_runs, side):
+    """``REPEAT`` run twice on one side gives the same bits: drift on the
+    port's side points at FSDP2 over gloo (``train_loop._fully_shard``,
+    the in-place accumulation), on the reference's at its 4-device XLA
+    step."""
+    ref, port = step_runs
+    runs = port if side == "port" else ref
+    first, again = runs[REPEAT], runs[REPEAT + ":repeat"]
+    moved = [what for what, a, b in (("losses", first[0], again[0]),
+                                     ("grad norms", first[1], again[1]))
+             if not np.array_equal(a, b)]
+    moved += [f"leaf {i}" for i, (a, b) in enumerate(zip(first[2],
+                                                         again[2]))
+              if not np.array_equal(a, b)]
+    assert not moved, f"{side}: {REPEAT} run twice differs in " + \
+        ", ".join(moved) + f" (losses {first[0]} then {again[0]})"
 
 
 # ---------------------------------------------------------------------------

@@ -19,13 +19,13 @@
   and onto one process, a reference file onto (2, 2), and that world's
   save read back by the reference, bit-equal; ``params_from_jax`` into a
   model-sharded FSDP state.
-- (d) the model ranks of one data coordinate receive the same rows; a
-  model-sharded SSM, hybrid or enc-dec refuses to serve (``init_cache``);
+- (d) the model ranks of one data coordinate receive the same rows;
   ``launch.train --mesh pod`` on 4 ranks raises the mesh's error naming
   256 ranks, for the SSM too.
 
 The SSM, hybrid and enc-dec families and DLRM's lookahead path on the
-model axis are ``tests/test_torch_tensor_parallel_families.py``.
+model axis are ``tests/test_torch_tensor_parallel_families.py``; serving
+on it, ``tests/test_torch_serve_model_axis.py``.
 
 The ranks' side is ``tests/torch_dist.py`` (no JAX there).
 """
@@ -430,7 +430,7 @@ def test_the_reference_reads_a_22_save(runs):
 
 
 # ---------------------------------------------------------------------------
-# (d) rows, refusals, the production mesh
+# (d) rows, the production mesh
 # ---------------------------------------------------------------------------
 
 def test_model_ranks_of_one_data_coordinate_receive_the_same_rows(runs):
@@ -450,16 +450,6 @@ def test_model_ranks_of_one_data_coordinate_receive_the_same_rows(runs):
             for k in ("tokens", "labels"):
                 np.testing.assert_array_equal(g[k],
                                               w[k][d * per:(d + 1) * per])
-
-
-@pytest.mark.parametrize("arch", ["mamba2_370m", "zamba2_2_7b",
-                                  "whisper_base"])
-def test_model_sharded_families_refuse_to_serve(runs, arch):
-    family = {"mamba2_370m": "ssm", "zamba2_2_7b": "hybrid",
-              "whisper_base": "encdec"}[arch]
-    for m in runs["misc"]:
-        msg = m["refused"][arch]
-        assert f"model-sharded {family} LM" in msg and "item 7" in msg, msg
 
 
 def test_launcher_pod_mesh_on_four_ranks_raises(runs):

@@ -361,12 +361,13 @@ def dlrm_batch(rows: int, seed: int) -> dict:
 
 
 def tp_cfg(arch: str, over: dict):
-    """``lm_cfg(arch)`` with the fields of ``over`` replaced (``"moe"``: a
-    dict of the MoE config's fields)."""
+    """``lm_cfg(arch)`` with the fields of ``over`` replaced (``"moe"`` /
+    ``"ssm"``: a dict of the MoE / SSM config's fields)."""
     cfg = lm_cfg(arch)
     over = dict(over)
-    if "moe" in over:
-        over["moe"] = dataclasses.replace(cfg.moe, **over["moe"])
+    for sub in ("moe", "ssm"):
+        if sub in over:
+            over[sub] = dataclasses.replace(getattr(cfg, sub), **over[sub])
     return dataclasses.replace(cfg, **over)
 
 
@@ -560,8 +561,7 @@ def tp_misc(rank, world, paths: dict):
     reference's parameters loaded into that state (``params_from_jax``
     into model shards under FSDP); a reference checkpoint restored onto
     (2, 2) FSDP and saved back; ``EtlJob(mesh=)``'s
-    rows on (2, 2); the SSM, hybrid and enc-dec families refused on (1, 4);
-    ``launch.train --mesh pod``'s error."""
+    rows on (2, 2); ``launch.train --mesh pod``'s error."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.pipeline import lm_token_pipeline
     from repro_torch.data.source import Source
@@ -605,20 +605,6 @@ def tp_misc(rank, world, paths: dict):
                  backend="torch", device="cpu", mesh=mesh((2, 2)))
     with job.batches() as batches:
         out["etl"] = [{k: v.numpy() for k, v in b.items()} for b in batches]
-    # serving a model-sharded SSM, hybrid or enc-dec
-    out["refused"] = {}
-    for arch in ("mamba2_370m", "zamba2_2_7b", "whisper_base"):
-        cfg = lm_cfg(arch)
-        model = api.build_model(cfg)
-        state = ttl.TrainState.create(model.init(device="cpu"), TrainConfig())
-        state = ttl.shard_train_step(model.loss, TrainConfig(), mesh((1, 4)),
-                                     state, batch_rows=8)[1]
-        args = (2, 16, cfg.enc_seq) if cfg.family == "encdec" else (2, 16)
-        try:
-            state.model.init_cache(*args)
-            out["refused"][arch] = "served"
-        except NotImplementedError as err:
-            out["refused"][arch] = str(err)
     for arch in ("llama3_2_3b", "mamba2_370m"):
         try:
             launch.main(["--arch", arch, "--reduced", "--device", "cpu",
@@ -671,4 +657,86 @@ def tp_family_misc(rank, world, paths: dict):
     with job.batches() as batches:
         out["etl"] = [{k: np.asarray(b[k]) for k in ("sparse",) + PLAN_KEYS}
                       for b in batches]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serving on the "model" axis (tests/test_torch_serve_model_axis.py)
+# ---------------------------------------------------------------------------
+
+def numpy_tree(tree):
+    """A (nested dict of) tensors as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy().copy()
+
+
+def greedy_serve(model, module, batch: dict, max_len: int, steps: int):
+    """Prefill ``batch`` and ``steps`` greedy decode steps: ``(logits,
+    tokens, caches)``, the last-token logits of the prefill and of each
+    step (numpy), the tokens each step was fed (B, steps) and the cache
+    after the prefill and after the last step."""
+    from repro_torch.serving.decode import next_token
+    S = batch["tokens"].shape[1]
+    with torch.inference_mode():
+        lg, cache = model.prefill(module, batch, max_len)
+        caches = [numpy_tree(cache)]
+        logits, toks = [lg[:, -1].numpy().copy()], []
+        for i in range(steps):
+            toks.append(next_token(lg[:, -1]))
+            lg, cache = model.decode_step(module, cache, toks[-1], S + i)
+            logits.append(lg[:, -1].numpy().copy())
+        caches.append(numpy_tree(cache))
+    return logits, torch.cat(toks, 1).numpy(), caches
+
+
+def serve_cases(rank, world, inputs_path):
+    """Each case of ``inputs_path`` (``{name: {arch, over, mesh, params,
+    batch, max_len, steps}}``) on its ``(data, model)`` mesh: the
+    reference's parameters in a module sharded for serving
+    (``tensor_parallel.shard_for_serving``), this rank's rows of the
+    batch, greedy; returns ``{name: {"rows", "logits", "tokens",
+    "caches"}}`` (``greedy_serve``'s, ``rows`` the first and the count of
+    this rank's rows), and ``"trained"``: for each of ``inputs["trained"]``
+    (an arch's reduced config, seed 0) a state that ``shard_train_step``
+    sharded on (1, 4) against a module ``shard_for_serving`` sharded, both
+    serving one batch: ``(logits, caches)`` of each."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import api
+    from repro_torch.training import train_loop as ttl
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    def mesh(shape):
+        return init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+
+    inputs = load(inputs_path)
+    out = {}
+    for name, case in inputs["cases"].items():
+        m = mesh(case["mesh"])
+        cfg = tp_cfg(case["arch"], case["over"])
+        model = api.build_model(cfg)
+        module = tp.shard_for_serving(api.params_from_jax(
+            model.init(device="cpu"), case["params"]), m)
+        per = case["batch"]["tokens"].shape[0] // case["mesh"][0]
+        first = m.get_local_rank("data") * per
+        batch = {k: torch.from_numpy(v[first:first + per])
+                 for k, v in case["batch"].items()}
+        logits, tokens, caches = greedy_serve(model, module, batch,
+                                              case["max_len"], case["steps"])
+        out[name] = {"rows": (first, per), "logits": logits,
+                     "tokens": tokens, "caches": caches}
+    out["trained"] = {}
+    for arch, batch in inputs["trained"].items():
+        cfg = lm_cfg(arch)
+        model = api.build_model(cfg)
+        state = ttl.TrainState.create(model.init(device="cpu"), TrainConfig())
+        state = ttl.shard_train_step(model.loss, TrainConfig(), mesh((1, 4)),
+                                     state, batch_rows=8)[1]
+        served = tp.shard_for_serving(model.init(device="cpu"), mesh((1, 4)))
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        out["trained"][arch] = [greedy_serve(model, mod, batch, 12, 1)
+                                for mod in (state.model, served)]
     return out
