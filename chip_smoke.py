@@ -155,7 +155,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  resumes from it.
 14. lm_main     — repro_torch.launch.train.main in process at llama3_2_3b's
                  full width and depth (28 layers, 3.21 B parameters,
-                 AdamW, microbatch 2), --batch 8 --seq 1024 --steps 8,
+                 AdamW, microbatch 2), --batch 8 --seq 1024 --steps 4,
                  fed by lm_token_pipeline on the cuda backend (at seq
                  1024 one output launch per output a batch, as the
                  reference's planner lowers it): parameter count, every
@@ -175,7 +175,7 @@ Phases, one JSON line each; any failure exits non-zero:
 16. moe_main    — launch.train.main at mixtral_8x7b's full width, 2 of 32
                  layers (3,164,667,904 matrix parameters; AdamW float32,
                  microbatch 4, fsdp on one device), --batch 8 --seq 1024
-                 --steps 8: parameter count, batches, finite losses, the
+                 --steps 4: parameter count, batches, finite losses, the
                  ETL launches; half the first batch un-microbatched against
                  two microbatches with the capacity factor raised to E / k
                  (nothing drops); the first MoE layer on the first
@@ -219,9 +219,9 @@ Phases, one JSON line each; any failure exits non-zero:
                  otherwise).  At 4064 tokens the prompt pipeline lowers to
                  the staged kernels (one fused_stage, two packers).  On
                  running out of memory it reruns at --batch 2 and says so.
-20. ssm_main    — mamba2_370m at full width, 16 of 48 layers: the
+20. ssm_main    — mamba2_370m at full width, 4 of 48 layers: the
                  launcher with its preset (AdamW, microbatch 4), --batch 8
-                 --seq 1024 --steps 8 (lm_main's checks and readings), then
+                 --seq 1024 --steps 4 (lm_main's checks and readings), then
                  launch.serve.main at serve_main's sizes: the state's bytes
                  against L B ((d_conv - 1) (d_inner + 2 G N) 2 + H N P 4) at
                  every length, decode tok/s against its bound (parameters,
@@ -239,9 +239,9 @@ Phases, one JSON line each; any failure exits non-zero:
                  launch.serve.main --batch 4 --prompt-len 256 --max-new 32
                  (text only: the reference's prefill takes no patches) with
                  the teacher-forced check.
-22. hybrid_main — zamba2_2_7b at full width, 18 of 54 Mamba2 layers
-                 (one shared attention block applied after every 9: two
-                 applications; window 4096): the launcher with its preset (AdamW, microbatch 4,
+22. hybrid_main — zamba2_2_7b at full width, 9 of 54 Mamba2 layers
+                 (one shared attention block applied after every 9: one
+                 application; window 4096): the launcher with its preset (AdamW, microbatch 4,
                  full remat), --batch 8 --seq 1024 --steps 4 (two output
                  launches a batch), one profiled step; then
                  launch.serve.main --batch 4 --prompt-len 4096 --max-new
@@ -271,7 +271,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  spawned NCCL rank (the environment torchrun sets):
                  mixtral_8x7b at full width, 1 of 32 layers, its preset
                  (FSDP2 over a data mesh of 1, AdamW, microbatch 4),
-                 --batch 8 --seq 1024, 4 steps; the same cut run without a
+                 --batch 8 --seq 1024, 2 steps; the same cut run without a
                  process group first, in this process: losses within
                  LM_CHECK_RTOL["loss"]; every delivered batch the rank's
                  rows of the plain compile's; step ms with and without the
@@ -281,7 +281,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  CUDA tensors, at llama3_2_3b's full width, 2 of 28 layers,
                  its preset (replicated parameters, one gradient all-reduce
                  a step, microbatch 2; FSDP2 under gloo on CUDA tensors
-                 hangs, so FSDP across ranks runs on the CPU only), 4
+                 hangs, so FSDP across ranks runs on the CPU only), 2
                  steps: each rank's rows, the global losses against one
                  process's, and compressed_psum_mean over the first
                  block's gradients bit-equal card vs CPU.
@@ -291,7 +291,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  llama3_2_3b's full width (12 of 24 heads, 4 of 8 kv heads,
                  4096 of 8192 MLP columns, 64128 of 128256 tied vocabulary
                  rows a rank), 2 of 28 layers, its preset (microbatch 2),
-                 --batch 8 --seq 1024, 4 steps; the same cut in this
+                 --batch 8 --seq 1024, 2 steps; the same cut in this
                  process first: losses within TP_LOSS_RTOL; every batch
                  each rank's rows (the same on both); the leaves held whole
                  bit-equal across the ranks; step ms, tok/s, peak GB a
@@ -303,7 +303,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  on both ranks and within MOE_FLIP_SHARE of one process's.
 28. dlrm_tp2   — DLRMConfig() (vocab 524288: 26 x 524288 x 128 float32
                  tables, 262144 rows a rank) fed by main's ETL
-                 (EtlJob(mesh=), B 65536), 8 steps on the (1, 2) mesh
+                 (EtlJob(mesh=), B 65536), 2 steps on the (1, 2) mesh
                  against one process: losses within DLRM_TP_RTOL; rows/s,
                  step ms, each rank's table bytes.
 29. dlrm_la_tp2 — the same ranks then run lookahead_main's path on their
@@ -311,26 +311,63 @@ Phases, one JSON line each; any failure exits non-zero:
                  rank's rows after place, each rank's EmbedCache holds the
                  rows in its range (zero elsewhere), one stacked
                  embedding_bag_cached launch a step on its shard, the
-                 lookups' parts summed; 8 steps against one process's
+                 lookups' parts summed; 2 steps against one process's
                  lookahead path: losses within DLRM_TP_RTOL, the cache's
-                 counters (so the hit rate) equal on both ranks, 8
+                 counters (so the hit rate) equal on both ranks, 2
                  embedding_bag_cached launches a rank, one profiled step.
                  The parity phase holds the kernel on that shape too
                  (``stacked_half_table``: rank 1's half of the tables,
                  cold ids shifted into it, the rest outside).
 30. ssm_tp2    — tp_ranks2's method at mamba2_370m's full width (16 of 32
-                 heads of 64 and 64 of 128 state entries a rank), 8 of 48
+                 heads of 64 and 64 of 128 state entries a rank), 4 of 48
                  layers, its preset (microbatch 4), --batch 8 --seq 1024,
-                 4 steps.
+                 2 steps.
 31. hybrid_tp2 — the same at zamba2_2_7b's full width, 18 of 54 layers
-                 (two applications of the shared block), its preset,
-                 --seq 512.
+                 (two applications of the shared block, the only phase
+                 with two: both feed its gradients under full remat, and
+                 serving writes and reads the second application's ring,
+                 split on the model axis), its preset, --seq 512, 2
+                 steps; shared_applications in its line.
 32. encdec_tp2 — whisper_base at full width and depth (1,500 stub frames)
                  on the (1, 2) mesh: the decoder's tokens from the LM token
                  pipeline (448 a row), the frames from random_batch (no
-                 launcher feeds frames), shard_train_step, 4 steps against
+                 launcher feeds frames), shard_train_step, 2 steps against
                  one process: losses within TP_LOSS_RTOL, the leaves held
                  whole bit-equal across the ranks.
+33. serve_fsdp — weight-gathered serving (the serving cells' serve_fsdp):
+                 four spawned ranks sharing the card, gloo over CUDA
+                 tensors, a (2, 2) make_host_mesh(model_axis=2):
+                 llama3_2_3b at full width, 2 of 28 layers, bfloat16
+                 parameters and compute, a module from seed 0 through
+                 shard_for_serving(fsdp=True) (each parameter's model
+                 slice, then its data shard; each block gathered whole
+                 over the data axes just before it runs), each data rank
+                 its 4 of the 8 prompts of 256 tokens (the LM token
+                 pipeline on the card), prefill and 32 decode steps fed
+                 one process's greedy tokens (axis_serve): logits within
+                 SERVE_TOL x the largest of one process's, the tokens of
+                 one data coordinate's ranks identical, each rank's
+                 resident parameter bytes its param_specs(fsdp=True)
+                 share, its data-group gathers a decode step
+                 (tensor_parallel.TRAFFIC) the data-sharded leaves' whole
+                 bytes (the tied embedding twice); prefill ms, decode step
+                 ms and peak GB a rank beside one process's; then one
+                 more prefill (a cache of the prompt's length) counted by
+                 hlo_cost.analyze.
+34. dryrun     — launch.dryrun in one spawned process on fake CUDA tensors
+                 (a fake default group of 256 or 512 ranks, nothing
+                 allocated), started with serve_fsdp's ranks and tracing
+                 on the host while they run (so serve_fsdp's readings
+                 share the host's cores with it): llama3_2_3b train_4k, llama3_405b prefill_32k
+                 (weight-gathered) and mixtral_8x7b decode_32k on 16 x 16,
+                 mamba2_370m long_500k on 2 x 16 x 16: per-device GiB
+                 (MemTracker's peak), flops, collective bytes and the
+                 roofline terms (H100 data-sheet constants), beside the
+                 card's name and power limit; then serve_fsdp's cell
+                 traced on a fake world of 4 and held to rank 0's real
+                 prefill: flops, collective count and bytes and parameter
+                 bytes equal, MemTracker's peak beside
+                 max_memory_allocated (a reading).
 
 The five model-axis phases (tp_ranks2, ep_ranks2, ssm_tp2, hybrid_tp2,
 encdec_tp2) then serve their cut on the same ranks (``axis_serve``): a
@@ -355,7 +392,8 @@ started.  Then the ``{"kernels": [...]}`` line (``launches_online_main``,
 ``launches_hybrid_main``, ``launches_encdec_main``, ``launches_dist_main``,
 ``launches_dist_ranks2``, ``launches_tp_ranks2``, ``launches_ep_ranks2``,
 ``launches_dlrm_tp2``, ``launches_dlrm_la_tp2``, ``launches_ssm_tp2``,
-``launches_hybrid_tp2`` and ``launches_encdec_tp2`` (both ranks each;
+``launches_hybrid_tp2``, ``launches_encdec_tp2`` and
+``launches_serve_fsdp`` (its four ranks' prompt jobs) (both ranks each;
 ``launches_<phase>_per_rank`` beside the ``*_tp2`` phases') beside the
 kernels those phases ran), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.
@@ -421,7 +459,10 @@ EXTRA = ("stacked_half_table", "criteo26_group", "criteo4_group",
 ONLINE_STALENESS_S = 0.5  # online_main's shedder: event age at delivery
 ONLINE_RATE_HZ = 20.0     # online_main's producer: ~4x the trainer's steps/s
 LM_ARCH = "llama3_2_3b"
-LM_BATCH, LM_SEQ, LM_STEPS = 8, 1024, 8
+# lm_main, moe_main, ssm_main: 4 steps (the first compiles and warms the
+# allocator; the median of the rest is the reading) keep the script inside
+# its time limit
+LM_BATCH, LM_SEQ, LM_STEPS = 8, 1024, 4
 LM_OOM_SEQ = 512          # lm_main's --seq if the card runs out at LM_SEQ
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet)
 # un-microbatched vs microbatched step on one batch, bf16 compute: the two
@@ -454,31 +495,34 @@ HYBRID_ARCH, HYBRID_STEPS = "zamba2_2_7b", 4
 # 4096 + 128 = 33 SSD chunks of 128 (the teacher-forced forward runs whole
 # chunks); every decode step is past the 4096-token window
 HYBRID_SERVE_BATCH, HYBRID_PROMPT, HYBRID_NEW = 4, 4096, 128
-# the script's time limit (1,200 s; 1,018 s with ssm_main and hybrid_main
-# cut, dlrm_tp2 at 16 steps and hybrid_tp2 at seq 1,024): ssm_main and
-# hybrid_main train and serve a depth cut (at full depth they took 146 s
-# and 179 s), the hybrid keeping two applications of its shared block
-SSM_MAIN_LAYERS, HYBRID_MAIN_LAYERS = 16, 18
+# the script's time limit (1,200 s): ssm_main and hybrid_main train and
+# serve a depth cut (at full depth they took 146 s and 179 s); hybrid_main
+# applies its shared block once, hybrid_tp2 twice
+SSM_MAIN_LAYERS, HYBRID_MAIN_LAYERS = 4, 9
 ENCDEC_ARCH, ENCDEC_STEPS = "whisper_base", 4
 ENCDEC_SEQ = 448          # Whisper's decoder context
 ENCDEC_SERVE_BATCH, ENCDEC_PROMPT, ENCDEC_NEW = 8, 64, 128
 FORCED_F32_TOL = 1e-4     # float32 teacher-forced checks: the LM tests' bound
 # dist_main: mixtral_8x7b on one NCCL rank, 1 of 32 layers (FSDP2's
-# unsharded copy sits beside moe_main's 2-layer state)
-DIST_ARCH, DIST_LAYERS, DIST_STEPS = "mixtral_8x7b", 1, 4
+# unsharded copy sits beside moe_main's 2-layer state).  The phases on
+# ranks take 2 steps (the first compiles, the second is the reading;
+# each gloo step is seconds of host copies), for the script's time limit
+DIST_ARCH, DIST_LAYERS, DIST_STEPS = "mixtral_8x7b", 1, 2
 # dist_ranks2: llama3_2_3b on two gloo ranks sharing the card
-DIST2_ARCH, DIST2_LAYERS, DIST2_STEPS = "llama3_2_3b", 2, 4
+DIST2_ARCH, DIST2_LAYERS, DIST2_STEPS = "llama3_2_3b", 2, 2
 # the "model" axis: two gloo ranks sharing the card on a (1, 2) mesh
-TP_ARCH, TP_LAYERS, TP_STEPS = "llama3_2_3b", 2, 4       # tp_ranks2
-EP_ARCH, EP_LAYERS, EP_STEPS = "mixtral_8x7b", 1, 4      # ep_ranks2
-DLRM_TP_STEPS, DLRM_TP_FIT = 8, 4                       # dlrm_tp2
-DLRM_LA_TP_STEPS = 8   # dlrm_la_tp2 (16 before the serving checks came)
+TP_ARCH, TP_LAYERS, TP_STEPS = "llama3_2_3b", 2, 2       # tp_ranks2
+EP_ARCH, EP_LAYERS, EP_STEPS = "mixtral_8x7b", 1, 2      # ep_ranks2
+DLRM_TP_STEPS, DLRM_TP_FIT = 2, 2                       # dlrm_tp2
+DLRM_LA_TP_STEPS = 2                                    # dlrm_la_tp2
 # the model axis for the SSM, hybrid and enc-dec families: mamba2_370m at
-# 8 of 48 layers, zamba2_2_7b at 18 of 54 (two applications of the shared
-# block), whisper_base whole
-SSM_TP_LAYERS, SSM_TP_STEPS = 8, 4                      # ssm_tp2
-HYBRID_TP_LAYERS, HYBRID_TP_STEPS, HYBRID_TP_SEQ = 18, 4, 512  # hybrid_tp2
-ENCDEC_TP_STEPS = 4                                     # encdec_tp2
+# 4 of 48 layers, zamba2_2_7b at 18 of 54 (two applications of the shared
+# block: their gradients meet in one set of parameters under full remat,
+# and serving reads the second application's ring, split on the model
+# axis), whisper_base whole
+SSM_TP_LAYERS, SSM_TP_STEPS = 4, 2                      # ssm_tp2
+HYBRID_TP_LAYERS, HYBRID_TP_STEPS, HYBRID_TP_SEQ = 18, 2, 512  # hybrid_tp2
+ENCDEC_TP_STEPS = 2                                     # encdec_tp2
 # serving on the model axis inside the *_tp2 / *_ranks2 phases' ranks: the
 # prompts from the LM token pipeline, greedy, bf16 compute
 AXIS_SERVE_BATCH, AXIS_SERVE_PROMPT, AXIS_SERVE_NEW = 8, 256, 32
@@ -490,6 +534,16 @@ AXIS_F32_NEW = 8          # the SSM families' float32 serving check's steps
 # 8 steps, 1.8e-5 by step 15 (NVIDIA H100 80GB HBM3, 700 W)
 TP_LOSS_RTOL, DLRM_TP_RTOL = 5e-3, 1e-4
 DLRM_TP_VOCAB = 524288    # DLRMConfig()'s: even, so the rows split
+# weight-gathered serving: llama3_2_3b at full width, 2 of 28 layers,
+# bfloat16 parameters (as the serving cells' llama3_405b and kimi_k2 hold
+# theirs; every decode step gathers them over the data axes, through the
+# host under gloo), on four gloo ranks sharing the card, a (2, 2) mesh
+SERVE_FSDP_ARCH, SERVE_FSDP_LAYERS = "llama3_2_3b", 2
+# the dry run's production cells: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("llama3_2_3b", "train_4k", False),
+                ("llama3_405b", "prefill_32k", False),
+                ("mixtral_8x7b", "decode_32k", False),
+                ("mamba2_370m", "long_500k", True))
 
 
 def pipeline_iii_dense_as(Pipeline, Schema, ops, Vocab, dtype):
@@ -2549,13 +2603,10 @@ def rank_entry(rank, world, backend, port, fn, args, q) -> None:
             dist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, backend: str, args: tuple,
-              timeout: float) -> list:
-    """``fn(*args)`` on ``world`` spawned ranks (``rank_entry``); their
-    results by rank.  Raises on a rank's error or after ``timeout``
-    seconds, and leaves no rank running."""
+def start_ranks(fn, world: int, backend: str, args: tuple) -> tuple:
+    """``fn(*args)`` started on ``world`` spawned ranks (``rank_entry``);
+    ``join_ranks`` takes what this returns."""
     import multiprocessing as mp
-    import queue
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
@@ -2565,6 +2616,23 @@ def run_ranks(fn, world: int, backend: str, args: tuple,
              for r in range(world)]
     for p in procs:
         p.start()
+    return fn, world, procs, q
+
+
+def run_ranks(fn, world: int, backend: str, args: tuple,
+              timeout: float) -> list:
+    """``fn(*args)`` on ``world`` spawned ranks (``rank_entry``); their
+    results by rank (``join_ranks``)."""
+    return join_ranks(start_ranks(fn, world, backend, args), timeout)
+
+
+def join_ranks(started: tuple, timeout: float) -> list:
+    """The results by rank of ``start_ranks``' ranks.  Raises on a rank's
+    error or after ``timeout`` seconds from now, and leaves no rank
+    running."""
+    import queue
+
+    fn, world, procs, q = started
     got, errors = {}, {}
     deadline = time.monotonic() + timeout
     try:
@@ -2847,16 +2915,59 @@ def preset_with(tcfg):
         launch.train_preset = real
 
 
+def weight_gathered_shares(module, mesh, cfg) -> dict:
+    """Before ``shard_for_serving(fsdp=True)``: the bytes of ``module``'s
+    parameters this rank's ``param_specs(fsdp=True)`` share holds, and
+    those a decode step's data-group gathers carry: each data-sharded
+    leaf's model-local whole bytes once, a tied embedding twice (the
+    lookup and the head)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.transformer import jax_leaves
+
+    sizes = shd.axis_sizes(mesh)
+    moe = getattr(cfg, "moe", None)
+
+    def share(shape, spec, axes):
+        n = list(shape)
+        for d, entry in enumerate(spec):
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                if a in axes:
+                    n[d] //= sizes[a]
+        return math.prod(n)
+
+    held = gathered = 0
+    for path, leaf in jax_leaves(module.jax_tree()):
+        shape = shd.leaf_shape(leaf)
+        size = (leaf[0] if isinstance(leaf, list) else leaf).element_size()
+        spec = shd.param_spec(path, shape, sizes, fsdp=True,
+                              n_experts=moe.n_experts if moe else 0)
+        held += share(shape, spec, tuple(sizes)) * size
+        if shd.data_dim(spec) is not None:
+            tied = path == "embed" and cfg.tie_embeddings
+            gathered += share(shape, spec, ("model",)) * size * (1 + tied)
+    return {"param_bytes": held, "gathered_a_step": gathered}
+
+
 def axis_serve(cfg, batch: int = AXIS_SERVE_BATCH,
                prompt: int = AXIS_SERVE_PROMPT, new: int = AXIS_SERVE_NEW,
                forced: dict = None, compute_dtype: str = None,
-               tol: float = SERVE_TOL, strict: bool = True) -> dict:
+               tol: float = SERVE_TOL, strict: bool = True,
+               fsdp: bool = False) -> dict:
     """Serve one prompt batch at ``cfg``: the prompts from the LM token
     pipeline (``launch.serve.make_prompt_job`` on the cuda backend; an
     enc-dec model's frames from ``random_batch``), a module from seed 0,
     sharded for serving (``tensor_parallel.shard_for_serving``) where the
     active mesh has a model axis, prefill and ``new`` decode steps, each
-    timed to a synchronize.
+    timed to a synchronize.  On a data degree dp > 1 this rank serves its
+    row shard (its ``batch // dp`` rows).
+
+    ``fsdp``: weight-gathered serving on the active mesh
+    (``shard_for_serving(fsdp=True)``): the rank must hold its
+    ``param_specs(fsdp=True)`` share of the parameters, and its gathers
+    over the data axes must carry ``weight_gathered_shares``' bytes a
+    decode step; then ``hlo_cost.analyze`` of one more prefill (a cache of
+    the prompt's length) and its peak memory, the numbers the dry run's
+    trace of the same cell is held to.
 
     Without ``forced`` (one process) the steps are greedy; the readings
     carry ``forced``: the tokens fed, the last-token logits (on the host)
@@ -2875,6 +2986,7 @@ def axis_serve(cfg, batch: int = AXIS_SERVE_BATCH,
     share, the prompt job's launches and those its lowering means."""
     import torch
     from repro_torch.configs.base import ShapeCfg
+    from repro_torch.distributed import hlo_cost
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.kernels import dataflow as df
@@ -2889,19 +3001,26 @@ def axis_serve(cfg, batch: int = AXIS_SERVE_BATCH,
     module = model.init(seed=0)
     dev = next(module.parameters()).device
     mesh = shd.get_active_mesh()
-    if tp.model_axis(mesh) is not None:
-        tp.shard_for_serving(module, mesh)
+    fsdp = fsdp and mesh is not None
+    shares = weight_gathered_shares(module, mesh, cfg) if fsdp else None
+    if tp.model_axis(mesh) is not None or fsdp:
+        tp.shard_for_serving(module, mesh, fsdp=fsdp)
+    dp, rows, data_rank = shd.data_degree(mesh), slice(None), 0
+    if dp > 1 and batch % dp == 0:
+        data_rank = tp.data_axis(mesh).rank
+        rows = slice(data_rank * batch // dp, (data_rank + 1) * batch // dp)
+    torch.cuda.reset_peak_memory_stats()
     df.reset_launch_counts()
     job = make_prompt_job(cfg, batch=batch, prompt_len=prompt,
                           backend="cuda", device=dev)
     with job.batches() as ex:
-        inputs = {"tokens": next(iter(ex))["tokens"].clone()}
+        inputs = {"tokens": next(iter(ex))["tokens"][rows].clone()}
     launches = dict(df.LAUNCHES)
     want = lm_launches(job.compiled, job.stats().stages["transform"].items)
     if cfg.family == "encdec":
         inputs["frames"] = api.random_batch(
             cfg, ShapeCfg("serve", prompt, batch, "prefill"), seed=0,
-            device=dev)["frames"]
+            device=dev)["frames"][rows]
     real_top_k = moe_lib.top_k
     pins = list(forced["choices"]) if forced else []
     choices, flips = [], []
@@ -2926,10 +3045,11 @@ def axis_serve(cfg, batch: int = AXIS_SERVE_BATCH,
             lg, cache = model.prefill(module, inputs, prompt + new)
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
+            tp.reset_traffic()
             logits.append(lg[:, -1])
             for i in range(new):
                 tokens.append(next_token(lg[:, -1]))
-                fed = forced["tokens"][:, i:i + 1].to(dev) if forced \
+                fed = forced["tokens"][rows, i:i + 1].to(dev) if forced \
                     else tokens[-1]
                 t0 = time.perf_counter()
                 lg, cache = model.decode_step(module, cache, fed, prompt + i)
@@ -2946,6 +3066,9 @@ def axis_serve(cfg, batch: int = AXIS_SERVE_BATCH,
     bound_bytes = param_bytes(module) + tensor_bytes(cache)
     bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
     out = {"batch": batch, "prompt_len": prompt, "new": new,
+           "rows": [rows.start or 0, rows.stop or batch],
+           "data_rank": data_rank, "peak_gb":
+           torch.cuda.max_memory_allocated() / 1e9,
            "compute_dtype": cfg.compute_dtype,
            "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
            "decode_step_ms_median_2_on": step,
@@ -2955,17 +3078,40 @@ def axis_serve(cfg, batch: int = AXIS_SERVE_BATCH,
            "decode_share_of_bound": bound_ms / step,
            "tokens": tokens.cpu().tolist(),
            "launches": launches, "launches_want": want}
+    if fsdp:
+        gathered = tp.TRAFFIC["data_all_gather"][0] / new
+        held = param_bytes(module)
+        out["weight_gathered"] = dict(
+            param_bytes=held, param_bytes_want=shares["param_bytes"],
+            gathered_a_step=gathered,
+            gathered_a_step_want=shares["gathered_a_step"])
+        if held != shares["param_bytes"] or \
+                gathered != shares["gathered_a_step"]:
+            raise AssertionError(f"{cfg.name}: weight-gathered "
+                                 f"{out['weight_gathered']}")
+        del cache, lg
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            cost = hlo_cost.analyze(model.prefill, module, inputs, prompt)
+        torch.cuda.synchronize()
+        out["analyzed_prefill"] = {
+            "flops": cost["flops"], "bytes_accessed": cost["bytes_accessed"],
+            "collective_bytes": cost["collective_bytes"],
+            "n_collectives": cost["n_collectives"], "param_bytes": held,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     if not forced:
         out["forced"] = {"tokens": tokens.cpu(), "logits": logits.cpu(),
                          "choices": choices}
         return out
     with torch.inference_mode():
-        got, ref = logits.float(), forced["logits"].to(dev).float()
+        got = logits.float()
+        ref = forced["logits"][rows].to(dev).float()
         largest = float(ref.abs().max())
         err = (got - ref).abs().amax(dim=(0, 2))  # per position
         top2 = torch.topk(ref[:, :new], 2, dim=-1).values
         sure = (top2[..., 0] - top2[..., 1]) > tol * largest
-        wrong = sure & (tokens != forced["tokens"].to(dev))
+        wrong = sure & (tokens != forced["tokens"][rows].to(dev))
     out["teacher_forced"] = {
         "max_abs_err": float(err.max()), "largest": largest,
         "tol": tol, "asserted": strict,
@@ -3024,13 +3170,18 @@ def axis_serve_alone(cfg, tmp: str, runs: list) -> tuple:
 
 def axis_serve_check(name: str, alone: list, ranks: list, expect) -> list:
     """The serving readings of one process and of the ranks, run by run:
-    the ranks' greedy tokens identical, every run's prompt launches those
-    its lowering means; the readings side by side."""
+    the greedy tokens of the ranks of one data coordinate identical, every
+    run's prompt launches those its lowering means; the readings side by
+    side."""
     out = []
     for i, one in enumerate(alone):
         serves = [r["serve"][i] for r in ranks]
-        if any(s["tokens"] != serves[0]["tokens"] for s in serves):
-            raise AssertionError(f"{name}: the ranks chose different tokens")
+        first = {}
+        for s in serves:
+            if first.setdefault(s["data_rank"], s["tokens"]) != s["tokens"]:
+                raise AssertionError(f"{name}: the ranks of data "
+                                     f"coordinate {s['data_rank']} chose "
+                                     "different tokens")
         expect(one.pop("launches"), one.pop("launches_want"),
                f"{name} serve alone")
         for s in serves:
@@ -3113,6 +3264,7 @@ def model_axis_phase(name: str, arch: str, layers: int, steps: int,
 
     from repro_torch.configs.registry import get_config, get_reduced
     from repro_torch.launch import train as launch
+    from repro_torch.models import hybrid
 
     reduced = "--reduced" in extra_args
     base = get_reduced(arch) if reduced else get_config(arch)
@@ -3174,6 +3326,8 @@ def model_axis_phase(name: str, arch: str, layers: int, steps: int,
             "peak_mem_gb_one_process": alone_peak,
             "drop_share_one_process": alone_drop,
             "leaves_whole_bit_equal_across_ranks": True,
+            **({"shared_applications": hybrid.n_shared_applications(cfg)}
+               if cfg.family == "hybrid" else {}),
             "launches": add_launches(*(o["launches"] for o in ranks)),
             "serve": serve, "ranks": ranks}
 
@@ -3508,6 +3662,123 @@ def encdec_tp2(expect, steps: int = ENCDEC_TP_STEPS, batch: int = LM_BATCH,
             "launches": add_launches(*(o["launches"] for o in ranks)),
             "launches_per_rank": [o["launches"] for o in ranks],
             "serve": serve, "ranks": ranks}
+
+
+def serve_fsdp_rank(cfg, runs: list) -> dict:
+    """``serve_fsdp``'s rank: the (2, 2) mesh ``make_host_mesh(model_axis=
+    2)`` over the gloo group, then ``serve_on_rank`` weight-gathered."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    shd.set_active_mesh(make_host_mesh(model_axis=2))
+    return serve_on_rank({"launches": {}, "launches_want": {}}, cfg, runs)
+
+
+def serve_fsdp(expect, layers: int = SERVE_FSDP_LAYERS,
+               serve_kw=None) -> dict:
+    """Weight-gathered serving on four ranks sharing the card, gloo over
+    CUDA tensors, a (2, 2) mesh: ``SERVE_FSDP_ARCH`` at full width,
+    ``layers`` deep, ``shard_for_serving(fsdp=True)``, each data rank its
+    4 of the 8 prompts, against one process (``axis_serve``): logits
+    within ``SERVE_TOL``, the tokens of one data coordinate's ranks
+    identical, each rank's resident bytes its ``param_specs(fsdp=True)``
+    share and its gathers a decode step the data-sharded leaves' bytes."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(SERVE_FSDP_ARCH), n_layers=layers,
+                              param_dtype="bfloat16")
+    kw = dict(serve_kw or {}, fsdp=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        served, runs = axis_serve_alone(cfg, tmp, [kw])
+        ranks = run_ranks(serve_fsdp_rank, 4, "gloo", (cfg, runs),
+                          timeout=600)
+    for r, out in enumerate(ranks):
+        expect(out["launches"], out["launches_want"], f"serve_fsdp rank {r}")
+    analyzed = ranks[0]["serve"][0]["analyzed_prefill"]
+    serve = axis_serve_check("serve_fsdp", served, ranks, expect)
+    return {"arch": SERVE_FSDP_ARCH, "layers": layers,
+            "layers_full": get_config(SERVE_FSDP_ARCH).n_layers,
+            "world": 4, "mesh": [2, 2], "backend": "gloo",
+            "compute_dtype": cfg.compute_dtype, "serve": serve,
+            "rank0_prefill": analyzed,
+            "launches": add_launches(*(o["launches"] for o in ranks)),
+            "launches_per_rank": [o["launches"] for o in ranks]}
+
+
+def dryrun_rank(cfg, batch: int, prompt: int) -> dict:
+    """``dryrun``'s process: ``DRYRUN_CELLS`` through ``launch.dryrun
+    .run_cell`` on fake CUDA tensors, then the trace of ``serve_fsdp``'s
+    cell (``cfg``, ``batch`` prompts of ``prompt`` tokens, weight-gathered
+    on a (2, 2) fake world) from rank 0's side."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch import cells, dryrun
+
+    out = {"cells": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod,
+                                  out_dir=tmp, force=True, device="cuda")
+            if not rec["ok"]:
+                raise AssertionError(f"dryrun {rec['cell']}: {rec['error']}"
+                                     f"\n{rec['traceback']}")
+            out["cells"].append({
+                "cell": rec["cell"], "kind": rec["kind"],
+                "serve_fsdp": rec["serve_fsdp"],
+                "per_device_gib": rec["memory"]["per_device_bytes"] / 2**30,
+                "argument_gib":
+                    rec["memory"]["argument_size_in_bytes"] / 2**30,
+                "flops": rec["cost"]["flops"],
+                "bytes_accessed": rec["cost"]["bytes_accessed"],
+                "collective_bytes": rec["collectives"]["collective_bytes"],
+                "n_collectives": rec["collectives"]["n_collectives"],
+                "hlo_vs_model_flops": rec["hlo_vs_model_flops"],
+                "roofline": rec["roofline"], "trace_s": rec["trace_s"]})
+    shape = ShapeCfg("serve_fsdp", prompt, batch, "prefill")
+    t0 = time.perf_counter()
+    with dryrun.fake_world((2, 2), "cuda") as mesh:
+        plan = cells.plan_cell(SERVE_FSDP_ARCH, shape, mesh, cfg=cfg,
+                               serve_fsdp=True)
+        traced = dryrun.trace_plan(plan)
+    out["serve_fsdp_cell"] = {**traced, "trace_s": time.perf_counter() - t0}
+    return out
+
+
+def start_dryrun(layers: int = SERVE_FSDP_LAYERS,
+                 batch: int = AXIS_SERVE_BATCH,
+                 prompt: int = AXIS_SERVE_PROMPT) -> tuple:
+    """``dryrun_rank`` started in one spawned process (fake tensors: it
+    runs on the host beside serve_fsdp's ranks); ``dryrun_phase`` joins
+    it."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = dataclasses.replace(get_config(SERVE_FSDP_ARCH), n_layers=layers,
+                              param_dtype="bfloat16")
+    return start_ranks(dryrun_rank, 1, "none", (cfg, batch, prompt))
+
+
+def dryrun_phase(started: tuple, real: dict) -> dict:
+    """``start_dryrun``'s process joined; the trace of serve_fsdp's cell
+    held to rank 0's real prefill (``real``): flops, collective count and
+    bytes, parameter bytes exactly; MemTracker's peak beside
+    ``max_memory_allocated`` (a reading)."""
+    (out,) = join_ranks(started, timeout=900)
+    traced = out.pop("serve_fsdp_cell")
+    got = {"flops": traced["cost"]["flops"],
+           "collective_bytes": traced["collectives"]["collective_bytes"],
+           "n_collectives": traced["collectives"]["n_collectives"],
+           "param_bytes": traced["memory"]["param_bytes"]}
+    bad = {k: (v, real[k]) for k, v in got.items() if v != real[k]}
+    if bad:
+        raise AssertionError(f"dryrun: the fake trace of serve_fsdp's cell "
+                             f"vs rank 0's real prefill {bad}")
+    peak = traced["memory"]["per_device_bytes"]
+    return {**out, "serve_fsdp_cell": {
+        "fake": got, "real_rank0": {k: real[k] for k in got},
+        "equal": True, "trace_s": traced["trace_s"],
+        "memtracker_peak_gb": peak / 1e9,
+        "max_memory_allocated_gb": real["max_memory_allocated"] / 1e9,
+        "bytes_accessed_fake": traced["cost"]["bytes_accessed"],
+        "bytes_accessed_real": real["bytes_accessed"]}}
 
 
 def multitenant_main(expect, rows: int = 0,
@@ -4465,9 +4736,25 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     htp2 = model_axis_phase("hybrid_tp2", HYBRID_ARCH, HYBRID_TP_LAYERS,
                             HYBRID_TP_STEPS, expect, LM_BATCH, HYBRID_TP_SEQ)
     emit({"phase": "hybrid_tp2", **htp2})
+    if htp2["shared_applications"] < 2:
+        raise AssertionError("hybrid_tp2: the shared block is applied "
+                             "fewer than twice")
     free_memory()
     etp2 = encdec_tp2(expect)
     emit({"phase": "encdec_tp2", **etp2})
+
+    # ---- weight-gathered serving, beside the dry run's process ----------
+    free_memory()
+    dry = start_dryrun()
+    try:
+        sfsdp = serve_fsdp(expect)
+    except BaseException:
+        with contextlib.suppress(AssertionError):
+            join_ranks(dry, timeout=0)  # stops it
+        raise
+    emit({"phase": "serve_fsdp", **sfsdp})
+    emit({"phase": "dryrun", "card": smi,
+          **dryrun_phase(dry, sfsdp["rank0_prefill"])})
 
     path_launches = {"group_dataflow": main["launches"]["group_dataflow"],
                      "fit_dataflow": main["fit_launches"]["fit_dataflow"],
@@ -4509,7 +4796,7 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                           ("tp_ranks2", tp2), ("ep_ranks2", ep2),
                           ("dlrm_tp2", dtp2), ("dlrm_la_tp2", dla2),
                           ("ssm_tp2", stp2), ("hybrid_tp2", htp2),
-                          ("encdec_tp2", etp2)):
+                          ("encdec_tp2", etp2), ("serve_fsdp", sfsdp)):
             if ph["launches"].get(name):
                 out[-1][f"launches_{label}"] = ph["launches"][name]
             per_rank = [c.get(name, 0) for c in ph.get(

@@ -10,8 +10,10 @@ coordinate in the collectives below; the layers see from a parameter's
 shape whether it is sharded (``split``), and find the group in the active
 mesh (``active``).  FSDP on the data axes then shards the local tensors
 further, unchanged.  For serving, ``shard_for_serving`` cuts a model the
-same way (no FSDP), and each decode cache is allocated as this rank's
-shard of it (``local_cache``, the layout of ``sharding.cache_specs``).
+same way, and each decode cache is allocated as this rank's shard of it
+(``local_cache``, the layout of ``sharding.cache_specs``); weight-gathered
+serving also cuts each parameter over the data axes (``shard_data``) and
+gathers a block's parameters whole just before it runs (``gathered``).
 
 The regions, as Megatron-LM names them (each an autograd function over
 the model group):
@@ -43,6 +45,7 @@ on every backend alike: gloo carries all three on CUDA tensors.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -74,6 +77,18 @@ def model_axis(mesh) -> Optional[ModelAxis]:
                      size)
 
 
+def data_axis(mesh) -> Optional[ModelAxis]:
+    """The data axes of the ``DeviceMesh`` ``mesh`` flattened into one
+    (``train_loop.data_group``'s group), as the same triple: its group,
+    this rank's index along it and its size; None where their degree is
+    1."""
+    if shd.data_degree(mesh) == 1:
+        return None
+    from repro_torch.training.train_loop import data_group
+    group, sub = data_group(mesh)
+    return ModelAxis(group, sub.get_local_rank(), sub.size())
+
+
 def active() -> Optional[ModelAxis]:
     """The model axis of the active mesh (``sharding.set_active_mesh``)."""
     return model_axis(shd.get_active_mesh())
@@ -97,9 +112,10 @@ def split(local: int, whole: int) -> bool:
 
 # bytes and calls of each collective over the model axis since the last
 # reset_traffic() (the whole tensor: all-reduced, gathered, or before its
-# reduce-scatter)
+# reduce-scatter), and of weight-gathered serving's gathers over the data
+# axes ("data_all_gather": the gathered tensors)
 TRAFFIC = {"all_reduce": [0, 0], "all_gather": [0, 0],
-           "reduce_scatter": [0, 0]}
+           "reduce_scatter": [0, 0], "data_all_gather": [0, 0]}
 
 
 def reset_traffic() -> None:
@@ -125,12 +141,13 @@ def all_reduce(x, ax: ModelAxis, op=dist.ReduceOp.SUM):
     return y
 
 
-def all_gather(x, dim: int, ax: ModelAxis):
-    """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+def all_gather(x, dim: int, ax: ModelAxis, kind: str = "all_gather"):
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (counted
+    in ``TRAFFIC[kind]``)."""
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((ax.size * x.shape[0],) + tuple(x.shape[1:]))
     _gather_single(out, x, group=ax.group)
-    _count("all_gather", out)
+    _count(kind, out)
     return out.movedim(0, dim)
 
 
@@ -305,31 +322,79 @@ def shard_of(p) -> tuple:
 
 
 @torch.no_grad()
+def shard_data(model, dims: dict, dax: ModelAxis) -> None:
+    """Keep, of each parameter named in ``dims`` (``{name: data dim}``),
+    this rank's slice along that dim over the data axes ``dax``, in place,
+    and tag it ``dp_shard = (dim, dax)`` (``gathered`` reads it)."""
+    params = dict(model.named_parameters())
+    for name, d in dims.items():
+        p = params[name]
+        p.data = part(p.data, d, dax).clone()
+        p.dp_shard = (d, dax)
+
+
+@contextlib.contextmanager
+def gathered(*parts):
+    """Within: each data-sharded parameter (``shard_data``) of ``parts``
+    (modules or parameters; a parameter named twice is gathered once)
+    holds its whole local tensor, all-gathered over the data axes
+    (``TRAFFIC["data_all_gather"]``); after it, its shard again and the
+    gathered copy dropped.  Parameters without a data shard are left as
+    they are, so a model that is not weight-gathered passes through."""
+    params = {}
+    for x in parts:
+        for p in (x.parameters() if isinstance(x, torch.nn.Module)
+                  else (x,)):
+            if hasattr(p, "dp_shard"):
+                params[id(p)] = p
+    shards = []
+    try:
+        for p in params.values():
+            d, dax = p.dp_shard
+            shards.append((p, p.data))
+            p.data = all_gather(p.data, d, dax, kind="data_all_gather")
+        yield
+    finally:
+        for p, shard in shards:
+            p.data = shard
+
+
+@torch.no_grad()
 def shard_for_serving(model, mesh, *, fsdp: bool = False):
-    """Shard ``model`` (an LM) over the "model" axis of ``mesh`` for
-    serving, in place, as the reference's serving cells place parameters
-    (``param_specs(..., fsdp=False)``: each spec's model dim cut to this
-    rank's slice, everything else whole on every rank; no optimizer
-    state), and make ``mesh`` the active one.  Its ``prefill`` and
-    ``decode_step`` then take this rank's rows (a data degree dp > 1: its
-    row shard of a batch dp divides, as ``batch_specs`` places it) and keep
-    this rank's shard of each cache (``sharding.cache_specs``).  Returns
-    ``model``.  ``fsdp`` (the cells' weight-gathered serving, weights also
-    sharded over the data axes) raises."""
-    if fsdp:
-        raise NotImplementedError(
-            "weight-gathered serving (parameters also sharded over the data "
-            "axes, the serving cells' serve_fsdp): ROADMAP Queue A item 8")
+    """Shard ``model`` (an LM) over ``mesh`` for serving, in place, as the
+    reference's serving cells place parameters (``param_specs(...,
+    fsdp=fsdp)``; no optimizer state), and make ``mesh`` the active one.
+    Each spec's model dim is cut to this rank's slice (``shard_model``).
+    Its ``prefill`` and ``decode_step`` then take this rank's rows (a data
+    degree dp > 1: its row shard of a batch dp divides, as ``batch_specs``
+    places it) and keep this rank's shard of each cache
+    (``sharding.cache_specs``).  Returns ``model``.
+
+    ``fsdp`` is the cells' weight-gathered serving (``serve_fsdp``): each
+    parameter whose spec also names the data axes keeps only this rank's
+    data shard on the dim ``train_loop._shard_dims(..., fsdp=True)`` gives
+    (the rule training shards by; a stacked leaf's layer dim raises there),
+    and the serving paths gather a block's parameters whole over the data
+    group just before the block runs and drop them after it
+    (``gathered``), the embedding and the head alike.  This is not FSDP2:
+    its all-gathers hang under gloo on CUDA tensors, and two ranks cannot
+    share one card under NCCL, so the gathers are this module's own
+    explicit collectives, which gloo carries on the card."""
     from repro_torch.training.train_loop import _shard_dims
     shd.set_active_mesh(mesh)
     ax = model_axis(mesh)
-    if ax is None:
+    dax = data_axis(mesh) if fsdp else None
+    if ax is None and dax is None:
         return model
     moe = getattr(model.cfg, "moe", None)
-    dims = _shard_dims(model, shd.axis_sizes(mesh), fsdp=False,
+    dims = _shard_dims(model, shd.axis_sizes(mesh), fsdp=fsdp,
                        n_experts=moe.n_experts if moe else 0)
-    shard_model(model, {n: md for n, (md, _) in dims.items()
-                        if md is not None}, ax)
+    if ax is not None:
+        shard_model(model, {n: md for n, (md, _) in dims.items()
+                            if md is not None}, ax)
+    if dax is not None:
+        shard_data(model, {n: dd for n, (_, dd) in dims.items()
+                           if dd is not None}, dax)
     return model
 
 

@@ -205,8 +205,10 @@ class EncDec(LM):
         x = frames.to(self.cfg.cdtype())
         x = x + _positions(x.shape[1], x)
         for block in self.enc_blocks:
-            x = self._run(block, x)
-        return _norm(self.cfg, x, self.enc_norm)
+            with tp.gathered(block):
+                x = self._run(block, x)
+        with tp.gathered(self.enc_norm):
+            return _norm(self.cfg, x, self.enc_norm)
 
     def _decoded(self, enc_out, tokens):
         """The decoder's final-normed hidden states."""
@@ -252,18 +254,20 @@ class EncDec(LM):
         for i, block in enumerate(self.dec_blocks):
             for name in ("k", "v"):
                 w = block.xattn["w" + name]
-                # the reference's product promotes to the wider dtype
-                dt = torch.promote_types(enc_out.dtype, w.dtype)
-                t = enc_out.to(dt) @ w.to(dt)
+                with tp.gathered(w):
+                    # the reference's product promotes to the wider dtype
+                    dt = torch.promote_types(enc_out.dtype, w.dtype)
+                    t = enc_out.to(dt) @ w.to(dt)
                 if cross[name].shape[3] == kv:  # every kv head here
                     t = L.whole_heads(t, kv * hd, ax)[:, first:first + span]
                 cross[name][i] = t.reshape(B, span, -1, hd)
         x = self.embed_tokens(tokens)
         x = x + _positions(tokens.shape[1], x)
         for i, block in enumerate(self.dec_blocks):
-            x = block(x, self_cache=layer_cache(cache, "self", i),
-                      cross_cache=layer_cache(cache, "cross", i), pos=0,
-                      ax=ax)
+            with tp.gathered(block):
+                x = block(x, self_cache=layer_cache(cache, "self", i),
+                          cross_cache=layer_cache(cache, "cross", i), pos=0,
+                          ax=ax)
         return self.final_logits(x[:, -1:]), cache
 
     @torch.no_grad()
@@ -276,9 +280,10 @@ class EncDec(LM):
         at = torch.arange(pos, pos + 1, device=x.device)
         x = x + L.sinusoidal_at(at, cfg.d_model).to(x.dtype)
         for i, block in enumerate(self.dec_blocks):
-            x = block(x, self_cache=layer_cache(cache, "self", i),
-                      cross_cache=layer_cache(cache, "cross", i), pos=pos,
-                      ax=self.serving_axis())
+            with tp.gathered(block):
+                x = block(x, self_cache=layer_cache(cache, "self", i),
+                          cross_cache=layer_cache(cache, "cross", i),
+                          pos=pos, ax=self.serving_axis())
         return self.final_logits(x), cache
 
 

@@ -120,13 +120,16 @@ class Hybrid(LM):
         for g, layers in self._groups():
             for i in layers:
                 block = self.blocks[i]
-                y, (conv, st) = ssm.mixer_apply(block.mixer, block._normed(x),
-                                                cfg, return_state=True)
+                with tp.gathered(block):
+                    y, (conv, st) = ssm.mixer_apply(
+                        block.mixer, block._normed(x), cfg,
+                        return_state=True)
                 x = x + y
                 ssm._store(cache, i, conv, st)
-            self.shared_attn.tail_kv(x[:, S - T:], S - T,
-                                     layer_cache(cache, "shared_kv", g))
-            x = self.shared_attn(x)
+            with tp.gathered(self.shared_attn):
+                self.shared_attn.tail_kv(x[:, S - T:], S - T,
+                                         layer_cache(cache, "shared_kv", g))
+                x = self.shared_attn(x)
         return self.final_logits(x[:, -1:]), cache
 
     @torch.no_grad()
@@ -141,12 +144,15 @@ class Hybrid(LM):
             for i in layers:
                 block = self.blocks[i]
                 conv = {k: v[i] for k, v in cache["conv"].items()}
-                y, (nconv, nssm) = ssm.mixer_decode(
-                    block.mixer, block._normed(x), cfg, conv,
-                    cache["ssm"][i])
+                with tp.gathered(block):
+                    y, (nconv, nssm) = ssm.mixer_decode(
+                        block.mixer, block._normed(x), cfg, conv,
+                        cache["ssm"][i])
                 x = x + y
                 ssm._store(cache, i, nconv, nssm)
-            x = self.shared_attn(x, layer_cache(cache, "shared_kv", g), pos)
+            with tp.gathered(self.shared_attn):
+                x = self.shared_attn(x, layer_cache(cache, "shared_kv", g),
+                                     pos)
         return self.final_logits(x), cache
 
 

@@ -37,6 +37,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.models import loops
 
 
 def truncated_normal(shape, dtype, scale, *, generator: torch.Generator,
@@ -44,9 +45,12 @@ def truncated_normal(shape, dtype, scale, *, generator: torch.Generator,
     """Normal samples truncated to [-2, 2], times ``scale``, drawn in
     float32 from ``generator`` (on its device unless ``device`` is
     given), then cast to ``dtype``."""
+    from torch._subclasses.fake_tensor import is_fake
     device = device if device is not None else generator.device
     t = torch.empty(shape, dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    if not is_fake(t):  # a fake tensor (a dry run's) has no values to draw
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
     return t.mul_(scale).to(dtype)
 
 
@@ -181,10 +185,13 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal, window,
                     q_chunk=1024, k_chunk=1024):
     """Chunked attention with online softmax: never materializes the (Sq,
     Sk) score matrix; loops over query and key chunks carrying (running
-    max, denominator, weighted accumulator) in float32.
+    max, denominator, weighted accumulator) in float32, each query
+    chunk's result written into the float32 output.
 
     q: (B,Sq,H,D); k,v: (B,Sk,H,D) (kv heads already repeated).
     q_pos: (Sq,), k_pos: (Sk,) absolute positions (-1 = empty slot).
+    Both loops are ``loops.uniform``: on fake tensors (a dry run) each
+    body runs once, standing for every chunk.
     """
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -192,30 +199,36 @@ def flash_attention(q, k, v, q_pos, k_pos, *, causal, window,
     kc = min(k_chunk, Sk)
     assert Sq % qc == 0 and Sk % kc == 0, (Sq, qc, Sk, kc)
     scale = 1.0 / math.sqrt(D)
-    outs = []
-    for i in range(Sq // qc):
-        q_blk, qp = q[:, i * qc:(i + 1) * qc], q_pos[i * qc:(i + 1) * qc]
-        m = torch.full((B, H, qc), -1e30, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((B, H, qc), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, H, qc, D), dtype=torch.float32,
-                          device=q.device)
-        for j in range(Sk // kc):
-            k_blk, v_blk = k[:, j * kc:(j + 1) * kc], v[:, j * kc:(j + 1) * kc]
-            kp = k_pos[j * kc:(j + 1) * kc]
-            s = _scores(q_blk, k_blk, scale)
-            s = s + _mask_from_positions(qp, kp, causal, window)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhqk,bkhd->bhqd", p.to(v_blk.dtype).to(torch.float32),
-                v_blk.to(torch.float32))
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.transpose(1, 2))  # (B, qc, H, D)
-    return torch.cat(outs, dim=1)
+    out = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
+    with loops.uniform(Sq // qc, q, k, v) as q_trips:
+        for i in range(q_trips):
+            q_blk = q[:, i * qc:(i + 1) * qc]
+            qp = q_pos[i * qc:(i + 1) * qc]
+            m = torch.full((B, H, qc), -1e30, dtype=torch.float32,
+                           device=q.device)
+            l = torch.zeros((B, H, qc), dtype=torch.float32,
+                            device=q.device)
+            acc = torch.zeros((B, H, qc, D), dtype=torch.float32,
+                              device=q.device)
+            with loops.uniform(Sk // kc, q, k, v) as k_trips:
+                for j in range(k_trips):
+                    k_blk = k[:, j * kc:(j + 1) * kc]
+                    v_blk = v[:, j * kc:(j + 1) * kc]
+                    kp = k_pos[j * kc:(j + 1) * kc]
+                    s = _scores(q_blk, k_blk, scale)
+                    s = s + _mask_from_positions(qp, kp, causal, window)
+                    m_new = torch.maximum(m, s.amax(-1))
+                    p = torch.exp(s - m_new[..., None])
+                    alpha = torch.exp(m - m_new)
+                    l = l * alpha + p.sum(-1)
+                    acc = acc * alpha[..., None] + torch.einsum(
+                        "bhqk,bkhd->bhqd",
+                        p.to(v_blk.dtype).to(torch.float32),
+                        v_blk.to(torch.float32))
+                    m = m_new
+            out[:, i * qc:(i + 1) * qc] = (
+                acc / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2)
+    return out
 
 
 def mha(p, x, spec: AttnSpec, *, kv_x: Optional[torch.Tensor] = None,

@@ -422,8 +422,9 @@ class SSM(LM):
         cache = self.init_cache(tokens.shape[0], max_len)
         x = self.embed_tokens(tokens)
         for i, block in enumerate(self.blocks):
-            y, (conv, ssm) = mixer_apply(block.mixer, block._normed(x),
-                                         self.cfg, return_state=True)
+            with tp.gathered(block):
+                y, (conv, ssm) = mixer_apply(block.mixer, block._normed(x),
+                                             self.cfg, return_state=True)
             x = x + y
             _store(cache, i, conv, ssm)
         return self.final_logits(x[:, -1:]), cache
@@ -435,8 +436,10 @@ class SSM(LM):
         x = self.embed_tokens(tokens)
         for i, block in enumerate(self.blocks):
             conv = {k: v[i] for k, v in cache["conv"].items()}
-            y, (nconv, nssm) = mixer_decode(block.mixer, block._normed(x),
-                                            self.cfg, conv, cache["ssm"][i])
+            with tp.gathered(block):
+                y, (nconv, nssm) = mixer_decode(block.mixer,
+                                                block._normed(x), self.cfg,
+                                                conv, cache["ssm"][i])
             x = x + y
             _store(cache, i, nconv, nssm)
         return self.final_logits(x), cache

@@ -180,8 +180,9 @@ class LM(nn.Module):
         """The final norm, then the head: whole vocabulary rows (gathered
         where the head is sharded over the model axis)."""
         cfg = self.cfg
-        x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
-        logits, sharded = self.head_logits(x)
+        with tp.gathered(self.final_norm, self.head()):
+            x = L.norm_apply(x, self.final_norm, cfg.norm, cfg.norm_eps)
+            logits, sharded = self.head_logits(x)
         return tp.all_gather(logits, -1, tp.active()) if sharded else logits
 
     def serving_axis(self):
@@ -193,10 +194,12 @@ class LM(nn.Module):
 
     def embed_tokens(self, tokens):
         """``tokens``' embeddings in the compute dtype (vocabulary-parallel
-        where the table is sharded)."""
+        where the table is sharded; gathered whole over the data axes where
+        it is weight-gathered for serving)."""
         cfg = self.cfg
-        return L.embed_lookup(self.embed, tokens, cfg.cdtype(),
-                              vocab=cfg.padded_vocab)
+        with tp.gathered(self.embed):
+            return L.embed_lookup(self.embed, tokens, cfg.cdtype(),
+                                  vocab=cfg.padded_vocab)
 
     def head_logits(self, x, seq_sharded: bool = False) -> tuple:
         """``(logits, vocab_sharded)`` of the final-normed ``x`` (this
@@ -432,9 +435,10 @@ class Transformer(LM):
             x = self.embed_tokens(tokens)
             for group, layers in self._groups():
                 for i, block in enumerate(layers):
-                    block.tail_kv(x[:, S - T:], S - T,
-                                  layer_cache(cache, group, i))
-                    x = block(x)
+                    with tp.gathered(block):
+                        block.tail_kv(x[:, S - T:], S - T,
+                                      layer_cache(cache, group, i))
+                        x = block(x)
         return self.final_logits(x[:, -1:]), cache
 
     @torch.no_grad()
@@ -448,7 +452,8 @@ class Transformer(LM):
             x = self.embed_tokens(tokens)
             for group, layers in self._groups():
                 for i, block in enumerate(layers):
-                    x = block(x, layer_cache(cache, group, i), pos)
+                    with tp.gathered(block):
+                        x = block(x, layer_cache(cache, group, i), pos)
         return self.final_logits(x), cache
 
 

@@ -41,7 +41,9 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 assert {"repro_torch.distributed.sharding",
-        "repro_torch.launch.mesh"} <= set(names)
+        "repro_torch.launch.mesh", "repro_torch.launch.cells",
+        "repro_torch.launch.dryrun", "repro_torch.distributed.hlo_cost",
+        "repro_torch.distributed.hlo_analysis"} <= set(names)
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -58,8 +60,9 @@ print(len(names))
     # online.{bus,shed,service}, launch.online), the LM side's
     # (multitenant, configs.*, models.{layers,transformer,api},
     # training.grad, launch.{presets,train}) and distribution's
-    # (distributed, distributed.sharding, launch.mesh)
-    assert int(out.stdout.strip()) >= 71
+    # (distributed, distributed.sharding, launch.mesh) and the dry run's
+    # (launch.{cells,dryrun}, distributed.{hlo_cost,hlo_analysis})
+    assert int(out.stdout.strip()) >= 75
 
 
 @pytest.fixture

@@ -40,9 +40,25 @@ serving.
   serving.
 - (c) Without ranks: ``init_cache`` of a module on a model axis of 4 gives
   ``cache_specs``' local shapes (2 kv heads: split by sequence; 4: by
-  head); weight-gathered serving raises.
+  head).
+- (d) Weight-gathered serving (``shard_for_serving(fsdp=True)``: the
+  parameters also sharded over the data axes, each block gathered whole
+  just before it runs): ``llama3_2_3b`` on (2, 2) and on (4, 1),
+  ``mixtral_8x7b`` and ``mamba2_370m`` on (2, 2), ``zamba2_2_7b`` at 6
+  layers (three applications of its shared block) and ``whisper_base``
+  on (4, 1) (the meshes where the data axes spare the stacked leaves'
+  layer dim) go through (a)'s checks against the reference's serving with
+  ``param_specs(fsdp=True)``; each rank holds its
+  ``param_specs(fsdp=True)`` share of the parameters; rank 0's gathers
+  over the data axes in a decode step carry each data-sharded leaf's
+  whole (model-local) bytes once a use (the tied embedding twice, the
+  shared block once an application, the encoder never); and
+  ``hlo_cost.analyze`` of rank 0's real
+  prefill equals the dry run's trace of the same cell on a fake world of
+  4 (``launch.cells.plan_cell`` + ``launch.dryrun.trace_plan``): flops,
+  collective bytes and count.
 
-Takes ~90 s alone on an 8-core CPU.  The ranks' side is
+Takes ~105 s alone on an 8-core CPU.  The ranks' side is
 ``tests/torch_dist.py`` (``serve_cases``; no JAX there).
 """
 
@@ -63,9 +79,11 @@ import torch_dist as td  # noqa: E402
 from repro.configs import registry as rreg  # noqa: E402
 from repro.distributed import sharding as rshd  # noqa: E402
 from repro.models import api as rapi  # noqa: E402
+from repro_torch.configs.base import ShapeCfg  # noqa: E402
 from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.distributed import tensor_parallel as tp  # noqa: E402
-from repro_torch.models import api  # noqa: E402
+from repro_torch.launch import cells, dryrun  # noqa: E402
+from repro_torch.models.hybrid import n_shared_applications  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
@@ -86,6 +104,19 @@ CASES["llama_len11_14"] = ("llama3_2_3b", (1, 4), {}, 11)
 CASES["mamba_groups2_14"] = ("mamba2_370m", (1, 4), {"ssm": {"n_groups": 2}},
                              MAX_LEN)
 PER_HEAD = {"mamba_groups2_14"}
+# weight-gathered serving (``shard_for_serving(fsdp=True)``)
+CASES["llama_fsdp_22"] = ("llama3_2_3b", (2, 2), {}, MAX_LEN)
+CASES["llama_fsdp_41"] = ("llama3_2_3b", (4, 1), {}, MAX_LEN)
+CASES["mixtral_fsdp_22"] = ("mixtral_8x7b", (2, 2), OVER["mixtral_8x7b"],
+                            MAX_LEN)
+# the SSM, hybrid and enc-dec families where the data axes spare their
+# stacked leaves' layer dim: 3 mamba layers on (2, 2), 6 zamba layers
+# (three applications of the shared block) and whisper on (4, 1)
+CASES["mamba_fsdp_22"] = ("mamba2_370m", (2, 2), {}, MAX_LEN)
+CASES["zamba_fsdp_41"] = ("zamba2_2_7b", (4, 1), {"n_layers": 6}, MAX_LEN)
+CASES["whisper_fsdp_41"] = ("whisper_base", (4, 1), {}, MAX_LEN)
+FSDP = ("llama_fsdp_22", "llama_fsdp_41", "mixtral_fsdp_22",
+        "mamba_fsdp_22", "zamba_fsdp_41", "whisper_fsdp_41")
 # the families whose serving on a model axis was refused before
 TRAINED = ("mamba2_370m", "zamba2_2_7b", "whisper_base")
 
@@ -116,7 +147,7 @@ for name, case in inputs.items():
         lambda s: NamedSharding(mesh, s), specs,
         is_leaf=lambda x: isinstance(x, PartitionSpec))
     params = tree_map(jnp.asarray, case["params"])
-    p_sh = placed(shd.param_specs(params, mesh, fsdp=False,
+    p_sh = placed(shd.param_specs(params, mesh, fsdp=case["fsdp"],
                                   n_experts=cfg.moe.n_experts if cfg.moe
                                   else 0))
     b_sh = placed(shd.batch_specs(case["batch"], mesh))
@@ -187,6 +218,7 @@ def _inputs() -> dict:
             params = _per_head(params, 70 + i)
         cases[name] = {"arch": arch, "mesh": mesh, "over": over,
                        "max_len": max_len, "steps": STEPS,
+                       "fsdp": name in FSDP,
                        "params": jax.tree_util.tree_map(np.asarray, params),
                        "batch": _batch(cfg, ROWS, 60 + i)}
     trained = {a: _batch(_ref_cfg(a, {}), 2, 90) for a in TRAINED}
@@ -201,7 +233,7 @@ def runs(tmp_path_factory):
     inputs = _inputs()
     td.save(inputs, tmp / "inputs.pkl")
     port = td.spawn(td.serve_cases, WORLD, tmp, str(tmp / "inputs.pkl"),
-                    timeout=120)
+                    timeout=240)
     ref_in = {}
     for name, case in inputs["cases"].items():
         forced = np.zeros((ROWS, STEPS), np.int32)
@@ -215,7 +247,7 @@ def runs(tmp_path_factory):
     ref = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(_REFERENCE),
          str(tmp / "ref_in.pkl"), str(tmp / "ref.pkl")],
-        env=env, capture_output=True, text=True, timeout=120)
+        env=env, capture_output=True, text=True, timeout=240)
     assert ref.returncode == 0, ref.stderr[-3000:]
     return {"port": port, "ref": td.load(tmp / "ref.pkl"), "inputs": inputs}
 
@@ -362,7 +394,100 @@ def test_init_cache_on_a_model_axis_of_4(kv):
         jax.sharding.AbstractMesh((4,), ("model",)))["blocks"]["k"]
 
 
-def test_weight_gathered_serving_raises():
-    model = api.build_model(td.lm_cfg("llama3_2_3b")).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tp.shard_for_serving(model, {"data": 2, "model": 2}, fsdp=True)
+# ---------------------------------------------------------------------------
+# (d) weight-gathered serving
+# ---------------------------------------------------------------------------
+
+def _ref_leaves(name, fsdp: bool, axes=("data", "model")) -> list:
+    """``[(path, spec, shape, itemsize)]`` of the case's reference
+    parameters placed by ``param_specs(fsdp=fsdp)`` on an abstract mesh of
+    the case's shape."""
+    arch, mesh, over, _ = CASES[name]
+    cfg = _ref_cfg(arch, over)
+    params = jax.eval_shape(lambda: rapi.build_model(cfg).init(
+        jax.random.key(1)))
+    specs = rshd.param_specs(params, jax.sharding.AbstractMesh(mesh, axes),
+                             fsdp=fsdp,
+                             n_experts=cfg.moe.n_experts if cfg.moe else 0)
+    flat = jax.tree_util.tree_flatten_with_path(params)[0]
+    spec_leaves = jax.tree_util.tree_leaves(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    return [("/".join(k.key for k in path), spec, leaf.shape,
+             leaf.dtype.itemsize)
+            for (path, leaf), spec in zip(flat, spec_leaves)]
+
+
+def _share(shape, spec, sizes: dict, axes) -> int:
+    """Elements of ``shape`` a device holds, ``spec``'s dims divided by
+    the sizes of its axes among ``axes``."""
+    n = list(shape)
+    for d, entry in enumerate(spec):
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a in axes:
+                n[d] //= sizes[a]
+    return int(np.prod(n))
+
+
+@pytest.mark.parametrize("name", FSDP)
+def test_weight_gathered_ranks_hold_their_param_specs_share(runs, name):
+    mesh = CASES[name][1]
+    sizes = dict(zip(("data", "model"), mesh))
+    want = sum(_share(shape, spec, sizes, ("data", "model")) * size
+               for _, spec, shape, size in _ref_leaves(name, True))
+    whole = sum(int(np.prod(shape)) * size
+                for _, _, shape, size in _ref_leaves(name, False))
+    assert want < whole / mesh[1]  # the data axes cut something
+    for r, port in enumerate(runs["port"]):
+        assert port[name]["param_bytes"] == want, r
+
+
+def _gathers_a_decode_step(path: str, cfg) -> int:
+    """How many times a decode step gathers the leaf at ``path``: the
+    tied embedding twice (the lookup and the head), the hybrid's shared
+    block once an application, the enc-dec's encoder never (prefill
+    leaves its output in the cross cache), every other leaf once."""
+    if path == "embed" and cfg.tie_embeddings:
+        return 2
+    if path.startswith("shared_attn/"):
+        return n_shared_applications(cfg)
+    return 0 if path.startswith(("enc_blocks/", "enc_norm/")) else 1
+
+
+@pytest.mark.parametrize("name", FSDP)
+def test_a_decode_step_gathers_each_data_shard_once(runs, name):
+    """Each data-sharded leaf's whole (model-local) bytes as many times as
+    a decode step runs it (``_gathers_a_decode_step``)."""
+    arch, mesh, over, _ = CASES[name]
+    sizes = dict(zip(("data", "model"), mesh))
+    cfg = _ref_cfg(arch, over)
+    want = 0
+    for path, spec, shape, size in _ref_leaves(name, True):
+        if shd.data_dim(spec) is None:
+            continue
+        leaf = _share(shape, spec, sizes, ("model",)) * size
+        want += leaf * _gathers_a_decode_step(path, cfg)
+    assert want > 0
+    assert runs["port"][0][name]["analyzed"]["gathered_a_step"] == want
+
+
+@pytest.mark.parametrize("name", FSDP)
+def test_the_real_prefill_counts_as_its_fake_trace(runs, name):
+    """``hlo_cost.analyze`` of rank 0's prefill (its rows, a cache of the
+    prompt's length) against the dry run's trace of the same cell."""
+    arch, mesh, over, _ = CASES[name]
+    real = runs["port"][0][name]["analyzed"]
+    rows = ROWS // mesh[0]
+    shape = ShapeCfg("serve_fsdp", PROMPT, ROWS, "prefill")
+    with dryrun.fake_world(mesh, "cpu") as m:
+        plan = cells.plan_cell(arch, shape, m, cfg=td.tp_cfg(arch, over),
+                               serve_fsdp=True)
+        traced = dryrun.trace_plan(plan)
+    assert not torch.distributed.is_initialized()
+    cfg = td.tp_cfg(arch, over)
+    frames = rows * cfg.enc_seq * cfg.d_model * 4 \
+        if cfg.family == "encdec" else 0
+    assert traced["memory"]["batch_bytes"] == 2 * rows * PROMPT * 4 + frames
+    assert traced["cost"]["flops"] == real["flops"] > 0
+    coll = traced["collectives"]
+    assert coll["collective_bytes"] == real["collective_bytes"] > 0
+    assert coll["n_collectives"] == real["n_collectives"]

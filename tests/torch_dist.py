@@ -692,16 +692,22 @@ def greedy_serve(model, module, batch: dict, max_len: int, steps: int):
 
 def serve_cases(rank, world, inputs_path):
     """Each case of ``inputs_path`` (``{name: {arch, over, mesh, params,
-    batch, max_len, steps}}``) on its ``(data, model)`` mesh: the
+    batch, max_len, steps, fsdp}}``) on its ``(data, model)`` mesh: the
     reference's parameters in a module sharded for serving
-    (``tensor_parallel.shard_for_serving``), this rank's rows of the
-    batch, greedy; returns ``{name: {"rows", "logits", "tokens",
-    "caches"}}`` (``greedy_serve``'s, ``rows`` the first and the count of
-    this rank's rows), and ``"trained"``: for each of ``inputs["trained"]``
+    (``tensor_parallel.shard_for_serving``, weight-gathered with
+    ``fsdp``), this rank's rows of the batch, greedy; returns ``{name:
+    {"rows", "logits", "tokens", "caches", "param_bytes"}}``
+    (``greedy_serve``'s, ``rows`` the first and the count of this rank's
+    rows, ``param_bytes`` what the rank holds) and, for a weight-gathered
+    case, ``"analyzed"``: ``hlo_cost.analyze`` of one more
+    prefill of its rows with a cache of the prompt's length and the
+    data-group gathers' bytes a decode step (``TRAFFIC``); and
+    ``"trained"``: for each of ``inputs["trained"]``
     (an arch's reduced config, seed 0) a state that ``shard_train_step``
     sharded on (1, 4) against a module ``shard_for_serving`` sharded, both
     serving one batch: ``(logits, caches)`` of each."""
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import hlo_cost
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import api
     from repro_torch.training import train_loop as ttl
@@ -718,8 +724,9 @@ def serve_cases(rank, world, inputs_path):
         m = mesh(case["mesh"])
         cfg = tp_cfg(case["arch"], case["over"])
         model = api.build_model(cfg)
+        fsdp = case.get("fsdp", False)
         module = tp.shard_for_serving(api.params_from_jax(
-            model.init(device="cpu"), case["params"]), m)
+            model.init(device="cpu"), case["params"]), m, fsdp=fsdp)
         per = case["batch"]["tokens"].shape[0] // case["mesh"][0]
         first = m.get_local_rank("data") * per
         batch = {k: torch.from_numpy(v[first:first + per])
@@ -727,7 +734,21 @@ def serve_cases(rank, world, inputs_path):
         logits, tokens, caches = greedy_serve(model, module, batch,
                                               case["max_len"], case["steps"])
         out[name] = {"rows": (first, per), "logits": logits,
-                     "tokens": tokens, "caches": caches}
+                     "tokens": tokens, "caches": caches,
+                     "param_bytes": sum(p.numel() * p.element_size()
+                                        for p in module.parameters())}
+        if fsdp:  # every rank: the prefill's collectives need them all
+            S = batch["tokens"].shape[1]
+            with torch.no_grad():
+                cost = hlo_cost.analyze(model.prefill, module, batch, S)
+                cache = model.prefill(module, batch, S + 1)[1]
+                tp.reset_traffic()
+                model.decode_step(module, cache, batch["tokens"][:, :1], S)
+            out[name]["analyzed"] = {
+                "flops": cost["flops"],
+                "collective_bytes": cost["collective_bytes"],
+                "n_collectives": cost["n_collectives"],
+                "gathered_a_step": tp.TRAFFIC["data_all_gather"][0]}
     out["trained"] = {}
     for arch, batch in inputs["trained"].items():
         cfg = lm_cfg(arch)
