@@ -277,7 +277,19 @@ Phases, one JSON line each; any failure exits non-zero:
                  rows of the plain compile's; step ms with and without the
                  group, tok/s, peak GB, one profiled step (idle share, the
                  NCCL kernels' share of busy, FSDP's annotated ranges).
-25. dist_ranks2 — the same on two spawned ranks sharing the card, gloo over
+25. dist_kimi  — the same at kimi_k2's full width (d_model 7,168, 64 heads
+                 of 112, 8 kv heads, d_ff_expert 2,048, vocab 163,840,
+                 bfloat16 parameters, the float32 router), 2 of 61 layers
+                 (the leading dense layer and one MoE layer) and 64 of 384
+                 experts (top-8 and the shared expert kept), its preset
+                 (FSDP2 over a data mesh of 1, Adafactor with bfloat16
+                 state and accumulation, microbatch 16), --batch 16 --seq
+                 1024, 2 steps: losses within LM_CHECK_RTOL["loss"] of the
+                 run without a group, each MoE block's router an FSDP
+                 unit of its own in float32 beside its block's bfloat16
+                 unit, every batch the plain compile's; step ms with and
+                 without the group, peak GB, the Adafactor state's bytes.
+26. dist_ranks2 — the same on two spawned ranks sharing the card, gloo over
                  CUDA tensors, at llama3_2_3b's full width, 2 of 28 layers,
                  its preset (replicated parameters, one gradient all-reduce
                  a step, microbatch 2; FSDP2 under gloo on CUDA tensors
@@ -285,7 +297,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  steps: each rank's rows, the global losses against one
                  process's, and compressed_psum_mean over the first
                  block's gradients bit-equal card vs CPU.
-26. tp_ranks2  — the "model" axis: two spawned ranks sharing the card, gloo
+27. tp_ranks2  — the "model" axis: two spawned ranks sharing the card, gloo
                  over CUDA tensors, ``make_host_mesh(model_axis=2)`` (a
                  (1, 2) mesh): ``launch.train --mesh host`` at
                  llama3_2_3b's full width (12 of 24 heads, 4 of 8 kv heads,
@@ -297,16 +309,16 @@ Phases, one JSON line each; any failure exits non-zero:
                  bit-equal across the ranks; step ms, tok/s, peak GB a
                  rank, the collectives' bytes a step, one profiled step's
                  idle share.
-27. ep_ranks2  — the same at mixtral_8x7b's full width, 1 of 32 layers, 4
+28. ep_ranks2  — the same at mixtral_8x7b's full width, 1 of 32 layers, 4
                  of 8 experts a rank, its preset (FSDP2 over a data degree
                  of 1, microbatch 4); the drop share of routed slots equal
                  on both ranks and within MOE_FLIP_SHARE of one process's.
-28. dlrm_tp2   — DLRMConfig() (vocab 524288: 26 x 524288 x 128 float32
+29. dlrm_tp2   — DLRMConfig() (vocab 524288: 26 x 524288 x 128 float32
                  tables, 262144 rows a rank) fed by main's ETL
                  (EtlJob(mesh=), B 65536), 2 steps on the (1, 2) mesh
                  against one process: losses within DLRM_TP_RTOL; rows/s,
                  step ms, each rank's table bytes.
-29. dlrm_la_tp2 — the same ranks then run lookahead_main's path on their
+30. dlrm_la_tp2 — the same ranks then run lookahead_main's path on their
                  table shards: EtlJob(mesh=, embed_cache=) plans each
                  rank's rows after place, each rank's EmbedCache holds the
                  rows in its range (zero elsewhere), one stacked
@@ -318,23 +330,23 @@ Phases, one JSON line each; any failure exits non-zero:
                  The parity phase holds the kernel on that shape too
                  (``stacked_half_table``: rank 1's half of the tables,
                  cold ids shifted into it, the rest outside).
-30. ssm_tp2    — tp_ranks2's method at mamba2_370m's full width (16 of 32
+31. ssm_tp2    — tp_ranks2's method at mamba2_370m's full width (16 of 32
                  heads of 64 and 64 of 128 state entries a rank), 4 of 48
                  layers, its preset (microbatch 4), --batch 8 --seq 1024,
                  2 steps.
-31. hybrid_tp2 — the same at zamba2_2_7b's full width, 18 of 54 layers
+32. hybrid_tp2 — the same at zamba2_2_7b's full width, 18 of 54 layers
                  (two applications of the shared block, the only phase
                  with two: both feed its gradients under full remat, and
                  serving writes and reads the second application's ring,
                  split on the model axis), its preset, --seq 512, 2
                  steps; shared_applications in its line.
-32. encdec_tp2 — whisper_base at full width and depth (1,500 stub frames)
+33. encdec_tp2 — whisper_base at full width and depth (1,500 stub frames)
                  on the (1, 2) mesh: the decoder's tokens from the LM token
                  pipeline (448 a row), the frames from random_batch (no
                  launcher feeds frames), shard_train_step, 2 steps against
                  one process: losses within TP_LOSS_RTOL, the leaves held
                  whole bit-equal across the ranks.
-33. serve_fsdp — weight-gathered serving (the serving cells' serve_fsdp):
+34. serve_fsdp — weight-gathered serving (the serving cells' serve_fsdp):
                  four spawned ranks sharing the card, gloo over CUDA
                  tensors, a (2, 2) make_host_mesh(model_axis=2):
                  llama3_2_3b at full width, 2 of 28 layers, bfloat16
@@ -354,12 +366,14 @@ Phases, one JSON line each; any failure exits non-zero:
                  ms and peak GB a rank beside one process's; then one
                  more prefill (a cache of the prompt's length) counted by
                  hlo_cost.analyze.
-34. dryrun     — launch.dryrun in one spawned process on fake CUDA tensors
+35. dryrun     — launch.dryrun in one spawned process on fake CUDA tensors
                  (a fake default group of 256 or 512 ranks, nothing
-                 allocated), started with serve_fsdp's ranks and tracing
-                 on the host while they run (so serve_fsdp's readings
-                 share the host's cores with it): llama3_2_3b train_4k, llama3_405b prefill_32k
-                 (weight-gathered) and mixtral_8x7b decode_32k on 16 x 16,
+                 allocated), started before dist_main and tracing on the
+                 host while phases 24-34 run (so their readings share the
+                 host's cores with it): kimi_k2 train_4k (FSDP2 with its
+                 float32 routers in units of their own, Adafactor),
+                 llama3_405b prefill_32k (weight-gathered) and
+                 mixtral_8x7b decode_32k on 16 x 16,
                  mamba2_370m long_500k on 2 x 16 x 16: per-device GiB
                  (MemTracker's peak), flops, collective bytes and the
                  roofline terms (H100 data-sheet constants), beside the
@@ -390,9 +404,9 @@ started.  Then the ``{"kernels": [...]}`` line (``launches_online_main``,
 ``launches_moe_main``, ``launches_adafactor_main``, ``launches_serve_main``,
 ``launches_serve_moe``, ``launches_ssm_main``, ``launches_vlm_main``,
 ``launches_hybrid_main``, ``launches_encdec_main``, ``launches_dist_main``,
-``launches_dist_ranks2``, ``launches_tp_ranks2``, ``launches_ep_ranks2``,
-``launches_dlrm_tp2``, ``launches_dlrm_la_tp2``, ``launches_ssm_tp2``,
-``launches_hybrid_tp2``, ``launches_encdec_tp2`` and
+``launches_dist_kimi``, ``launches_dist_ranks2``, ``launches_tp_ranks2``,
+``launches_ep_ranks2``, ``launches_dlrm_tp2``, ``launches_dlrm_la_tp2``,
+``launches_ssm_tp2``, ``launches_hybrid_tp2``, ``launches_encdec_tp2`` and
 ``launches_serve_fsdp`` (its four ranks' prompt jobs) (both ranks each;
 ``launches_<phase>_per_rank`` beside the ``*_tp2`` phases') beside the
 kernels those phases ran), the nvidia-smi line, and last the
@@ -508,6 +522,13 @@ FORCED_F32_TOL = 1e-4     # float32 teacher-forced checks: the LM tests' bound
 # ranks take 2 steps (the first compiles, the second is the reading;
 # each gloo step is seconds of host copies), for the script's time limit
 DIST_ARCH, DIST_LAYERS, DIST_STEPS = "mixtral_8x7b", 1, 2
+# dist_kimi: kimi_k2 at full width on one NCCL rank, 2 of 61 layers (the
+# leading dense layer and one MoE layer) and 64 of its 384 experts (top-8
+# and the shared expert kept): with all 384, one MoE layer's bf16 weights
+# and gradients alone take ~68 GB.  Its preset's batch is the microbatch
+# count, 16 rows of 1,024 tokens
+KIMI_ARCH, KIMI_LAYERS, KIMI_EXPERTS, KIMI_STEPS = "kimi_k2", 2, 64, 2
+KIMI_BATCH = 16
 # dist_ranks2: llama3_2_3b on two gloo ranks sharing the card
 DIST2_ARCH, DIST2_LAYERS, DIST2_STEPS = "llama3_2_3b", 2, 2
 # the "model" axis: two gloo ranks sharing the card on a (1, 2) mesh
@@ -539,8 +560,12 @@ DLRM_TP_VOCAB = 524288    # DLRMConfig()'s: even, so the rows split
 # theirs; every decode step gathers them over the data axes, through the
 # host under gloo), on four gloo ranks sharing the card, a (2, 2) mesh
 SERVE_FSDP_ARCH, SERVE_FSDP_LAYERS = "llama3_2_3b", 2
-# the dry run's production cells: (arch, shape, multi-pod)
-DRYRUN_CELLS = (("llama3_2_3b", "train_4k", False),
+# the dry run's production cells: (arch, shape, multi-pod).  kimi_k2
+# train_4k (FSDP2 with float32 routers in units of their own, Adafactor,
+# 16 microbatches) takes the place of llama3_2_3b train_4k, the one other
+# train cell: its trace takes minutes on the host, so the dry run's
+# process starts before the distribution phases and traces beside them
+DRYRUN_CELLS = (("kimi_k2", "train_4k", False),
                 ("llama3_405b", "prefill_32k", False),
                 ("mixtral_8x7b", "decode_32k", False),
                 ("mamba2_370m", "long_500k", True))
@@ -2660,12 +2685,14 @@ def join_ranks(started: tuple, timeout: float) -> list:
     return [got[r] for r in range(world)]
 
 
-def launcher_readings(summary: dict, cfg, seq: int, n_micro: int) -> dict:
+def launcher_readings(summary: dict, cfg, seq: int, n_micro: int,
+                      profile: bool = True) -> dict:
     """What a dist phase reads from one rank's launcher run (on that
     rank): losses, steps, the launches its ETL made and those its
-    lowering means, peak memory, one more step profiled; and every
-    delivered batch checked: the rank's rows (``put_packed``'s selection
-    at ``n_micro`` microbatches) of the plain compile's batch."""
+    lowering means, peak memory, one more step profiled (with
+    ``profile``); and every delivered batch checked: the rank's rows
+    (``put_packed``'s selection at ``n_micro`` microbatches) of the plain
+    compile's batch."""
     import torch
     from repro_torch.core.pipeline import lm_token_pipeline
     from repro_torch.data.source import Source
@@ -2691,7 +2718,7 @@ def launcher_readings(summary: dict, cfg, seq: int, n_micro: int) -> dict:
     last = {k: v.to(next(state.model.parameters()).device)
             for k, v in tap["batches"][-1].items()}
     steps, step = state.step, tap["step"]
-    profile = profile_step(lambda: step(state, last))
+    profiled = profile_step(lambda: step(state, last)) if profile else {}
     ms = sorted(tap["ms"][1:])
     return {"losses": [m[0] for m in tap["metrics"]],
             "grad_norms": [m[1] for m in tap["metrics"]],
@@ -2703,7 +2730,7 @@ def launcher_readings(summary: dict, cfg, seq: int, n_micro: int) -> dict:
             "launches_want": lm_launches(summary["job"].compiled,
                                          transformed),
             "batches_checked": len(tap["batches"]),
-            "profile_one_more_step": {k: v for k, v in profile.items()
+            "profile_one_more_step": {k: v for k, v in profiled.items()
                                       if k != "top_ops"}}
 
 
@@ -2754,6 +2781,82 @@ def dist_main(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
             "batch": batch, "seq": seq, "losses_no_group": want,
             "loss_max_rel_diff": max(diff),
             "step_ms_median_2_on_no_group": alone_ms, **rank}
+
+
+def dist_kimi_rank(argv: list, cfg, seq: int, n_micro: int) -> dict:
+    """``dist_kimi``'s rank: the launcher under ``WORLD_SIZE`` (NCCL), then
+    the dtype of each FSDP unit and the Adafactor state's bytes."""
+    from repro_torch.training.train_loop import unit_dtypes
+
+    summary = run_launcher(argv, cfg=cfg)
+    state = summary["state"]
+    out = launcher_readings(summary, cfg, seq, n_micro, profile=False)
+    out["unit_dtypes"] = {k: str(v) for k, v in
+                          unit_dtypes(state.model).items()}
+    out["opt_state_bytes"] = sum(
+        getattr(t, "to_local", lambda t=t: t)().numel() * t.element_size()
+        for st in state.opt["f"] for t in st.values())
+    return out
+
+
+def dist_kimi(root: str, expect, batch: int = KIMI_BATCH,
+              seq: int = LM_SEQ, steps: int = KIMI_STEPS,
+              layers: int = KIMI_LAYERS, experts: int = KIMI_EXPERTS,
+              extra_args=()) -> dict:
+    """``launch.train --mesh host`` on one spawned NCCL rank at
+    ``kimi_k2``'s full width (bfloat16 parameters, the float32 router),
+    ``layers`` of 61 and ``experts`` of 384, its preset (FSDP2 over a data
+    mesh of 1, Adafactor with bfloat16 state and accumulation, microbatch
+    16): each block's float32 router an FSDP unit of its own beside the
+    block's bfloat16 unit.  The same cut run without a process group
+    first, in this process.  Checks: the rank's losses within
+    ``LM_CHECK_RTOL["loss"]`` of it, every FSDP unit of one dtype and the
+    routers' float32, the ETL's launches, every batch the plain compile's.
+    Readings: step ms at world 1 and without a group, peak GB, the
+    Adafactor state's bytes."""
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.launch import train as launch
+
+    reduced = "--reduced" in extra_args
+    base = get_reduced(KIMI_ARCH) if reduced else get_config(KIMI_ARCH)
+    cfg = dataclasses.replace(base, n_layers=layers, moe=dataclasses.replace(
+        base.moe, n_experts=experts))
+    tcfg = launch.train_preset(KIMI_ARCH)
+    argv = ["--arch", KIMI_ARCH, "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(steps), "--etl-backend", "cuda",
+            "--max-restarts", "0", "--mesh", "host", *extra_args]
+    alone = run_launcher(argv, cfg=cfg)
+    want = [m[0] for m in alone["tap"]["metrics"]]
+    ms = sorted(alone["tap"]["ms"][1:])
+    alone_ms = ms[len(ms) // 2] if ms else float("nan")
+    alone_peak = alone["peak_mem_gb"]
+    del alone
+    free_memory()
+    (rank,) = run_ranks(dist_kimi_rank, 1, "nccl",
+                        (argv, cfg, seq, tcfg.microbatch), timeout=600)
+    expect(rank["launches"], rank["launches_want"], "dist_kimi")
+    diff = [abs(a - b) / abs(b) for a, b in zip(rank["losses"], want)]
+    if len(rank["losses"]) != steps or max(diff) > LM_CHECK_RTOL["loss"]:
+        raise AssertionError(f"dist_kimi: losses {rank['losses']} vs "
+                             f"{want} without a process group")
+    units = rank["unit_dtypes"]
+    routers = {k for k in units if k.endswith("moe.gate")}
+    if len(routers) != layers - cfg.moe.first_dense_layers or any(
+            units[k] != "torch.float32" for k in routers) or any(
+            v != "torch.bfloat16" for k, v in units.items()
+            if k not in routers):
+        raise AssertionError(f"dist_kimi: FSDP units {units}")
+    return {"arch": KIMI_ARCH, "reduced": reduced, "layers": layers,
+            "layers_full": base.n_layers, "experts": experts,
+            "experts_full": base.moe.n_experts, "world": 1,
+            "backend": "nccl", "fsdp": tcfg.fsdp,
+            "optimizer": tcfg.optimizer,
+            "opt_state_dtype": tcfg.opt_state_dtype,
+            "accum_dtype": tcfg.accum_dtype, "microbatch": tcfg.microbatch,
+            "param_dtype": cfg.param_dtype, "batch": batch, "seq": seq,
+            "losses_no_group": want, "loss_max_rel_diff": max(diff),
+            "step_ms_median_2_on_no_group": alone_ms,
+            "peak_mem_gb_no_group": alone_peak, **rank}
 
 
 def dist_ranks2_rank(argv: list, cfg, seq: int, n_micro: int) -> dict:
@@ -3747,13 +3850,25 @@ def start_dryrun(layers: int = SERVE_FSDP_LAYERS,
                  batch: int = AXIS_SERVE_BATCH,
                  prompt: int = AXIS_SERVE_PROMPT) -> tuple:
     """``dryrun_rank`` started in one spawned process (fake tensors: it
-    runs on the host beside serve_fsdp's ranks); ``dryrun_phase`` joins
-    it."""
+    runs on the host beside the distribution phases and serve_fsdp's
+    ranks); ``dryrun_phase`` joins it."""
     from repro_torch.configs.registry import get_config
 
     cfg = dataclasses.replace(get_config(SERVE_FSDP_ARCH), n_layers=layers,
                               param_dtype="bfloat16")
     return start_ranks(dryrun_rank, 1, "none", (cfg, batch, prompt))
+
+
+@contextlib.contextmanager
+def stopped_on_error(started: tuple):
+    """Within: ``start_ranks``' processes are stopped if what runs
+    raises."""
+    try:
+        yield
+    except BaseException:
+        with contextlib.suppress(AssertionError):
+            join_ranks(started, timeout=0)  # stops them
+        raise
 
 
 def dryrun_phase(started: tuple, real: dict) -> dict:
@@ -4705,53 +4820,56 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     ed = encdec_main(root, expect)
     emit({"phase": "encdec_main", **ed})
 
-    # ---- data-parallel distribution --------------------------------------
-    free_memory()
-    dist1 = dist_main(root, expect)
-    emit({"phase": "dist_main", **dist1})
-    free_memory()
-    dist2 = dist_ranks2(root, expect)
-    emit({"phase": "dist_ranks2", **dist2})
-
-    # ---- the "model" axis: tensor, expert and row parallelism ------------
-    free_memory()
-    tp2 = model_axis_phase("tp_ranks2", TP_ARCH, TP_LAYERS, TP_STEPS,
-                           expect, LM_BATCH, LM_SEQ)
-    emit({"phase": "tp_ranks2", **tp2})
-    free_memory()
-    ep2 = model_axis_phase("ep_ranks2", EP_ARCH, EP_LAYERS, EP_STEPS,
-                           expect, LM_BATCH, LM_SEQ)
-    emit({"phase": "ep_ranks2", **ep2})
-    free_memory()
-    dtp2, dla2 = dlrm_tp2(expect)
-    emit({"phase": "dlrm_tp2", **dtp2})
-    emit({"phase": "dlrm_la_tp2", **dla2})
-
-    # ---- the model axis for the SSM, hybrid and enc-dec families --------
-    free_memory()
-    stp2 = model_axis_phase("ssm_tp2", SSM_ARCH, SSM_TP_LAYERS,
-                            SSM_TP_STEPS, expect, LM_BATCH, LM_SEQ)
-    emit({"phase": "ssm_tp2", **stp2})
-    free_memory()
-    htp2 = model_axis_phase("hybrid_tp2", HYBRID_ARCH, HYBRID_TP_LAYERS,
-                            HYBRID_TP_STEPS, expect, LM_BATCH, HYBRID_TP_SEQ)
-    emit({"phase": "hybrid_tp2", **htp2})
-    if htp2["shared_applications"] < 2:
-        raise AssertionError("hybrid_tp2: the shared block is applied "
-                             "fewer than twice")
-    free_memory()
-    etp2 = encdec_tp2(expect)
-    emit({"phase": "encdec_tp2", **etp2})
-
-    # ---- weight-gathered serving, beside the dry run's process ----------
+    # ---- the dry run's process: traces on the host from here on, beside
+    # the distribution phases and weight-gathered serving ----------------
     free_memory()
     dry = start_dryrun()
-    try:
+    with stopped_on_error(dry):
+        # ---- data-parallel distribution -------------------------------------
+        free_memory()
+        dist1 = dist_main(root, expect)
+        emit({"phase": "dist_main", **dist1})
+        free_memory()
+        kimi = dist_kimi(root, expect)
+        emit({"phase": "dist_kimi", **kimi})
+        free_memory()
+        dist2 = dist_ranks2(root, expect)
+        emit({"phase": "dist_ranks2", **dist2})
+
+        # ---- the "model" axis: tensor, expert and row parallelism -----------
+        free_memory()
+        tp2 = model_axis_phase("tp_ranks2", TP_ARCH, TP_LAYERS, TP_STEPS,
+                               expect, LM_BATCH, LM_SEQ)
+        emit({"phase": "tp_ranks2", **tp2})
+        free_memory()
+        ep2 = model_axis_phase("ep_ranks2", EP_ARCH, EP_LAYERS, EP_STEPS,
+                               expect, LM_BATCH, LM_SEQ)
+        emit({"phase": "ep_ranks2", **ep2})
+        free_memory()
+        dtp2, dla2 = dlrm_tp2(expect)
+        emit({"phase": "dlrm_tp2", **dtp2})
+        emit({"phase": "dlrm_la_tp2", **dla2})
+
+        # ---- the model axis for the SSM, hybrid and enc-dec families --------
+        free_memory()
+        stp2 = model_axis_phase("ssm_tp2", SSM_ARCH, SSM_TP_LAYERS,
+                                SSM_TP_STEPS, expect, LM_BATCH, LM_SEQ)
+        emit({"phase": "ssm_tp2", **stp2})
+        free_memory()
+        htp2 = model_axis_phase("hybrid_tp2", HYBRID_ARCH,
+                                HYBRID_TP_LAYERS, HYBRID_TP_STEPS, expect,
+                                LM_BATCH, HYBRID_TP_SEQ)
+        emit({"phase": "hybrid_tp2", **htp2})
+        if htp2["shared_applications"] < 2:
+            raise AssertionError("hybrid_tp2: the shared block is applied "
+                                 "fewer than twice")
+        free_memory()
+        etp2 = encdec_tp2(expect)
+        emit({"phase": "encdec_tp2", **etp2})
+
+        # ---- weight-gathered serving ----------------------------------------
+        free_memory()
         sfsdp = serve_fsdp(expect)
-    except BaseException:
-        with contextlib.suppress(AssertionError):
-            join_ranks(dry, timeout=0)  # stops it
-        raise
     emit({"phase": "serve_fsdp", **sfsdp})
     emit({"phase": "dryrun", "card": smi,
           **dryrun_phase(dry, sfsdp["rank0_prefill"])})
@@ -4792,7 +4910,8 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                           ("serve_main", srv), ("serve_moe", smoe),
                           ("ssm_main", ssm_ph), ("vlm_main", vlm),
                           ("hybrid_main", hyb), ("encdec_main", ed),
-                          ("dist_main", dist1), ("dist_ranks2", dist2),
+                          ("dist_main", dist1), ("dist_kimi", kimi),
+                          ("dist_ranks2", dist2),
                           ("tp_ranks2", tp2), ("ep_ranks2", ep2),
                           ("dlrm_tp2", dtp2), ("dlrm_la_tp2", dla2),
                           ("ssm_tp2", stp2), ("hybrid_tp2", htp2),

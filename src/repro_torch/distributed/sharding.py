@@ -38,8 +38,9 @@ from typing import Optional
 # the mesh the launcher trains on (read by the MoE layer's token groups)
 _ACTIVE_MESH = None
 # how many row shards of the batch one rank's activations are (set by the
-# data-parallel train step around its forward / backward)
-_ROW_SHARDS = 1
+# data-parallel train step around its forward / backward, or by a caller
+# serving a replicated batch); None: not set, a whole batch
+_ROW_SHARDS = None
 
 
 class PartitionSpec(tuple):
@@ -97,7 +98,12 @@ def row_shards(n: int):
 
 
 def get_row_shards() -> int:
-    return _ROW_SHARDS
+    return _ROW_SHARDS or 1
+
+
+def row_shards_set() -> bool:
+    """Whether a ``row_shards`` context is open."""
+    return _ROW_SHARDS is not None
 
 
 # ---------------------------------------------------------------------------
@@ -290,5 +296,9 @@ def local_part(full, like):
     mesh = like.device_mesh
     for i, pl in enumerate(like.placements):
         if pl.is_shard():
-            full = full.chunk(mesh.size(i), pl.dim)[mesh.get_local_rank(i)]
+            parts = full.chunk(mesh.size(i), pl.dim)
+            r = mesh.get_local_rank(i)
+            # an uneven split has fewer chunks than ranks: the rest hold none
+            full = parts[r] if r < len(parts) else \
+                full.narrow(pl.dim, full.shape[pl.dim], 0)
     return full

@@ -321,16 +321,32 @@ def shard_of(p) -> tuple:
     return getattr(p, "tp_shard", (None, None))
 
 
+def padded_part(x, dim: int, ax: ModelAxis):
+    """This rank's slice of ``x`` along ``dim`` where ``ax.size`` need not
+    divide it: ``x`` zero-padded to a multiple of it, then sliced, as
+    FSDP2's ``Shard`` lays out an uneven split (a copy)."""
+    n = -(-x.shape[dim] // ax.size)
+    pad = n * ax.size - x.shape[dim]
+    if pad:
+        shape = list(x.shape)
+        shape[dim] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim)
+    return x.narrow(dim, ax.rank * n, n).clone()
+
+
 @torch.no_grad()
 def shard_data(model, dims: dict, dax: ModelAxis) -> None:
     """Keep, of each parameter named in ``dims`` (``{name: data dim}``),
-    this rank's slice along that dim over the data axes ``dax``, in place,
-    and tag it ``dp_shard = (dim, dax)`` (``gathered`` reads it)."""
+    this rank's slice along that dim over the data axes ``dax``
+    (``padded_part``: zero-padded where they do not divide it), in place,
+    and tag it ``dp_shard = (dim, dax, whole size)`` (``gathered``
+    reads it)."""
     params = dict(model.named_parameters())
     for name, d in dims.items():
         p = params[name]
-        p.data = part(p.data, d, dax).clone()
-        p.dp_shard = (d, dax)
+        whole = p.shape[d]
+        p.data = padded_part(p.data, d, dax)
+        p.dp_shard = (d, dax, whole)
 
 
 @contextlib.contextmanager
@@ -338,9 +354,10 @@ def gathered(*parts):
     """Within: each data-sharded parameter (``shard_data``) of ``parts``
     (modules or parameters; a parameter named twice is gathered once)
     holds its whole local tensor, all-gathered over the data axes
-    (``TRAFFIC["data_all_gather"]``); after it, its shard again and the
-    gathered copy dropped.  Parameters without a data shard are left as
-    they are, so a model that is not weight-gathered passes through."""
+    (``TRAFFIC["data_all_gather"]``, padding included) and its padding
+    dropped; after it, its shard again and the gathered copy dropped.
+    Parameters without a data shard are left as they are, so a model that
+    is not weight-gathered passes through."""
     params = {}
     for x in parts:
         for p in (x.parameters() if isinstance(x, torch.nn.Module)
@@ -350,9 +367,10 @@ def gathered(*parts):
     shards = []
     try:
         for p in params.values():
-            d, dax = p.dp_shard
+            d, dax, whole = p.dp_shard
             shards.append((p, p.data))
-            p.data = all_gather(p.data, d, dax, kind="data_all_gather")
+            p.data = all_gather(p.data, d, dax, kind="data_all_gather"
+                                ).narrow(d, 0, whole)
         yield
     finally:
         for p, shard in shards:
@@ -367,15 +385,17 @@ def shard_for_serving(model, mesh, *, fsdp: bool = False):
     Each spec's model dim is cut to this rank's slice (``shard_model``).
     Its ``prefill`` and ``decode_step`` then take this rank's rows (a data
     degree dp > 1: its row shard of a batch dp divides, as ``batch_specs``
-    places it) and keep this rank's shard of each cache
+    places it; the whole of one it does not, within
+    ``sharding.row_shards(1)``) and keep this rank's shard of each cache
     (``sharding.cache_specs``).  Returns ``model``.
 
     ``fsdp`` is the cells' weight-gathered serving (``serve_fsdp``): each
     parameter whose spec also names the data axes keeps only this rank's
     data shard on the dim ``train_loop._shard_dims(..., fsdp=True)`` gives
-    (the rule training shards by; a stacked leaf's layer dim raises there),
-    and the serving paths gather a block's parameters whole over the data
-    group just before the block runs and drop them after it
+    (the rule training shards by: a stacked leaf's layers each on a dim of
+    their own where the spec takes the layer dim), and the serving paths
+    gather a block's parameters whole over the data group just before the
+    block runs and drop them after it
     (``gathered``), the embedding and the head alike.  This is not FSDP2:
     its all-gathers hang under gloo on CUDA tensors, and two ranks cannot
     share one card under NCCL, so the gathers are this module's own

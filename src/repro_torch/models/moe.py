@@ -59,20 +59,40 @@ def moe_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
     return p
 
 
+class Router(nn.Module):
+    """The router ``[d, E]`` as a module of its own, whose forward is the
+    router logits (``router_logits``).  It is float32 whatever the layer's
+    other parameters are, and FSDP2 shards a module's parameters as one
+    unit of one dtype: under FSDP the router is a unit beside its block's
+    (``training/train_loop._fully_shard``), gathered for its forward."""
+
+    def __init__(self, weight: torch.Tensor):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+
+    def forward(self, xf):
+        return router_logits(xf, self.weight)
+
+
 class MoE(nn.Module):
-    """The layer's parameters as a module: ``router``, ``experts`` and
-    (with shared experts) ``shared``, indexable as the JAX tree is."""
+    """The layer's parameters as a module: ``router`` (held by ``gate``, a
+    ``Router``), ``experts`` and (with shared experts) ``shared``,
+    indexable as the JAX tree is."""
 
     def __init__(self, cfg: ModelConfig, dtype, *,
                  generator: torch.Generator, device=None):
         super().__init__()
         tree = moe_init(cfg, dtype, generator=generator, device=device)
-        self.router = nn.Parameter(tree["router"])
+        self.gate = Router(tree["router"])
         self.experts = nn.ParameterDict(
             {k: nn.Parameter(v) for k, v in tree["experts"].items()})
         if "shared" in tree:
             self.shared = nn.ParameterDict(
                 {k: nn.Parameter(v) for k, v in tree["shared"].items()})
+
+    @property
+    def router(self) -> torch.Tensor:
+        return self.gate.weight
 
     def __getitem__(self, key):
         return getattr(self, key)
@@ -120,7 +140,7 @@ def route(p, xf, cfg: ModelConfig, cap: int) -> dict:
     N = xf.shape[0]
     k, E = e.top_k, e.n_experts
     dev = xf.device
-    probs = torch.softmax(router_logits(xf, p["router"]), dim=-1)
+    probs = torch.softmax(p.gate(xf), dim=-1)
     top_w, top_e = top_k(probs, k)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
 
@@ -232,7 +252,7 @@ def aux_load_balance_loss(p, x, cfg: ModelConfig):
     e = cfg.moe
     N = x.shape[0] * x.shape[1]
     xf = x.reshape(N, -1)
-    probs = torch.softmax(router_logits(xf, p["router"]), dim=-1)
+    probs = torch.softmax(p.gate(xf), dim=-1)
     top = torch.argmax(probs, dim=-1)
     frac = torch.bincount(top, minlength=e.n_experts) / N
     imp = probs.mean(0)

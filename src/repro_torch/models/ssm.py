@@ -10,25 +10,28 @@ the card (``layers.true_float32``).
 Head layout: d_inner = expand * d_model split into H heads of P = head_dim;
 B / C projections are per group (G groups broadcast over heads).
 
-On a "model" mesh axis of m (``distributed/tensor_parallel.py``) each rank
-holds H/m heads of ``z_proj`` / ``x_proj`` / ``dt_proj`` and their
-convolution, ``norm_w`` and ``out_proj``'s rows, and G*N/m state entries of
-``b_proj`` / ``c_proj`` and their convolutions (the reference's rules
-split B and C on the state dim, not on heads); ``A_log``, ``D`` and
-``dt_bias`` are replicated (``_mixer_model_parallel``).  Sequence
-parallelism (``seq_parallel``) is not ported for this family: no SSM
-config sets it, and on a model axis it raises ``NotImplementedError``.
-A model-sharded module serves with this rank's shard of the decode state
-(``sharding.cache_specs``): the SSD state of its heads, the convolutions'
-states of its channels.
+On a "model" mesh axis of m (``distributed/tensor_parallel.py``) each
+projection, convolution and ``norm_w`` / ``out_proj`` holds what the
+reference's rules give it: this rank's 1/m of its columns (channels,
+rows) where m divides them, else all of them; ``A_log``, ``D`` and
+``dt_bias`` are replicated (``_mixer_model_parallel``).  Where the H heads
+split, each rank runs the SSD on its H/m heads; where they do not, every
+rank runs it on all of them.  The reference's SSM never reads
+``seq_parallel`` (its blocks pin the residual to the whole sequence), so
+neither does this one.  A model-sharded module serves with this rank's
+shard of the decode state (``sharding.cache_specs``): the SSD state of its
+heads where they split, the convolutions' states of its channels where
+they split.
 
 The model (``SSM``) holds ``embed``, per-layer blocks (``ln`` and
 ``mixer``), ``final_norm`` and ``lm_head`` when untied, in the JAX
 package's tree (``jax_tree`` / ``load_jax_tree``, shared with the
 transformer).  ``A_log``, ``D`` and ``dt_bias`` are float32 whatever the
-parameter dtype.  The decode state is the reference's stacked layout:
-``conv`` ``{"x", "b", "c"}`` ``[L, B, d_conv - 1, C]`` in the compute dtype
-and ``ssm`` ``[L, B, H, N, P]`` in float32, updated in place.
+parameter dtype, held by a module of their own (``Scalars``, which FSDP2
+shards as a unit of its own beside its block's).  The decode state is the
+reference's stacked layout: ``conv`` ``{"x", "b", "c"}`` ``[L, B, d_conv -
+1, C]`` in the compute dtype and ``ssm`` ``[L, B, H, N, P]`` in float32,
+updated in place.
 """
 
 from __future__ import annotations
@@ -90,6 +93,56 @@ def mixer_init(cfg: ModelConfig, dtype, *, generator: torch.Generator,
         "norm_w": full(d_inner, 1.0),
         "out_proj": tn((d_inner, d), 1.0 / math.sqrt(d_inner)),
     }
+
+
+class Scalars(nn.Module):
+    """The mixer's float32 per-head parameters ``A_log``, ``D`` and
+    ``dt_bias`` as a module of their own, whose forward is what the mixer
+    makes of them.  FSDP2 shards a module's parameters as one unit of one
+    dtype, so under FSDP with 16-bit parameters these are a unit beside
+    their block's (``training/train_loop._fully_shard``), gathered for
+    this forward; its outputs are new tensors, never views of the
+    gathered parameters, which FSDP2 frees after it."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k in FLOAT32_KEYS:
+            setattr(self, k, nn.Parameter(tree[k]))
+
+    def forward(self, dtraw, xh, heads=slice(None), ax=None):
+        """For the heads ``heads`` (all by default): ``dt`` = softplus(raw
+        dt + ``dt_bias``), ``A`` = -exp(``A_log``) and the skip term ``xh *
+        D`` (xh: (..., heads, P)), all float32.  On a model axis ``ax`` the
+        parameters pass ``tp.copy_in`` first: each rank's gradient is its
+        heads' part."""
+        def mine(v):
+            return (v if ax is None else tp.copy_in(v, ax))[heads]
+        dt = F.softplus(dtraw.to(torch.float32) + mine(self.dt_bias))
+        return dt, -torch.exp(mine(self.A_log)), xh * mine(self.D)[:, None]
+
+
+class Mixer(nn.Module):
+    """A mixer's parameters, indexable and iterable as the JAX tree's
+    ``mixer`` is (``mixer_init``'s keys): the projections, convolutions,
+    ``norm_w`` and ``out_proj`` in the parameter dtype, and the float32
+    ``A_log``, ``D`` and ``dt_bias`` in ``scalars``."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._keys = tuple(tree)
+        for k, v in tree.items():
+            if k not in FLOAT32_KEYS:
+                setattr(self, k, nn.Parameter(v))
+        self.scalars = Scalars(tree)
+
+    def __getitem__(self, key):
+        return getattr(self.scalars if key in FLOAT32_KEYS else self, key)
+
+    def keys(self):
+        return self._keys
+
+    def items(self):
+        return [(k, self[k]) for k in self._keys]
 
 
 def _causal_conv(u, w, b, *, state=None):
@@ -195,9 +248,11 @@ def mixer_apply(p, x, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
     ``_mixer_model_parallel`` (the states are then this rank's heads and
     channels)."""
     d_inner, H, G, N, P = dims(cfg)
+    scalars = p.scalars
     p = L.cast_tree_except(p, x.dtype, FLOAT32_KEYS)
     if _sharded(p, cfg):
-        return _mixer_model_parallel(p, x, cfg, conv_state=conv_state,
+        return _mixer_model_parallel(p, scalars, x, cfg,
+                                     conv_state=conv_state,
                                      ssm_state=ssm_state,
                                      return_state=return_state)
     z, xr, Braw, Craw, dtraw, new_conv = _projections(p, x, conv_state)
@@ -209,12 +264,11 @@ def mixer_apply(p, x, cfg: ModelConfig, *, conv_state=None, ssm_state=None,
     rep = H // G
     Bh = torch.repeat_interleave(Bh, rep, dim=2)
     Ch = torch.repeat_interleave(Ch, rep, dim=2)
-    dt = F.softplus(dtraw.to(torch.float32) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    dt, A, skip = scalars(dtraw, xh)
 
     y, final = _ssd_chunked(xh, dt, A, Bh, Ch, cfg.ssm.chunk,
                             init_state=ssm_state)
-    y = y + xh * p["D"][None, None, :, None]
+    y = y + skip
     y = y.reshape(Bsz, S, d_inner).to(x.dtype)
     y = L.rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
     out = y @ p["out_proj"]
@@ -236,114 +290,145 @@ def _rmsnorm_split(x, w, eps, whole: int, ax):
     return (y * w.to(torch.float32)).to(x.dtype)
 
 
-def _mixer_model_parallel(p, x, cfg: ModelConfig, *, conv_state=None,
-                          ssm_state=None, return_state=False):
-    """The mixer with its projections sharded over the model axis (x: (B,
-    S, D), replicated) -> the output, replicated [, (conv_state,
-    ssm_state)]: this rank's channels of the three convolutions' states
-    (``x`` its heads', ``b`` / ``c`` its state entries') and its heads of
-    the SSD state, in and out.
+def _mixer_model_parallel(p, scalars, x, cfg: ModelConfig, *,
+                          conv_state=None, ssm_state=None,
+                          return_state=False):
+    """The mixer with some of its projections sharded over the model axis
+    (x: (B, S, D), replicated) -> the output, replicated [, (conv_state,
+    ssm_state)], the states laid out as ``sharding.cache_specs`` splits
+    them: each convolution's channels where its projection's columns
+    split, the SSD state's heads where the heads split.
 
-    Each rank runs its H/m heads: z, x and dt from its columns (input
-    through ``tp.copy_in``), its heads' slices of the replicated ``A_log``,
-    ``D`` and ``dt_bias`` (through ``tp.copy_in``: each rank's gradient is
-    its heads' part).  B and C are convolved on the rank's own state
-    entries, then gathered whole (``tp.gather_to_shards``: every rank's
-    heads read every entry, so the backward sums the ranks' gradients
-    before each keeps its slice); each rank's heads read their groups.  The
-    gated RMSNorm over the whole d_inner sums its squares over the ranks,
-    and ``out_proj`` is row-parallel (``tp.reduce_out``).  Heads or state
-    entries that do not split over the ranks raise."""
+    A projection whose columns the spec splits (``param_spec``: where the
+    axis divides them) is run on this rank's columns from the input
+    through ``tp.copy_in``, its convolution on those channels; one the
+    spec leaves whole runs whole on every rank from the replicated input.
+
+    - Heads that split (H / m a rank): each rank runs the SSD on its heads
+      (z, x and dt from its columns, its heads' slices of the replicated
+      ``A_log``, ``D`` and ``dt_bias`` through ``tp.copy_in``).  B and C
+      are read whole by every rank's heads: a split one is gathered
+      (``tp.gather_to_shards``: the backward sums the ranks' gradients
+      before each keeps its slice), a whole one passes ``tp.copy_in``;
+      each rank's heads read their groups.
+    - Heads that do not split: every rank runs the SSD on all of them,
+      each split projection's output gathered whole first (``tp.gather``).
+    - The gated RMSNorm and ``out_proj``: where d_inner splits, each rank
+      normalises its channels (the sum of squares summed over the ranks)
+      and ``out_proj`` is row-parallel (``tp.reduce_out``); else both run
+      whole."""
     d_inner, H, G, N, P = dims(cfg)
     ax = tp.active()
     m, r = ax.size, ax.rank
-    if not (tp.split(p["x_proj"].shape[1], d_inner)
-            and tp.split(p["dt_proj"].shape[1], H)
-            and tp.split(p["b_proj"].shape[1], G * N)):
-        raise NotImplementedError(
-            f"{cfg.name}: the SSM on a model axis of {m} needs its {H} heads "
-            f"of {P} and its {G * N} state entries split over the ranks "
-            f"(x_proj {tuple(p['x_proj'].shape)}, dt_proj "
-            f"{tuple(p['dt_proj'].shape)}, b_proj "
-            f"{tuple(p['b_proj'].shape)})")
-    if cfg.seq_parallel:
-        raise NotImplementedError(
-            f"{cfg.name}: sequence parallelism of the SSM on a model axis")
-    _, xt = tp.enter(x, ax, False)
+    heads_split = tp.split(p["dt_proj"].shape[1], H)
+    channels_split = tp.split(p["x_proj"].shape[1], d_inner)
+    x, xt = tp.enter(x, ax, False)
     cs = conv_state or {}
     new_conv = {}
-    z = xt @ p["z_proj"]
-    xs, new_conv["x"] = _causal_conv(xt @ p["x_proj"], p["conv_wx"],
-                                     p["conv_bx"], state=cs.get("x"))
-    dtraw = xt @ p["dt_proj"]
 
-    def bc(key, w, conv_w, conv_b):  # (B, S, G * N), whole on every rank
-        raw, new_conv[key] = _causal_conv(xt @ w, conv_w, conv_b,
-                                          state=cs.get(key))
-        return tp.gather_to_shards(raw, -1, ax)
+    def stream(w, whole: int, key=None, conv_w=None, conv_b=None):
+        """(x @ w, convolved when ``key`` names its state; split): this
+        rank's columns, or all of them."""
+        split = tp.split(w.shape[1], whole)
+        out = (xt if split else x) @ w
+        if key is not None:
+            out, new_conv[key] = _causal_conv(out, conv_w, conv_b,
+                                              state=cs.get(key))
+        return out, split
 
+    z, _ = stream(p["z_proj"], d_inner)
+    xs, _ = stream(p["x_proj"], d_inner, "x", p["conv_wx"], p["conv_bx"])
+    dtraw, _ = stream(p["dt_proj"], H)
     Bsz, S, _ = x.shape
-    hl = H // m
-    heads = slice(r * hl, (r + 1) * hl)
-    groups = (r * hl + torch.arange(hl, device=x.device)) // (H // G)
+    if heads_split:
+        hl = H // m
+        heads = slice(r * hl, (r + 1) * hl)
 
-    def per_head(raw):  # this rank's heads' B or C, (B, S, hl, N) f32
+        def whole(raw, split):  # read by this rank's heads
+            return tp.gather_to_shards(raw, -1, ax) if split \
+                else tp.copy_in(raw, ax)
+    else:  # every rank runs every head
+        hl, heads = H, slice(None)
+
+        def whole(raw, split):
+            return tp.gather(raw, -1, ax) if split else raw
+        xs = whole(xs, channels_split)
+    groups = (heads.start or 0) + torch.arange(hl, device=x.device)
+    groups = groups // (H // G)
+
+    def per_head(raw):  # these heads' B or C, (B, S, hl, N) f32
         return raw.reshape(Bsz, S, G, N).to(torch.float32)[:, :, groups]
 
-    def mine(v):  # this rank's heads of a replicated per-head parameter
-        return tp.copy_in(v, ax)[heads]
-
-    Bh = per_head(bc("b", p["b_proj"], p["conv_wb"], p["conv_bb"]))
-    Ch = per_head(bc("c", p["c_proj"], p["conv_wc"], p["conv_bc"]))
+    Bh = per_head(whole(*stream(p["b_proj"], G * N, "b", p["conv_wb"],
+                                p["conv_bb"])))
+    Ch = per_head(whole(*stream(p["c_proj"], G * N, "c", p["conv_wc"],
+                                p["conv_bc"])))
     xh = xs.reshape(Bsz, S, hl, P).to(torch.float32)
-    dt = F.softplus(dtraw.to(torch.float32) + mine(p["dt_bias"]))
-    A = -torch.exp(mine(p["A_log"]))
+    dt, A, skip = scalars(dtraw, xh, heads, ax if heads_split else None)
     y, final = _ssd_chunked(xh, dt, A, Bh, Ch, cfg.ssm.chunk,
                             init_state=ssm_state)
-    y = y + xh * mine(p["D"])[None, None, :, None]
-    y = y.reshape(Bsz, S, hl * P).to(x.dtype)
-    y = _rmsnorm_split(y * F.silu(z), p["norm_w"], cfg.norm_eps, d_inner, ax)
-    out = tp.reduce_out(y @ p["out_proj"], ax)
+    y = (y + skip).reshape(Bsz, S, hl * P).to(x.dtype)
+    out = _gated_out(p, y, z, cfg, ax, heads_split, channels_split)
     return (out, (new_conv, final)) if return_state else out
+
+
+def _gated_out(p, y, z, cfg: ModelConfig, ax, heads_split: bool,
+               channels_split: bool):
+    """The gated RMSNorm and ``out_proj`` of the SSD's output ``y`` (this
+    rank's heads' channels with ``heads_split``, else all of them), whole
+    on every rank.  Where d_inner splits, each rank normalises its
+    channels (a whole ``y`` sliced through ``tp.scatter``) and ``out_proj``
+    is row-parallel; else both run whole."""
+    d_inner = dims(cfg)[0]
+    if not channels_split:
+        y = L.rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
+        return y @ p["out_proj"]
+    if not heads_split:
+        y = tp.scatter(y, -1, ax)
+    y = _rmsnorm_split(y * F.silu(z), p["norm_w"], cfg.norm_eps, d_inner, ax)
+    return tp.reduce_out(y @ p["out_proj"], ax)
 
 
 def mixer_decode(p, x, cfg: ModelConfig, conv_state, ssm_state):
     """One-token recurrence. x: (B,1,D). Returns (y, (conv_state, ssm_state)).
-    With the projections sharded over the model axis each rank steps its
-    heads (their slices of ``A_log``, ``D`` and ``dt_bias``) and its
-    convolutions' channels, reads B and C whole (gathered), and meets the
-    other ranks in the gated norm's sum of squares and ``out_proj``'s
-    partial sums; the states are this rank's, as in ``mixer_apply``."""
+    With projections sharded over the model axis the states are laid out
+    as in ``mixer_apply``: where the heads split each rank steps its heads
+    (their slices of ``A_log``, ``D`` and ``dt_bias``), else all of them;
+    a split projection's output is gathered where the heads it feeds are
+    not this rank's alone (B and C always), and the gated norm and
+    ``out_proj`` meet the other ranks where d_inner splits."""
     d_inner, H, G, N, P = dims(cfg)
+    scalars = p.scalars
     p = L.cast_tree_except(p, x.dtype, FLOAT32_KEYS)
     ax = tp.active() if _sharded(p, cfg) else None
     z, xr, Braw, Craw, dtraw, new_conv = _projections(p, x, conv_state)
+    heads_split = channels_split = False
     if ax is not None:
-        Braw, Craw = (tp.all_gather(t, -1, ax) for t in (Braw, Craw))
+        heads_split = tp.split(p["dt_proj"].shape[1], H)
+        channels_split = tp.split(p["x_proj"].shape[1], d_inner)
+        Braw, Craw = (tp.all_gather(t, -1, ax) if t.shape[-1] != G * N
+                      else t for t in (Braw, Craw))
+        if channels_split and not heads_split:
+            xr = tp.all_gather(xr, -1, ax)
 
     Bsz = x.shape[0]
-    hl = xr.shape[-1] // P  # this rank's heads
-    first = ax.rank * hl if ax is not None else 0
+    hl = xr.shape[-1] // P  # the heads this rank steps
+    first = ax.rank * hl if heads_split else 0
     heads = slice(first, first + hl)
     groups = (first + torch.arange(hl, device=x.device)) // (H // G)
     xh = xr.reshape(Bsz, hl, P).to(torch.float32)
     Bh = Braw.reshape(Bsz, G, N)[:, groups].to(torch.float32)
     Ch = Craw.reshape(Bsz, G, N)[:, groups].to(torch.float32)
-    dt = F.softplus(dtraw.to(torch.float32)[:, 0, :] + p["dt_bias"][heads])
-    A = -torch.exp(p["A_log"][heads])
+    dt, A, skip = scalars(dtraw[:, 0, :], xh, heads)
     dA = torch.exp(dt * A)  # (B,H)
     # state update: S = S*dA + dt * B x^T
     upd = dt[..., None, None] * Bh[..., :, None] * xh[..., None, :]
     new_state = ssm_state * dA[..., None, None] + upd
     with L.true_float32(xh):
         y = torch.einsum("bhn,bhnp->bhp", Ch, new_state)
-    y = y + xh * p["D"][heads][None, :, None]
-    y = y.reshape(Bsz, 1, hl * P).to(x.dtype)
-    if ax is None:
-        y = L.rmsnorm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-        return y @ p["out_proj"], (new_conv, new_state)
-    y = _rmsnorm_split(y * F.silu(z), p["norm_w"], cfg.norm_eps, d_inner, ax)
-    return tp.all_reduce(y @ p["out_proj"], ax), (new_conv, new_state)
+    y = (y + skip).reshape(Bsz, 1, hl * P).to(x.dtype)
+    return _gated_out(p, y, z, cfg, ax, heads_split, channels_split), \
+        (new_conv, new_state)
 
 
 # ---------------------------------------------------------------------------
@@ -359,8 +444,8 @@ class SSMBlock(nn.Module):
         dt = cfg.pdtype()
         self.cfg = cfg
         self.ln = _params(L.norm_init(cfg.d_model, cfg.norm, dt, device))
-        self.mixer = _params(mixer_init(cfg, dt, generator=generator,
-                                        device=device))
+        self.mixer = Mixer(mixer_init(cfg, dt, generator=generator,
+                                      device=device))
 
     def _normed(self, x):
         return L.norm_apply(x, self.ln, self.cfg.norm, self.cfg.norm_eps)

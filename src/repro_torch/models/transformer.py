@@ -30,6 +30,8 @@ place.  Positions are host ints, so decoding never waits on the card.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import nn
@@ -415,7 +417,13 @@ class Transformer(LM):
     def _rows(self):
         """Within: on a data degree dp > 1 the caller's rows are this
         rank's row shard of the batch, so an MoE layer routes them as one
-        of the reference's dp token groups (prefill and decode alike)."""
+        of the reference's dp token groups (prefill and decode alike),
+        unless the caller says otherwise: within ``sharding.row_shards(1)``
+        every rank holds the whole batch (one dp does not divide, which
+        ``batch_specs`` replicates), whose tokens route in the reference's
+        groups of the whole."""
+        if shd.row_shards_set():
+            return contextlib.nullcontext()
         return shd.row_shards(shd.data_degree(shd.get_active_mesh()))
 
     @torch.no_grad()

@@ -222,19 +222,20 @@ def factor_dims(k: int, d) -> dict:
             "vc": k - 2 if d == k - 1 else d if d < k - 2 else None}
 
 
-def _mean(x, dim, group):
-    """``x.mean(dim)``; over a dim sharded across ``group`` (None: whole),
-    the all-reduced sum over its global size."""
-    if group is None:
+def _mean(x, dim, shard):
+    """``x.mean(dim)``; over a dim sharded across a group (``shard`` =
+    ``(group, the dim's whole size)``; None: whole), the all-reduced sum
+    over that size (an uneven shard's padding holds nothing)."""
+    if shard is None:
         return x.mean(dim)
-    return _all_sum(x.sum(dim), group) / (x.shape[dim] *
-                                          dist.get_world_size(group))
+    group, size = shard
+    return _all_sum(x.sum(dim), group) / size
 
 
 def _af_stats(g, st, b2, omb2, shards=None) -> dict:
     """This step's float32 second-moment statistics of one part (``g``
-    sharded on each dim of ``shards``, ``{dim: group}``, across its
-    group)."""
+    sharded on each dim of ``shards``, ``{dim: (group, whole size)}``,
+    across its group)."""
     shards = shards or {}
     g2 = g.square().add_(AF_EPS)
     if "vr" in st:
@@ -271,9 +272,13 @@ def _adafactor(params, grads, state, step, scale, tcfg):
         d, _ = _leaf_shard(leaf, params)
         first = params[leaf[0] if isinstance(leaf, list) else leaf]
         md, ax = tp.shard_of(first)
-        shards = {} if d is None else {d: _local(first)[2]}
+        shape = list(leaf_shape(leaf, params))  # data dims whole
         if md is not None:
-            shards[md + isinstance(leaf, list)] = ax.group
+            shape[md + isinstance(leaf, list)] *= ax.size
+        shards = {} if d is None else {d: (_local(first)[2], shape[d])}
+        if md is not None:
+            k = md + isinstance(leaf, list)
+            shards[k] = (ax.group, shape[k])
         st = {k: loc(v) for k, v in st.items()}
         if not isinstance(leaf, list):
             units = [(loc(params[leaf]), loc(grads[leaf]), st, None)]
@@ -288,18 +293,17 @@ def _adafactor(params, grads, state, step, scale, tcfg):
                      for i, j in enumerate(leaf)]
             shards = {k - 1: grp for k, grp in shards.items()}
         # pass 1: the statistics and sum(u^2) over the whole leaf
-        stats, total, n = [], None, 0
+        stats, total = [], None
         for _, g, sv, _ in units:
             g = _clipped(g, scale)
             s = _af_stats(g, sv, b2, omb2, shards)
             stats.append(s)
             sq = _af_u(g, s, shards).square_().sum()
             total = sq if total is None else total + sq
-            n += g.numel()
             del g
-        for grp in shards.values():
+        for grp, _ in shards.values():
             total = _all_sum(total, grp)
-            n *= dist.get_world_size(grp)
+        n = int(np.prod(shape))
         rms_u = torch.sqrt(total / n + AF_EPS)
         den = torch.clamp(rms_u / AF_CLIP, min=1.0)
         # pass 2: recompute u, clip it, apply it, store the statistics

@@ -95,22 +95,40 @@ def _named_leaves(model) -> list:
     return out
 
 
+def _layer_free_dim(shape, md, sizes) -> int | None:
+    """The data dim of one layer's parameter of a stacked leaf whose spec
+    shards its layer dim over the data axes (FSDP).  The port holds one
+    parameter a layer, so it cannot hold a slice of the layers: each
+    layer's parameter is sharded on a dim of its own instead, chosen by the
+    reference's rule on the layer's (model-local) shape, the largest dim
+    the data degree divides (a rank then holds the reference's bytes of
+    the leaf: (48, 32) over 16 is 96 entries a rank either way), else the
+    largest dim, which FSDP2's ``Shard`` and ``tensor_parallel.shard_data``
+    pad to an even split; None for a scalar."""
+    shape = [n // sizes.get("model", 1) if d == md else n
+             for d, n in enumerate(shape)]
+    if not shape:
+        return None
+    dp = shd.data_degree(sizes)
+    order = sorted(range(len(shape)), key=lambda d: -shape[d])
+    return next((d for d in order if shape[d] % dp == 0), order[0])
+
+
 def _shard_dims(model, sizes, *, fsdp: bool, n_experts: int) -> dict:
     """``{parameter name: (model dim, data dim)}``: the dim of each
     parameter (per layer, for a stacked leaf) that ``param_specs`` shards
     over the "model" axis and, with ``fsdp``, over the data axes (None
-    where it does not)."""
+    where it does not); a stacked leaf whose layer dim the data axes shard
+    has its layers' parameters sharded on ``_layer_free_dim``."""
     dims = {}
     for path, shape, names, kind in _named_leaves(model):
         spec = shd.param_spec(path, shape, sizes, fsdp=fsdp,
                               n_experts=n_experts)
         md, dd = tp.model_dim(spec), shd.data_dim(spec)
         if kind == "stacked":
-            if dd == 0:
-                raise NotImplementedError(
-                    f"{path}: FSDP shards the layer dim of this stacked "
-                    "leaf, which per-layer parameters cannot hold")
-            md, dd = (None if d is None else d - 1 for d in (md, dd))
+            md = None if md is None else md - 1
+            dd = _layer_free_dim(shape[1:], md, sizes) if dd == 0 else \
+                None if dd is None else dd - 1
         elif kind == "transposed":
             md, dd = (None if d is None else 1 - d for d in (md, dd))
         for n in names:
@@ -118,11 +136,46 @@ def _shard_dims(model, sizes, *, fsdp: bool, n_experts: int) -> dict:
     return dims
 
 
+def _dtype_holders(module, done) -> dict:
+    """``{dtype: [submodules]}``: the outermost submodules of ``module``
+    whose parameters outside ``done`` (FSDP units already made) are all
+    of one dtype other than the majority (by elements) of ``module``'s
+    parameters outside ``done``."""
+    skip = {id(p) for u in done for p in u.parameters()}
+
+    def dtypes(m) -> dict:
+        out = {}
+        for p in m.parameters():
+            if id(p) not in skip:
+                out[p.dtype] = out.get(p.dtype, 0) + p.numel()
+        return out
+
+    count = dtypes(module)
+    if len(count) < 2:
+        return {}
+    major = max(count, key=count.get)
+    out = {}
+
+    def visit(m):
+        for child in m.children():
+            dts = dtypes(child)
+            if len(dts) == 1 and major not in dts:
+                out.setdefault(next(iter(dts)), []).append(child)
+            elif len(dts) > 1:
+                visit(child)
+    visit(module)
+    return out
+
+
 def _fully_shard(model, dmesh, dims, reduce_dtype) -> list:
     """FSDP2 over ``dmesh``: each block of the model's layer groups, then
     the root; each parameter sharded on its ``dims`` entry, the ones it
-    lacks (None) left replicated (``ignored_params``).  Returns the FSDP
-    modules."""
+    lacks (None) left replicated (``ignored_params``).  FSDP2 gathers a
+    unit's parameters as one buffer of one dtype, so within each block
+    (and at the root) the modules that hold only parameters of another
+    dtype than the majority's (the MoE router and the SSM's ``Scalars``,
+    float32 beside 16-bit weights) are units of their own first, sharded
+    alike.  Returns the FSDP modules."""
     from torch.distributed.fsdp import (FSDPModule, MixedPrecisionPolicy,
                                         fully_shard,
                                         register_fsdp_forward_method)
@@ -132,16 +185,45 @@ def _fully_shard(model, dmesh, dims, reduce_dtype) -> list:
     kw = dict(mesh=dmesh, mp_policy=MixedPrecisionPolicy(
                   reduce_dtype=reduce_dtype),
               shard_placement_fn=lambda p: Shard(dims[id(p)]))
+
+    def unit(m):
+        fully_shard(m, ignored_params=ignored & set(m.parameters()), **kw)
+
+    def with_holders(m):
+        done = [u for u in m.modules() if isinstance(u, FSDPModule)]
+        for holders in _dtype_holders(m, done).values():
+            for h in holders:
+                unit(h)
+        unit(m)
+
     for name in getattr(model, "LAYER_GROUPS", ()):
         for block in getattr(model, name):
-            fully_shard(block, ignored_params=ignored & set(
-                block.parameters()), **kw)
-    fully_shard(model, ignored_params=ignored, **kw)
+            with_holders(block)
+    with_holders(model)
     if hasattr(model, "loss_fn"):
         # an LM's train step calls the loss, not forward: it unshards the
         # root
         register_fsdp_forward_method(model, "loss_fn")
     return [m for m in model.modules() if isinstance(m, FSDPModule)]
+
+
+def unit_dtypes(model) -> dict:
+    """``{module name: dtype}`` of each FSDP unit of ``model``: the dtype
+    of the parameters it shards (those of no nested unit), or None where
+    it shards none."""
+    from torch.distributed.fsdp import FSDPModule
+
+    out = {}
+    for name, m in model.named_modules():
+        if not isinstance(m, FSDPModule):
+            continue
+        inner = {id(p) for u in m.modules()
+                 if u is not m and isinstance(u, FSDPModule)
+                 for p in u.parameters()}
+        dts = {p.dtype for p in m.parameters()
+               if id(p) not in inner and hasattr(p, "placements")}
+        out[name] = dts.pop() if len(dts) == 1 else None
+    return out
 
 
 def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
@@ -207,6 +289,16 @@ def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
         state = TrainState.create(model, tcfg)
     replicated = [i for i, p in enumerate(model.parameters())
                   if not hasattr(p, "placements")]
+    # a replicated 16-bit parameter is read in the accumulation dtype
+    # while the data ranks' gradients are summed, so the sum of their
+    # unrounded parts is rounded once, as the reference's one program
+    # over the mesh rounds it (rounded a rank at a time, the parts of a
+    # near-zero sum flip the sign of Adam's step for zero-initialised
+    # biases)
+    params = list(model.parameters())
+    widen = [i for i in replicated if sharded and dp > 1 and
+             torch.promote_types(params[i].dtype, acc_dtype)
+             != params[i].dtype]
     counts = {}
 
     @contextlib.contextmanager
@@ -234,10 +326,19 @@ def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
             dist.all_reduce(c, group=group)
             counts.update(enumerate(c))
         params = list(state.model.parameters())
-        loss, grads = vg(state.model, batch)
+        narrow = {i: params[i].data for i in widen}
+        for i in widen:
+            params[i].data = params[i].data.to(acc_dtype)
+        try:
+            loss, grads = vg(state.model, batch)
+        finally:
+            for i, data in narrow.items():
+                params[i].data = data
         if sharded and dp > 1:
             for i in replicated:
                 dist.all_reduce(grads[i], group=group)
+            for i in widen:
+                grads[i] = grads[i].to(params[i].dtype)
             dist.all_reduce(loss, group=group)
         # (a replicated batch: every rank computed the whole gradient)
         gnorm = opt_update(params, grads, state.opt, state.step, tcfg)

@@ -9,7 +9,8 @@ packer kernels; the LM trainer's forward and backward against the CPU,
 three tenants at once bit for bit, and exact launch counts under four
 launching threads; the MoE family and bfloat16-state optimizer steps
 against the CPU; serving, and the hybrid and enc-dec families, against the
-CPU; a data-parallel rank on NCCL against one on gloo on the CPU.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
+CPU; a data-parallel rank on NCCL against one on gloo on the CPU; the
+example twins run on the card.  Needs an NVIDIA GPU with nvcc: marked ``cuda`` and skipped
 elsewhere (a CUDA kernel has no interpret mode).
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1189,3 +1190,31 @@ def test_distributed_on_the_card(card, tmp_path):
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-4)
     for g, w in zip(got["leaves"], want["leaves"]):
         assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w)
+
+
+def test_example_twins_on_the_card(card, tmp_path):
+    """``examples/torch_quickstart.py`` (its three backends agree, the
+    cuda one's kernels included), ``torch_train_lm.py`` and
+    ``torch_online_training.py`` run on the card, as a user runs them: in
+    a subprocess, without ``--device``."""
+    import os
+    import subprocess
+    root = Path(__file__).resolve().parents[1]
+    runs = {"torch_quickstart.py": ([], ["[cuda  ] dense:(4096, 128)",
+                                         "numpy, torch, cuda agree with "
+                                         "numpy: True"]),
+            "torch_train_lm.py": (["--steps", "3", "--batch", "4", "--seq",
+                                   "64"], ["[train] done: 3 steps"]),
+            "torch_online_training.py": (
+                ["--duration", "4", "--refit-every", "4",
+                 "--checkpoint-every", "4", "--ckpt-dir",
+                 str(tmp_path / "ckpt")],
+                ["[online] staleness p50/p95/p99"])}
+    for example, (args, lines) in runs.items():
+        out = subprocess.run(
+            [sys.executable, str(root / "examples" / example), *args],
+            cwd=tmp_path, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(root / "src")))
+        assert out.returncode == 0, (example, out.stderr[-3000:])
+        for line in lines:
+            assert line in out.stdout, (example, line, out.stdout[-3000:])

@@ -314,16 +314,35 @@ CASES = {
     # the data axes ("pod", "data") of a (2, 2, 1) mesh, flattened
     "llama_fsdp_pod": ("llama3_2_3b", dict(fsdp=True, microbatch=2), 8,
                        False, None),
+    # bfloat16 parameters beside a float32 router (kimi_k2's preset:
+    # FSDP, Adafactor; microbatch 2) and float32 A_log / D / dt_bias:
+    # each block's float32 parameters an FSDP unit of their own
+    "kimi_bf16_fsdp": ("kimi_k2", dict(
+        fsdp=True, optimizer="adafactor", microbatch=2), 8, False, None),
+    "mamba_bf16_fsdp": ("mamba2_370m", dict(fsdp=True), 8, False, None),
+    # 4 layers of 2 heads: the spec shards the layer dim of A_log, D and
+    # dt_bias ([4, 2]) over the 4 data ranks; each layer's [2] splits
+    # unevenly (two ranks hold one entry, two hold none), under Adafactor
+    "mamba_layer_dim_fsdp": ("mamba2_370m", dict(
+        fsdp=True, optimizer="adafactor"), 8, False, None),
 }
 POD = {"llama_fsdp_pod"}
+# config fields replaced ("ssm": the SSM config's)
+OVER = {"kimi_bf16_fsdp": {"param_dtype": "bfloat16"},
+        "mamba_bf16_fsdp": {"param_dtype": "bfloat16"},
+        "mamba_layer_dim_fsdp": {"n_layers": 4, "ssm": {"head_dim": 128}}}
+# the LM bounds at bfloat16 parameters: loss 2e-3, grad norm and each
+# leaf 5e-2 (float32: 1e-5, 1e-4, 1e-4)
+BF16 = {n for n, o in OVER.items() if o.get("param_dtype") == "bfloat16"}
 # run twice on each side: every run of the suite shows whether a side
 # gives the same bits for the same inputs
 REPEAT = "llama_fsdp_mb2"
 STEPS, SEQ = 3, 16
 # seconds a side may take: alone on an 8-core CPU the port's takes ~20 s
-# and the reference's ~60 s, but beside five other test workers the
+# and the reference's ~60 s (before the three mixed-dtype and layer-dim
+# cases, which add to both), but beside five other test workers the
 # reference's passed 120 s, which ended the fixture before any comparison
-STEP_TIMEOUT = 300
+STEP_TIMEOUT = 420
 
 _REFERENCE = """
 import dataclasses, pickle, sys
@@ -347,6 +366,10 @@ for name, case in inputs.items():
     if case["capacity_factor"] is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=case["capacity_factor"]))
+    over = dict(case["over"])
+    if "ssm" in over:
+        over["ssm"] = dataclasses.replace(cfg.ssm, **over["ssm"])
+    cfg = dataclasses.replace(cfg, **over)
     model = api.build_model(cfg)
     tc = TrainConfig(**case["tcfg"])
     params = jax.tree_util.tree_map(jax.numpy.asarray, case["params"])
@@ -367,11 +390,21 @@ for name, case in inputs.items():
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
     flat = jax.tree_util.tree_flatten_with_path(state.params)[0]
-    leaves = [np.asarray(x) for _, x in flat]
+    leaves = [np.asarray(x, np.float32) for _, x in flat]
     paths = [jax.tree_util.keystr(p) for p, _ in flat]
     out[name] = (losses, norms, leaves, paths)
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
+
+
+def _ref_cfg(arch: str, over: dict):
+    """The reference's reduced config of ``arch`` at float32 compute with
+    the fields of ``over`` replaced."""
+    cfg = dataclasses.replace(rreg.get_reduced(arch), compute_dtype="float32")
+    over = dict(over)
+    if "ssm" in over:
+        over["ssm"] = dataclasses.replace(cfg.ssm, **over["ssm"])
+    return dataclasses.replace(cfg, **over)
 
 
 @pytest.fixture(scope="module")
@@ -382,13 +415,12 @@ def step_runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("steps")
     inputs = {}
     for name, (arch, kw, rows, uneven, cf) in CASES.items():
-        rcfg = dataclasses.replace(rreg.get_reduced(arch),
-                                   compute_dtype="float32")
+        rcfg = _ref_cfg(arch, OVER.get(name, {}))
         params = rapi.build_model(rcfg).init(jax.random.key(1))
         kw = dict(kw, lr=3e-3)
         inputs[name] = {
             "arch": arch, "tcfg": kw, "capacity_factor": cf,
-            "pod": name in POD,
+            "over": OVER.get(name, {}), "pod": name in POD,
             "params": jax.tree_util.tree_map(np.asarray, params),
             "batches": [td.lm_batch(rcfg.vocab_size, rows, SEQ, 30 + i,
                                     uneven) for i in range(STEPS)]}
@@ -432,11 +464,13 @@ def _leaf_rel(got, want) -> float:
 @pytest.mark.parametrize("name", list(CASES))
 def test_train_step_matches_the_references_on_4_ranks(step_runs, name):
     ref, port = step_runs
-    (rl, rn, rleaves, paths), (pl, pn, pleaves) = ref[name], port[name]
+    (rl, rn, rleaves, paths), (pl, pn, pleaves) = ref[name], port[name][:3]
     assert len(pleaves) == len(rleaves)
-    checks = [("loss", _worst_rel(pl, rl), 1e-5),
-              ("grad norm", _worst_rel(pn, rn), 1e-4)]
-    checks += [(f"leaf {i} {paths[i]}", _leaf_rel(got, want), 1e-4)
+    loss, grad, leaf = (2e-3, 5e-2, 5e-2) if name in BF16 else \
+        (1e-5, 1e-4, 1e-4)
+    checks = [("loss", _worst_rel(pl, rl), loss),
+              ("grad norm", _worst_rel(pn, rn), grad)]
+    checks += [(f"leaf {i} {paths[i]}", _leaf_rel(got, want), leaf)
                for i, (got, want) in enumerate(zip(pleaves, rleaves))]
     failed = [f"{what}: worst relative error {err:.3e} > {bound:.0e}"
               for what, err, bound in checks if not err <= bound]
@@ -460,6 +494,35 @@ def test_a_repeated_case_is_bit_equal_on_each_side(step_runs, side):
               if not np.array_equal(a, b)]
     assert not moved, f"{side}: {REPEAT} run twice differs in " + \
         ", ".join(moved) + f" (losses {first[0]} then {again[0]})"
+
+
+@pytest.mark.parametrize("name", sorted(BF16))
+def test_float32_parameters_of_a_bf16_block_are_units_of_their_own(
+        step_runs, name):
+    """Under FSDP with bfloat16 parameters the MoE router and the SSM's
+    ``A_log`` / ``D`` / ``dt_bias`` (float32) are FSDP units of their own
+    beside their block's bfloat16 one, in every block."""
+    _, port = step_runs
+    units = port[name][3]
+    f32 = {n for n, dt in units.items() if dt == "torch.float32"}
+    holder = "moe.gate" if name.startswith("kimi") else "mixer.scalars"
+    assert f32 and all(n.endswith(holder) for n in f32), units
+    blocks = {n for n in units if n and not n.endswith(holder)}
+    assert {n.rsplit("." + holder, 1)[0] for n in f32} <= blocks
+    assert all(units[n] == "torch.bfloat16" for n in blocks | {""}), units
+
+
+def test_layer_dim_leaves_hold_the_references_share_plus_padding(step_runs):
+    """The case whose spec shards ``[4, 2]`` leaves on their layer dim:
+    each rank holds at most the reference's 2 entries of each plus the
+    padding of its layers' uneven split (4 layers x one entry), and the 4
+    ranks hold each leaf once."""
+    _, port = step_runs
+    per_rank = port["mamba_layer_dim_fsdp"][4]
+    for path in ("blocks/mixer/A_log", "blocks/mixer/D",
+                 "blocks/mixer/dt_bias"):
+        held = [r[path] for r in per_rank]
+        assert max(held) <= 2 + 4 and sum(held) == 8, (path, held)
 
 
 # ---------------------------------------------------------------------------

@@ -32,22 +32,29 @@ serving.
   and llama with an 11-slot cache on (1, 4) (neither splits: every rank
   holds the whole cache); and mamba with 2 groups of B / C and per-head
   ``A_log`` / ``D`` / ``dt_bias`` that differ (seeded noise on the init's
-  constants) on (1, 4).  ``mixtral_8x7b`` on (2, 2) routes each data
-  rank's rows as one token group, as the reference's dispatch does (it
-  differs from one device by design).
+  constants) on (1, 4); mamba on (1, 4) widened so that no SSM projection
+  splits, and with 2 heads (x's columns split, the heads do not; both with
+  per-head noise).  ``mixtral_8x7b`` on (2, 2) routes each data rank's
+  rows as one token group, as the reference's dispatch does (it differs
+  from one device by design); with 3 rows, which 2 data ranks do not
+  divide, every rank serves all of them (``sharding.row_shards(1)``),
+  routed in the reference's 2 groups of the whole batch's tokens.
 - (b) A model-sharded train state (``shard_train_step`` on (1, 4)) of the
   SSM, hybrid and enc-dec serves bit-equal to a module sharded for
   serving.
 - (c) Without ranks: ``init_cache`` of a module on a model axis of 4 gives
   ``cache_specs``' local shapes (2 kv heads: split by sequence; 4: by
-  head).
+  head); an uneven data shard (``padded_part``) is zero-padded and its
+  gather cut back to the whole.
 - (d) Weight-gathered serving (``shard_for_serving(fsdp=True)``: the
   parameters also sharded over the data axes, each block gathered whole
   just before it runs): ``llama3_2_3b`` on (2, 2) and on (4, 1),
   ``mixtral_8x7b`` and ``mamba2_370m`` on (2, 2), ``zamba2_2_7b`` at 6
   layers (three applications of its shared block) and ``whisper_base``
   on (4, 1) (the meshes where the data axes spare the stacked leaves'
-  layer dim) go through (a)'s checks against the reference's serving with
+  layer dim), and ``zamba2_2_7b`` (4 layers) and ``whisper_base`` on
+  (2, 2), where they shard it (each layer's parameter on a dim of its
+  own), go through (a)'s checks against the reference's serving with
   ``param_specs(fsdp=True)``; each rank holds its
   ``param_specs(fsdp=True)`` share of the parameters; rank 0's gathers
   over the data axes in a decode step carry each data-sharded leaf's
@@ -115,8 +122,26 @@ CASES["mixtral_fsdp_22"] = ("mixtral_8x7b", (2, 2), OVER["mixtral_8x7b"],
 CASES["mamba_fsdp_22"] = ("mamba2_370m", (2, 2), {}, MAX_LEN)
 CASES["zamba_fsdp_41"] = ("zamba2_2_7b", (4, 1), {"n_layers": 6}, MAX_LEN)
 CASES["whisper_fsdp_41"] = ("whisper_base", (4, 1), {}, MAX_LEN)
+# ... and where they shard it: each layer's parameter then on a dim of
+# its own (4 zamba layers, whisper's 2 a stack, on 2 data ranks)
+CASES["zamba_fsdp_22"] = ("zamba2_2_7b", (2, 2), {}, MAX_LEN)
+CASES["whisper_fsdp_22"] = ("whisper_base", (2, 2), {}, MAX_LEN)
 FSDP = ("llama_fsdp_22", "llama_fsdp_41", "mixtral_fsdp_22",
-        "mamba_fsdp_22", "zamba_fsdp_41", "whisper_fsdp_41")
+        "mamba_fsdp_22", "zamba_fsdp_41", "whisper_fsdp_41",
+        "zamba_fsdp_22", "whisper_fsdp_22")
+# the SSM where the model axis of 4 splits no projection (d_inner 390 in
+# 13 heads of 30, 18 state entries), or x's columns but not its 2 heads
+CASES["mamba_whole_14"] = ("mamba2_370m", (1, 4), {"d_model": 130, "ssm": {
+    "expand": 3, "head_dim": 30, "d_state": 18}}, MAX_LEN)
+CASES["mamba_x_split_14"] = ("mamba2_370m", (1, 4), {"ssm": {"head_dim": 128}},
+                             MAX_LEN)
+PER_HEAD |= {"mamba_whole_14", "mamba_x_split_14"}
+# 3 rows on 2 data ranks: each holds the whole batch (``batch_specs``
+# replicates it), whose 24 prompt tokens route as the reference's 2 token
+# groups of 12 (a capacity that binds)
+CASES["mixtral_rows3_22"] = ("mixtral_8x7b", (2, 2), OVER["mixtral_8x7b"],
+                             MAX_LEN)
+CASE_ROWS = {"mixtral_rows3_22": 3}
 # the families whose serving on a model axis was refused before
 TRAINED = ("mamba2_370m", "zamba2_2_7b", "whisper_base")
 
@@ -220,7 +245,8 @@ def _inputs() -> dict:
                        "max_len": max_len, "steps": STEPS,
                        "fsdp": name in FSDP,
                        "params": jax.tree_util.tree_map(np.asarray, params),
-                       "batch": _batch(cfg, ROWS, 60 + i)}
+                       "batch": _batch(cfg, CASE_ROWS.get(name, ROWS),
+                                       60 + i)}
     trained = {a: _batch(_ref_cfg(a, {}), 2, 90) for a in TRAINED}
     return {"cases": cases, "trained": trained}
 
@@ -233,10 +259,10 @@ def runs(tmp_path_factory):
     inputs = _inputs()
     td.save(inputs, tmp / "inputs.pkl")
     port = td.spawn(td.serve_cases, WORLD, tmp, str(tmp / "inputs.pkl"),
-                    timeout=240)
+                    timeout=400)
     ref_in = {}
     for name, case in inputs["cases"].items():
-        forced = np.zeros((ROWS, STEPS), np.int32)
+        forced = np.zeros((CASE_ROWS.get(name, ROWS), STEPS), np.int32)
         for out in port:
             first, n = out[name]["rows"]
             forced[first:first + n] = out[name]["tokens"]
@@ -247,7 +273,7 @@ def runs(tmp_path_factory):
     ref = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(_REFERENCE),
          str(tmp / "ref_in.pkl"), str(tmp / "ref.pkl")],
-        env=env, capture_output=True, text=True, timeout=240)
+        env=env, capture_output=True, text=True, timeout=400)
     assert ref.returncode == 0, ref.stderr[-3000:]
     return {"port": port, "ref": td.load(tmp / "ref.pkl"), "inputs": inputs}
 
@@ -374,6 +400,23 @@ def test_a_model_sharded_train_state_serves(runs, arch):
 # ---------------------------------------------------------------------------
 # (c) no ranks
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("size", [2, 3, 4])
+def test_an_uneven_data_shard_is_padded_and_its_gather_drops_the_pad(size):
+    """``padded_part``: the ranks' slices of a dim of 5 over ``size``
+    ranks are zero-padded to equal lengths, lie in rank order, and
+    concatenated (the gather) then cut to 5 (``gathered``) give the
+    whole back."""
+    from repro_torch.distributed import tensor_parallel as tp
+    x = torch.arange(15, dtype=torch.float32).reshape(3, 5) + 1
+    parts = [tp.padded_part(x, 1, tp.ModelAxis(None, r, size))
+             for r in range(size)]
+    n = -(-5 // size)
+    assert all(p.shape == (3, n) for p in parts)
+    whole = torch.cat(parts, 1)
+    assert torch.equal(whole.narrow(1, 0, 5), x)
+    assert not whole[:, 5:].any()
+
 
 @pytest.mark.parametrize("kv", [2, 4])
 def test_init_cache_on_a_model_axis_of_4(kv):

@@ -10,7 +10,10 @@ DLRM's lookahead path on a row-sharded table, against the JAX package.
   Cases: ``mamba2_370m`` on (2, 2), (1, 4) and (2, 2) with FSDP;
   ``zamba2_2_7b`` (two applications of the shared block) and
   ``whisper_base`` (frames beside the tokens) on (2, 2) and (1, 4); DLRM's
-  lookahead path on (2, 2) and (1, 4): the reference threads its own
+  lookahead path on (2, 2) and (1, 4); on (1, 4), mamba2 widened so that
+  no SSM projection splits over 4, mamba2 with 2 heads (x's columns split,
+  the heads do not), and mamba2 and zamba2 with ``seq_parallel`` (which
+  neither package's SSM reads): the reference threads its own
   ``EmbedCache`` through its steps against the current tables (its
   ``train_loop(embed_cache=)``), each port rank plans on its own rows, as
   the executor's lookahead stage after place does.
@@ -73,8 +76,12 @@ CACHE = dict(rows=8, window=2, stage_max=2, refresh=True)
 # against a median of 0.015: Adam's first update of it is nearly sign(g),
 # and float32 rounding moves it by up to lr.  There the reference's own
 # (1, 4) run differs from its (1, 1) run by 1.26e-4 of the leaf's norm,
-# and a float32 run of the port from a float64 one by 1.8e-4
-SEED0 = {"zamba2_2_7b": 40}
+# and a float32 run of the port from a float64 one by 1.8e-4.  Likewise
+# mamba_x_split_14 (2 heads of 128): at seeds 30-32 its zero-initialised
+# conv_bb ends 1.25e-4 of its norm from the reference's (1, 4) run in one
+# port process already (the reference's own (1, 1) run: 4.96e-5; the
+# port's (1, 4) run from its one process: 1.65e-5)
+SEED0 = {"zamba2_2_7b": 40, "mamba_x_split_14": 40}
 
 # name: (arch, mesh, TrainConfig fields replaced in the preset)
 CASES = {
@@ -87,8 +94,28 @@ CASES = {
     "whisper_tp14": ("whisper_base", (1, 4), {}),
     "dlrm_la_22": ("dlrm", (2, 2), {}),
     "dlrm_la_14": ("dlrm", (1, 4), {}),
+    # the SSM where the model axis of 4 splits no projection, or x's
+    # columns but not the heads, and with seq_parallel (which neither
+    # package's SSM reads)
+    "mamba_whole_14": ("mamba2_370m", (1, 4), {}),
+    "mamba_x_split_14": ("mamba2_370m", (1, 4), {}),
+    "mamba_sp_14": ("mamba2_370m", (1, 4), {}),
+    "zamba_sp_14": ("zamba2_2_7b", (1, 4), {}),
 }
 CKPT_CASE = "mamba_tp22"
+# config fields replaced ("ssm": the SSM config's).  mamba_whole_14:
+# d_inner 390 in 13 heads of 30 and 18 state entries (no dim of 4);
+# mamba_x_split_14: 2 heads of 128 (d_inner 256 splits, H does not)
+CFG_OVER = {"mamba_whole_14": {"d_model": 130, "ssm": dict(
+                expand=3, head_dim=30, d_state=18)},
+            "mamba_x_split_14": {"ssm": {"head_dim": 128}},
+            "mamba_sp_14": {"seq_parallel": True},
+            "zamba_sp_14": {"seq_parallel": True}}
+# the leaves a case's model axis must split (the arch's by default)
+MUST_SPLIT = {"mamba_whole_14": ("embed",),
+              "mamba_x_split_14": ("mixer/x_proj", "mixer/z_proj",
+                                   "mixer/b_proj", "mixer/norm_w",
+                                   "mixer/out_proj")}
 
 _REFERENCE = """
 import pickle, sys
@@ -116,6 +143,10 @@ for name, case in inputs["cases"].items():
     else:
         cfg = dataclasses.replace(rreg.get_reduced(case["arch"]),
                                   compute_dtype="float32")
+        over = dict(case["over"])
+        if "ssm" in over:
+            over["ssm"] = dataclasses.replace(cfg.ssm, **over["ssm"])
+        cfg = dataclasses.replace(cfg, **over)
         loss = api.build_model(cfg).loss
     params = jax.tree_util.tree_map(jax.numpy.asarray, case["params"])
     state = tl.TrainState.create(params, tc)
@@ -159,9 +190,13 @@ pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
 
-def _ref_cfg(arch):
-    return dataclasses.replace(rreg.get_reduced(arch),
-                               compute_dtype="float32")
+def _ref_cfg(arch, over=None):
+    cfg = dataclasses.replace(rreg.get_reduced(arch),
+                              compute_dtype="float32")
+    over = dict(over or {})
+    if "ssm" in over:
+        over["ssm"] = dataclasses.replace(cfg.ssm, **over["ssm"])
+    return dataclasses.replace(cfg, **over)
 
 
 def _tcfg(arch, over) -> dict:
@@ -187,7 +222,7 @@ def _hot_ids(batch: dict, seed: int) -> dict:
 def _inputs() -> dict:
     cases = {}
     for i, (name, (arch, mesh, over)) in enumerate(CASES.items()):
-        case = {"arch": arch, "mesh": mesh, "over": {},
+        case = {"arch": arch, "mesh": mesh, "over": CFG_OVER.get(name, {}),
                 "tcfg": _tcfg(arch, over), "dlrm": td.DLRM_SMALL}
         if arch == "dlrm":
             cfg = rdlrm.DLRMConfig(**td.DLRM_SMALL)
@@ -196,11 +231,12 @@ def _inputs() -> dict:
                                for s in range(STEPS)]
             case["embed_cache"] = CACHE
         else:
-            cfg = _ref_cfg(arch)
+            cfg = _ref_cfg(arch, case["over"])
             params = rapi.build_model(cfg).init(jax.random.key(1))
-            case["batches"] = [td.lm_batch(cfg.vocab_size, ROWS, SEQ,
-                                           SEED0.get(arch, 30) + s)
-                               for s in range(STEPS)]
+            case["batches"] = [td.lm_batch(
+                cfg.vocab_size, ROWS, SEQ,
+                SEED0.get(name, SEED0.get(arch, 30)) + s)
+                for s in range(STEPS)]
             if cfg.family == "encdec":
                 rng = np.random.default_rng(50 + i)
                 for b in case["batches"]:
@@ -225,13 +261,13 @@ def runs(tmp_path_factory):
     inputs = _inputs()
     td.save(inputs, tmp / "inputs.pkl")
     port = td.spawn(td.tp_cases, WORLD, tmp, str(tmp / "inputs.pkl"),
-                    str(tmp / "port_ckpt"), timeout=400)
+                    str(tmp / "port_ckpt"), timeout=600)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     ref = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(_REFERENCE),
          str(tmp / "inputs.pkl"), str(tmp / "ref.pkl")],
-        env=env, capture_output=True, text=True, timeout=400)
+        env=env, capture_output=True, text=True, timeout=600)
     assert ref.returncode == 0, ref.stderr[-3000:]
     paths = {"port_ckpt": str(tmp / "port_ckpt"),
              "arch": CASES[CKPT_CASE][0],
@@ -265,14 +301,14 @@ def test_train_step_matches_the_references_on_its_mesh(runs, name):
 # (b) local shapes, the lookahead plans and caches
 # ---------------------------------------------------------------------------
 
-def _ref_shard_shapes(arch, sizes: dict, fsdp: bool) -> dict:
+def _ref_shard_shapes(arch, sizes: dict, fsdp: bool, over=None) -> dict:
     """``{path: shard shape}`` of the reference's ``param_specs`` on an
-    ``AbstractMesh`` of ``sizes``."""
+    ``AbstractMesh`` of ``sizes`` (config fields ``over`` replaced)."""
     if arch == "dlrm":
         cfg = rdlrm.DLRMConfig(**td.DLRM_SMALL)
         shapes = jax.eval_shape(lambda: rdlrm.init(jax.random.key(0), cfg))
     else:
-        cfg = _ref_cfg(arch)
+        cfg = _ref_cfg(arch, over)
         shapes = jax.eval_shape(
             lambda: rapi.build_model(cfg).init(jax.random.key(0)))
     am = AbstractMesh(tuple(sizes.values()), tuple(sizes))
@@ -288,21 +324,28 @@ def _ref_shard_shapes(arch, sizes: dict, fsdp: bool) -> dict:
 @pytest.mark.parametrize("name", list(CASES))
 def test_each_ranks_leaves_are_the_reference_specs_shards(runs, name):
     arch, mesh, over = CASES[name]
+    cfg_over = CFG_OVER.get(name, {})
     want = _ref_shard_shapes(arch, dict(zip(("data", "model"), mesh)),
-                             over.get("fsdp", False))
+                             over.get("fsdp", False), cfg_over)
     for r in range(WORLD):
         assert runs["port"][r][name][3] == want, r
     # the model axis splits leaves of every kind the family has
-    whole = _ref_shard_shapes(arch, {"data": 1, "model": 1}, False)
+    whole = _ref_shard_shapes(arch, {"data": 1, "model": 1}, False,
+                              cfg_over)
     split = {k for k in want if want[k] != whole[k]}
-    must = {"mamba2_370m": ("mixer/b_proj", "mixer/x_proj", "mixer/norm_w",
-                            "mixer/out_proj", "embed"),
-            "zamba2_2_7b": ("mixer/c_proj", "shared_attn/attn/wq",
-                            "shared_attn/mlp/w2", "lm_head"),
-            "whisper_base": ("xattn/wk", "xattn/wo", "mlp/bi", "embed"),
-            "dlrm": ("tables",)}[arch]
+    must = MUST_SPLIT.get(name) or {
+        "mamba2_370m": ("mixer/b_proj", "mixer/x_proj", "mixer/norm_w",
+                        "mixer/out_proj", "embed"),
+        "zamba2_2_7b": ("mixer/c_proj", "shared_attn/attn/wq",
+                        "shared_attn/mlp/w2", "lm_head"),
+        "whisper_base": ("xattn/wk", "xattn/wo", "mlp/bi", "embed"),
+        "dlrm": ("tables",)}[arch]
     for leaf in must:
         assert any(k.endswith(leaf) for k in split), (leaf, split)
+    if name == "mamba_whole_14":  # no SSM leaf splits
+        assert not any("mixer" in k for k in split), split
+    if name == "mamba_x_split_14":  # the heads do not
+        assert not any(k.endswith(("dt_proj", "A_log")) for k in split)
 
 
 @pytest.mark.parametrize("name", ["dlrm_la_22", "dlrm_la_14"])

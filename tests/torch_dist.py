@@ -133,23 +133,27 @@ def lm_cfg(arch: str, capacity_factor=None):
 
 
 def whole_leaves(model) -> list:
-    """The model's JAX leaves as whole numpy arrays (DTensors gathered: a
-    collective, so every rank calls it)."""
+    """The model's JAX leaves as whole numpy arrays, a 16-bit one widened
+    to float32 (DTensors gathered: a collective, so every rank calls
+    it)."""
     from repro_torch.models.transformer import jax_leaves
     from repro_torch.training.checkpoint import _whole
     out = []
     for _, leaf in jax_leaves(model.jax_tree()):
         leaf = _whole(leaf)
         t = torch.stack(leaf) if isinstance(leaf, list) else leaf
-        out.append(t.detach().cpu().numpy())
+        out.append(t.detach().to(torch.promote_types(t.dtype, torch.float32))
+                   .cpu().numpy())
     return out
 
 
 def train_cases(rank, world, inputs_path):
     """Each case of ``inputs_path`` (``{name: {arch, tcfg, params,
-    batches, capacity_factor, pod}}``) on a ``(world, 1)`` mesh, or with
-    ``pod`` a ``(2, world / 2, 1)`` one: 3 data-parallel steps; returns
-    ``{name: (losses, grad norms, whole leaves)}``."""
+    batches, capacity_factor, over, pod}}``; ``over``: config fields
+    replaced) on a ``(world, 1)`` mesh, or with ``pod`` a ``(2, world / 2,
+    1)`` one: 3 data-parallel steps; returns ``{name: (losses, grad norms,
+    whole leaves, {FSDP unit: its dtype's name}, [{JAX path: elements
+    each rank holds}])}``."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.distributed import sharding as shd
     from repro_torch.etl_runtime.transfer import batch_sharding, put_packed
@@ -167,7 +171,11 @@ def train_cases(rank, world, inputs_path):
             mesh = init_device_mesh("cpu", (2, world // 2, 1),
                                     mesh_dim_names=("pod", "data", "model"))
         shd.set_active_mesh(mesh)
-        cfg = lm_cfg(case["arch"], case.get("capacity_factor"))
+        cf = case.get("capacity_factor")
+        over = dict(case.get("over", {}))
+        if cf is not None:
+            over["moe"] = {"capacity_factor": cf}
+        cfg = tp_cfg(case["arch"], over)
         model = api.build_model(cfg)
         module = api.params_from_jax(model.init(device="cpu"),
                                      case["params"])
@@ -185,7 +193,13 @@ def train_cases(rank, world, inputs_path):
             state, m = step(state, b)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
-        out[name] = (losses, norms, whole_leaves(state.model))
+        units = {k: str(v) for k, v in ttl.unit_dtypes(state.model).items()}
+        held = [None] * world
+        dist.all_gather_object(held, {
+            path: sum((t.to_local() if hasattr(t, "to_local") else t
+                       ).numel() for t in ts)
+            for path, ts, _ in jax_order(state.model)})
+        out[name] = (losses, norms, whole_leaves(state.model), units, held)
     return out if rank == 0 else None
 
 
@@ -706,8 +720,11 @@ def serve_cases(rank, world, inputs_path):
     (an arch's reduced config, seed 0) a state that ``shard_train_step``
     sharded on (1, 4) against a module ``shard_for_serving`` sharded, both
     serving one batch: ``(logits, caches)`` of each."""
+    import contextlib
+
     from repro_torch.configs.base import TrainConfig
     from repro_torch.distributed import hlo_cost
+    from repro_torch.distributed import sharding as shd
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import api
     from repro_torch.training import train_loop as ttl
@@ -727,12 +744,17 @@ def serve_cases(rank, world, inputs_path):
         fsdp = case.get("fsdp", False)
         module = tp.shard_for_serving(api.params_from_jax(
             model.init(device="cpu"), case["params"]), m, fsdp=fsdp)
-        per = case["batch"]["tokens"].shape[0] // case["mesh"][0]
-        first = m.get_local_rank("data") * per
+        rows, dp = case["batch"]["tokens"].shape[0], case["mesh"][0]
+        # a batch dp does not divide is whole on every rank (batch_specs
+        # replicates it), which the caller says with row_shards(1)
+        per = rows // dp if rows % dp == 0 else rows
+        first = m.get_local_rank("data") * per if per < rows else 0
         batch = {k: torch.from_numpy(v[first:first + per])
                  for k, v in case["batch"].items()}
-        logits, tokens, caches = greedy_serve(model, module, batch,
-                                              case["max_len"], case["steps"])
+        with shd.row_shards(1) if per == rows and dp > 1 else \
+                contextlib.nullcontext():
+            logits, tokens, caches = greedy_serve(
+                model, module, batch, case["max_len"], case["steps"])
         out[name] = {"rows": (first, per), "logits": logits,
                      "tokens": tokens, "caches": caches,
                      "param_bytes": sum(p.numel() * p.element_size()
