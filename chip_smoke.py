@@ -292,11 +292,11 @@ Phases, one JSON line each; any failure exits non-zero:
 26. dist_ranks2 — the same on two spawned ranks sharing the card, gloo over
                  CUDA tensors, at llama3_2_3b's full width, 2 of 28 layers,
                  its preset (replicated parameters, one gradient all-reduce
-                 a step, microbatch 2; FSDP2 under gloo on CUDA tensors
-                 hangs, so FSDP across ranks runs on the CPU only), 2
-                 steps: each rank's rows, the global losses against one
-                 process's, and compressed_psum_mean over the first
-                 block's gradients bit-equal card vs CPU.
+                 a step, microbatch 2; FSDP2 across gloo ranks runs in
+                 dlrm_la_22 and serve_fsdp), 2 steps: each rank's rows, the
+                 global losses against one process's, and
+                 compressed_psum_mean over the first block's gradients
+                 bit-equal card vs CPU.
 27. tp_ranks2  — the "model" axis: two spawned ranks sharing the card, gloo
                  over CUDA tensors, ``make_host_mesh(model_axis=2)`` (a
                  (1, 2) mesh): ``launch.train --mesh host`` at
@@ -318,16 +318,23 @@ Phases, one JSON line each; any failure exits non-zero:
                  (EtlJob(mesh=), B 65536), 2 steps on the (1, 2) mesh
                  against one process: losses within DLRM_TP_RTOL; rows/s,
                  step ms, each rank's table bytes.
-30. dlrm_la_tp2 — the same ranks then run lookahead_main's path on their
-                 table shards: EtlJob(mesh=, embed_cache=) plans each
-                 rank's rows after place, each rank's EmbedCache holds the
-                 rows in its range (zero elsewhere), one stacked
-                 embedding_bag_cached launch a step on its shard, the
-                 lookups' parts summed; 2 steps against one process's
-                 lookahead path: losses within DLRM_TP_RTOL, the cache's
-                 counters (so the hit rate) equal on both ranks, 2
-                 embedding_bag_cached launches a rank, one profiled step.
-                 The parity phase holds the kernel on that shape too
+30. dlrm_la_22 — lookahead_main's path on four spawned ranks sharing the
+                 card, gloo over CUDA tensors, a (2, 2) mesh with FSDP2
+                 over the data axes: each rank holds 262144 rows and 64 of
+                 the 128 columns of every table (1.74 GB);
+                 EtlJob(mesh=, embed_cache=) plans each data shard's
+                 32768 rows after place, each rank's EmbedCache holds the
+                 whole rows in its range (zero elsewhere) of its own
+                 plan, gathered from the data ranks' column shards (the
+                 requests all-gathered, the parts reduce-scattered:
+                 TRAFFIC["embed_cache_gather"], never the table whole),
+                 one stacked embedding_bag_cached launch a step on its
+                 row shard, the lookups' parts summed; 2 steps against
+                 one process's lookahead path: losses within
+                 DLRM_TP_RTOL, the cache's counters equal across the
+                 model ranks of each data coordinate, the gather GB a
+                 step, step ms, peak GB a rank, one profiled step.  The
+                 parity phase holds the kernel on that shape too
                  (``stacked_half_table``: rank 1's half of the tables,
                  cold ids shifted into it, the rest outside).
 31. ssm_tp2    — tp_ranks2's method at mamba2_370m's full width (16 of 32
@@ -338,7 +345,7 @@ Phases, one JSON line each; any failure exits non-zero:
                  (two applications of the shared block, the only phase
                  with two: both feed its gradients under full remat, and
                  serving writes and reads the second application's ring,
-                 split on the model axis), its preset, --seq 512, 2
+                 split on the model axis), its preset, --seq 256, 2
                  steps; shared_applications in its line.
 33. encdec_tp2 — whisper_base at full width and depth (1,500 stub frames)
                  on the (1, 2) mesh: the decoder's tokens from the LM token
@@ -346,16 +353,28 @@ Phases, one JSON line each; any failure exits non-zero:
                  launcher feeds frames), shard_train_step, 2 steps against
                  one process: losses within TP_LOSS_RTOL, the leaves held
                  whole bit-equal across the ranks.
-34. serve_fsdp — weight-gathered serving (the serving cells' serve_fsdp):
-                 four spawned ranks sharing the card, gloo over CUDA
-                 tensors, a (2, 2) make_host_mesh(model_axis=2):
+34. serve_fsdp — four spawned ranks sharing the card, gloo over CUDA
+                 tensors, a (2, 2) make_host_mesh(model_axis=2),
                  llama3_2_3b at full width, 2 of 28 layers, bfloat16
-                 parameters and compute, a module from seed 0 through
+                 parameters and compute.  First they train as llama3_405b
+                 trains (its preset: FSDP2 over the data axes, Adafactor
+                 with bfloat16 state, sequence parallelism; microbatch
+                 2): ``launch.train --mesh host`` --batch 8 --seq 1024, 2
+                 steps from the LM token pipeline on the card, against
+                 the same cut in this process: losses within
+                 LM_CHECK_RTOL["loss"]; the model axis' traffic a step as
+                 its shapes give it (each sequence-sharded entry's
+                 backward one reduce-scatter, no whole-sequence
+                 all-reduce but the embedding's); each rank's Adafactor
+                 state bytes its param_specs share; step ms, peak GB a
+                 rank and one profiled step's idle share beside one
+                 process's.  Then weight-gathered serving (the serving
+                 cells' serve_fsdp): a module from seed 0 through
                  shard_for_serving(fsdp=True) (each parameter's model
                  slice, then its data shard; each block gathered whole
                  over the data axes just before it runs), each data rank
                  its 4 of the 8 prompts of 256 tokens (the LM token
-                 pipeline on the card), prefill and 32 decode steps fed
+                 pipeline on the card), prefill and 8 decode steps fed
                  one process's greedy tokens (axis_serve): logits within
                  SERVE_TOL x the largest of one process's, the tokens of
                  one data coordinate's ranks identical, each rank's
@@ -405,10 +424,11 @@ started.  Then the ``{"kernels": [...]}`` line (``launches_online_main``,
 ``launches_serve_moe``, ``launches_ssm_main``, ``launches_vlm_main``,
 ``launches_hybrid_main``, ``launches_encdec_main``, ``launches_dist_main``,
 ``launches_dist_kimi``, ``launches_dist_ranks2``, ``launches_tp_ranks2``,
-``launches_ep_ranks2``, ``launches_dlrm_tp2``, ``launches_dlrm_la_tp2``,
+``launches_ep_ranks2``, ``launches_dlrm_tp2``, ``launches_dlrm_la_22``,
 ``launches_ssm_tp2``, ``launches_hybrid_tp2``, ``launches_encdec_tp2`` and
-``launches_serve_fsdp`` (its four ranks' prompt jobs) (both ranks each;
-``launches_<phase>_per_rank`` beside the ``*_tp2`` phases') beside the
+``launches_serve_fsdp`` (its four ranks' training and prompt jobs) (every
+rank's; ``launches_<phase>_per_rank`` beside the ``*_tp2`` and
+``dlrm_la_22`` phases') beside the
 kernels those phases ran), the nvidia-smi line, and last the
 ``{"ok": true, "device": ...}`` line.
 
@@ -535,14 +555,19 @@ DIST2_ARCH, DIST2_LAYERS, DIST2_STEPS = "llama3_2_3b", 2, 2
 TP_ARCH, TP_LAYERS, TP_STEPS = "llama3_2_3b", 2, 2       # tp_ranks2
 EP_ARCH, EP_LAYERS, EP_STEPS = "mixtral_8x7b", 1, 2      # ep_ranks2
 DLRM_TP_STEPS, DLRM_TP_FIT = 2, 2                       # dlrm_tp2
-DLRM_LA_TP_STEPS = 2                                    # dlrm_la_tp2
+# dlrm_la_22: four gloo ranks sharing the card, a (2, 2) mesh, FSDP.  A
+# rank's step peaks at 17.65 GB allocated (NVIDIA H100 80GB HBM3): each
+# rank's allocator is held under 19.5 GB, so that four of them and the
+# processes' contexts fit the card
+DLRM_LA_22_STEPS, DLRM_LA_22_RANK_GB = 2, 19.5
 # the model axis for the SSM, hybrid and enc-dec families: mamba2_370m at
 # 4 of 48 layers, zamba2_2_7b at 18 of 54 (two applications of the shared
 # block: their gradients meet in one set of parameters under full remat,
 # and serving reads the second application's ring, split on the model
 # axis), whisper_base whole
 SSM_TP_LAYERS, SSM_TP_STEPS = 4, 2                      # ssm_tp2
-HYBRID_TP_LAYERS, HYBRID_TP_STEPS, HYBRID_TP_SEQ = 18, 2, 512  # hybrid_tp2
+# hybrid_tp2 at seq 256 (512 until its ranks' steps set the script's end)
+HYBRID_TP_LAYERS, HYBRID_TP_STEPS, HYBRID_TP_SEQ = 18, 2, 256
 ENCDEC_TP_STEPS = 2                                     # encdec_tp2
 # serving on the model axis inside the *_tp2 / *_ranks2 phases' ranks: the
 # prompts from the LM token pipeline, greedy, bf16 compute
@@ -560,6 +585,10 @@ DLRM_TP_VOCAB = 524288    # DLRMConfig()'s: even, so the rows split
 # theirs; every decode step gathers them over the data axes, through the
 # host under gloo), on four gloo ranks sharing the card, a (2, 2) mesh
 SERVE_FSDP_ARCH, SERVE_FSDP_LAYERS = "llama3_2_3b", 2
+# serve_fsdp's ranks first train as llama3_405b trains (FSDP, Adafactor,
+# sequence parallelism), 2 steps of 2 microbatches; its decode steps cut
+# to 8 (a weight-gathered step is ~1.2 s of gathers through the host)
+SERVE_FSDP_STEPS, SERVE_FSDP_MICRO, SERVE_FSDP_NEW = 2, 2, 8
 # the dry run's production cells: (arch, shape, multi-pod).  kimi_k2
 # train_4k (FSDP2 with float32 routers in units of their own, Adafactor,
 # 16 microbatches) takes the place of llama3_2_3b train_4k, the one other
@@ -2628,6 +2657,23 @@ def rank_entry(rank, world, backend, port, fn, args, q) -> None:
             dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def alloc_conf(conf: str):
+    """Within: ranks started (spawned) take ``conf`` as their CUDA
+    allocator's settings (``PYTORCH_CUDA_ALLOC_CONF``); this process's
+    allocator, set up already, keeps its own."""
+    key = "PYTORCH_CUDA_ALLOC_CONF"
+    prev = os.environ.get(key)
+    os.environ[key] = conf
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = prev
+
+
 def start_ranks(fn, world: int, backend: str, args: tuple) -> tuple:
     """``fn(*args)`` started on ``world`` spawned ranks (``rank_entry``);
     ``join_ranks`` takes what this returns."""
@@ -2898,8 +2944,7 @@ def dist_ranks2(root: str, expect, batch: int = LM_BATCH, seq: int = LM_SEQ,
     """``launch.train --mesh host`` on two spawned ranks on the one card,
     gloo over CUDA tensors, at ``llama3_2_3b``'s full width, ``layers``
     of 28 (the preset: replicated parameters, one gradient all-reduce a
-    step, microbatch 2; FSDP2's all-gather hangs under gloo on CUDA
-    tensors, so FSDP across ranks runs on the CPU only).  The same cut run
+    step, microbatch 2).  The same cut run
     without a process group first, in this process.  Checks: each rank's
     batches its rows of the plain compile's (put_packed's selection), the
     ranks' global losses within ``LM_CHECK_RTOL["loss"]`` of the run
@@ -3320,14 +3365,12 @@ def serve_on_rank(out: dict, cfg, runs: list) -> dict:
     return out
 
 
-def model_axis_rank(argv: list, cfg, seq: int, tcfg, steps: int,
-                    serve_runs: list) -> dict:
-    """``tp_ranks2`` / ``ep_ranks2``'s rank: the launcher under
-    ``WORLD_SIZE`` (gloo over CUDA tensors) on ``make_host_mesh
-    (model_axis=2)``, a (1, 2) mesh, training with ``tcfg``; its readings
-    (``launcher_readings``), the collectives' traffic a step, the MoE drop
-    share, and the digests of the leaves it holds whole; then serving on
-    the mesh (``serve_on_rank``)."""
+def model_axis_train(argv: list, cfg, seq: int, tcfg, steps: int) -> dict:
+    """The launcher under ``WORLD_SIZE`` (gloo over CUDA tensors) on
+    ``make_host_mesh(model_axis=2)`` (two ranks: a (1, 2) mesh; four: (2,
+    2)), training with ``tcfg``: its readings (``launcher_readings``),
+    the collectives' traffic a step, the MoE drop share, the digests of
+    the leaves it holds whole, and its train state (``"state"``)."""
     import torch
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch import train as launch
@@ -3346,8 +3389,17 @@ def model_axis_rank(argv: list, cfg, seq: int, tcfg, steps: int,
     out = launcher_readings(summary, cfg, seq, tcfg.microbatch)
     out.update(collectives_per_step=traffic, leaves=digests,
                drop_share=drop_share(tally) if tally["routed"] else None,
-               device=torch.cuda.get_device_name(0))
-    del summary
+               device=torch.cuda.get_device_name(0),
+               state=summary["state"])
+    return out
+
+
+def model_axis_rank(argv: list, cfg, seq: int, tcfg, steps: int,
+                    serve_runs: list) -> dict:
+    """``tp_ranks2`` / ``ep_ranks2``'s rank: ``model_axis_train``, then
+    serving on the mesh (``serve_on_rank``)."""
+    out = model_axis_train(argv, cfg, seq, tcfg, steps)
+    del out["state"]
     return serve_on_rank(out, cfg, serve_runs)
 
 
@@ -3445,14 +3497,17 @@ def dlrm_la_config():
                                row_bytes=4 * 128)
 
 
-def dlrm_run(steps: int, n_fit: int, mesh=None, cache_cfg=None) -> dict:
+def dlrm_run(steps: int, n_fit: int, mesh=None, cache_cfg=None,
+             fsdp: bool = False) -> dict:
     """``DLRMConfig()`` (vocab 524288) trained ``steps`` steps from main's
     ETL (Pipeline III, B rows a batch, fitted on ``n_fit`` chunks), on
-    ``mesh`` through ``shard_train_step`` (``EtlJob(mesh=)``) or in one
-    process, through the lookahead cache when ``cache_cfg`` is given (the
-    executor plans each rank's rows after place; an ``EmbedCache`` on each
-    rank holds its table rows): losses, step ms, rows/s, table bytes,
-    launches, peak GB, the cache's counters and one profiled step."""
+    ``mesh`` through ``shard_train_step`` (``EtlJob(mesh=)``; ``fsdp``:
+    FSDP2 over its data axes) or in one process, through the lookahead
+    cache when ``cache_cfg`` is given (the executor plans each rank's rows
+    after place; an ``EmbedCache`` on each rank holds its table rows,
+    gathered over the data axes where FSDP shards the tables): losses,
+    step ms, rows/s, this rank's table bytes, launches, peak GB, the
+    collectives a step, the cache's counters and one profiled step."""
     import torch
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.pipeline import paper_pipeline
@@ -3475,12 +3530,16 @@ def dlrm_run(steps: int, n_fit: int, mesh=None, cache_cfg=None) -> dict:
     cfg = dlrm.DLRMConfig(vocab_size=DLRM_TP_VOCAB)
     gen = torch.Generator(device="cuda").manual_seed(0)
     tcfg = TrainConfig(lr=1e-3)
-    state = ttl.TrainState.create(dlrm.DLRM(cfg, generator=gen), tcfg)
+    model = dlrm.DLRM(cfg, generator=gen)
     if mesh is None:
+        state = ttl.TrainState.create(model, tcfg)
         step = ttl.make_train_step(dlrm.loss_fn, tcfg)
-    else:
-        step, state = ttl.shard_train_step(dlrm.loss_fn, tcfg, mesh, state,
-                                           batch_rows=B)
+    else:  # the optimizer state is made for the rank's shards alone
+        step, state = ttl.shard_train_step(dlrm.loss_fn, tcfg, mesh,
+                                           ttl.TrainState(model, None),
+                                           batch_rows=B, fsdp=fsdp)
+        del model
+        torch.cuda.empty_cache()  # the whole tables, four ranks on a card
     cache = None if cache_cfg is None else la.EmbedCache(
         cache_cfg, cfg.n_sparse, cfg.d_emb)
     losses, ms = [], []
@@ -3511,6 +3570,7 @@ def dlrm_run(steps: int, n_fit: int, mesh=None, cache_cfg=None) -> dict:
     if state.step != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"dlrm: {state.step} steps, losses {losses}")
     tables = state.model.tables
+    tables = tables.to_local() if hasattr(tables, "to_local") else tables
     out = {"losses": losses, "step_ms": ms,
            "step_ms_median_2_on": sorted(ms[1:])[len(ms[1:]) // 2],
            "rows_per_s": steps * B / wall, "wall_seconds": wall,
@@ -3537,27 +3597,47 @@ def dlrm_run(steps: int, n_fit: int, mesh=None, cache_cfg=None) -> dict:
     return out
 
 
-def dlrm_tp2_rank(steps: int, n_fit: int, la_steps: int) -> dict:
-    """``dlrm_tp2`` / ``dlrm_la_tp2``'s rank: ``dlrm_run`` on
-    ``make_host_mesh(model_axis=2)`` (the gloo world ``rank_entry``
-    joined), uncached, then ``la_steps`` steps through the lookahead
-    cache."""
+def dlrm_tp2_rank(steps: int, n_fit: int) -> dict:
+    """``dlrm_tp2``'s rank: ``dlrm_run`` on ``make_host_mesh(model_axis=
+    2)`` (the gloo world ``rank_entry`` joined; two ranks: a (1, 2)
+    mesh)."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
 
     mesh = make_host_mesh(model_axis=2)
     shd.set_active_mesh(mesh)
-    return {"plain": dlrm_run(steps, n_fit, mesh=mesh),
-            "lookahead": dlrm_run(la_steps, n_fit, mesh=mesh,
-                                  cache_cfg=dlrm_la_config())}
+    return dlrm_run(steps, n_fit, mesh=mesh)
+
+
+def dlrm_la_22_rank(steps: int, n_fit: int) -> dict:
+    """``dlrm_la_22``'s rank: ``dlrm_run`` through the lookahead cache on
+    ``make_host_mesh(model_axis=2)`` of four ranks, a (2, 2) mesh, with
+    FSDP over the data axes: each rank holds 262144 rows and 64 of the
+    128 columns of every table, and its cache the whole rows its own data
+    shard's plan asks for.  The rank's allocator is held to
+    ``DLRM_LA_22_RANK_GB`` (it hands its cached blocks back before it
+    passes that), so the four ranks' cached blocks leave the card room."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.cuda.set_per_process_memory_fraction(
+        DLRM_LA_22_RANK_GB * 1e9 / torch.cuda.get_device_properties(0)
+        .total_memory)
+    mesh = make_host_mesh(model_axis=2)
+    shd.set_active_mesh(mesh)
+    return dlrm_run(steps, n_fit, mesh=mesh, cache_cfg=dlrm_la_config(),
+                    fsdp=True)
 
 
 def dlrm_ranks_phase(name: str, expect, alone: dict, ranks: list,
-                     steps: int, n_fit: int, apply: dict) -> dict:
+                     steps: int, n_fit: int, apply: dict,
+                     mesh: tuple = (1, 2), fsdp: bool = False) -> dict:
     """One DLRM model-axis phase's checks: each rank's launches (the fit's
     and ``apply``, the training run's), losses within ``DLRM_TP_RTOL`` of
     ``alone``'s (one process), the leaves held whole bit-equal across the
-    ranks and the tables sharded."""
+    model ranks of each data coordinate (rank r is ``(r // m, r % m)`` of
+    ``mesh``) and the tables sharded."""
     want = alone["losses"]
     diff = 0.0
     for r, out in enumerate(ranks):
@@ -3570,20 +3650,23 @@ def dlrm_ranks_phase(name: str, expect, alone: dict, ranks: list,
     if diff > DLRM_TP_RTOL or len(ranks[0]["losses"]) != steps:
         raise AssertionError(f"{name}: losses {ranks[0]['losses']} vs "
                              f"{want} in one process")
-    a, b = ranks[0]["leaves"], ranks[1]["leaves"]
-    if a["whole"] != b["whole"] or "tables" not in a["shards"]:
-        raise AssertionError(f"{name}: leaves {a} {b}")
+    m = mesh[1]
+    for r in range(0, len(ranks), m):
+        a = ranks[r]["leaves"]
+        for b in (o["leaves"] for o in ranks[r + 1:r + m]):
+            if a["whole"] != b["whole"] or "tables" not in a["shards"]:
+                raise AssertionError(f"{name}: leaves {a} {b}")
     for out in ranks:
         out["leaves"] = {"whole": len(out["leaves"]["whole"]),
                          "sharded": out["leaves"]["shards"]}
-    return {"vocab": DLRM_TP_VOCAB, "batch": B, "steps": steps, "world": 2,
-            "mesh": [1, 2], "backend": "gloo",
-            "losses_one_process": want, "loss_max_rel_diff": diff,
-            "loss_rtol": DLRM_TP_RTOL,
+    return {"vocab": DLRM_TP_VOCAB, "batch": B, "steps": steps,
+            "world": len(ranks), "mesh": list(mesh), "backend": "gloo",
+            "fsdp": fsdp, "losses_one_process": want,
+            "loss_max_rel_diff": diff, "loss_rtol": DLRM_TP_RTOL,
             "one_process": {k: alone[k] for k in (
                 "step_ms_median_2_on", "rows_per_s", "table_bytes",
                 "peak_mem_gb") + (("cache",) if "cache" in alone else ())},
-            "leaves_whole_bit_equal_across_ranks": True,
+            "leaves_whole_bit_equal_across_model_ranks": True,
             "launches": add_launches(
                 *(add_launches(o["fit_launches"], o["launches"])
                   for o in ranks)),
@@ -3595,38 +3678,65 @@ def dlrm_ranks_phase(name: str, expect, alone: dict, ranks: list,
 
 def dlrm_tp2(expect, steps: int = DLRM_TP_STEPS,
              n_fit: int = DLRM_TP_FIT,
-             la_steps: int = DLRM_LA_TP_STEPS) -> tuple:
+             la_steps: int = DLRM_LA_22_STEPS) -> tuple:
     """``DLRMConfig()`` on two ranks sharing the card (gloo over CUDA
     tensors, a (1, 2) mesh): each rank's tables are its 262144 rows of
     every feature, the MLPs' output features split where 2 divides them;
     fed by main's ETL through ``EtlJob(mesh=)``; against one process on the
     same config and batches: losses within ``DLRM_TP_RTOL``, the leaves
-    held whole bit-equal across the ranks.  Then ``dlrm_la_tp2`` in the
-    same ranks: the lookahead path (``dlrm_la_config``, each rank's cache
-    holding its rows, one stacked ``embedding_bag_cached`` launch a step on
-    its table shard), against one process's lookahead path, the cache's
-    counters (the plans) equal on both ranks.  Returns both phases."""
+    held whole bit-equal across the ranks.  Then ``dlrm_la_22`` on four
+    ranks, a (2, 2) mesh, FSDP over the data axes: the lookahead path
+    (``dlrm_la_config``; the executor plans each data shard's 32768 rows,
+    each rank's cache holds the rows in its range, whole, gathered from the
+    data ranks' column shards: ``TRAFFIC["embed_cache_gather"]``; one
+    stacked ``embedding_bag_cached`` launch a step on each rank's table
+    shard), against one process's lookahead path: losses within
+    ``DLRM_TP_RTOL``, the cache's counters equal across the model ranks of
+    each data coordinate.  Returns both phases."""
+    import torch
+
     alone = dlrm_run(steps, n_fit)
     free_memory()
     alone_la = dlrm_run(la_steps, n_fit, cache_cfg=dlrm_la_config())
     free_memory()
-    ranks = run_ranks(dlrm_tp2_rank, 2, "gloo", (steps, n_fit, la_steps),
+    ranks = run_ranks(dlrm_tp2_rank, 2, "gloo", (steps, n_fit),
                       timeout=900)
-    plain = dlrm_ranks_phase("dlrm_tp2", expect, alone,
-                             [o["plain"] for o in ranks], steps, n_fit,
-                             {"group_dataflow": steps})
-    la_ranks = [o["lookahead"] for o in ranks]
-    look = dlrm_ranks_phase("dlrm_la_tp2", expect, alone_la, la_ranks,
+    plain = dlrm_ranks_phase("dlrm_tp2", expect, alone, ranks, steps,
+                             n_fit, {"group_dataflow": steps})
+    free_memory()
+    card_free = torch.cuda.mem_get_info()[0]
+    parent_gb = torch.cuda.memory_allocated() / 1e9
+    with alloc_conf("expandable_segments:True"):  # the ranks' allocators
+        la_ranks = run_ranks(dlrm_la_22_rank, 4, "gloo", (la_steps, n_fit),
+                             timeout=900)
+    look = dlrm_ranks_phase("dlrm_la_22", expect, alone_la, la_ranks,
                             la_steps, n_fit,
                             {"group_dataflow": la_steps,
-                             "embedding_bag_cached": la_steps})
-    if la_ranks[0]["cache"] != la_ranks[1]["cache"] or \
-            min(la_ranks[0]["cache"][k] for k in (
-                "hits", "staged", "overflow_cold")) <= 0:
-        raise AssertionError(f"dlrm_la_tp2: the ranks' caches "
-                             f"{[o['cache'] for o in la_ranks]}")
-    look["hit_rate_equal_across_ranks"] = True
+                             "embedding_bag_cached": la_steps},
+                            mesh=(2, 2), fsdp=True)
+    # (a data shard's 32768 rows stage every cold row of a feature within
+    # its 2048 slots: no row falls through to the table, which the one
+    # process's 65536 do; the parity phase holds that branch)
+    caches = [o["cache"] for o in la_ranks]
+    if caches[0] != caches[1] or caches[2] != caches[3] or \
+            min(c[k] for c in caches for k in ("hits", "staged")) <= 0:
+        raise AssertionError(f"dlrm_la_22: the ranks' caches {caches}")
+    gathered = [o["collectives_per_step"]["embed_cache_gather"]
+                for o in la_ranks]
+    if min(g["bytes"] for g in gathered) <= 0:
+        raise AssertionError(f"dlrm_la_22: no rows gathered over the data "
+                             f"axes {gathered}")
+    look["cache_counters_equal_across_model_ranks"] = True
     look["cache_config"] = dataclasses.asdict(dlrm_la_config())
+    look["embed_cache_gather_gb_per_step"] = [g["bytes"] / 1e9
+                                              for g in gathered]
+    look["table_gb_per_rank"] = [o["table_bytes"] / 1e9 for o in la_ranks]
+    look["step_ms_median_2_on"] = [o["step_ms_median_2_on"]
+                                   for o in la_ranks]
+    look["peak_mem_gb_per_rank"] = [o["peak_mem_gb"] for o in la_ranks]
+    look["card_free_gb_before_ranks"] = card_free / 1e9
+    look["this_process_allocated_gb"] = parent_gb
+    look["rank_allocator_cap_gb"] = DLRM_LA_22_RANK_GB
     return plain, look
 
 
@@ -3767,43 +3877,175 @@ def encdec_tp2(expect, steps: int = ENCDEC_TP_STEPS, batch: int = LM_BATCH,
             "serve": serve, "ranks": ranks}
 
 
-def serve_fsdp_rank(cfg, runs: list) -> dict:
-    """``serve_fsdp``'s rank: the (2, 2) mesh ``make_host_mesh(model_axis=
-    2)`` over the gloo group, then ``serve_on_rank`` weight-gathered."""
+def adafactor_share_bytes(model, data_degree: int, itemsize: int) -> int:
+    """The bytes of Adafactor's state a rank holds by the reference's
+    ``param_specs`` on the state under FSDP: each leaf's factors (``vr``,
+    ``vc``; ``v`` unfactored) of its whole shape, whole over the model
+    axis, the largest dim the data degree divides cut by it (no path rule
+    names a factor)."""
     from repro_torch.distributed import sharding as shd
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models.transformer import jax_leaves
 
-    shd.set_active_mesh(make_host_mesh(model_axis=2))
-    return serve_on_rank({"launches": {}, "launches_want": {}}, cfg, runs)
+    total = 0
+    for _, leaf in jax_leaves(model.jax_tree()):
+        shape = list(shd.leaf_shape(leaf))
+        md, ax = tp.shard_of(leaf[0] if isinstance(leaf, list) else leaf)
+        if md is not None:
+            shape[md + isinstance(leaf, list)] *= ax.size
+        factored = len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+        for f in ([shape[:-1], shape[:-2] + shape[-1:]] if factored
+                  else [shape]):
+            cut = any(n % data_degree == 0 for n in f)
+            total += math.prod(f) // (data_degree if cut else 1) * itemsize
+    return total
+
+
+def seq_parallel_traffic(cfg, rows: int, seq: int, n_micro: int) -> dict:
+    """The model axis' collectives a step of a sequence-parallel dense LM
+    under full remat (``tests/test_torch_tensor_parallel.py``'s count):
+    per microbatch of ``rows`` rows a data rank, with L blocks and E = 2 L
+    + 1 sequence-sharded entries (each block's attention and MLP, the
+    head), reduce-scatters of the whole-sequence activations: E (each
+    entry's backward) + 2 L (the blocks' outputs) + L (the attention's
+    again, recomputed); all-gathers: E + 2 L (the entries recomputed) +
+    2 L (the outputs' backward) + 1 (the residual's scatter backward); one
+    all-reduce of them, the embedding's.  ``W``: one activation's bytes
+    (the compute dtype)."""
+    import torch
+
+    layers, e = cfg.n_layers, 2 * cfg.n_layers + 1
+    w = rows * seq * cfg.d_model * torch.empty(
+        (), dtype=getattr(torch, cfg.compute_dtype)).element_size()
+    return {"W": w, "reduce_scatter_calls": n_micro * (e + 3 * layers),
+            "all_gather_calls": n_micro * (e + 4 * layers + 1),
+            "whole_sequence_all_reduces": n_micro}
+
+
+def serve_fsdp_rank(train: tuple, cfg, runs: list) -> dict:
+    """``serve_fsdp``'s rank: ``model_axis_train`` on the (2, 2) mesh
+    (``train``: its arguments), the Adafactor state's bytes against the
+    reference's share; then ``serve_on_rank`` weight-gathered on the same
+    mesh."""
+    from repro_torch.distributed import sharding as shd
+
+    out = model_axis_train(*train)
+    state = out.pop("state")
+    tcfg = train[3]
+    out["opt_state_bytes"] = sum(
+        getattr(t, "to_local", lambda t=t: t)().numel() * t.element_size()
+        for st in state.opt["f"] for t in st.values())
+    out["opt_state_share_bytes"] = adafactor_share_bytes(
+        state.model, shd.data_degree(shd.get_active_mesh()),
+        2 if tcfg.opt_state_dtype == "bfloat16" else 4)
+    del state
+    free_memory()
+    out["launches_train"] = dict(out["launches"])
+    return serve_on_rank(out, cfg, runs)
 
 
 def serve_fsdp(expect, layers: int = SERVE_FSDP_LAYERS,
                serve_kw=None) -> dict:
-    """Weight-gathered serving on four ranks sharing the card, gloo over
-    CUDA tensors, a (2, 2) mesh: ``SERVE_FSDP_ARCH`` at full width,
-    ``layers`` deep, ``shard_for_serving(fsdp=True)``, each data rank its
-    4 of the 8 prompts, against one process (``axis_serve``): logits
-    within ``SERVE_TOL``, the tokens of one data coordinate's ranks
-    identical, each rank's resident bytes its ``param_specs(fsdp=True)``
-    share and its gathers a decode step the data-sharded leaves' bytes."""
+    """Four ranks sharing the card, gloo over CUDA tensors, a (2, 2) mesh,
+    ``SERVE_FSDP_ARCH`` at full width, ``layers`` deep, bfloat16.  First
+    they train ``SERVE_FSDP_STEPS`` steps as ``llama3_405b`` trains (its
+    preset: FSDP2 over the data axes, Adafactor with bfloat16 state,
+    sequence parallelism; ``SERVE_FSDP_MICRO`` microbatches), fed the LM
+    token pipeline on the card, against the same cut in this process:
+    losses within ``LM_CHECK_RTOL["loss"]``; the model axis' traffic a
+    step ``seq_parallel_traffic``'s (each sequence-sharded entry's
+    backward one reduce-scatter, no whole-sequence all-reduce but the
+    embedding's); each rank's Adafactor state its ``param_specs`` share;
+    step ms, peak GB and one profiled step's idle share beside one
+    process's.  Then weight-gathered serving (``shard_for_serving(fsdp=
+    True)``), each data rank its 4 of the 8 prompts, against one process
+    (``axis_serve``): logits within ``SERVE_TOL``, the tokens of one data
+    coordinate's ranks identical, each rank's resident bytes its
+    ``param_specs(fsdp=True)`` share and its gathers a decode step the
+    data-sharded leaves' bytes."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train as launch
 
     cfg = dataclasses.replace(get_config(SERVE_FSDP_ARCH), n_layers=layers,
                               param_dtype="bfloat16")
+    train_cfg = dataclasses.replace(cfg, seq_parallel=True)
+    tcfg = dataclasses.replace(launch.train_preset("llama3_405b"),
+                               microbatch=SERVE_FSDP_MICRO)
+    argv = ["--arch", SERVE_FSDP_ARCH, "--batch", str(LM_BATCH), "--seq",
+            str(LM_SEQ), "--steps", str(SERVE_FSDP_STEPS), "--etl-backend",
+            "cuda", "--max-restarts", "0", "--mesh", "host"]
+    shd.set_active_mesh(None)
+    with preset_with(tcfg):
+        alone = run_launcher(argv, cfg=train_cfg)
+    one = launcher_readings(alone, train_cfg, LM_SEQ, tcfg.microbatch)
+    del alone
+    free_memory()
     kw = dict(serve_kw or {}, fsdp=True)
+    train = (argv, train_cfg, LM_SEQ, tcfg, SERVE_FSDP_STEPS)
     with tempfile.TemporaryDirectory() as tmp:
         served, runs = axis_serve_alone(cfg, tmp, [kw])
-        ranks = run_ranks(serve_fsdp_rank, 4, "gloo", (cfg, runs),
-                          timeout=600)
+        ranks = run_ranks(serve_fsdp_rank, 4, "gloo", (train, cfg, runs),
+                          timeout=900)
     for r, out in enumerate(ranks):
         expect(out["launches"], out["launches_want"], f"serve_fsdp rank {r}")
     analyzed = ranks[0]["serve"][0]["analyzed_prefill"]
     serve = axis_serve_check("serve_fsdp", served, ranks, expect)
+    want = one["losses"]
+    diff = max(abs(a - b) / abs(b) for o in ranks
+               for a, b in zip(o["losses"], want))
+    if diff > LM_CHECK_RTOL["loss"] or any(
+            len(o["losses"]) != SERVE_FSDP_STEPS for o in ranks):
+        raise AssertionError(f"serve_fsdp: losses "
+                             f"{[o['losses'] for o in ranks]} vs {want} in "
+                             "one process")
+    sp = seq_parallel_traffic(train_cfg, LM_BATCH // 2 // tcfg.microbatch,
+                              LM_SEQ, tcfg.microbatch)
+    for r, out in enumerate(ranks):
+        t = out["collectives_per_step"]
+        got = {"reduce_scatter_calls": t["reduce_scatter"]["calls"],
+               "reduce_scatter_bytes": t["reduce_scatter"]["bytes"],
+               "all_gather_calls": t["all_gather"]["calls"],
+               "all_reduce_bytes": t["all_reduce"]["bytes"]}
+        if got["reduce_scatter_calls"] != sp["reduce_scatter_calls"] or \
+                got["reduce_scatter_bytes"] != \
+                sp["reduce_scatter_calls"] * sp["W"] or \
+                got["all_gather_calls"] != sp["all_gather_calls"] or \
+                got["all_reduce_bytes"] >= \
+                (sp["whole_sequence_all_reduces"] + 1) * sp["W"]:
+            raise AssertionError(f"serve_fsdp rank {r}: the model axis' "
+                                 f"traffic a step {got} vs {sp}")
+        if out["opt_state_bytes"] != out["opt_state_share_bytes"]:
+            raise AssertionError(
+                f"serve_fsdp rank {r}: Adafactor state "
+                f"{out['opt_state_bytes']} B vs its param_specs share "
+                f"{out['opt_state_share_bytes']} B")
+        out["leaves"] = {"whole": len(out["leaves"]["whole"]),
+                         "sharded": out["leaves"]["shards"]}
+        del out["launches_want"]
     return {"arch": SERVE_FSDP_ARCH, "layers": layers,
             "layers_full": get_config(SERVE_FSDP_ARCH).n_layers,
             "world": 4, "mesh": [2, 2], "backend": "gloo",
-            "compute_dtype": cfg.compute_dtype, "serve": serve,
-            "rank0_prefill": analyzed,
+            "compute_dtype": cfg.compute_dtype,
+            "train": {"preset": "llama3_405b", "fsdp": tcfg.fsdp,
+                      "optimizer": tcfg.optimizer,
+                      "opt_state_dtype": tcfg.opt_state_dtype,
+                      "seq_parallel": True, "microbatch": tcfg.microbatch,
+                      "batch": LM_BATCH, "seq": LM_SEQ,
+                      "steps": SERVE_FSDP_STEPS,
+                      "losses_one_process": want, "loss_max_rel_diff": diff,
+                      "loss_rtol": LM_CHECK_RTOL["loss"],
+                      "seq_parallel_traffic_want": sp,
+                      "one_process": {k: one[k] for k in (
+                          "step_ms_median_2_on", "peak_mem_gb",
+                          "profile_one_more_step")},
+                      "ranks": [{k: o[k] for k in (
+                          "losses", "step_ms", "step_ms_median_2_on",
+                          "peak_mem_gb", "profile_one_more_step",
+                          "collectives_per_step", "opt_state_bytes",
+                          "opt_state_share_bytes", "leaves",
+                          "launches_train")} for o in ranks]},
+            "serve": serve, "rank0_prefill": analyzed,
             "launches": add_launches(*(o["launches"] for o in ranks)),
             "launches_per_rank": [o["launches"] for o in ranks]}
 
@@ -4441,8 +4683,9 @@ def main(root: str = HERE, time_only: bool = False) -> int:
           planned["emb_cold"][:, feat:feat + 1])),
         ("embedding_bag_cached", "cache_only_staged",
          kops.embedding_bag_cached, (table, staged_cache, staged_slot)),
-        # dlrm_la_tp2's shape: rank 1's half of a 524288-row table, its
-        # cold ids shifted into its rows (the other half's fall outside)
+        # dlrm_la_22's shape (FSDP gathers a rank's columns whole for the
+        # step): rank 1's half of a 524288-row table, its cold ids shifted
+        # into its rows (the other half's fall outside)
         ("embedding_bag_cached", "stacked_half_table", stacked,
          (half_tables, planned["emb_cache"], planned["emb_slot"],
           planned["emb_cold"] - DLRM_TP_VOCAB // 2))]
@@ -4551,9 +4794,11 @@ def main(root: str = HERE, time_only: bool = False) -> int:
     emit({"phase": "bag_equal", "bit_equal": True, "plan": bag_plan,
           "distinct_rows": len(uniq)})
     parity_launches = dict(df.LAUNCHES)
+    # (the instances' list and the loop's last names hold the 26 tables
+    # too: 10.5 GB the model-axis phases' ranks need)
     del (table, staged_cache, staged_slot, ids, all_tables, planned,
          cached_out, uncached_out, chosen, st_args, st_got, tabs, cache_,
-         slot_, cold_, half_tables)
+         slot_, cold_, half_tables, launches, args, got, want, g, w)
     torch.cuda.empty_cache()
     for k in df.LAUNCHES:
         if k not in kernels:
@@ -4848,7 +5093,7 @@ def main(root: str = HERE, time_only: bool = False) -> int:
         free_memory()
         dtp2, dla2 = dlrm_tp2(expect)
         emit({"phase": "dlrm_tp2", **dtp2})
-        emit({"phase": "dlrm_la_tp2", **dla2})
+        emit({"phase": "dlrm_la_22", **dla2})
 
         # ---- the model axis for the SSM, hybrid and enc-dec families --------
         free_memory()
@@ -4869,7 +5114,7 @@ def main(root: str = HERE, time_only: bool = False) -> int:
 
         # ---- weight-gathered serving ----------------------------------------
         free_memory()
-        sfsdp = serve_fsdp(expect)
+        sfsdp = serve_fsdp(expect, serve_kw={"new": SERVE_FSDP_NEW})
     emit({"phase": "serve_fsdp", **sfsdp})
     emit({"phase": "dryrun", "card": smi,
           **dryrun_phase(dry, sfsdp["rank0_prefill"])})
@@ -4913,7 +5158,7 @@ def main(root: str = HERE, time_only: bool = False) -> int:
                           ("dist_main", dist1), ("dist_kimi", kimi),
                           ("dist_ranks2", dist2),
                           ("tp_ranks2", tp2), ("ep_ranks2", ep2),
-                          ("dlrm_tp2", dtp2), ("dlrm_la_tp2", dla2),
+                          ("dlrm_tp2", dtp2), ("dlrm_la_22", dla2),
                           ("ssm_tp2", stp2), ("hybrid_tp2", htp2),
                           ("encdec_tp2", etp2), ("serve_fsdp", sfsdp)):
             if ph["launches"].get(name):
@@ -4921,7 +5166,7 @@ def main(root: str = HERE, time_only: bool = False) -> int:
             per_rank = [c.get(name, 0) for c in ph.get(
                 "launches_per_rank",
                 [o["launches"] for o in ph.get("ranks", ())])]
-            if label.endswith("_tp2") and any(per_rank):
+            if label.endswith(("_tp2", "_22")) and any(per_rank):
                 out[-1][f"launches_{label}_per_rank"] = per_rank
     emit({"kernels": out})
     print(smi, flush=True)

@@ -34,6 +34,10 @@ the model group):
 - ``scatter``: slice forward, all-gather backward.
 - ``reduce_scatter``: reduce-scatter forward, all-gather backward (a
   sequence-parallel block's output).
+- ``enter`` of a sequence shard: one all-gather forward, whose two outputs
+  (replicated use, the rank's weight shards) meet again in the backward:
+  the replicated one's gradient sliced, plus the shards' one
+  reduce-scattered (a sequence-parallel block's input).
 
 A replicated tensor keeps the same gradient on every model rank, so a
 replicated parameter's gradient needs no reduction over the group and its
@@ -112,10 +116,13 @@ def split(local: int, whole: int) -> bool:
 
 # bytes and calls of each collective over the model axis since the last
 # reset_traffic() (the whole tensor: all-reduced, gathered, or before its
-# reduce-scatter), and of weight-gathered serving's gathers over the data
-# axes ("data_all_gather": the gathered tensors)
+# reduce-scatter), of weight-gathered serving's gathers over the data axes
+# ("data_all_gather": the gathered tensors) and of the lookahead cache's
+# rows from FSDP-sharded tables over the data axes ("embed_cache_gather":
+# the requests gathered and the rows before their reduce-scatter)
 TRAFFIC = {"all_reduce": [0, 0], "all_gather": [0, 0],
-           "reduce_scatter": [0, 0], "data_all_gather": [0, 0]}
+           "reduce_scatter": [0, 0], "data_all_gather": [0, 0],
+           "embed_cache_gather": [0, 0]}
 
 
 def reset_traffic() -> None:
@@ -157,12 +164,14 @@ def part(x, dim: int, ax: ModelAxis):
     return x.narrow(dim, ax.rank * n, n)
 
 
-def _reduce_scatter(x, dim: int, ax: ModelAxis):
-    """This rank's slice along ``dim`` of the ranks' ``x`` summed."""
+def reduce_scatter_sum(x, dim: int, ax: ModelAxis,
+                       kind: str = "reduce_scatter"):
+    """This rank's slice along ``dim`` of the ranks' ``x`` summed (counted
+    in ``TRAFFIC[kind]``)."""
     x = x.movedim(dim, 0).contiguous()
     out = x.new_empty((x.shape[0] // ax.size,) + tuple(x.shape[1:]))
     _reduce_scatter_single(out, x, group=ax.group)
-    _count("reduce_scatter", x)
+    _count(kind, x)
     return out.movedim(0, dim)
 
 
@@ -210,7 +219,25 @@ class _GatherToShards(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter(g, ctx.dim, ctx.ax), None, None
+        return reduce_scatter_sum(g, ctx.dim, ctx.ax), None, None
+
+
+class _EnterSeq(torch.autograd.Function):
+    """A sequence shard gathered whole once, as two outputs: for replicated
+    use (its gradient is the same on every rank: sliced) and for the
+    rank's weight shards (partial on each rank: summed over the group and
+    sliced in one reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        out = all_gather(x, 1, ax)
+        return out, out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g_rep, g_shards):
+        return (part(g_rep, 1, ctx.ax)
+                + reduce_scatter_sum(g_shards, 1, ctx.ax)), None
 
 
 class _Scatter(torch.autograd.Function):
@@ -228,7 +255,7 @@ class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, ax):
         ctx.dim, ctx.ax = dim, ax
-        return _reduce_scatter(x, dim, ax)
+        return reduce_scatter_sum(x, dim, ax)
 
     @staticmethod
     def backward(ctx, g):
@@ -264,9 +291,12 @@ def enter(x, ax: ModelAxis, seq_sharded: bool) -> tuple:
     """A tensor-parallel region's input: ``(replicated, for_shards)``, the
     whole-sequence activations for replicated use and the same through
     ``copy_in`` for the rank's shards of the weights.  ``seq_sharded``: ``x``
-    is the rank's sequence shard (dim 1), gathered first."""
+    is the rank's sequence shard (dim 1), gathered once; the backward
+    reduce-scatters the shards' gradient (``_EnterSeq``), as GSPMD
+    transposes the reference's ``shard_hint``, where a gather and a
+    ``copy_in`` would all-reduce the whole sequence, then slice it."""
     if seq_sharded:
-        x = gather(x, 1, ax)
+        return _EnterSeq.apply(x, ax)
     return x, copy_in(x, ax)
 
 
@@ -397,9 +427,9 @@ def shard_for_serving(model, mesh, *, fsdp: bool = False):
     gather a block's parameters whole over the data group just before the
     block runs and drop them after it
     (``gathered``), the embedding and the head alike.  This is not FSDP2:
-    its all-gathers hang under gloo on CUDA tensors, and two ranks cannot
-    share one card under NCCL, so the gathers are this module's own
-    explicit collectives, which gloo carries on the card."""
+    the gathers are this module's own explicit collectives around each
+    block's forward (serving has no backward to reshard for), which gloo
+    carries on the card where ranks share one (NCCL cannot)."""
     from repro_torch.training.train_loop import _shard_dims
     shd.set_active_mesh(mesh)
     ax = model_axis(mesh)

@@ -53,6 +53,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.etl_runtime import transfer as transfer_lib
@@ -418,6 +419,46 @@ class LookaheadStage(threading.Thread):
 # device side: cache tensor lifecycle + differentiable cached lookup
 # ---------------------------------------------------------------------------
 
+def _data_sharded_rows(tables, feat: np.ndarray,
+                       row: np.ndarray) -> torch.Tensor:
+    """``tables[feat, row]`` (``[N, dim]``) where FSDP holds the stacked
+    tables sharded over the data axes (a DTensor ``Shard(d)`` of a 1-D data
+    mesh, on whatever dim the rule chose), each data rank asking for the
+    rows of its own plan.  The table is never gathered: the ranks' requests
+    are all-gathered (ids, a few KB), each rank fills the part of every
+    request it holds (its columns, or the whole rows in its range of tables
+    or rows) and zero elsewhere, and one reduce-scatter over the data group
+    sums the parts into each rank's own rows.  Both collectives count in
+    ``tensor_parallel.TRAFFIC["embed_cache_gather"]``."""
+    mesh = tables.device_mesh
+    (pl,) = tables.placements
+    local = tables.to_local().detach()
+    dev = local.device
+    feat = torch.as_tensor(feat, dtype=torch.int64, device=dev)
+    row = torch.as_tensor(row, dtype=torch.int64, device=dev)
+    d = pl.dim
+    dax = tp.ModelAxis(mesh.get_group(), mesh.get_local_rank(), mesh.size())
+    kind = "embed_cache_gather"
+    n = feat.shape[0]
+    counts = tp.all_gather(torch.tensor([n], device=dev), 0, dax, kind)
+    most = int(counts.max())
+    req = torch.zeros(2, most, dtype=torch.int64, device=dev)
+    req[0, :n], req[1, :n] = feat, row
+    every = tp.all_gather(req, 1, dax, kind)  # [2, ranks * most]
+    # the part of each request this rank holds: its slice of dim d
+    lo = dax.rank * -(-tables.shape[d] // dax.size)
+    if d == 2:
+        part = local.new_zeros(every.shape[1], tables.shape[2])
+        part[:, lo:lo + local.shape[2]] = local[every[0], every[1]]
+    else:  # (the rule shards a dim the data degree divides: never empty)
+        at = [every[0], every[1]]
+        held = (at[d] >= lo) & (at[d] < lo + local.shape[d])
+        at[d] = (at[d] - lo).clamp(0, local.shape[d] - 1)
+        part = local[at[0], at[1]]
+        part = torch.where(held[:, None], part, part.new_zeros(()))
+    return tp.reduce_scatter_sum(part, 0, dax, kind)[:n]
+
+
 class EmbedCache:
     """Device-resident stacked cache ``ext [T, rows + stage_max, dim]`` plus
     the per-batch ``advance`` that consumes ``PLAN_KEYS`` annotations.
@@ -473,37 +514,43 @@ class EmbedCache:
         tables, or this rank's rows of them where they are sharded over the
         model axis (``tp.shard_of`` names dim 1): then only the rows in the
         rank's range are copied, and every other admitted or staged slot is
-        zeroed, so the ranks' caches sum to the whole cache."""
+        zeroed, so the ranks' caches sum to the whole cache.  Tables that
+        FSDP holds sharded over the data axes (a DTensor) give each rank
+        the whole rows its own plan asks for (``_data_sharded_rows``)."""
         n_t, n_ext, dim = self.ext.shape
         vocab = tables.shape[1]
         d, ax = tp.shard_of(tables)
         first = ax.rank * vocab if d == 1 else 0
         t_of, j = np.nonzero(admit_slots >= 0)
-        # a -1 row reads (global) row 0, as the reference's clip(r, 0) does
-        admit = np.clip(admit_rows[t_of, j], 0, None) - first
-        stage = np.clip(stage_rows, 0, None).reshape(-1) - first
-        stage_t = np.repeat(np.arange(n_t), stage_rows.shape[1])
-        ids = {"admit_src": t_of * vocab + np.clip(admit, 0, vocab - 1),
-               "admit_dst": t_of * n_ext + admit_slots[t_of, j],
-               "stage_src": stage_t * vocab + np.clip(stage, 0, vocab - 1)}
-        for k, r in (("admit_out", admit), ("stage_out", stage)):
-            out = np.flatnonzero((r < 0) | (r >= vocab))
-            if len(out):  # rows another rank holds
-                ids[k] = out
+        # the admitted rows, then the staged ones; a -1 row reads (global)
+        # row 0, as the reference's clip(r, 0) does
+        feat = np.concatenate([t_of, np.repeat(np.arange(n_t),
+                                               stage_rows.shape[1])])
+        row = np.clip(np.concatenate([admit_rows[t_of, j],
+                                      stage_rows.reshape(-1)]), 0, None) \
+            - first
+        ids = {"admit_dst": t_of * n_ext + admit_slots[t_of, j]}
+        out = np.flatnonzero((row < 0) | (row >= vocab))
+        if len(out):  # rows another rank holds
+            ids["out"] = out
+        row = np.clip(row, 0, vocab - 1)
+        if not isinstance(tables, DTensor):
+            ids["src"] = feat * vocab + row
         ids = transfer_lib.to_device(
             {k: v.astype(np.int64) for k, v in ids.items()}, self.ext.device)
         with torch.no_grad():
-            flat = tables.detach().reshape(-1, dim)
-
-            def rows(src, out):
-                vals = flat.index_select(0, ids[src])
-                return vals.index_fill_(0, ids[out], 0) if out in ids \
-                    else vals
+            if isinstance(tables, DTensor):
+                vals = _data_sharded_rows(tables, feat, row)
+            else:
+                vals = tables.detach().reshape(-1, dim).index_select(
+                    0, ids["src"])
+            if "out" in ids:
+                vals.index_fill_(0, ids["out"], 0)
             if len(t_of):
-                self.ext.view(-1, dim).index_copy_(
-                    0, ids["admit_dst"], rows("admit_src", "admit_out"))
-            self.ext[:, self.cfg.rows:, :] = rows(
-                "stage_src", "stage_out").view(n_t, -1, dim)
+                self.ext.view(-1, dim).index_copy_(0, ids["admit_dst"],
+                                                   vals[:len(t_of)])
+            self.ext[:, self.cfg.rows:, :] = vals[len(t_of):].view(
+                n_t, -1, dim)
 
     def advance(self, tables: torch.Tensor, batch: dict) -> dict:
         if PLAN_KEYS[0] not in batch:

@@ -242,21 +242,14 @@ def jax_named_leaves(model: DLRM) -> list:
 def state_model_dims(state) -> list:
     """Beside each leaf of ``state_to_jax_leaves(state)``: ``(dim,
     ModelAxis)`` of its model shard in the leaf's (JAX) layout, or
-    ``(None, None)``."""
-    from repro_torch.training.optimizer import factor_dims
+    ``(None, None)``; Adafactor's state is whole over the model axis."""
     params = list(state.model.parameters())
     order = _jax_leaf_order(state.model)
     mine = [tp.shard_of(params[i]) for i, _ in order]
     flip = lambda d, tr: 1 - d if tr and d is not None else d
     per = [(flip(d, tr), ax) for (_, tr), (d, ax) in zip(order, mine)]
     dims = per * (1 if "f" in state.opt else 3)
-    for (i, tr), (d, ax) in zip(order, mine) if "f" in state.opt else ():
-        st = state.opt["f"][i]
-        if "v" in st:
-            dims.append((flip(d, tr), ax))
-            continue
-        fd = factor_dims(params[i].dim(), d)  # vr / vc are 1-D for a w
-        dims += [(fd[k], ax) for k in (("vr", "vc") if tr else ("vc", "vr"))]
+    dims += [(None, None)] * sum(len(st) for st in state.opt.get("f", ()))
     return dims + [(None, None)]
 
 

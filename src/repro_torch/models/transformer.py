@@ -551,19 +551,14 @@ def state_to_jax_leaves(state) -> list:
 def state_model_dims(state) -> list:
     """Beside each leaf of ``state_to_jax_leaves(state)``: ``(dim,
     ModelAxis)`` of its model shard (``dim`` in the coordinates of the
-    leaf's tensors: per layer for a list leaf, stacked for Adafactor's
-    state), or ``(None, None)``."""
-    from repro_torch.training.optimizer import factor_dims
+    leaf's tensors: per layer for a list leaf), or ``(None, None)``;
+    Adafactor's state is whole over the model axis."""
     params = list(state.model.parameters())
     order = state.model.param_leaves()
     per = [tp.shard_of(params[leaf[0] if isinstance(leaf, list) else leaf])
            for leaf in order]
     dims = per * (1 if "f" in state.opt else 3)
-    for leaf, (d, ax), st in zip(order, per, state.opt.get("f", ())):
-        k = params[leaf[0] if isinstance(leaf, list) else leaf].dim()
-        stacked = isinstance(leaf, list)
-        fd = factor_dims(k + stacked, None if d is None else d + stacked)
-        dims += [(fd[key], ax) for key in sorted(st)]
+    dims += [(None, None)] * sum(len(st) for st in state.opt.get("f", ()))
     return dims + [(None, None)]
 
 

@@ -39,7 +39,8 @@ def split_microbatches(batch: dict, n_micro: int) -> dict:
 def microbatched_value_and_grad(loss_fn: Callable, n_micro: int,
                                 accum_dtype="float32", *,
                                 in_place: Optional[bool] = None,
-                                micro_context: Optional[Callable] = None
+                                micro_context: Optional[Callable] = None,
+                                each_micro: Optional[dict] = None
                                 ) -> Callable:
     """``loss_fn(model, batch) -> scalar``; returns ``fn(model, batch) ->
     (loss, grads)``, ``grads`` in ``model.parameters()`` order, both
@@ -56,7 +57,11 @@ def microbatched_value_and_grad(loss_fn: Callable, n_micro: int,
     ``in_place=True`` sums in ``.grad`` through ``backward()`` whatever the
     dtypes, one microbatch or more (what FSDP's gradient hooks need).
     ``micro_context(i)``, when given, is a context manager entered around
-    microbatch ``i``'s forward and backward."""
+    microbatch ``i``'s forward and backward.  ``each_micro`` (``{parameter
+    index: fn}``, with ``n_micro > 1``): each microbatch's gradient of that
+    parameter passes ``fn`` before it is added into an accumulator in
+    ``accum_dtype`` of its own (the reference's ``constrain(g)``: a
+    data-parallel sum, rounded to the parameter's dtype)."""
     ctx = micro_context or (lambda i: contextlib.nullcontext())
     if n_micro <= 1 and not in_place:
         def fn1(model, batch):
@@ -72,6 +77,8 @@ def microbatched_value_and_grad(loss_fn: Callable, n_micro: int,
     n_micro = max(n_micro, 1)
     inv = 1.0 / n_micro
 
+    own = each_micro or {}
+
     def fn(model, batch):
         params = list(model.parameters())
         micro = split_microbatches(batch, n_micro)
@@ -81,6 +88,8 @@ def microbatched_value_and_grad(loss_fn: Callable, n_micro: int,
             p.grad = None
         acc = None if summed else [torch.zeros_like(p, dtype=acc_dtype)
                                    for p in params]
+        sep = {j: torch.zeros_like(params[j], dtype=acc_dtype)
+               for j in own} if summed else {}
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=params[0].device)
         for i in range(n_micro):
@@ -88,13 +97,17 @@ def microbatched_value_and_grad(loss_fn: Callable, n_micro: int,
                 loss = loss_fn(model, {k: v[i] for k, v in micro.items()})
                 if summed:
                     loss.backward()
+                    for j, f in own.items():
+                        sep[j].add_(f(params[j].grad).to(acc_dtype))
+                        params[j].grad = None
                 else:
-                    for a, g in zip(acc, torch.autograd.grad(loss, params)):
-                        a.add_(g.to(acc_dtype))
+                    for j, (a, g) in enumerate(zip(
+                            acc, torch.autograd.grad(loss, params))):
+                        a.add_((own[j](g) if j in own else g).to(acc_dtype))
             loss_sum += loss.detach().to(torch.float32)
             del loss
         if summed:
-            acc = [p.grad for p in params]
+            acc = [sep.get(j, p.grad) for j, p in enumerate(params)]
             for p in params:
                 p.grad = None
         with torch.no_grad():

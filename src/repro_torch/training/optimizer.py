@@ -22,16 +22,22 @@ takes the grouping (``Transformer.param_leaves``); without it every
 parameter is its own leaf (a DLRM's).
 
 Sharded parameters (FSDP's DTensors, each rank a ``Shard(d)`` of a 1-D
-data mesh) update term by term on the local shard.  Their state is sharded
-alike: AdamW's moments as the parameter; Adafactor's ``v`` as the parameter,
-``vr`` / ``vc`` on the dim they keep of it (replicated where it is the dim
-they average).  What spans the shards is one all-reduce each over the data
-group: the global norm's sums of squares, a factored row or column mean
-over the sharded dim, ``vr``'s mean when its own dim is sharded, and
-a leaf's ``sum(u^2)`` for the update clipping's RMS.  A parameter sharded
-over the model axis (a plain local tensor tagged ``tp_shard``, under or
-without FSDP) is one more such shard, its sums taken over the model group
-as well.
+data mesh) update term by term on the local shard.  AdamW's moments are
+sharded as the parameter.  Adafactor's state tensors (``vr``, ``vc``, or
+``v``) are laid out as the reference's ``param_specs`` lays out its
+optimizer state: whole over the model axis, and with FSDP sharded over the
+data axes on their own largest dim the data degree divides
+(``state_spec``), not on their parameter's.  The update works on the part
+of each that the rank's shard of the parameter spans (``_FactorLayout``):
+a stored tensor is all-gathered over the data group first where its shard
+is not that part, and the new values are gathered back over the groups
+that cut the part before the rank keeps its own shard of them.  What spans
+the parameter's shards is one all-reduce each over the data group: the
+global norm's sums of squares, a factored row or column mean over the
+sharded dim, ``vr``'s mean when its own dim is sharded, and a leaf's
+``sum(u^2)`` for the update clipping's RMS.  A parameter sharded over the
+model axis (a plain local tensor tagged ``tp_shard``, under or without
+FSDP) is one more such shard, its sums taken over the model group as well.
 """
 
 from __future__ import annotations
@@ -39,9 +45,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed import tensor_parallel as tp
 
 AF_EPS = 1e-30     # Adafactor's epsilon
@@ -176,50 +183,144 @@ def _leaf_shard(leaf, params):
     return dim + isinstance(leaf, list), p.device_mesh
 
 
+def _kept(key: str, k: int) -> list:
+    """The dims of a ``k``-dim leaf that its state tensor ``key`` keeps."""
+    return {"v": list(range(k)), "vr": list(range(k - 1)),
+            "vc": list(range(k - 2)) + [k - 1]}[key]
+
+
+def state_spec(shape, data_degree: int, fsdp: bool):
+    """The reference's ``param_specs`` on an Adafactor state tensor of
+    ``shape`` (its default rule: no path rule names a ``vr``, ``vc`` or
+    ``v``): with ``fsdp``, its largest dim the data degree divides over the
+    data axes; otherwise whole."""
+    return shd.param_spec("", shape, {"data": data_degree}, fsdp=fsdp)
+
+
 def _state_zeros(shape, dt, dev, dim, mesh):
     """Zeros of a state tensor: a DTensor sharded on ``dim`` of ``mesh``
-    (replicated with ``dim`` None) when ``mesh`` is given."""
-    if mesh is None:
+    where ``dim`` is given, else a plain tensor."""
+    if dim is None:
         return torch.zeros(shape, dtype=dt, device=dev)
     from torch.distributed.tensor import zeros
-    return zeros(shape, dtype=dt, device_mesh=mesh,
-                 placements=[Replicate() if dim is None else Shard(dim)])
+    return zeros(shape, dtype=dt, device_mesh=mesh, placements=[Shard(dim)])
 
 
 def adafactor_init(params, tcfg: TrainConfig, leaves=None) -> dict:
     """``{"f": [state per leaf], "leaves": leaves}``: ``{"vr", "vc"}`` for a
-    factored leaf, ``{"v"}`` otherwise, in the leaf's stacked shape (sharded
-    as the module docstring says when the parameters are)."""
+    factored leaf, ``{"v"}`` otherwise, in the leaf's stacked shape with
+    its model dim whole, each laid out by ``state_spec`` over the data mesh
+    of the FSDP-sharded parameters (a DTensor there), or whole."""
     dt = getattr(torch, tcfg.opt_state_dtype)
     if leaves is None:
         leaves = list(range(len(params)))
     dev = _local(params[0])[0].device if params else None
+    mesh = next((p.device_mesh for p in params if isinstance(p, DTensor)),
+                None)
+    ranks = 1 if mesh is None else mesh.size()
     f = []
     for leaf in leaves:
-        s = leaf_shape(leaf, params)
-        d, mesh = _leaf_shard(leaf, params)
-        k = len(s)
-        if _factored(s):
-            vr_dim = d if d is not None and d < k - 1 else None
-            vc_dim = (k - 2 if d == k - 1 else
-                      d if d is not None and d < k - 2 else None)
-            f.append({"vr": _state_zeros(s[:-1], dt, dev, vr_dim, mesh),
-                      "vc": _state_zeros(s[:-2] + s[-1:], dt, dev, vc_dim,
-                                         mesh)})
-        else:
-            f.append({"v": _state_zeros(s, dt, dev, d, mesh)})
+        first = params[leaf[0] if isinstance(leaf, list) else leaf]
+        s = list(leaf_shape(leaf, params))
+        md, ax = tp.shard_of(first)
+        if md is not None:  # the whole leaf
+            s[md + isinstance(leaf, list)] *= ax.size
+        st = {}
+        for key in ("vr", "vc") if _factored(s) else ("v",):
+            shape = [s[i] for i in _kept(key, len(s))]
+            dim = None if ranks == 1 else shd.data_dim(
+                state_spec(shape, ranks, tcfg.fsdp))
+            st[key] = _state_zeros(shape, dt, dev, dim, mesh)
+        f.append(st)
     return {"f": f, "leaves": list(leaves)}
 
 
-def factor_dims(k: int, d) -> dict:
-    """The dim of each Adafactor state tensor (``v``, ``vr``, ``vc``) of
-    a ``k``-dim leaf sharded on ``d`` (None: whole) that its shard cuts,
-    or None where the state is whole: the dim a factor averages over is
-    gone from it."""
-    if d is None:
-        return {"v": None, "vr": None, "vc": None}
-    return {"v": d, "vr": d if d < k - 1 else None,
-            "vc": k - 2 if d == k - 1 else d if d < k - 2 else None}
+def _span(size: int, rank: int, ranks: int) -> tuple:
+    """``(start, length)`` of rank's chunk of ``size`` entries split over
+    ``ranks`` as ``torch.chunk`` and FSDP2's ``Shard`` split them (the last
+    chunks short or empty)."""
+    c = -(-size // ranks)
+    lo = min(rank * c, size)
+    return lo, min(size, lo + c) - lo
+
+
+_gather_single = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+def _gather_chunks(x, dim: int, group, ranks: int, size: int):
+    """The ``size`` entries along ``dim`` of which the ranks of ``group``
+    hold their ``_span`` chunks (``x``: this rank's), gathered whole (each
+    chunk zero-padded to an equal length for the collective)."""
+    c = -(-size // ranks)
+    x = x.movedim(dim, 0)
+    if x.shape[0] < c:
+        x = torch.cat([x, x.new_zeros((c - x.shape[0],) + x.shape[1:])])
+    out = x.new_empty((ranks * c,) + tuple(x.shape[1:]))
+    _gather_single(out, x.contiguous(), group=group)
+    return out[:size].movedim(0, dim)
+
+
+class _FactorLayout:
+    """A leaf's Adafactor state tensors against the part of each that this
+    rank's shard of the parameter spans: the leaf's data-sharded dim
+    ``(dim, group, rank, ranks)`` and model-sharded dim ``(dim,
+    ModelAxis)``, in stacked coordinates (None where whole)."""
+
+    def __init__(self, leaf, params):
+        first = params[leaf[0] if isinstance(leaf, list) else leaf]
+        self.k = len(leaf_shape(leaf, params))
+        d, mesh = _leaf_shard(leaf, params)
+        self.data = None if d is None else (
+            d, mesh.get_group(), mesh.get_local_rank(), mesh.size())
+        md, ax = tp.shard_of(first)
+        self.model = None if md is None else (
+            md + isinstance(leaf, list), ax)
+
+    def _dims(self, key: str) -> tuple:
+        """The dims of state tensor ``key`` that the parameter's data and
+        model shards cut (None where it does not keep the cut dim)."""
+        kept = _kept(key, self.k)
+        return tuple(None if cut is None or cut[0] not in kept
+                     else kept.index(cut[0])
+                     for cut in (self.data, self.model))
+
+    def local(self, key: str, stored):
+        """The part of the stored state tensor ``key`` that the
+        parameter's shard spans: the stored local tensor itself where the
+        two agree (its new values are then written in place)."""
+        x, fd, grp = _local(stored)
+        dd, md = self._dims(key)
+        if fd is not None and fd != dd:
+            x = _gather_chunks(x, fd, grp, stored.device_mesh.size(),
+                               stored.shape[fd])
+        if dd is not None and fd != dd:
+            _, _, rank, ranks = self.data
+            x = x.narrow(dd, *_span(x.shape[dd], rank, ranks))
+        if md is not None:
+            x = tp.part(x, md, self.model[1])
+        return x
+
+    def store(self, key: str, part, stored) -> None:
+        """Write ``part``, the new values of ``local(key, stored)``, into
+        this rank's shard of ``stored``."""
+        loc, fd, _ = _local(stored)
+        dd, md = self._dims(key)
+        if fd == dd and md is None:  # ``part`` is ``loc``, written in place
+            return
+        if md is not None:
+            ax = self.model[1]
+            part = _gather_chunks(part, md, ax.group, ax.size,
+                                  part.shape[md] * ax.size)
+        if dd is not None and fd != dd:
+            _, grp, _, ranks = self.data
+            part = _gather_chunks(part, dd, grp, ranks, stored.shape[dd])
+        if fd is not None and fd != dd:
+            mesh = stored.device_mesh
+            part = part.narrow(fd, *_span(stored.shape[fd],
+                                          mesh.get_local_rank(),
+                                          mesh.size()))
+        loc.copy_(part)
 
 
 def _mean(x, dim, shard):
@@ -279,7 +380,8 @@ def _adafactor(params, grads, state, step, scale, tcfg):
         if md is not None:
             k = md + isinstance(leaf, list)
             shards[k] = (ax.group, shape[k])
-        st = {k: loc(v) for k, v in st.items()}
+        layout, stored = _FactorLayout(leaf, params), st
+        st = {k: layout.local(k, v) for k, v in stored.items()}
         if not isinstance(leaf, list):
             units = [(loc(params[leaf]), loc(grads[leaf]), st, None)]
         elif "vr" in st and first.dim() == 1:
@@ -320,6 +422,8 @@ def _adafactor(params, grads, state, step, scale, tcfg):
             for k, v in s.items():
                 sv[k].copy_(v)
         del units, stats
+        for k, v in stored.items():
+            layout.store(k, st[k], v)
 
 
 # ---------------------------------------------------------------------------

@@ -247,12 +247,22 @@ def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
       coordinate hold the same rows), else the whole batch, replicated as
       the reference's ``batch_specs`` does.
     - ``fsdp``: FSDP2 (ZeRO-3) over the data axes shards each (local)
-      parameter, and so its gradient and optimizer state, on the dim
-      ``param_specs(..., fsdp=True)`` chooses; a leaf it replicates stays
-      whole on every rank of the data group.  Gradients are
-      reduce-scattered once a step (not per microbatch), accumulated in
-      ``tcfg.accum_dtype``, then rounded to the parameter's dtype.
+      parameter, and so its gradient, on the dim ``param_specs(...,
+      fsdp=True)`` chooses (Adafactor's state on its own spec:
+      ``optimizer.state_spec``); a leaf it replicates stays whole on every
+      rank of the data group.  Gradients are reduce-scattered once a step
+      (not per microbatch), accumulated in ``tcfg.accum_dtype``, then
+      rounded to the parameter's dtype.
     - otherwise the data group's gradients are all-reduced once a step.
+    - A replicated 16-bit parameter's gradient is computed in float32
+      on each rank, and the data ranks' parts are summed unrounded and
+      rounded to the parameter's dtype, as the reference's one program
+      over the mesh sums them (rounded a rank at a time, the parts of a
+      near-zero sum flip the sign of Adam's step for zero-initialised
+      biases): once a step with one microbatch, else once a microbatch
+      (one all-reduce of these small leaves each), each microbatch's
+      rounded sum then accumulated in ``tcfg.accum_dtype`` and scaled by
+      1/n, the reference's formula.
     - The loss is the reference's mean over the global (micro)batch: on
       more than one data rank each divides its sum by the global count of
       unignored labels (of rows, for a DLRM; one all-reduce a step), and
@@ -289,16 +299,21 @@ def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
         state = TrainState.create(model, tcfg)
     replicated = [i for i, p in enumerate(model.parameters())
                   if not hasattr(p, "placements")]
-    # a replicated 16-bit parameter is read in the accumulation dtype
-    # while the data ranks' gradients are summed, so the sum of their
-    # unrounded parts is rounded once, as the reference's one program
-    # over the mesh rounds it (rounded a rank at a time, the parts of a
-    # near-zero sum flip the sign of Adam's step for zero-initialised
-    # biases)
+    # a replicated 16-bit parameter is read in float32 for the step, so
+    # each rank's part of its gradient is unrounded until the data ranks'
+    # sum is rounded (the docstring's last point)
     params = list(model.parameters())
     widen = [i for i in replicated if sharded and dp > 1 and
-             torch.promote_types(params[i].dtype, acc_dtype)
-             != params[i].dtype]
+             params[i].dtype.is_floating_point and
+             params[i].element_size() < 4]
+
+    def summed_rounded(dtype):
+        def fn(g):  # one microbatch's gradient, a rank's part of it
+            dist.all_reduce(g, group=group)
+            return g.to(dtype)
+        return fn
+    each = {i: summed_rounded(params[i].dtype) for i in widen} \
+        if n_micro > 1 else {}
     counts = {}
 
     @contextlib.contextmanager
@@ -311,7 +326,8 @@ def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
 
     vg = microbatched_value_and_grad(
         loss_fn, n_micro, accum_dtype=tcfg.accum_dtype,
-        in_place=True if fsdp_modules else None, micro_context=micro)
+        in_place=True if fsdp_modules else None, micro_context=micro,
+        each_micro=each)
 
     def train_step(state: TrainState, batch) -> tuple:
         counts.clear()
@@ -328,7 +344,7 @@ def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
         params = list(state.model.parameters())
         narrow = {i: params[i].data for i in widen}
         for i in widen:
-            params[i].data = params[i].data.to(acc_dtype)
+            params[i].data = params[i].data.to(torch.float32)
         try:
             loss, grads = vg(state.model, batch)
         finally:
@@ -336,9 +352,11 @@ def shard_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh,
                 params[i].data = data
         if sharded and dp > 1:
             for i in replicated:
-                dist.all_reduce(grads[i], group=group)
+                if i not in each:  # (summed a microbatch at a time)
+                    dist.all_reduce(grads[i], group=group)
             for i in widen:
-                grads[i] = grads[i].to(params[i].dtype)
+                if i not in each:
+                    grads[i] = grads[i].to(params[i].dtype)
             dist.all_reduce(loss, group=group)
         # (a replicated batch: every rank computed the whole gradient)
         gnorm = opt_update(params, grads, state.opt, state.step, tcfg)

@@ -235,28 +235,20 @@ def _compare(mine: dict, theirs: dict, what: str) -> list:
     return bad
 
 
-def _factor_layout_differs(path: str, mine: int, theirs: int,
-                           dp: int) -> bool:
-    """An Adafactor factor whose layout differs by design: the port keeps
-    a factor's shard as its parameter's (``optimizer.factor_dims``: whole
-    on a dim the parameter's data shard does not cut), the reference
-    places it by its own spec (``param_specs`` on the state: the factor's
-    largest dim over the data axes).  The port's then holds a whole
-    multiple of the reference's, at most the data degree."""
-    return (path.startswith("f/") and path.endswith(("/vr", "/vc"))
-            and mine > theirs and mine % theirs == 0
-            and dp % (mine // theirs) == 0)
+# the Adafactor presets' optimizer state a rank, the reference's bytes
+ADAFACTOR_BYTES = {("pod16x16", "llama3_405b"): 4_913_464,
+                   ("pod16x16", "kimi_k2"): 80_282_768,
+                   ("pod2x16x16", "llama3_405b"): 2_456_984,
+                   ("pod2x16x16", "kimi_k2"): 40_141_504}
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_parameter_and_optimizer_bytes_equal_the_references(sides, mesh):
-    """Parameters (train and serve) and AdamW's moments leaf for leaf and
-    in total; Adafactor's state leaf for leaf except the factors whose
-    layout differs by design (``_factor_layout_differs``), which
-    ROADMAP.md lists."""
+    """Parameters (train and serve) and the optimizer state (AdamW's
+    moments; Adafactor's factors, laid out by their own spec) leaf for
+    leaf and in total."""
     port, ref = sides[mesh]["port"], sides[mesh]["ref"]
-    dp = math.prod(MESHES[mesh][:-1])
-    bad, differ = [], {}
+    bad = []
     for arch in ARCH_IDS:
         r = ref[arch]
         train, serve = port[arch, "train_4k"], port[arch, "decode_32k"]
@@ -266,15 +258,12 @@ def test_parameter_and_optimizer_bytes_equal_the_references(sides, mesh):
                         f"{arch} train params")
         bad += _compare(serve["params"], r["serve_params"],
                         f"{arch} serve params")
-        opt = dict(train["opt"])
-        for path in list(opt):
-            if opt[path] != r["opt"][path] and _factor_layout_differs(
-                    path, opt[path], r["opt"][path], dp):
-                differ[arch, path] = opt.pop(path) // r["opt"][path]
-        bad += _compare(opt, {p: r["opt"][p] for p in opt}, f"{arch} opt")
+        bad += _compare(train["opt"], r["opt"], f"{arch} opt")
+        want = ADAFACTOR_BYTES.get((mesh, arch))
+        if want is not None and not (sum(train["opt"].values()) == want
+                                     == sum(r["opt"].values())):
+            bad.append(f"{arch} Adafactor state: {want} B a rank wanted")
     assert not bad, "\n".join(bad)
-    # only the Adafactor presets' factors differ
-    assert {a for a, _ in differ} <= {"llama3_405b", "kimi_k2"}, differ
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

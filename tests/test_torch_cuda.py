@@ -1192,6 +1192,18 @@ def test_distributed_on_the_card(card, tmp_path):
         assert np.linalg.norm(g - w) <= 1e-4 * np.linalg.norm(w)
 
 
+def test_cache_rows_from_data_sharded_tables_on_the_card(card, tmp_path):
+    """Two gloo ranks sharing the card: ``EmbedCache.advance`` on tables
+    sharded over them on each dim (FSDP's DTensor) fills each rank's cache
+    bit-equal to the whole tables' rows of its own plans, through the data
+    group's collectives on CUDA tensors (``embed_cache_gather``)."""
+    import torch_dist as td
+    for rank in td.spawn(td.cache_rows_rank, 2, tmp_path, "cuda",
+                         timeout=300):
+        for d, ok, (nbytes, calls) in rank:
+            assert ok and nbytes > 0 and calls > 0, (d, ok, nbytes, calls)
+
+
 def test_example_twins_on_the_card(card, tmp_path):
     """``examples/torch_quickstart.py`` (its three backends agree, the
     cuda one's kernels included), ``torch_train_lm.py`` and

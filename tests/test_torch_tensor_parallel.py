@@ -233,6 +233,44 @@ def test_train_step_matches_the_references_on_its_mesh(runs, name):
         assert runs["port"][r][name][:2] == runs["port"][0][name][:2]
 
 
+def test_sequence_parallel_entries_reduce_scatter_their_backward(runs):
+    """``llama405b_sp22``'s model-axis traffic each step equals the count
+    its shapes give (every collective moves a whole-sequence activation
+    ``W = b S D`` float32 values, ``b`` a microbatch's rows a data rank,
+    except the norms' weight gradients and the loss' statistics).  Per
+    microbatch, with L blocks and ``E = 2 L + 1`` sequence-sharded entries
+    (each block's attention and MLP, the head):
+
+    - reduce-scatters: each entry's backward once (``tp.enter``), each
+      block's two outputs, and the attention's again where remat
+      recomputes the block (the recompute stops at the MLP's last saved
+      input, before its output);
+    - all-gathers: each entry's forward, the block's two again under
+      remat, the two outputs' backward, the residual's scatter backward;
+    - all-reduces: the embedding's vocabulary-parallel sum (the only one
+      of ``W`` bytes: no entry's backward all-reduces the sequence), the
+      2 L + 1 norms' weights (``D``) and the loss' three statistics
+      (``b S`` each)."""
+    arch, mesh, tcfg, _ = CASES["llama405b_sp22"]
+    cfg = rreg.get_reduced(arch)
+    n = tcfg["microbatch"]
+    layers, d = cfg.n_layers, cfg.d_model
+    b = ROWS // mesh[0] // n
+    w = b * SEQ * d * 4
+    entries = 2 * layers + 1
+    want = {"reduce_scatter": entries + 2 * layers + layers,
+            "all_gather": entries + 2 * layers + 2 * layers + 1,
+            "all_reduce": 1 + entries + 3}
+    bytes_ = {"reduce_scatter": want["reduce_scatter"] * w,
+              "all_gather": want["all_gather"] * w,
+              "all_reduce": w + entries * d * 4 + 3 * b * SEQ * 4}
+    for r in range(WORLD):
+        for step in runs["port"][r]["llama405b_sp22"][4]["traffic"]:
+            got = {k: step[k] for k in want}
+            assert got == {k: [n * bytes_[k], n * want[k]] for k in want}, \
+                (r, got)
+
+
 # ---------------------------------------------------------------------------
 # (b) local shapes against the reference's specs
 # ---------------------------------------------------------------------------

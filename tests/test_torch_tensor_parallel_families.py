@@ -10,7 +10,9 @@ DLRM's lookahead path on a row-sharded table, against the JAX package.
   Cases: ``mamba2_370m`` on (2, 2), (1, 4) and (2, 2) with FSDP;
   ``zamba2_2_7b`` (two applications of the shared block) and
   ``whisper_base`` (frames beside the tokens) on (2, 2) and (1, 4); DLRM's
-  lookahead path on (2, 2) and (1, 4); on (1, 4), mamba2 widened so that
+  lookahead path on (2, 2) and (1, 4), and under FSDP on (2, 2) (the
+  tables' embedding dim over the data axes) and (4, 1) (their rows); on
+  (1, 4), mamba2 widened so that
   no SSM projection splits over 4, mamba2 with 2 heads (x's columns split,
   the heads do not), and mamba2 and zamba2 with ``seq_parallel`` (which
   neither package's SSM reads): the reference threads its own
@@ -18,8 +20,11 @@ DLRM's lookahead path on a row-sharded table, against the JAX package.
   ``train_loop(embed_cache=)``), each port rank plans on its own rows, as
   the executor's lookahead stage after place does.
 - (b) each rank's local shape of every leaf equals the reference spec's
-  shard; the model ranks of one data coordinate make the same plan, and
-  each rank's cache holds zero in every other rank's rows.
+  shard; the model ranks of one data coordinate make the same plan, each
+  data coordinate its own, and each rank's cache holds zero in every
+  other rank's rows; under FSDP the cache's rows come through the data
+  group's collectives (``TRAFFIC["embed_cache_gather"]``), never the
+  table gathered whole.
 - (c) the (2, 2) ``mamba_tp22`` checkpoint restored onto (1, 4) and onto
   one process, bit-equal, and read by the reference.
 - (d) ``EtlJob(mesh=, embed_cache=)`` on (2, 2): each rank's rows are its
@@ -94,6 +99,12 @@ CASES = {
     "whisper_tp14": ("whisper_base", (1, 4), {}),
     "dlrm_la_22": ("dlrm", (2, 2), {}),
     "dlrm_la_14": ("dlrm", (1, 4), {}),
+    # the lookahead path on tables FSDP holds sharded over the data axes:
+    # on their embedding dim beside the model axis's rows (32 columns, the
+    # largest dim 2 divides, as at DLRMConfig()'s 128), and on their rows
+    # without a model axis (1000 rows over 4)
+    "dlrm_la_22_fsdp": ("dlrm", (2, 2), dict(fsdp=True)),
+    "dlrm_la_41_fsdp": ("dlrm", (4, 1), dict(fsdp=True)),
     # the SSM where the model axis of 4 splits no projection, or x's
     # columns but not the heads, and with seq_parallel (which neither
     # package's SSM reads)
@@ -111,6 +122,8 @@ CFG_OVER = {"mamba_whole_14": {"d_model": 130, "ssm": dict(
             "mamba_x_split_14": {"ssm": {"head_dim": 128}},
             "mamba_sp_14": {"seq_parallel": True},
             "zamba_sp_14": {"seq_parallel": True}}
+# a DLRM case's config fields replaced in tests/torch_dist.py's DLRM_SMALL
+DLRM_OVER = {"dlrm_la_22_fsdp": dict(d_emb=32, bot_mlp=(32, 32))}
 # the leaves a case's model axis must split (the arch's by default)
 MUST_SPLIT = {"mamba_whole_14": ("embed",),
               "mamba_x_split_14": ("mixer/x_proj", "mixer/z_proj",
@@ -223,9 +236,10 @@ def _inputs() -> dict:
     cases = {}
     for i, (name, (arch, mesh, over)) in enumerate(CASES.items()):
         case = {"arch": arch, "mesh": mesh, "over": CFG_OVER.get(name, {}),
-                "tcfg": _tcfg(arch, over), "dlrm": td.DLRM_SMALL}
+                "tcfg": _tcfg(arch, over),
+                "dlrm": dict(td.DLRM_SMALL, **DLRM_OVER.get(name, {}))}
         if arch == "dlrm":
-            cfg = rdlrm.DLRMConfig(**td.DLRM_SMALL)
+            cfg = rdlrm.DLRMConfig(**case["dlrm"])
             params = rdlrm.init(jax.random.key(1), cfg)
             case["batches"] = [_hot_ids(td.dlrm_batch(ROWS, 30 + s), 60 + s)
                                for s in range(STEPS)]
@@ -303,9 +317,10 @@ def test_train_step_matches_the_references_on_its_mesh(runs, name):
 
 def _ref_shard_shapes(arch, sizes: dict, fsdp: bool, over=None) -> dict:
     """``{path: shard shape}`` of the reference's ``param_specs`` on an
-    ``AbstractMesh`` of ``sizes`` (config fields ``over`` replaced)."""
+    ``AbstractMesh`` of ``sizes`` (config fields ``over`` replaced; a
+    DLRM's in ``DLRM_SMALL``)."""
     if arch == "dlrm":
-        cfg = rdlrm.DLRMConfig(**td.DLRM_SMALL)
+        cfg = rdlrm.DLRMConfig(**dict(td.DLRM_SMALL, **(over or {})))
         shapes = jax.eval_shape(lambda: rdlrm.init(jax.random.key(0), cfg))
     else:
         cfg = _ref_cfg(arch, over)
@@ -324,7 +339,7 @@ def _ref_shard_shapes(arch, sizes: dict, fsdp: bool, over=None) -> dict:
 @pytest.mark.parametrize("name", list(CASES))
 def test_each_ranks_leaves_are_the_reference_specs_shards(runs, name):
     arch, mesh, over = CASES[name]
-    cfg_over = CFG_OVER.get(name, {})
+    cfg_over = CFG_OVER.get(name, DLRM_OVER.get(name, {}))
     want = _ref_shard_shapes(arch, dict(zip(("data", "model"), mesh)),
                              over.get("fsdp", False), cfg_over)
     for r in range(WORLD):
@@ -348,20 +363,37 @@ def test_each_ranks_leaves_are_the_reference_specs_shards(runs, name):
         assert not any(k.endswith(("dt_proj", "A_log")) for k in split)
 
 
-@pytest.mark.parametrize("name", ["dlrm_la_22", "dlrm_la_14"])
+@pytest.mark.parametrize("name", [n for n in CASES
+                                  if n.startswith("dlrm_la")])
 def test_model_ranks_make_the_same_plan_and_hold_only_their_rows(runs,
                                                                  name):
     mesh = CASES[name][1]
+    fsdp = CASES[name][2].get("fsdp", False)
     extra = [runs["port"][r][name][4] for r in range(WORLD)]
     for r, e in enumerate(extra):
         d = r // mesh[1]  # rank r is (r // m, r % m)
         assert e["plan_digest"] == extra[d * mesh[1]]["plan_digest"], r
         assert e["cache_stats"] == extra[d * mesh[1]]["cache_stats"], r
         zero, foreign = e["foreign_zero"]
-        assert zero and foreign > 0, (r, e["foreign_zero"])
-    stats = extra[0]["cache_stats"]
-    assert min(stats["hits"], stats["staged"], stats["overflow_cold"]) > 0, \
-        stats
+        assert zero and (foreign > 0) == (mesh[1] > 1), \
+            (r, e["foreign_zero"])
+        # hits and staged rows, and rows past the staging region where a
+        # data shard's rows outnumber it
+        stats = e["cache_stats"]
+        need = ("hits", "staged") + (("overflow_cold",) if ROWS // mesh[0]
+                                     > CACHE["stage_max"] else ())
+        assert min(stats[k] for k in need) > 0, (r, stats)
+        # under FSDP each step's rows came through the data group, a few
+        # KB where the table is whole bytes, and nothing else moved there
+        gathered = [t["embed_cache_gather"] for t in e["traffic"]]
+        if fsdp:
+            assert all(0 < b < e["table_bytes"] / 10 and c == 3
+                       for b, c in gathered), (gathered, e["table_bytes"])
+        else:
+            assert all(b == c == 0 for b, c in gathered), gathered
+    # each data coordinate plans its own rows
+    digests = {e["plan_digest"] for e in extra}
+    assert len(digests) == mesh[0], digests
 
 
 # ---------------------------------------------------------------------------

@@ -147,13 +147,146 @@ def whole_leaves(model) -> list:
     return out
 
 
+def microbatch_sums(module, loss_fn, batch: dict, group, n_micro: int,
+                    idx: list) -> tuple:
+    """Each microbatch's gradient of ``module``'s parameters ``idx`` on
+    this rank, in float32 (the 16-bit ones read widened), as the sharded
+    train step computes its part (``batch`` this rank's rows, the loss
+    divided by each microbatch's global label count): ``(parts, sums)``,
+    a list a microbatch of this rank's parts and of their sums over the
+    data ``group``."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers as L
+    from repro_torch.training.grad import split_microbatches
+
+    dp = dist.get_world_size(group)
+    params = list(module.parameters())
+    micro = split_microbatches(batch, n_micro)
+    counts = (batch["labels"].reshape(n_micro, -1) != -100).to(
+        torch.float32).sum(1)
+    dist.all_reduce(counts, group=group)
+    narrow = {i: params[i].data for i in idx}
+    parts, sums = [], []
+    try:
+        for i in idx:
+            params[i].data = params[i].data.to(torch.float32)
+        for k in range(n_micro):
+            with shd.row_shards(dp), L.label_count(counts[k]):
+                loss = loss_fn(module, {n: v[k] for n, v in micro.items()})
+                g = torch.autograd.grad(loss, [params[i] for i in idx])
+            parts.append([t.clone() for t in g])
+            for t in g:
+                dist.all_reduce(t, group=group)
+            sums.append(list(g))
+    finally:
+        for i, data in narrow.items():
+            params[i].data = data
+    return parts, sums
+
+
+def per_microbatch_formula(sums: list, dtypes: list, accum) -> list:
+    """The reference's microbatched gradient (``training/grad.py``) from
+    each microbatch's data-parallel sum: rounded to the parameter's dtype,
+    added into zeros of ``accum``, then scaled by 1/n."""
+    out = []
+    for j, dt in enumerate(dtypes):
+        a = torch.zeros_like(sums[0][j], dtype=accum)
+        for s in sums:
+            a = a + s[j].to(dt).to(accum)
+        out.append(a * (1.0 / len(sums)))
+    return out
+
+
+def rounding_check(kind: str, state, step, batch: dict, case: dict,
+                   mesh, loss_fn) -> tuple:
+    """One step of ``step`` on ``batch`` (16-bit parameters, microbatch >
+    1), its gradients taken where the optimizer receives them, against
+    the reference's per-microbatch formula (``per_microbatch_formula``)
+    over each rank's float32 parts: ``kind`` ``"replicated"`` (the data
+    axes replicate the parameters: ``microbatch_sums`` on the step's own
+    model; each leaf bit-equal, and the rule before it, the parts summed
+    over microbatches and ranks and rounded once, not) or ``"fsdp"`` (the
+    parts on an unsharded copy of the parameters; each FSDP-sharded leaf's
+    relative error in norm).  Returns ``(state, metrics, report)``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.training import train_loop as ttl
+
+    tc = TrainConfig(**case["tcfg"])
+    group, _ = ttl.data_group(mesh)
+    accum = getattr(torch, tc.accum_dtype)
+    if kind == "replicated":
+        module = state.model
+        params = list(module.parameters())
+        idx = [i for i, p in enumerate(params)
+               if not hasattr(p, "placements") and p.element_size() < 4]
+    else:
+        module = tp_model(case)[0]
+        params = list(module.parameters())
+        idx = [i for i, p in enumerate(params) if p.element_size() < 4]
+    parts, sums = microbatch_sums(module, loss_fn, batch, group,
+                                  tc.microbatch, idx)
+    want = per_microbatch_formula(sums, [params[i].dtype for i in idx],
+                                  accum)
+    seen = {}
+    real = ttl.opt_update
+
+    def spy(ps, grads, *a):
+        seen["grads"] = [g.detach().clone() for g in grads]
+        return real(ps, grads, *a)
+    ttl.opt_update = spy
+    try:
+        state, m = step(state, batch)
+    finally:
+        ttl.opt_update = real
+    got = seen["grads"]
+    if kind == "replicated":
+        old = []
+        for j, i in enumerate(idx):  # the parts summed, then rounded once
+            a = torch.zeros_like(parts[0][j])
+            for p in parts:
+                a = a + p[j]
+            a = a * (1.0 / len(parts))
+            dist.all_reduce(a, group=group)
+            old.append(a.to(params[i].dtype))
+        report = {
+            "leaves": len(idx),
+            "bit_equal": all(same_bits(got[i], w)
+                             for i, w in zip(idx, want)),
+            "old_rule_differs": any(not torch.equal(o.to(w.dtype), w)
+                                    for o, w in zip(old, want))}
+    else:
+        names = [n for n, _ in module.named_parameters()]
+        sharded = {n: g for n, g in zip(
+            [n for n, _ in state.model.named_parameters()], got)
+            if hasattr(g, "full_tensor")}
+        errs = {}
+        for j, i in enumerate(idx):
+            if names[i] in sharded:
+                g = sharded[names[i]].full_tensor().to(torch.float64)
+                w = want[j].to(torch.float64)
+                errs[names[i]] = float((g - w).norm() / w.norm())
+        report = {"leaves": len(errs), "rel_err": errs}
+    return state, m, report
+
+
+def same_bits(a, b) -> bool:
+    """Whether two float tensors hold the same dtype and bits (-0.0 is not
+    +0.0)."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(ints[a.element_size()]),
+        b.contiguous().view(ints[b.element_size()]))
+
+
 def train_cases(rank, world, inputs_path):
     """Each case of ``inputs_path`` (``{name: {arch, tcfg, params,
-    batches, capacity_factor, over, pod}}``; ``over``: config fields
-    replaced) on a ``(world, 1)`` mesh, or with ``pod`` a ``(2, world / 2,
-    1)`` one: 3 data-parallel steps; returns ``{name: (losses, grad norms,
-    whole leaves, {FSDP unit: its dtype's name}, [{JAX path: elements
-    each rank holds}])}``."""
+    batches, capacity_factor, over, pod, mesh, rounding}}``; ``over``:
+    config fields replaced) on a ``(world, 1)`` mesh, with ``pod`` a ``(2,
+    world / 2, 1)`` one, or a ``(data, model)`` ``mesh``: 3 data-parallel
+    steps; returns ``{name: (losses, grad norms, whole leaves, {FSDP
+    unit: its dtype's name}, [{JAX path: elements each rank holds}],
+    [each rank's rounding_check report of its first step, with
+    ``rounding``])}``."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.distributed import sharding as shd
     from repro_torch.etl_runtime.transfer import batch_sharding, put_packed
@@ -170,6 +303,9 @@ def train_cases(rank, world, inputs_path):
         if case.get("pod"):  # ("pod", "data", "model") of (2, world / 2, 1)
             mesh = init_device_mesh("cpu", (2, world // 2, 1),
                                     mesh_dim_names=("pod", "data", "model"))
+        if case.get("mesh"):
+            mesh = init_device_mesh("cpu", tuple(case["mesh"]),
+                                    mesh_dim_names=("data", "model"))
         shd.set_active_mesh(mesh)
         cf = case.get("capacity_factor")
         over = dict(case.get("over", {}))
@@ -185,12 +321,17 @@ def train_cases(rank, world, inputs_path):
         step, state = ttl.shard_train_step(
             model.loss, tc, mesh, state, batch_rows=rows, fsdp=tc.fsdp,
             n_experts=cfg.moe.n_experts if cfg.moe else 0)
-        sharding = batch_sharding(mesh) if rows % world == 0 else None
-        losses, norms = [], []
-        for b in case["batches"]:
+        dp = shd.data_degree(mesh)
+        sharding = batch_sharding(mesh) if rows % dp == 0 else None
+        losses, norms, report = [], [], None
+        for i, b in enumerate(case["batches"]):
             b = put_packed({k: torch.from_numpy(v) for k, v in b.items()},
                            sharding, microbatches=max(tc.microbatch, 1))
-            state, m = step(state, b)
+            if i == 0 and case.get("rounding"):
+                state, m, report = rounding_check(
+                    case["rounding"], state, step, b, case, mesh, model.loss)
+            else:
+                state, m = step(state, b)
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
         units = {k: str(v) for k, v in ttl.unit_dtypes(state.model).items()}
@@ -199,7 +340,10 @@ def train_cases(rank, world, inputs_path):
             path: sum((t.to_local() if hasattr(t, "to_local") else t
                        ).numel() for t in ts)
             for path, ts, _ in jax_order(state.model)})
-        out[name] = (losses, norms, whole_leaves(state.model), units, held)
+        reports = [None] * world
+        dist.all_gather_object(reports, report)
+        out[name] = (losses, norms, whole_leaves(state.model), units, held,
+                     reports)
     return out if rank == 0 else None
 
 
@@ -356,6 +500,48 @@ def card_rank(rank, world, device: str):
             "losses": losses, "leaves": whole_leaves(state.model)}
 
 
+def cache_rows_rank(rank, world, device: str) -> list:
+    """``EmbedCache.advance`` on stacked tables FSDP-style sharded over the
+    ``world`` ranks (a DTensor ``Shard(d)`` of a 1-D mesh on ``device``,
+    for d = 2, 0, 1), each rank with plans of its own rows, against the
+    same plans applied from the whole tables: ``[(d, ext bit-equal on
+    every plan, TRAFFIC["embed_cache_gather"])]``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.etl_runtime.lookahead import (EmbedCache,
+                                                   EmbedCacheConfig,
+                                                   LookaheadPlanner)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    mesh = init_device_mesh(device, (world,))
+    out = []
+    for d, shape in ((2, (26, 4096, 128)), (0, (26, 4096, 16)),
+                     (1, (3, 4096, 16))):
+        whole = torch.from_numpy(np.random.default_rng(0).normal(
+            size=shape).astype(np.float32)).to(device)
+        shard = distribute_tensor(whole, mesh, [Shard(d)])
+        cc = EmbedCacheConfig(rows=64, window=2, stage_max=32, refresh=True)
+        rng = np.random.default_rng(10 + rank)
+        planner = LookaheadPlanner(cc, shape[0])
+        caches = [EmbedCache(cc, shape[0], shape[2], device=device)
+                  for _ in range(2)]
+        tp.reset_traffic()
+        ok = True
+        for _ in range(4):
+            planner.push(rng.zipf(1.2, (256 + 64 * rank, shape[0]))
+                         % shape[1])
+            if planner.window_depth() < cc.window:
+                continue
+            plan = planner.pop_plan()[1].as_payload()
+            caches[0].advance(whole, dict(plan))
+            caches[1].advance(shard, dict(plan))
+            ok &= torch.equal(caches[0].ext, caches[1].ext)
+        out.append((d, bool(ok), list(tp.TRAFFIC["embed_cache_gather"])))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the "model" axis (tests/test_torch_tensor_parallel.py)
 # ---------------------------------------------------------------------------
@@ -391,7 +577,8 @@ def tp_model(case: dict):
     reference's ``params``."""
     from repro_torch.models import api, dlrm
     if case["arch"] == "dlrm":
-        model = dlrm.DLRM(dlrm.DLRMConfig(**DLRM_SMALL), device="cpu")
+        model = dlrm.DLRM(dlrm.DLRMConfig(**case.get("dlrm", DLRM_SMALL)),
+                          device="cpu")
         model.load_state_dict(dlrm.params_from_jax(case["params"]))
         return model, dlrm.loss_fn, 0
     cfg = tp_cfg(case["arch"], case.get("over", {}))
@@ -486,17 +673,24 @@ def foreign_rows_zero(cache, planner, last_plan: dict, tables) -> tuple:
 def tp_cases(rank, world, inputs_path, ckpt_dir):
     """Each case of ``inputs_path`` (``{name: {arch, over, tcfg, params,
     batches, mesh}}``; ``embed_cache``: an ``EmbedCacheConfig``'s fields,
-    DLRM's lookahead path) on its ``(data, model)`` mesh: 3 steps; returns
-    ``{name: (losses, grad norms, whole leaves, local shapes, extra)}``
-    (the leaves on rank 0 only).  The lookahead path plans on this rank's
-    rows, as the executor's stage after place does, and threads an
-    ``EmbedCache`` against the current tables; ``extra`` holds a digest of
-    the plans, the cache's counters and ``foreign_rows_zero``.  The case
+    DLRM's lookahead path; ``dlrm``: a DLRM's config fields) on its
+    ``(data, model)`` mesh: 3 steps; returns ``{name: (losses, grad norms,
+    whole leaves, local shapes, extra)}`` (the leaves on rank 0 only).
+    ``extra["traffic"]`` is ``tensor_parallel.TRAFFIC`` over each step.
+    The lookahead path plans on this rank's rows, as the executor's stage
+    after place does, and threads an ``EmbedCache`` against the current
+    tables (a DTensor under FSDP: ``DTensor.full_tensor`` raises while the
+    cache advances); ``extra`` holds a digest of the plans, the cache's
+    counters, ``foreign_rows_zero`` and the table's whole bytes.  The case
     named in the inputs' key ``"ckpt"`` saves its state after the last step
     into ``ckpt_dir``."""
     import hashlib
+    from unittest import mock
+
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.etl_runtime.lookahead import EmbedCache, EmbedCacheConfig
     from repro_torch.etl_runtime.transfer import batch_sharding, put_packed
     from repro_torch.training import checkpoint as ckpt
@@ -532,15 +726,24 @@ def tp_cases(rank, world, inputs_path, ckpt_dir):
                 for p in plans for k in sorted(p))).hexdigest()
             extra["cache_stats"] = planner.stats.as_dict()
         losses, norms = [], []
+        extra["traffic"] = []
         for b in batches:
+            tp.reset_traffic()
             if case.get("embed_cache"):
-                b = cache.advance(state.model.tables, b)
+                with mock.patch.object(DTensor, "full_tensor",
+                                       side_effect=AssertionError(
+                                           "the table gathered whole")):
+                    b = cache.advance(state.model.tables, b)
             state, m = step(state, b)
+            extra["traffic"].append({k: list(v)
+                                     for k, v in tp.TRAFFIC.items()})
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
         if case.get("embed_cache"):
+            tables = state.model.tables
             extra["foreign_zero"] = foreign_rows_zero(
-                cache, planner, plans[-1], state.model.tables)
+                cache, planner, plans[-1], tables)
+            extra["table_bytes"] = tables.numel() * tables.element_size()
         leaves = tp_whole_leaves(state.model)
         out[name] = (losses, norms, leaves if rank == 0 else None,
                      tp_local_shapes(state.model), extra)
